@@ -1,0 +1,123 @@
+"""Build the port's CUDA kernels with ``nvcc`` and load them with ``ctypes``.
+
+Each ``.cu`` source in this directory compiles, at first use, into its own
+shared library with a plain C interface (``extern "C"`` launchers that take
+device pointers and a CUDA stream, and return the ``cudaError_t`` of the
+launch). The libraries go into ``behavenet_tpu_torch/_build/`` (git-ignored),
+named by a hash of every source and header and of the flags, so an edited
+source rebuilds and a stale library is never loaded. All sources compile in
+parallel, one ``nvcc`` process each.
+
+There is no fallback: a missing ``nvcc`` or a failed build raises.
+"""
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+
+__all__ = ['SOURCES', 'build_all', 'library', 'ptxas_info']
+
+_HERE = os.path.dirname(os.path.abspath(__file__))
+BUILD_DIR = os.path.join(os.path.dirname(_HERE), '_build')
+
+# kernel name -> its source in this directory
+SOURCES = {
+    'conv2d_nhwc': 'conv2d_nhwc.cu',
+    'conv_transpose2d_nhwc': 'conv_transpose2d_nhwc.cu',
+    'conv_transpose2d_smallcout_sigmoid': 'conv_transpose2d_smallcout_sigmoid.cu',
+}
+_HEADERS = ('igemm.cuh',)
+_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-O3', '-std=c++17',
+          '-shared', '-Xcompiler', '-fPIC', '-lineinfo', '-Xptxas', '-v']
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# C signature of each launcher: (symbol, argtypes)
+_SIGNATURES = {
+    'conv2d_nhwc': ('bn_conv2d_nhwc', [_P, _I, _P, _P, _P] + [_I] * 12 + [_P]),
+    'conv_transpose2d_nhwc': ('bn_conv_transpose2d_nhwc',
+                              [_P, _P, _P, _P] + [_I] * 12 + [_P]),
+    'conv_transpose2d_smallcout_sigmoid': ('bn_conv_transpose2d_smallcout',
+                                           [_P, _P, _P, _P] + [_I] * 12 + [_P]),
+}
+
+_lock = threading.Lock()
+_launchers = {}
+_ptxas = {}
+
+
+def _nvcc():
+    cands = []
+    if os.environ.get('CUDA_HOME'):
+        cands.append(os.path.join(os.environ['CUDA_HOME'], 'bin', 'nvcc'))
+    cands += [shutil.which('nvcc'), '/usr/local/cuda/bin/nvcc']
+    for c in cands:
+        if c and os.path.isfile(c) and os.access(c, os.X_OK):
+            return c
+    raise RuntimeError('nvcc not found (looked in $CUDA_HOME/bin, $PATH and '
+                       '/usr/local/cuda/bin); the CUDA kernels cannot be built')
+
+
+def _tag():
+    h = hashlib.sha256(' '.join(_FLAGS).encode())
+    for fname in sorted(SOURCES.values()) + list(_HEADERS):
+        with open(os.path.join(_HERE, fname), 'rb') as f:
+            h.update(fname.encode() + b'\0' + f.read())
+    return h.hexdigest()[:16]
+
+
+def build_all():
+    """Compile every kernel that is not built yet (in parallel) and load it.
+
+    Returns the seconds spent compiling (0.0 when every library was there).
+    Raises ``RuntimeError`` with nvcc's output if a build fails.
+    """
+    import time
+    with _lock:
+        if len(_launchers) == len(SOURCES):
+            return 0.0
+        t0 = time.perf_counter()
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        tag = _tag()
+        jobs = {}
+        for name, src in SOURCES.items():
+            so = os.path.join(BUILD_DIR, 'lib%s_%s.so' % (name, tag))
+            if os.path.exists(so):
+                continue
+            tmp = '%s.tmp.%d' % (so, os.getpid())
+            cmd = [_nvcc()] + _FLAGS + ['-o', tmp, os.path.join(_HERE, src)]
+            jobs[name] = (so, tmp, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT))
+        failed = []
+        for name, (so, tmp, proc) in jobs.items():
+            log = proc.communicate()[0].decode(errors='replace')
+            _ptxas[name] = [ln.strip() for ln in log.splitlines()
+                            if 'Used' in ln or 'spill' in ln]
+            if proc.returncode != 0:
+                failed.append('%s (nvcc rc %d):\n%s' % (name, proc.returncode, log))
+                continue
+            os.replace(tmp, so)  # atomic: concurrent builds converge
+        if failed:
+            raise RuntimeError('CUDA kernel build failed: ' + '\n'.join(failed))
+        for name in SOURCES:
+            lib = ctypes.CDLL(os.path.join(BUILD_DIR, 'lib%s_%s.so' % (name, tag)))
+            sym, argtypes = _SIGNATURES[name]
+            fn = getattr(lib, sym)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+            _launchers[name] = fn
+        return time.perf_counter() - t0
+
+
+def library(name):
+    """The ``ctypes`` launcher of kernel ``name``, building on first use."""
+    if name not in _launchers:
+        build_all()
+    return _launchers[name]
+
+
+def ptxas_info():
+    """Register and spill lines nvcc printed for each kernel built here."""
+    return dict(_ptxas)

@@ -1,0 +1,82 @@
+"""Serve a fitted conv autoencoder from an experiment-store version.
+
+The port's counterpart of the AE heads of ``behavenet_tpu/serving.py``.
+Where the JAX package exports StableHLO artifacts, the port loads the
+version the JAX CLI wrote (``meta_tags.pkl`` and ``best_val_model.pt``) and
+runs the model on the GPU, its convolutions in the hand-written kernels::
+
+    from behavenet_tpu_torch import serving
+    bundle = serving.load_version('/results/.../version_3')   # on 'cuda'
+    latents = bundle.encode(frames_u8)          # (N, H, W, C) uint8, any N
+    recon = bundle.reconstruct(frames_u8)       # float32 in [0, 1]
+
+Both heads take raw uint8 frames (numpy or torch, NHWC) and return float32
+tensors on the bundle's device, as the JAX heads do (serving.py:80-114).
+"""
+
+import os
+import pickle
+
+import torch
+
+from behavenet_tpu_torch.models import base
+from behavenet_tpu_torch.models.aes import AE
+from behavenet_tpu_torch.utils.weights import params_to_state_dict
+
+__all__ = ['load_version', 'ServingBundle']
+
+
+def _device(device):
+    """``None`` means ``'cuda'``; a CUDA device with no GPU present raises."""
+    dev = torch.device('cuda' if device is None else device)
+    if dev.type == 'cuda' and not torch.cuda.is_available():
+        raise RuntimeError('no CUDA device is available; pass device="cpu" '
+                           'to serve on the CPU')
+    return dev
+
+
+class ServingBundle:
+    """A loaded model's inference heads."""
+
+    def __init__(self, model, device):
+        self.model = model
+        self.device = device
+        hp = model.hparams
+        self.frame_shape = (int(hp['y_pixels']), int(hp['x_pixels']),
+                            int(hp['n_input_channels']))
+
+    def names(self):
+        return ['encode', 'reconstruct']
+
+    def _frames(self, frames):
+        x = torch.as_tensor(frames)
+        if x.dtype != torch.uint8 or x.dim() != 4 or \
+                tuple(x.shape[1:]) != self.frame_shape:
+            raise ValueError('frames must be uint8 of shape (N,) + %s, got %s %s'
+                             % (self.frame_shape, x.dtype, tuple(x.shape)))
+        return x.to(self.device).contiguous()
+
+    def encode(self, frames):
+        """uint8 (N, H, W, C) frames -> float32 (N, n_latents) latents."""
+        with torch.inference_mode():
+            return self.model.encode(self._frames(frames))
+
+    def reconstruct(self, frames):
+        """uint8 (N, H, W, C) frames -> float32 (N, H, W, C) in [0, 1]."""
+        with torch.inference_mode():
+            return self.model(self._frames(frames))[0]
+
+
+def load_version(version_dir, device=None):
+    """Load a fitted version (``meta_tags.pkl`` + ``best_val_model.pt``, as
+    the JAX CLI writes them) onto ``device`` (default ``'cuda'``)."""
+    dev = _device(device)
+    with open(os.path.join(version_dir, 'meta_tags.pkl'), 'rb') as f:
+        hparams = pickle.load(f)
+    if hparams.get('model_class') != 'ae':
+        raise NotImplementedError('serving model_class=%r is not ported yet'
+                                  % hparams.get('model_class'))
+    model = AE(hparams)
+    params, _ = base.load_params(os.path.join(version_dir, 'best_val_model.pt'))
+    model.load_state_dict(params_to_state_dict(model, params))
+    return ServingBundle(model.to(dev).eval(), dev)
