@@ -1,4 +1,5 @@
-"""Build the port's CUDA kernels with ``nvcc`` and load them with ``ctypes``.
+"""Build the port's CUDA kernels with ``nvcc``, load them with ``ctypes``
+and launch them.
 
 Each ``.cu`` source in this directory compiles, at first use, into its own
 shared library with a plain C interface (``extern "C"`` launchers that take
@@ -8,7 +9,9 @@ named by a hash of every source and header and of the flags, so an edited
 source rebuilds and a stale library is never loaded. All sources compile in
 parallel, one ``nvcc`` process each.
 
-There is no fallback: a missing ``nvcc`` or a failed build raises.
+There is no fallback: a missing ``nvcc`` or a failed build raises, and so
+does a launch that returns an error. :func:`launch` counts each launch in
+``LAUNCHES``, which callers may zero to see what a piece of work ran.
 """
 
 import ctypes
@@ -18,7 +21,7 @@ import shutil
 import subprocess
 import threading
 
-__all__ = ['SOURCES', 'build_all', 'library', 'ptxas_info']
+__all__ = ['SOURCES', 'LAUNCHES', 'build_all', 'library', 'launch', 'ptxas_info']
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(os.path.dirname(_HERE), '_build')
@@ -28,19 +31,32 @@ SOURCES = {
     'conv2d_nhwc': 'conv2d_nhwc.cu',
     'conv_transpose2d_nhwc': 'conv_transpose2d_nhwc.cu',
     'conv_transpose2d_smallcout_sigmoid': 'conv_transpose2d_smallcout_sigmoid.cu',
+    'conv2d_grad_w_nhwc': 'conv2d_grad_w_nhwc.cu',
+    'masked_mse': 'masked_mse.cu',
+    'amsgrad_step': 'amsgrad_step.cu',
 }
 _HEADERS = ('igemm.cuh',)
+
+# launches of each kernel since the last reset (callers may zero them)
+LAUNCHES = {name: 0 for name in SOURCES}
 _FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-O3', '-std=c++17',
           '-shared', '-Xcompiler', '-fPIC', '-lineinfo', '-Xptxas', '-v']
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
-# C signature of each launcher: (symbol, argtypes)
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+# C signature of each launcher: kernel name -> {symbol: argtypes}; the first
+# symbol is the kernel's default launcher
 _SIGNATURES = {
-    'conv2d_nhwc': ('bn_conv2d_nhwc', [_P, _I, _P, _P, _P] + [_I] * 12 + [_P]),
-    'conv_transpose2d_nhwc': ('bn_conv_transpose2d_nhwc',
-                              [_P, _P, _P, _P] + [_I] * 12 + [_P]),
-    'conv_transpose2d_smallcout_sigmoid': ('bn_conv_transpose2d_smallcout',
-                                           [_P, _P, _P, _P] + [_I] * 12 + [_P]),
+    'conv2d_nhwc': {'bn_conv2d_nhwc': [_P, _I, _P, _P, _P] + [_I] * 12 + [_P]},
+    'conv_transpose2d_nhwc': {
+        'bn_conv_transpose2d_nhwc': [_P, _P, _P, _P] + [_I] * 12 + [_P]},
+    'conv_transpose2d_smallcout_sigmoid': {
+        'bn_conv_transpose2d_smallcout': [_P, _P, _P, _P] + [_I] * 12 + [_P]},
+    'conv2d_grad_w_nhwc': {
+        'bn_conv2d_grad_w_nhwc': [_P, _I, _P, _P, _P] + [_I] * 14 + [_P]},
+    'masked_mse': {
+        'bn_masked_mse_fwd': [_P, _P, _I, _P, _P, _P, _P, _I, _L, _I, _P],
+        'bn_masked_mse_bwd': [_P, _P, _I, _P, _P, _P, _P, _P, _I, _L, _I, _I, _P]},
+    'amsgrad_step': {'bn_amsgrad_step': [_P, _I] + [_F] * 7 + [_P]},
 }
 
 _lock = threading.Lock()
@@ -103,19 +119,33 @@ def build_all():
             raise RuntimeError('CUDA kernel build failed: ' + '\n'.join(failed))
         for name in SOURCES:
             lib = ctypes.CDLL(os.path.join(BUILD_DIR, 'lib%s_%s.so' % (name, tag)))
-            sym, argtypes = _SIGNATURES[name]
-            fn = getattr(lib, sym)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-            _launchers[name] = fn
+            fns = {}
+            for sym, argtypes in _SIGNATURES[name].items():
+                fn = getattr(lib, sym)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+                fns[sym] = fn
+            _launchers[name] = fns
         return time.perf_counter() - t0
 
 
-def library(name):
-    """The ``ctypes`` launcher of kernel ``name``, building on first use."""
+def library(name, symbol=None):
+    """The ``ctypes`` launcher ``symbol`` (default: the first) of kernel
+    ``name``, building on first use."""
     if name not in _launchers:
         build_all()
-    return _launchers[name]
+    fns = _launchers[name]
+    return fns[symbol or next(iter(_SIGNATURES[name]))]
+
+
+def launch(name, *args, symbol=None):
+    """Launch kernel ``name`` (its launcher ``symbol``) on PyTorch's current
+    stream with ``args``; raise if the launch fails, else count it."""
+    import torch
+    err = library(name, symbol)(*args, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError('%s: kernel launch failed (cudaError %d)' % (name, err))
+    LAUNCHES[name] += 1
 
 
 def ptxas_info():

@@ -1,4 +1,4 @@
-"""Conv autoencoder for serving (port of ``behavenet_tpu/models/aes.py``).
+"""Conv autoencoder (port of ``behavenet_tpu/models/aes.py``).
 
 Covers ``model_type='conv'`` on archs without batch norm, pooling,
 per-session io layers or a last FF decoder layer: ``strides_only``, the
@@ -12,6 +12,9 @@ layouts of the reference's torch modules (``encoding.encoder.conv%i``
 state dict, or the output of ``utils/weights.py``, loads with
 ``load_state_dict``. Both FF layers therefore use the reference's
 channel-major (C, H, W) flattening.
+
+A fresh model draws torch's default init from a ``torch.Generator`` seeded
+with ``hparams['rng_seed_model']`` (``models/base.py``).
 """
 
 import numpy as np
@@ -20,13 +23,14 @@ import torch.nn as nn
 
 from behavenet_tpu_torch.models import base
 from behavenet_tpu_torch.ops import conv as ops
+from behavenet_tpu_torch.ops import losses
 
-__all__ = ['ConvEncoder', 'ConvDecoder', 'AE']
+__all__ = ['ConvEncoder', 'ConvDecoder', 'AE', 'load_pretrained_ae']
 
 
 def _param(*shape):
-    # serving loads every weight, so a fresh model starts at zero
-    return nn.Parameter(torch.zeros(shape))
+    # filled by AE._init_params
+    return nn.Parameter(torch.empty(shape))
 
 
 def _check_supported(hparams):
@@ -72,11 +76,11 @@ class ConvTransposeLayer(nn.Module):
         self.out_pad, self.block = tuple(out_pad), block
         self.activation = activation
 
-    def forward(self, x):
+    def forward(self, x, act_grad_in_loss=False):
         return ops.conv_transpose2d(
             x, self.weight.permute(2, 3, 0, 1), self.bias, self.stride,
             self.pad_y, self.pad_x, self.out_pad, block=self.block,
-            activation=self.activation)
+            activation=self.activation, act_grad_in_loss=act_grad_in_loss)
 
 
 class Linear(nn.Module):
@@ -153,13 +157,17 @@ class ConvDecoder(nn.Module):
                 hparams['ae_decoding_x_padding'][i], out_pad, block,
                 'sigmoid' if i == n - 1 else 'leaky_relu')
 
-    def forward(self, z):
-        """z: (N, hidden) -> (N, H, W, C) reconstruction in [0, 1]."""
+    def forward(self, z, act_grad_in_loss=False):
+        """z: (N, hidden) -> (N, H, W, C) reconstruction in [0, 1].
+
+        ``act_grad_in_loss``: the loss applies the final sigmoid's derivative
+        (see ``ops.conv.conv_transpose2d``)."""
         c, h, w = self.starting_dim
         x = self.FF(z).reshape(z.shape[0], c, h, w).permute(0, 2, 3, 1).contiguous()
-        for layer in self.decoder.values():
+        layers = list(self.decoder.values())
+        for layer in layers[:-1]:
             x = layer(x)
-        return x
+        return layers[-1](x, act_grad_in_loss=act_grad_in_loss)
 
 
 class AE(base.BaseModel):
@@ -174,6 +182,18 @@ class AE(base.BaseModel):
         self.hparams['hidden_layer_size'] = self.hparams['n_ae_latents']
         self.encoding = ConvEncoder(self.hparams)
         self.decoding = ConvDecoder(self.hparams)
+        self._init_params(self.hparams.get('rng_seed_model', 0))
+
+    def _init_params(self, seed):
+        """torch's default init (JAX: AE.init), from a generator seeded with
+        ``seed``."""
+        gen = torch.Generator().manual_seed(int(seed))
+        for layer in self.encoding.encoder.values():
+            base.init_conv(layer.weight, layer.bias, gen)
+        base.init_linear(self.encoding.FF.weight, self.encoding.FF.bias, gen)
+        base.init_linear(self.decoding.FF.weight, self.decoding.FF.bias, gen)
+        for layer in self.decoding.decoder.values():
+            base.init_conv_transpose(layer.weight, layer.bias, gen)
 
     def encode(self, x):
         return self.encoding(x)
@@ -183,3 +203,57 @@ class AE(base.BaseModel):
         (reconstruction (N, H, W, C), latents (N, n_latents))."""
         z = self.encoding(x)
         return self.decoding(z), z
+
+    def loss_fn(self, batch):
+        """Reconstruction MSE of a batch (JAX: models/aes.py:469 loss_fn).
+
+        ``batch``: ``images`` (N, H, W, C) uint8 frames (or floats in
+        [0, 1]), optional ``masks`` of the same shape and ``frame_mask``
+        (N,) marking the real frames of a padded batch. Returns (loss,
+        {'loss': loss detached}); the final sigmoid's derivative is taken
+        in the loss's backward (K5 on the card).
+        """
+        x = batch['images']
+        y = self.decoding(self.encoding(x), act_grad_in_loss=True)
+        loss = losses.mse(y, x, batch.get('masks'), batch.get('frame_mask'),
+                          sigmoid_output=True)
+        return loss, {'loss': loss.detach()}
+
+
+def _same_shapes(a, b):
+    return set(a) == set(b) and all(np.shape(a[k]) == np.shape(b[k]) for k in a)
+
+
+def load_pretrained_ae(params, model, hparams):
+    """Warm-start AE params from a saved checkpoint (JAX: models/aes.py:624;
+    reference aes.py:1220-1274).
+
+    ``params`` and the result are numpy pytrees in the JAX package's layout
+    (``utils.weights.state_dict_to_params``). The encoder/decoder FF layers
+    are dropped when the latent or spatial dims differ between the
+    checkpoint and the model.
+    """
+    path = hparams.get('pretrained_weights_path')
+    if hparams['model_type'] == 'linear' and path:
+        raise NotImplementedError('Loading pretrained weights with linear AE')
+    if hparams['model_type'] != 'conv' or not path:
+        print('Initializing with random weights')
+        return params
+
+    print('Loading pretrained weights')
+    loaded, _ = base.load_params(path)
+    same_ff = ('fc' in loaded.get('encoder', {})) and \
+        np.shape(loaded['encoder']['fc']['w']) == np.shape(params['encoder']['fc']['w'])
+
+    new = {group: dict(layers) for group, layers in params.items()}
+    for group in ('encoder', 'decoder'):
+        if group not in loaded:
+            continue
+        for name, p in loaded[group].items():
+            if name in ('fc', 'logvar') and not same_ff:
+                print('PRETRAINED MODEL HAS DIFFERENT SPATIAL DIMENSIONS OR N LATENTS: '
+                      'NOT LOADING FF PARAMETERS')
+                continue
+            if name in new[group] and _same_shapes(p, new[group][name]):
+                new[group][name] = p
+    return new

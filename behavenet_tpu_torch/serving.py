@@ -21,18 +21,10 @@ import torch
 
 from behavenet_tpu_torch.models import base
 from behavenet_tpu_torch.models.aes import AE
+from behavenet_tpu_torch.utils.device import resolve_device
 from behavenet_tpu_torch.utils.weights import params_to_state_dict
 
 __all__ = ['load_version', 'ServingBundle']
-
-
-def _device(device):
-    """``None`` means ``'cuda'``; a CUDA device with no GPU present raises."""
-    dev = torch.device('cuda' if device is None else device)
-    if dev.type == 'cuda' and not torch.cuda.is_available():
-        raise RuntimeError('no CUDA device is available; pass device="cpu" '
-                           'to serve on the CPU')
-    return dev
 
 
 class ServingBundle:
@@ -70,7 +62,7 @@ class ServingBundle:
 def load_version(version_dir, device=None):
     """Load a fitted version (``meta_tags.pkl`` + ``best_val_model.pt``, as
     the JAX CLI writes them) onto ``device`` (default ``'cuda'``)."""
-    dev = _device(device)
+    dev = resolve_device(device)
     with open(os.path.join(version_dir, 'meta_tags.pkl'), 'rb') as f:
         hparams = pickle.load(f)
     if hparams.get('model_class') != 'ae':

@@ -1,4 +1,4 @@
-"""Carry a JAX-package parameter pytree into the port's state dict.
+"""Carry a JAX-package parameter pytree into the port's state dict, and back.
 
 The port's copy of the conv-AE half of
 ``behavenet_tpu/utils/torch_import.py:175 params_to_torch_state_dict``
@@ -16,7 +16,7 @@ the reference's torch modules want them:
 import numpy as np
 import torch
 
-__all__ = ['params_to_state_dict']
+__all__ = ['params_to_state_dict', 'state_dict_to_params']
 
 
 def _chw_to_hwc_perm(c, h, w):
@@ -61,3 +61,33 @@ def params_to_state_dict(model, params):
         sd['decoding.decoder.%s.weight' % name] = np.transpose(_f32(p['w']), (2, 3, 0, 1))
         sd['decoding.decoder.%s.bias' % name] = _f32(p['b'])
     return {k: torch.tensor(v) for k, v in sd.items()}
+
+
+def state_dict_to_params(model):
+    """The JAX package's numpy params pytree of ``model`` (a port ``AE``):
+    the inverse of :func:`params_to_state_dict`, so a checkpoint the port
+    writes has the JAX package's layout."""
+    hp = model.hparams
+    sd = {k: v.detach().cpu().numpy() for k, v in model.state_dict().items()}
+    enc, dec = {}, {}
+    for name in model.encoding.encoder:
+        enc['conv_%s' % name[len('conv'):]] = {
+            'w': np.ascontiguousarray(
+                np.transpose(sd['encoding.encoder.%s.weight' % name], (2, 3, 1, 0))),
+            'b': sd['encoding.encoder.%s.bias' % name]}
+
+    perm_in = _chw_to_hwc_perm(hp['ae_encoding_n_channels'][-1],
+                               hp['ae_encoding_y_dim'][-1],
+                               hp['ae_encoding_x_dim'][-1])
+    enc['fc'] = {'w': np.ascontiguousarray(sd['encoding.FF.weight'][:, perm_in].T),
+                 'b': sd['encoding.FF.bias']}
+
+    perm_out = _chw_to_hwc_perm(*hp['ae_decoding_starting_dim'])
+    dec['fc'] = {'w': np.ascontiguousarray(sd['decoding.FF.weight'][perm_out, :].T),
+                 'b': sd['decoding.FF.bias'][perm_out]}
+    for name in model.decoding.decoder:
+        dec['convt_%s' % name[len('convtranspose'):]] = {
+            'w': np.ascontiguousarray(
+                np.transpose(sd['decoding.decoder.%s.weight' % name], (2, 3, 0, 1))),
+            'b': sd['decoding.decoder.%s.bias' % name]}
+    return {'encoder': enc, 'decoder': dec}
