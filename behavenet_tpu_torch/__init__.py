@@ -5,12 +5,15 @@ beside its JAX counterpart. It imports ``torch`` and never ``jax`` or
 ``behavenet_tpu``: what it needs from the JAX package's numpy-only modules
 it keeps as its own copy.
 
-So far it fits a conv autoencoder (``fitting.ae_grid_search``, the
-four-JSON grid-search CLI, over ``fitting.training.fit``) and serves a
-fitted one (``serving.load_version``): ``encode`` and ``reconstruct`` on raw
-uint8 frames. On a GPU the convolutions, their gradients, the loss and the
-optimizer step run in hand-written CUDA kernels (``kernels/``). Entry points
-run on ``'cuda'`` unless the caller asks for ``'cpu'``.
+So far it fits a conv autoencoder, VAE, beta-TC-VAE or PS-VAE
+(``fitting.ae_grid_search``, the four-JSON grid-search CLI, over
+``fitting.training.fit``; the models are ``models.aes.AE`` and
+``models.vaes.VAE``, ``BetaTCVAE``, ``PSVAE``) and serves a fitted one
+(``serving.load_version``): ``encode`` and ``reconstruct`` on raw uint8
+frames. On a GPU the convolutions, their gradients, the losses (the masked
+MSE and the minibatch KL decomposition) and the optimizer step run in
+hand-written CUDA kernels (``kernels/``). Entry points run on ``'cuda'``
+unless the caller asks for ``'cpu'``.
 
 As in the JAX package (reference behavenet/__init__.py), user directories
 come from ``~/.behavenet/directories.json`` (``$BEHAVENET_DIR`` overrides

@@ -1,7 +1,8 @@
 """Signal/path resolution wiring model classes to data sources.
 
-The port's copy of the conv-AE part of ``behavenet_tpu/data/utils.py``
-(reference behavenet/data/utils.py). Model classes other than ``'ae'``
+The port's copy of the autoencoder part of ``behavenet_tpu/data/utils.py``
+(reference behavenet/data/utils.py) for the model classes the port fits:
+``'ae'``, ``'vae'``, ``'beta-tcvae'`` and ``'ps-vae'``. Other model classes
 raise ``NotImplementedError`` until their slice is ported.
 """
 
@@ -9,23 +10,29 @@ import os
 
 __all__ = ['get_data_generator_inputs', 'build_data_generator']
 
+_IMAGES_ONLY = ('ae', 'vae', 'beta-tcvae')
+_WITH_LABELS = ('ps-vae',)
+
 
 def get_data_generator_inputs(hparams, sess_ids):
     """Per-session (signals, transforms, paths) of the model class
-    (JAX: data/utils.py:17; reference :15-339)."""
-    if hparams['model_class'] != 'ae':
-        raise NotImplementedError('model_class "%s" is not ported yet'
-                                  % hparams['model_class'])
+    (JAX: data/utils.py:17-56; reference :15-339)."""
+    mc = hparams['model_class']
+    if mc not in _IMAGES_ONLY + _WITH_LABELS:
+        raise NotImplementedError('model_class "%s" is not ported yet' % mc)
+    if hparams.get('conditional_encoder', False):
+        raise NotImplementedError('a conditional encoder is not ported yet')
     signals_list, transforms_list, paths_list = [], [], []
     for sess_id in sess_ids:
         hdf5 = os.path.join(
             hparams['data_dir'], sess_id['lab'], sess_id['expt'],
             sess_id['animal'], sess_id['session'], 'data.hdf5')
-        signals, transforms, paths = ['images'], [None], [hdf5]
+        signals = ['images'] if mc in _IMAGES_ONLY else ['images', 'labels']
         if hparams.get('use_output_mask', False):
             signals.append('masks')
-            transforms.append(None)
-            paths.append(hdf5)
+        if mc == 'ps-vae' and hparams.get('use_label_mask', False):
+            signals.append('labels_masks')
+        transforms, paths = [None] * len(signals), [hdf5] * len(signals)
         signals_list.append(signals)
         transforms_list.append(transforms)
         paths_list.append(paths)

@@ -1,7 +1,8 @@
 """CLI: fit conv autoencoders over a hyperparameter grid, in PyTorch.
 
 The port of ``behavenet_tpu/fitting/ae_grid_search.py`` (reference
-behavenet/fitting/ae_grid_search.py), for ``model_class='ae'``::
+behavenet/fitting/ae_grid_search.py), for ``model_class`` ``'ae'``,
+``'vae'``, ``'beta-tcvae'`` and ``'ps-vae'``::
 
     python -m behavenet_tpu_torch.fitting.ae_grid_search \
         --data_config d.json --model_config m.json \
@@ -20,18 +21,26 @@ from behavenet_tpu_torch.fitting.experiment import (
 from behavenet_tpu_torch.fitting.hyperparams import (
     get_all_params, print_hparams, run_grid_search)
 from behavenet_tpu_torch.fitting.training import fit
-from behavenet_tpu_torch.models.aes import AE, load_pretrained_ae
+from behavenet_tpu_torch.models import MODELS
+from behavenet_tpu_torch.models.aes import load_pretrained_ae
 from behavenet_tpu_torch.models.base import params_finite
 from behavenet_tpu_torch.utils.device import resolve_device
 
 __all__ = ['main', 'cli']
 
 
+def _set_n_labels(data_generator, hparams):
+    """The labels' width from one val batch (JAX: ae_grid_search.py:42)."""
+    data, _ = data_generator.next_batch('val')
+    hparams['n_labels'] = int(data['labels'].shape[1])
+    data_generator.reset_iterators('val')
+
+
 def main(hparams, *args):
     """Fit one grid trial (JAX: ae_grid_search.py:21; reference :20-146)."""
     if not isinstance(hparams, dict):
         hparams = vars(hparams)
-    if hparams['model_class'] != 'ae':
+    if hparams['model_class'] not in MODELS:
         raise NotImplementedError('model_class "%s" is not ported yet'
                                   % hparams['model_class'])
     if hparams.get('export_train_plots', False):
@@ -57,7 +66,9 @@ def main(hparams, *args):
 
     print('constructing model...', end='')
     hparams['n_datasets'] = len(sess_ids)
-    model = AE(hparams)
+    if hparams['model_class'] == 'ps-vae':
+        _set_n_labels(data_generator, hparams)
+    model = MODELS[hparams['model_class']](hparams)
     model.version = exp.version
 
     hparams['training_completed'] = False

@@ -1,9 +1,11 @@
-"""Export of a fitted model's outputs (the port of the AE part of
+"""Export of a fitted model's outputs (the port of the autoencoder part of
 ``behavenet_tpu/fitting/eval.py``; reference behavenet/fitting/eval.py).
 
 ``{lab}_{expt}_{animal}_{session}_latents.pkl`` holds ``'latents'`` (one
 (T, n_latents) array per trial, empty for gap trials) and ``'trials'`` (the
-train/val/test split), as the JAX package writes it.
+train/val/test split), as the JAX package writes it: the AE's latents, the
+posterior means of the VAE and beta-TC-VAE, and ``[y, w]`` of the PS-VAE
+(JAX: eval.py:32-52), each model's ``latents``.
 """
 
 import os
@@ -12,13 +14,15 @@ import pickle
 import numpy as np
 import torch
 
+from behavenet_tpu_torch.models import MODELS
+
 __all__ = ['export_latents']
 
 
 def export_latents(data_generator, model, filename=None, version=None, expt_dir=None):
     """Encode every train/val/test trial with ``model`` (on its device) and
     pickle the latents per session (JAX: eval.py:55; reference eval.py:6-118)."""
-    if model.hparams['model_class'] != 'ae':
+    if model.hparams['model_class'] not in MODELS:
         raise NotImplementedError('exporting latents of model_class "%s" is not '
                                   'ported yet' % model.hparams['model_class'])
     device = next(model.parameters()).device
@@ -30,7 +34,7 @@ def export_latents(data_generator, model, filename=None, version=None, expt_dir=
         for _ in range(data_generator.n_tot_batches[dtype]):
             data, sess = data_generator.next_batch(dtype)
             with torch.no_grad():
-                z = model.encode(torch.from_numpy(data['images']).to(device))
+                z = model.latents(torch.from_numpy(data['images']).to(device))
             latents[sess][data['batch_idx']] = z.cpu().numpy()
 
     expt_dir = expt_dir if expt_dir is not None else model.hparams['expt_dir']

@@ -22,6 +22,13 @@ and ``warm_start`` maps the initial parameters (a numpy pytree in the JAX
 package's layout) to warm-started ones. uint8 frames go to the device as
 they are: the first conv and the loss read them as ``x / 255``.
 
+A model with per-epoch loss weights (the VAE family's ``loss_kwargs(epoch)``:
+beta, KL and alpha schedules) gets them every epoch, as in JAX (:482). A
+variational model draws its eps from one ``torch.Generator`` on the device,
+seeded with ``rng_train``, in every step: train, val and test, since the JAX
+``eval_step`` samples z too (:569, :596); its state goes into
+``last_checkpoint.pkl``, so a resume draws the same eps.
+
 Not ported yet, and raising ``NotImplementedError``: ``tp_devices``,
 ``dp_sharding``, ``steps_per_dispatch > 1``, ``prefetch_workers > 1``,
 ``profile_dir``, optimizers other than AMSGrad, multi-session batches.
@@ -126,8 +133,9 @@ class EarlyStopping(object):
 
 
 def _prepare_batch(sample):
-    """A generator sample's model inputs (host side, numpy)."""
-    return {key: sample[key] for key in ('images', 'masks') if key in sample}
+    """A generator sample's model inputs (host side, numpy; JAX: :131)."""
+    return {key: sample[key] for key in ('images', 'masks', 'labels', 'labels_masks')
+            if key in sample}
 
 
 def _bucket_batch(batch, bucket):
@@ -194,7 +202,8 @@ def fit(hparams, model, data_generator, exp, method='ae', warm_start=None):
     """Fit a model with AMSGrad + early stopping, logging to the experiment
     store (JAX: training.py:342).
 
-    ``model`` is a port model (``models.aes.AE``); it is moved to
+    ``model`` is a port model (``models.aes.AE`` or one of
+    ``models.vaes``); it is moved to
     ``hparams['device']`` (default ``'cuda'``; with no GPU this raises
     unless the device is ``'cpu'``) and holds the best-val weights at the
     end. ``warm_start``, if given, maps the initial parameters (numpy
@@ -218,16 +227,16 @@ def fit(hparams, model, data_generator, exp, method='ae', warm_start=None):
     optimizer = AMSGrad(model.parameters(), lr=hparams['learning_rate'],
                         weight_decay=hparams.get('l2_reg', 0) or 0)
 
-    def train_step(batch):
+    def train_step(batch, loss_kwargs):
         optimizer.zero_grad(set_to_none=True)
-        loss, metrics = model.loss_fn(batch)
+        loss, metrics = model.loss_fn(batch, **loss_kwargs)
         loss.backward()
         optimizer.step()
         return metrics
 
-    def eval_step(batch):
+    def eval_step(batch, loss_kwargs):
         with torch.no_grad():
-            return model.loss_fn(batch)[1]
+            return model.loss_fn(batch, **loss_kwargs)[1]
 
     logger = Logger(n_datasets=data_generator.n_datasets)
     if hparams['enable_early_stop']:
@@ -251,6 +260,16 @@ def fit(hparams, model, data_generator, exp, method='ae', warm_start=None):
     else:
         rng_train = int(hparams['rng_seed_train'])
 
+    # the eps of every step of a variational model (JAX: training.py:434)
+    eps_generator = torch.Generator(device=device) if getattr(model, 'variational', False) \
+        else None
+    if eps_generator is not None:
+        eps_generator.manual_seed(rng_train)
+
+    def step_kwargs(epoch):
+        kw = model.loss_kwargs(epoch) if hasattr(model, 'loss_kwargs') else {}
+        return kw if eps_generator is None else dict(kw, generator=eps_generator)
+
     expt_dir = os.path.join(hparams['expt_dir'], 'version_%i' % exp.version)
     model_class = hparams['model_class']
 
@@ -272,6 +291,8 @@ def fit(hparams, model, data_generator, exp, method='ae', warm_start=None):
         model.load_state_dict(_tree(ckpt['model'], torch.from_numpy))
         optimizer.load_state_dict(_tree(ckpt['optimizer'], torch.from_numpy))
         rng_train = ckpt['rng_train']
+        if eps_generator is not None:
+            eps_generator.set_state(torch.from_numpy(ckpt['generator']))
         best_val_loss = ckpt['best_val_loss']
         best_val_epoch = ckpt['best_val_epoch']
         start_epoch = ckpt['epoch'] + 1
@@ -289,6 +310,7 @@ def fit(hparams, model, data_generator, exp, method='ae', warm_start=None):
         np.random.seed(rng_train + i_epoch)  # restartable batching order
         logger.reset_metrics('train')
         data_generator.reset_iterators('train')
+        loss_kwargs = step_kwargs(i_epoch)
 
         t_epoch = time.perf_counter()
         n_frames_epoch = 0
@@ -302,7 +324,7 @@ def fit(hparams, model, data_generator, exp, method='ae', warm_start=None):
                 batch, ds, _ = _collate(data, dataset, hparams)
                 batch = _to_device(batch, device)
                 step = train_step if i_epoch > 0 else eval_step
-                logger.update_metrics('train', step(batch), dataset=ds)
+                logger.update_metrics('train', step(batch, loss_kwargs), dataset=ds)
                 n_frames_epoch += int(batch['images'].shape[0])
 
             if will_log:
@@ -322,8 +344,8 @@ def fit(hparams, model, data_generator, exp, method='ae', warm_start=None):
                 for _ in range(data_generator.n_tot_batches['val']):
                     data_v, d_val = data_generator.next_batch('val')
                     batch, ds, _ = _collate(data_v, d_val, hparams)
-                    logger.update_metrics('val', eval_step(_to_device(batch, device)),
-                                          dataset=ds)
+                    logger.update_metrics(
+                        'val', eval_step(_to_device(batch, device), loss_kwargs), dataset=ds)
 
                 if logger.get_loss('val') < best_val_loss:
                     best_val_loss = logger.get_loss('val')
@@ -355,6 +377,8 @@ def fit(hparams, model, data_generator, exp, method='ae', warm_start=None):
                     'optimizer': _tree(optimizer.state_dict(),
                                        lambda t: t.detach().cpu().numpy()),
                     'rng_train': rng_train,
+                    'generator': None if eps_generator is None
+                    else eps_generator.get_state().numpy(),
                     'epoch': i_epoch,
                     'best_val_loss': best_val_loss,
                     'best_val_epoch': best_val_epoch,
@@ -375,11 +399,13 @@ def fit(hparams, model, data_generator, exp, method='ae', warm_start=None):
 
     # test metrics, logged per trial (reference :435-447)
     data_generator.reset_iterators('test')
+    loss_kwargs = step_kwargs(i_epoch)
     for i_test in range(data_generator.n_tot_batches['test']):
         data, dataset = data_generator.next_batch('test')
         batch, ds, trial = _collate(data, dataset, hparams)
         logger.reset_metrics('test')
-        logger.update_metrics('test', eval_step(_to_device(batch, device)), dataset=ds)
+        logger.update_metrics('test', eval_step(_to_device(batch, device), loss_kwargs),
+                              dataset=ds)
         exp.log(logger.create_metric_row(
             'test', i_epoch, i_test, ds, trial=trial, by_dataset=True))
     exp.save()

@@ -34,6 +34,7 @@ SOURCES = {
     'conv2d_grad_w_nhwc': 'conv2d_grad_w_nhwc.cu',
     'masked_mse': 'masked_mse.cu',
     'amsgrad_step': 'amsgrad_step.cu',
+    'decomposed_kl': 'decomposed_kl.cu',
 }
 _HEADERS = ('igemm.cuh',)
 
@@ -57,6 +58,9 @@ _SIGNATURES = {
         'bn_masked_mse_fwd': [_P, _P, _I, _P, _P, _P, _P, _I, _L, _I, _P],
         'bn_masked_mse_bwd': [_P, _P, _I, _P, _P, _P, _P, _P, _I, _L, _I, _I, _P]},
     'amsgrad_step': {'bn_amsgrad_step': [_P, _I] + [_F] * 7 + [_P]},
+    'decomposed_kl': {
+        'bn_decomposed_kl_fwd': [_P] * 4 + [_I] * 2 + [_P] * 6,
+        'bn_decomposed_kl_bwd': [_P] * 4 + [_I] * 2 + [_P] * 8},
 }
 
 _lock = threading.Lock()

@@ -15,6 +15,10 @@ channel-major (C, H, W) flattening.
 
 A fresh model draws torch's default init from a ``torch.Generator`` seeded
 with ``hparams['rng_seed_model']`` (``models/base.py``).
+
+The variational encoder of the VAE family (``hparams['variational']``) adds
+a ``logvar`` head beside ``FF`` (reference name ``encoding.logvar``, the same
+CHW flattening); its models live in ``models/vaes.py``.
 """
 
 import numpy as np
@@ -25,7 +29,24 @@ from behavenet_tpu_torch.models import base
 from behavenet_tpu_torch.ops import conv as ops
 from behavenet_tpu_torch.ops import losses
 
-__all__ = ['ConvEncoder', 'ConvDecoder', 'AE', 'load_pretrained_ae']
+__all__ = ['ConvEncoder', 'ConvDecoder', 'AE', 'load_pretrained_ae', 'r2_score_vw']
+
+
+def r2_score_vw(y_true, y_pred, weights=None):
+    """Variance-weighted multioutput R^2 (sklearn 'variance_weighted'; JAX:
+    models/aes.py:32). ``weights`` (B,) or (B, L) restricts the score to
+    valid rows / entries (label masks and padded-frame masks)."""
+    if weights is None:
+        ss_res = torch.sum((y_true - y_pred) ** 2, dim=0)
+        ss_tot = torch.sum((y_true - y_true.mean(dim=0)) ** 2, dim=0)
+        return 1.0 - ss_res.sum() / torch.clamp(ss_tot.sum(), min=1e-12)
+    if weights.dim() == 1:
+        weights = weights[:, None]
+    w = weights.expand_as(y_true)
+    mu = torch.sum(y_true * w, dim=0) / torch.clamp(w.sum(dim=0), min=1e-12)
+    ss_res = torch.sum((y_true - y_pred) ** 2 * w)
+    ss_tot = torch.sum((y_true - mu) ** 2 * w)
+    return 1.0 - ss_res / torch.clamp(ss_tot, min=1e-12)
 
 
 def _param(*shape):
@@ -115,12 +136,18 @@ class ConvEncoder(nn.Module):
                     * hparams['ae_encoding_y_dim'][-1]
                     * hparams['ae_encoding_x_dim'][-1])
         self.FF = Linear(fc_in, int(hparams['n_ae_latents']))
+        if hparams.get('variational', False):
+            self.logvar = Linear(fc_in, int(hparams['n_ae_latents']))
 
     def forward(self, x):
-        """x: (N, H, W, C) float in [0, 1], or uint8 frames -> (N, latents)."""
+        """x: (N, H, W, C) float in [0, 1], or uint8 frames -> (N, latents),
+        or (mu, logvar) for a variational encoder."""
         for layer in self.encoder.values():
             x = layer(x)
-        return self.FF(x.permute(0, 3, 1, 2).reshape(x.shape[0], -1))
+        x = x.permute(0, 3, 1, 2).reshape(x.shape[0], -1)
+        if hasattr(self, 'logvar'):
+            return self.FF(x), self.logvar(x)
+        return self.FF(x)
 
 
 class ConvDecoder(nn.Module):
@@ -180,17 +207,22 @@ class AE(base.BaseModel):
         _check_supported(hparams)
         self.hparams = dict(hparams)
         self.hparams['hidden_layer_size'] = self.hparams['n_ae_latents']
+        self._build()
+        self._init_params(torch.Generator().manual_seed(
+            int(self.hparams.get('rng_seed_model', 0))))
+
+    def _build(self):
         self.encoding = ConvEncoder(self.hparams)
         self.decoding = ConvDecoder(self.hparams)
-        self._init_params(self.hparams.get('rng_seed_model', 0))
 
-    def _init_params(self, seed):
-        """torch's default init (JAX: AE.init), from a generator seeded with
-        ``seed``."""
-        gen = torch.Generator().manual_seed(int(seed))
+    def _init_params(self, gen):
+        """torch's default init (JAX: AE.init), drawn from ``gen`` (a
+        generator seeded with ``rng_seed_model``)."""
         for layer in self.encoding.encoder.values():
             base.init_conv(layer.weight, layer.bias, gen)
         base.init_linear(self.encoding.FF.weight, self.encoding.FF.bias, gen)
+        if hasattr(self.encoding, 'logvar'):
+            base.init_linear(self.encoding.logvar.weight, self.encoding.logvar.bias, gen)
         base.init_linear(self.decoding.FF.weight, self.decoding.FF.bias, gen)
         for layer in self.decoding.decoder.values():
             base.init_conv_transpose(layer.weight, layer.bias, gen)
@@ -203,6 +235,14 @@ class AE(base.BaseModel):
         (reconstruction (N, H, W, C), latents (N, n_latents))."""
         z = self.encoding(x)
         return self.decoding(z), z
+
+    def latents(self, x):
+        """The latents a fitted model exports and serves (``encode``)."""
+        return self.encode(x)
+
+    def reconstruct(self, x):
+        """The reconstruction a fitted model serves."""
+        return self(x)[0]
 
     def loss_fn(self, batch):
         """Reconstruction MSE of a batch (JAX: models/aes.py:469 loss_fn).
@@ -221,7 +261,10 @@ class AE(base.BaseModel):
 
 
 def _same_shapes(a, b):
-    return set(a) == set(b) and all(np.shape(a[k]) == np.shape(b[k]) for k in a)
+    if isinstance(a, dict) and isinstance(b, dict):
+        return set(a) == set(b) and all(_same_shapes(a[k], b[k]) for k in a)
+    return not isinstance(a, dict) and not isinstance(b, dict) and \
+        np.shape(a) == np.shape(b)
 
 
 def load_pretrained_ae(params, model, hparams):

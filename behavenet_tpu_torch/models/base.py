@@ -21,7 +21,8 @@ import torch
 import torch.nn as nn
 
 __all__ = ['uniform_fan_in_', 'init_conv', 'init_conv_transpose', 'init_linear',
-           'params_finite', 'save_params', 'load_params', 'BaseModel']
+           'init_diag_linear', 'diag_linear', 'orthogonal_matrix', 'params_finite',
+           'save_params', 'load_params', 'BaseModel']
 
 
 def uniform_fan_in_(t, fan_in, generator):
@@ -50,6 +51,29 @@ def init_linear(weight, bias, generator):
     fan_in = in."""
     uniform_fan_in_(weight, weight.shape[1], generator)
     uniform_fan_in_(bias, weight.shape[1], generator)
+
+
+def init_diag_linear(weight, bias, generator):
+    """The diagonal map ``y = x * d + b`` of the PS-VAE's label head (JAX:
+    models/base.py:61; reference base.py:70 DiagLinear): both (dim,) from
+    U(-1/sqrt(dim), 1/sqrt(dim))."""
+    uniform_fan_in_(weight, weight.shape[0], generator)
+    uniform_fan_in_(bias, weight.shape[0], generator)
+
+
+def diag_linear(x, weight, bias):
+    """Apply the diagonal map (JAX: models/base.py:71)."""
+    return x * weight + bias
+
+
+def orthogonal_matrix(dim, seed):
+    """The fixed random orthogonal (dim, dim) float32 matrix of the PS-VAE's
+    heads, drawn exactly as the JAX package draws it
+    (behavenet_tpu/models/vaes.py:207-210), so both packages get the same
+    bits from one ``rng_seed_model``."""
+    from scipy.stats import ortho_group
+    rng = np.random.RandomState(seed)
+    return ortho_group.rvs(dim=dim, random_state=rng).astype(np.float32)
 
 
 def params_finite(params):

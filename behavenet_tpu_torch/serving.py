@@ -1,6 +1,8 @@
 """Serve a fitted conv autoencoder from an experiment-store version.
 
-The port's counterpart of the AE heads of ``behavenet_tpu/serving.py``.
+The port's counterpart of the autoencoder heads of
+``behavenet_tpu/serving.py`` for ``model_class`` ``'ae'``, ``'vae'``,
+``'beta-tcvae'`` and ``'ps-vae'``.
 Where the JAX package exports StableHLO artifacts, the port loads the
 version the JAX CLI wrote (``meta_tags.pkl`` and ``best_val_model.pt``) and
 runs the model on the GPU, its convolutions in the hand-written kernels::
@@ -11,7 +13,9 @@ runs the model on the GPU, its convolutions in the hand-written kernels::
     recon = bundle.reconstruct(frames_u8)       # float32 in [0, 1]
 
 Both heads take raw uint8 frames (numpy or torch, NHWC) and return float32
-tensors on the bundle's device, as the JAX heads do (serving.py:80-114).
+tensors on the bundle's device, as the JAX heads do (serving.py:80-114). A
+VAE-family model serves at its posterior mean (``use_mean=True``): ``encode``
+returns mu (``[y, w]`` for the PS-VAE) and ``reconstruct`` decodes it.
 """
 
 import os
@@ -19,13 +23,11 @@ import pickle
 
 import torch
 
-from behavenet_tpu_torch.models import base
-from behavenet_tpu_torch.models.aes import AE
+from behavenet_tpu_torch.models import MODELS, base
 from behavenet_tpu_torch.utils.device import resolve_device
 from behavenet_tpu_torch.utils.weights import params_to_state_dict
 
 __all__ = ['load_version', 'ServingBundle']
-
 
 class ServingBundle:
     """A loaded model's inference heads."""
@@ -51,12 +53,12 @@ class ServingBundle:
     def encode(self, frames):
         """uint8 (N, H, W, C) frames -> float32 (N, n_latents) latents."""
         with torch.inference_mode():
-            return self.model.encode(self._frames(frames))
+            return self.model.latents(self._frames(frames))
 
     def reconstruct(self, frames):
         """uint8 (N, H, W, C) frames -> float32 (N, H, W, C) in [0, 1]."""
         with torch.inference_mode():
-            return self.model(self._frames(frames))[0]
+            return self.model.reconstruct(self._frames(frames))
 
 
 def load_version(version_dir, device=None):
@@ -65,10 +67,10 @@ def load_version(version_dir, device=None):
     dev = resolve_device(device)
     with open(os.path.join(version_dir, 'meta_tags.pkl'), 'rb') as f:
         hparams = pickle.load(f)
-    if hparams.get('model_class') != 'ae':
+    if hparams.get('model_class') not in MODELS:
         raise NotImplementedError('serving model_class=%r is not ported yet'
                                   % hparams.get('model_class'))
-    model = AE(hparams)
+    model = MODELS[hparams['model_class']](hparams)
     params, _ = base.load_params(os.path.join(version_dir, 'best_val_model.pt'))
     model.load_state_dict(params_to_state_dict(model, params))
     return ServingBundle(model.to(dev).eval(), dev)

@@ -9,8 +9,12 @@ the reference's torch modules want them:
   (forward orientation) -> (I, O, kh, kw);
 - dense layers (in, out) -> (out, in);
 - flattening: the JAX package flattens conv features (H, W, C), torch
-  (C, H, W); the encoder FF's input dims and the decoder FF's output dims
-  are permuted accordingly.
+  (C, H, W); the input dims of the encoder's FF (and ``logvar``) heads and
+  the decoder FF's output dims are permuted accordingly;
+- the PS-VAE's fixed maps are stored input-major in JAX and as the
+  reference's ``encoding.A.weight`` = A.T (likewise B); its diagonal label
+  map ``D`` {'d', 'b'} is ``encoding.D.weight`` / ``.bias``
+  (``torch_import.py:144-157``, ``:284-292``).
 """
 
 import numpy as np
@@ -25,13 +29,18 @@ def _chw_to_hwc_perm(c, h, w):
     return np.transpose(idx, (1, 2, 0)).reshape(-1)
 
 
+# the encoder's dense heads: reference module name -> JAX layer name
+_ENC_HEADS = (('FF', 'fc'), ('logvar', 'logvar'))
+
+
 def _f32(a):
     return np.asarray(a, dtype=np.float32)
 
 
 def params_to_state_dict(model, params):
-    """State dict (str -> float32 CPU tensor) of ``model`` (a port ``AE``)
-    from the JAX package's numpy params pytree of the same hparams."""
+    """State dict (str -> float32 CPU tensor) of ``model`` (a port ``AE``,
+    ``VAE``, ``BetaTCVAE`` or ``PSVAE``) from the JAX package's numpy params
+    pytree of the same hparams."""
     hp = model.hparams
     enc, dec = params['encoder'], params['decoder']
     sd = {}
@@ -43,10 +52,18 @@ def params_to_state_dict(model, params):
     perm_in = _chw_to_hwc_perm(hp['ae_encoding_n_channels'][-1],
                                hp['ae_encoding_y_dim'][-1],
                                hp['ae_encoding_x_dim'][-1])
-    wt = np.empty_like(_f32(enc['fc']['w']).T)      # (n_latents, C*H*W)
-    wt[:, perm_in] = _f32(enc['fc']['w']).T
-    sd['encoding.FF.weight'] = wt
-    sd['encoding.FF.bias'] = _f32(enc['fc']['b'])
+    for tname, pname in _ENC_HEADS:
+        if hasattr(model.encoding, tname):
+            wt = np.empty_like(_f32(enc[pname]['w']).T)      # (n_latents, C*H*W)
+            wt[:, perm_in] = _f32(enc[pname]['w']).T
+            sd['encoding.%s.weight' % tname] = wt
+            sd['encoding.%s.bias' % tname] = _f32(enc[pname]['b'])
+    for name in ('A', 'B'):
+        if hasattr(model.encoding, name):
+            sd['encoding.%s.weight' % name] = _f32(enc[name]).T
+    if hasattr(model.encoding, 'D'):
+        sd['encoding.D.weight'] = _f32(enc['D']['d'])
+        sd['encoding.D.bias'] = _f32(enc['D']['b'])
 
     perm_out = _chw_to_hwc_perm(*hp['ae_decoding_starting_dim'])
     wt = np.empty_like(_f32(dec['fc']['w']).T)      # (C*H*W, hidden)
@@ -68,7 +85,9 @@ def state_dict_to_params(model):
     the inverse of :func:`params_to_state_dict`, so a checkpoint the port
     writes has the JAX package's layout."""
     hp = model.hparams
-    sd = {k: v.detach().cpu().numpy() for k, v in model.state_dict().items()}
+    # copies: on the CPU ``.numpy()`` would alias the live parameters, and a
+    # later optimizer step would change the returned pytree
+    sd = {k: np.array(v.detach().cpu()) for k, v in model.state_dict().items()}
     enc, dec = {}, {}
     for name in model.encoding.encoder:
         enc['conv_%s' % name[len('conv'):]] = {
@@ -79,8 +98,16 @@ def state_dict_to_params(model):
     perm_in = _chw_to_hwc_perm(hp['ae_encoding_n_channels'][-1],
                                hp['ae_encoding_y_dim'][-1],
                                hp['ae_encoding_x_dim'][-1])
-    enc['fc'] = {'w': np.ascontiguousarray(sd['encoding.FF.weight'][:, perm_in].T),
-                 'b': sd['encoding.FF.bias']}
+    for tname, pname in _ENC_HEADS:
+        if hasattr(model.encoding, tname):
+            enc[pname] = {
+                'w': np.ascontiguousarray(sd['encoding.%s.weight' % tname][:, perm_in].T),
+                'b': sd['encoding.%s.bias' % tname]}
+    for name in ('A', 'B'):
+        if hasattr(model.encoding, name):
+            enc[name] = np.ascontiguousarray(sd['encoding.%s.weight' % name].T)
+    if hasattr(model.encoding, 'D'):
+        enc['D'] = {'d': sd['encoding.D.weight'], 'b': sd['encoding.D.bias']}
 
     perm_out = _chw_to_hwc_perm(*hp['ae_decoding_starting_dim'])
     dec['fc'] = {'w': np.ascontiguousarray(sd['decoding.FF.weight'][perm_out, :].T),

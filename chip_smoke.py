@@ -30,7 +30,17 @@ On one CUDA GPU (an H100: the kernels are built for sm_90a) it
    path's on the card, shows that K1-K6 all ran inside ``fit``, times a
    train step beside the plain one (cuDNN autograd + torch's fused AMSGrad),
    and profiles five steps (``torch.profiler``: device time per kernel and
-   the device's idle share).
+   the device's idle share);
+6. the VAE family (main paths 3-5): holds K7, the decomposed KL, forward
+   and backward against its plain version at the 192-frame bucket with 189
+   real frames, for the PS-VAE's 8 unsupervised latents and the
+   beta-TC-VAE's 12; runs ``fit`` of a PS-VAE (4 labels, alpha 1000, beta 5,
+   100 anneal epochs: docs/user_guide.psvae.md) and of a beta-TC-VAE
+   (configs/ae_jsons/ae_model.json) for an eval epoch and two train epochs
+   each on trials with seeded labels, checks every logged loss is finite and that K1-K7 all ran
+   inside each ``fit``; checks a PS-VAE train step's gradients against the
+   plain path's with the same eps, times and profiles it; and serves the
+   fitted PS-VAE through ``serving.load_version`` (``encode`` = [y, w]).
 
 Each phase prints one JSON line; the line before the last lists the kernels
 with their numbers, and the last line is ``{"ok": true, "device": ...}``.
@@ -87,6 +97,21 @@ LOSS_REL_TOL = 1e-5
 STEP_REL_TOL, STATE_REL_TOL = 1e-3, 1e-5
 # One train step's gradients, kernels vs the plain path on the card.
 GRAD_REL_TOL = 1e-3
+# K7's gradients vs its plain version: float32 sums of 189 terms in another
+# order (and an online logsumexp), max |d| within 1e-4 of max |plain|.
+KL_GRAD_REL_TOL = 1e-4
+
+# The VAE family at the same width: the PS-VAE of docs/user_guide.psvae.md
+# (4 labels; 12 latents leave 8 unsupervised ones to K7) and the beta-TC-VAE
+# of configs/ae_jsons/ae_model.json (K7 over all 12 latents).
+N_LABELS = 4
+VAE_CLASSES = {
+    'ps-vae': {'n_labels': N_LABELS, 'ps_vae.alpha': 1000, 'ps_vae.beta': 5,
+               'ps_vae.anneal_epochs': 100},
+    'beta-tcvae': {'beta_tcvae.beta': 1, 'beta_tcvae.beta_anneal_epochs': 100},
+}
+KL_DIMS = (N_LATENTS - N_LABELS, N_LATENTS)
+VAE_FIT_EPOCHS = 2           # an eval epoch, then two train epochs
 
 KERNELS = {
     'conv2d_nhwc': ('behavenet_tpu_torch/kernels/conv2d_nhwc.cu',
@@ -102,10 +127,14 @@ KERNELS = {
                    'behavenet_tpu/ops/losses.py:25'),
     'amsgrad_step': ('behavenet_tpu_torch/kernels/amsgrad_step.cu',
                      'behavenet_tpu/ops/optim.py:32'),
+    'decomposed_kl': ('behavenet_tpu_torch/kernels/decomposed_kl.cu',
+                      'behavenet_tpu/ops/losses.py:120'),
 }
 
-# the kernels a served request runs (the train step runs all six)
+# the kernels a served request runs (an AE train step runs K1-K6, a
+# beta-TC-VAE or PS-VAE step all seven)
 SERVE_KERNELS = ('conv2d_nhwc', 'conv_transpose2d_nhwc', 'conv_transpose2d_smallcout_sigmoid')
+AE_KERNELS = tuple(k for k in KERNELS if k != 'decomposed_kl')
 
 
 def emit(obj):
@@ -122,14 +151,14 @@ def import_port():
     from behavenet_tpu_torch import serving
     from behavenet_tpu_torch.fitting import experiment, training
     from behavenet_tpu_torch.kernels import build
-    from behavenet_tpu_torch.models import aes, arch, base
+    from behavenet_tpu_torch.models import aes, arch, base, vaes
     from behavenet_tpu_torch.ops import conv as ops
     from behavenet_tpu_torch.ops import losses, optim
     from behavenet_tpu_torch.utils import weights
     return types.SimpleNamespace(
         serving=serving, build=build, arch=arch, base=base, ops=ops, aes=aes,
-        losses=losses, optim=optim, training=training, experiment=experiment,
-        weights=weights)
+        vaes=vaes, losses=losses, optim=optim, training=training,
+        experiment=experiment, weights=weights)
 
 
 def median_ms(fn, samples=5, inner=10, warmup=3):
@@ -330,23 +359,32 @@ def random_params(hp, rs):
     return {'encoder': enc, 'decoder': dec}
 
 
-def plain_forward(model, ops, frames, decode=True):
-    """The model's forward through the plain PyTorch versions only:
-    (reconstruction or None, latents)."""
+def plain_features(model, ops, frames):
+    """The encoder's conv stack through the plain versions, flattened (C, H,
+    W) as its dense heads read it."""
     x = frames
     for layer in model.encoding.encoder.values():
         x = ops.conv2d_plain(x, layer.weight.permute(2, 3, 1, 0), layer.bias,
                              layer.stride, layer.pad_y, layer.pad_x, layer.activation)
-    z = model.encoding.FF(x.permute(0, 3, 1, 2).reshape(x.shape[0], -1))
-    if not decode:
-        return None, z
+    return x.permute(0, 3, 1, 2).reshape(x.shape[0], -1)
+
+
+def plain_decode(model, ops, z):
+    """The decoder through the plain versions."""
     c, h, w = model.decoding.starting_dim
     y = model.decoding.FF(z).reshape(z.shape[0], c, h, w).permute(0, 2, 3, 1)
     for layer in model.decoding.decoder.values():
         y = ops.conv_transpose2d_plain(
             y, layer.weight.permute(2, 3, 0, 1), layer.bias, layer.stride,
             layer.pad_y, layer.pad_x, layer.out_pad, layer.activation)
-    return y, z
+    return y
+
+
+def plain_forward(model, ops, frames, decode=True):
+    """The AE's forward through the plain PyTorch versions only:
+    (reconstruction or None, latents)."""
+    z = model.encoding.FF(plain_features(model, ops, frames))
+    return (plain_decode(model, ops, z) if decode else None), z
 
 
 def plain_request(bundle, ops, frames, head):
@@ -641,10 +679,16 @@ class TrialSource:
 
     n_datasets = 1
 
-    def __init__(self, n, seed):
+    def __init__(self, n, seed, n_labels=0):
         rs = np.random.RandomState(seed)
         tiles = rs.randint(0, 100, (n, TRIAL, 8, 8, IMG[0])).astype(np.uint8)
         self.trials = np.repeat(np.repeat(tiles, IMG[1] // 8, axis=2), IMG[2] // 8, axis=3)
+        # labels a model can read off the frames: the mean brightness of
+        # n_labels bands of rows of view 0, z-scored
+        self.labels = None
+        if n_labels:
+            bands = tiles[..., 0].reshape(n, TRIAL, n_labels, -1).mean(axis=-1)
+            self.labels = ((bands - bands.mean()) / bands.std()).astype(np.float32)
         idx = np.arange(n)
         self.idxs = {'train': idx[idx % 10 < 8], 'val': idx[idx % 10 == 8],
                      'test': idx[idx % 10 == 9]}
@@ -657,7 +701,10 @@ class TrialSource:
 
     def next_batch(self, dtype):
         i = int(getattr(self, '_order_' + dtype).pop(0))
-        return {'images': self.trials[i], 'batch_idx': i}, 0
+        sample = {'images': self.trials[i], 'batch_idx': i}
+        if self.labels is not None:
+            sample['labels'] = self.labels[i]
+        return sample, 0
 
 
 def plain_loss(model, ops, losses, batch):
@@ -689,7 +736,7 @@ def train(port, hp, tmp):
     launches = dict(ops.LAUNCHES)
     emit(dict(phase='train_launches', device=str(next(model.parameters()).device),
               seconds=fit_s, launches=launches))
-    missing = [k for k, v in launches.items() if v == 0]
+    missing = [k for k in AE_KERNELS if launches[k] == 0]
     if missing:
         raise AssertionError('fit never launched %s' % missing)
 
@@ -787,10 +834,10 @@ KERNEL_OF = (('igemm_conv_kernel<unsigned char, false>', 'K1 conv2d_nhwc'),
              ('igemm_conv_kernel<float, true>', 'K2 conv_transpose2d_nhwc'),
              ('tconv_smallcout_kernel', 'K3 conv_transpose2d_smallcout_sigmoid'),
              ('gradw_', 'K4 conv2d_grad_w_nhwc'), ('mse_', 'K5 masked_mse'),
-             ('amsgrad_kernel', 'K6 amsgrad_step'))
+             ('amsgrad_kernel', 'K6 amsgrad_step'), ('dkl_', 'K7 decomposed_kl'))
 
 
-def profile_steps(fn, steps=5, warmup=2):
+def profile_steps(fn, steps=5, warmup=2, phase='train_profile'):
     """Where a train step's time goes: ``torch.profiler`` over ``steps``
     steps after ``warmup``; device time per kernel function, grouped by port
     kernel (everything else is PyTorch's: the FC matmuls, activation
@@ -828,7 +875,7 @@ def profile_steps(fn, steps=5, warmup=2):
         groups[group] = groups.get(group, 0.0) + us / steps / 1e3
     top = sorted(by_name, key=by_name.get, reverse=True)[:12]
     return dict(
-        phase='train_profile', steps=steps, frames=TRIAL, bucket=BUCKET,
+        phase=phase, steps=steps, frames=TRIAL, bucket=BUCKET,
         device_events=len(spans), wall_ms_per_step=wall_us / steps / 1e3,
         device_busy_ms_per_step=busy_us / steps / 1e3,
         device_idle_share=1.0 - busy_us / wall_us if spans else None,
@@ -837,12 +884,243 @@ def profile_steps(fn, steps=5, warmup=2):
                             calls_per_step=counts[n] / steps) for n in top])
 
 
+def check_decomposed_kl(losses, gen, d):
+    """K7 at the train step's shape: a sample z, means and log-variances of
+    (192, d), 189 real frames; forward (MI, TC, DWKL) and backward (grads of
+    z, mu, logvar at upstream weights (1, 5, 1): kl, beta, kl of an annealed
+    PS-VAE) against the plain versions. No PyTorch call computes it."""
+    dev = DEVICE
+    mu = torch.randn((BUCKET, d), device=dev, generator=gen)
+    lv = torch.randn((BUCKET, d), device=dev, generator=gen) * 0.5 - 1.0
+    z = mu + torch.randn((BUCKET, d), device=dev, generator=gen) * torch.exp(lv)
+    fm = torch.zeros(BUCKET, device=dev)
+    fm[:TRIAL] = 1.0
+    up = torch.tensor([1.0, 5.0, 1.0], device=dev)
+
+    def forward():
+        return losses.decomposed_kl_cuda(z, mu, lv, fm)
+
+    def kernel():
+        out, den, lse_s, lse_p = forward()
+        return out, losses.decomposed_kl_grad_cuda(z, mu, lv, fm, den, lse_s, lse_p, up)
+
+    def plain():
+        out = torch.stack(losses.decomposed_kl_plain(z, mu, lv, fm))
+        return out, losses.decomposed_kl_grad_plain(z, mu, lv, fm, up)
+    (out_k, grads_k), (out_p, grads_p) = kernel(), plain()
+    torch.cuda.synchronize()
+    max_abs, abs_tol, max_rel, finite = errors(out_k, out_p)
+    grad_err = max((a - b).abs().max().item() / b.abs().max().item()
+                   for a, b in zip(grads_k, grads_p))
+    finite = finite and all(bool(torch.isfinite(g).all().item()) for g in grads_k)
+    # work this run's data needs: 189 valid components for each of 192
+    # samples; per (sample, component, dim) ~10 operations forward, ~14 for
+    # grad z and ~18 for grad mu / logvar (exps counted as one)
+    pairs = BUCKET * TRIAL * d
+    n_ops = 42 * pairs
+    nbytes = 4 * (3 * BUCKET * d + BUCKET + 3) + 4 * (3 + 3 + 3 * BUCKET * d)
+    t_ops = n_ops / PEAK_F32_FLOPS * 1e3
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    rec = dict(phase='kl_check', kernel='decomposed_kl', layer='D=%d' % d, frames=BUCKET,
+               real_frames=TRIAL, latents=d, values=out_k.tolist(),
+               plain_values=out_p.tolist(), max_abs_err=max_abs, abs_tol=abs_tol,
+               max_rel_err=max_rel, rel_tol=REL_TOL, grad_rel_err=grad_err,
+               grad_rel_tol=KL_GRAD_REL_TOL, mflop=n_ops / 1e6, mbytes=nbytes / 1e6,
+               ms=median_ms(kernel), fwd_ms=median_ms(forward), plain_ms=median_ms(plain),
+               library_ms=None, bound_ms=max(t_ops, t_bytes), t_ops_ms=t_ops,
+               t_bytes_ms=t_bytes, bound_by='operations' if t_ops >= t_bytes else 'bytes')
+    emit(rec)
+    if not finite or max_abs > abs_tol or max_rel > REL_TOL or grad_err > KL_GRAD_REL_TOL:
+        raise AssertionError('K7 disagrees with its plain version: %s' % rec)
+    return rec
+
+
+def read_metrics(vdir):
+    """Every loss and metric column ``fit`` logged, as floats."""
+    with open(os.path.join(vdir, 'metrics.csv'), newline='') as f:
+        rows = list(csv.DictReader(f))
+    return {k: [float(r[k]) for r in rows if r.get(k)]
+            for k in rows[0] if k.split('_')[0] in ('tr', 'val', 'test')}
+
+
+def fit_vae(port, hp, tmp, mc, source):
+    """Main paths 3 and 4: ``fit`` of a VAE-family model on the card, every
+    logged number finite and K1-K7 all launched inside it."""
+    ops = port.ops
+    hp = dict(hp, model_class=mc, learning_rate=LEARNING_RATE, l2_reg=L2_REG,
+              rng_seed_train=SEED, max_n_epochs=VAE_FIT_EPOCHS, min_n_epochs=1,
+              val_check_interval=1, enable_early_stop=False, early_stop_history=10,
+              export_latents=False, rng_seed_data=SEED, device=DEVICE,
+              experiment_name=mc, **VAE_CLASSES[mc])
+    exp = port.experiment.Experiment(mc, tmp)
+    hp['expt_dir'] = os.path.join(tmp, mc)
+    vdir = os.path.join(hp['expt_dir'], 'version_%d' % exp.version)
+    model = {'ps-vae': port.vaes.PSVAE, 'beta-tcvae': port.vaes.BetaTCVAE}[mc](hp)
+
+    # the main path: every launch from here to the read below is counted
+    for name in ops.LAUNCHES:
+        ops.LAUNCHES[name] = 0
+    t0 = time.perf_counter()
+    best = port.training.fit(hp, model, source, exp)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    logged = read_metrics(vdir)
+    finite = all(len(v) and np.isfinite(v).all() for v in logged.values())
+    emit(dict(phase='fit', model_class=mc, epochs=list(range(VAE_FIT_EPOCHS + 1)),
+              train_trials=source.n_tot_batches['train'], seconds=fit_s,
+              launches=launches, finite=finite,
+              losses={k: v for k, v in logged.items() if 'loss' in k or 'r2' in k}))
+    missing = [k for k, v in launches.items() if v == 0]
+    if missing or not finite:
+        raise AssertionError('%s fit never launched %s or logged non-finite numbers'
+                             % (mc, missing))
+    return dict(hp, version=exp.version), model, vdir, best, launches
+
+
+def plain_psvae_loss(model, ops, losses, batch, eps, kw):
+    """The PS-VAE's loss (JAX: vaes.py:294) through the plain versions only:
+    cuDNN convs, ``mse_plain`` for both log-likelihoods, the plain KL terms."""
+    k = model.n_labels
+    flat = plain_features(model, ops, batch['images'])
+    mu_ff, logvar = model.encoding.FF(flat), model.encoding.logvar(flat)
+    y = model.encoding.A(mu_ff)
+    mu = torch.cat([y, model.encoding.B(mu_ff)], dim=1)
+    z = eps * torch.exp(logvar) + mu
+    fm = batch['frame_mask']
+
+    def ll(pred, target):
+        n = pred[0].numel()
+        return -0.5 * losses.LN2PI * n - 0.5 * n * losses.mse_plain(pred, target, None, fm)[0]
+    mi, tc, dwkl = losses.decomposed_kl_plain(z[:, k:], mu[:, k:], logvar[:, k:], fm)
+    return -ll(plain_decode(model, ops, z), batch['images']) \
+        - kw['alpha'] * ll(model.encoding.D(y), batch['labels']) \
+        + losses.kl_div_to_std_normal(mu[:, :k], logvar[:, :k], fm) \
+        + kw['kl'] * mi + kw['beta'] * tc + kw['kl'] * dwkl
+
+
+def psvae_step(port, hp, model, source):
+    """A PS-VAE train step on the card at the annealed loss weights: its
+    gradients against the plain path's with the same eps, its time beside
+    the plain step's (cuDNN autograd, torch's fused AMSGrad), and its
+    profile."""
+    ops, losses = port.ops, port.losses
+    images = np.zeros((BUCKET,) + source.trials[0].shape[1:], np.uint8)
+    images[:TRIAL] = source.trials[0]
+    labels = np.zeros((BUCKET, N_LABELS), np.float32)
+    labels[:TRIAL] = source.labels[0]
+    frame_mask = np.zeros(BUCKET, np.float32)
+    frame_mask[:TRIAL] = 1.0
+    host_batch = {'images': images, 'labels': labels, 'frame_mask': frame_mask}
+    batch = {k: torch.from_numpy(v).to(DEVICE) for k, v in host_batch.items()}
+    kw = model.loss_kwargs(len(model.beta_vals) - 1)   # alpha 1000, beta 5, kl 1
+
+    def generator():
+        gen = torch.Generator(device=DEVICE)
+        gen.manual_seed(SEED)
+        return gen
+    model.zero_grad(set_to_none=True)
+    loss_k = model.loss_fn(batch, generator=generator(), **kw)[0]
+    loss_k.backward()
+    grads_k = {k: p.grad.clone() for k, p in model.named_parameters()}
+    # the same draw reparameterize makes from the same generator state
+    eps = torch.randn((BUCKET, N_LATENTS), generator=generator(), device=DEVICE)
+    model.zero_grad(set_to_none=True)
+    loss_p = plain_psvae_loss(model, ops, losses, batch, eps, kw)
+    loss_p.backward()
+    grad_errs = {k: (grads_k[k] - p.grad).abs().max().item()
+                 / max(p.grad.abs().max().item(), 1e-30)
+                 for k, p in model.named_parameters()}
+    worst = max(grad_errs, key=grad_errs.get)
+    loss_err = abs(loss_k.item() - loss_p.item()) / abs(loss_p.item())
+    emit(dict(phase='psvae_grads', frames=BUCKET, loss_weights=kw, loss=loss_k.item(),
+              plain_loss=loss_p.item(), loss_rel_err=loss_err, rel_tol=GRAD_REL_TOL,
+              max_rel_err=grad_errs[worst], worst=worst, rel_err=grad_errs))
+    if grad_errs[worst] > GRAD_REL_TOL or loss_err > GRAD_REL_TOL:
+        raise AssertionError('PS-VAE gradients on the card disagree with the plain '
+                             'path: %s=%.3g, loss %.3g' % (worst, grad_errs[worst], loss_err))
+
+    opt = port.optim.AMSGrad(model.parameters(), lr=LEARNING_RATE, weight_decay=L2_REG)
+    twin = port.vaes.PSVAE(hp).to(DEVICE)
+    twin.load_state_dict(model.state_dict())
+    adam = torch.optim.Adam(twin.parameters(), lr=LEARNING_RATE, weight_decay=L2_REG,
+                            amsgrad=True, fused=True)
+    gen = generator()
+
+    def step():
+        opt.zero_grad(set_to_none=True)
+        model.loss_fn(batch, generator=gen, **kw)[0].backward()
+        opt.step()
+
+    def plain_step():
+        adam.zero_grad(set_to_none=True)
+        noise = torch.randn((BUCKET, N_LATENTS), generator=gen, device=DEVICE)
+        plain_psvae_loss(twin, ops, losses, batch, noise, kw).backward()
+        adam.step()
+    for name in ops.LAUNCHES:
+        ops.LAUNCHES[name] = 0
+    step()
+    torch.cuda.synchronize()
+    per_step = dict(ops.LAUNCHES)
+    ms, plain_ms = request_ms(step), request_ms(plain_step)
+    rec = dict(phase='psvae_step', frames=TRIAL, bucket=BUCKET, ms=ms,
+               frames_per_s=TRIAL / ms * 1e3, plain_ms=plain_ms,
+               plain_frames_per_s=TRIAL / plain_ms * 1e3, launches_per_step=per_step)
+    emit(rec)
+    emit(profile_steps(lambda: step_from_host(step, host_batch, batch),
+                       phase='psvae_profile'))
+    return per_step, rec
+
+
+def serve_psvae(port, hp, vdir, best, source):
+    """Main path 5: the fitted PS-VAE's ``best_val_model.pt`` serves through
+    ``load_version``: ``encode`` gives [y, w] and ``reconstruct`` decodes it,
+    both within 1e-4 of the plain path on the card."""
+    ops = port.ops
+    with open(os.path.join(vdir, 'meta_tags.pkl'), 'wb') as f:
+        pickle.dump(dict(hp, training_completed=True), f)
+    frames = source.trials[0]
+    for name in ops.LAUNCHES:
+        ops.LAUNCHES[name] = 0
+    bundle = port.serving.load_version(vdir)
+    latents, recon = bundle.encode(frames), bundle.reconstruct(frames)
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    served = dict(bundle.model.state_dict())
+    same = all(torch.equal(served[k].cpu(), v) for k, v in
+               port.weights.params_to_state_dict(bundle.model, best).items())
+    with torch.inference_mode():
+        model = bundle.model
+        mu_ff = model.encoding.FF(plain_features(model, ops, bundle._frames(frames)))
+        ref_z = torch.cat([model.encoding.A(mu_ff), model.encoding.B(mu_ff)], dim=1)
+        ref_y = plain_decode(model, ops, ref_z)
+    errs = {head: ((out - ref).abs().max().item(),
+                   SERVE_ABS_TOL * max(1.0, ref.abs().max().item()))
+            for head, out, ref in (('encode', latents, ref_z), ('reconstruct', recon, ref_y))}
+    ok = same and tuple(latents.shape) == (TRIAL, N_LATENTS) and \
+        tuple(recon.shape) == (TRIAL, IMG[1], IMG[2], IMG[0]) and \
+        all(e <= tol for e, tol in errs.values()) and \
+        bool(torch.isfinite(latents).all().item() and torch.isfinite(recon).all().item())
+    rec = dict(phase='serve_psvae', frames=TRIAL, weights_equal=same,
+               encode_shape=list(latents.shape), max_abs_err={h: e for h, (e, _) in errs.items()},
+               tol={h: t for h, (_, t) in errs.items()}, launches=launches, ok=ok,
+               encode_ms=request_ms(lambda: bundle.encode(frames)),
+               reconstruct_ms=request_ms(lambda: bundle.reconstruct(frames)))
+    emit(rec)
+    missing = [k for k in SERVE_KERNELS if launches[k] == 0]
+    if missing or not ok:
+        raise AssertionError('the fitted PS-VAE does not serve: missing %s, %s'
+                             % (missing, rec))
+    return launches
+
+
 def kernel_row(name, rows, launches):
     """The kernels-line entry of one kernel: sums over the rows it was
     checked at; launches from the main paths' runs."""
     source, replaces = KERNELS[name]
     t_ops = sum(r['t_ops_ms'] for r in rows)
     t_bytes = sum(r['t_bytes_ms'] for r in rows)
+    library = [r['library_ms'] for r in rows]
     return dict(
         name=name, route='cuda', source=source, replaces=replaces,
         launches=sum(v[name] for v in launches.values()),
@@ -854,7 +1132,7 @@ def kernel_row(name, rows, launches):
         ms=sum(r['ms'] for r in rows), plain_ms=sum(r['plain_ms'] for r in rows),
         bound_ms=sum(r['bound_ms'] for r in rows),
         bound_by='operations' if t_ops >= t_bytes else 'bytes',
-        library_ms=sum(r['library_ms'] for r in rows))
+        library_ms=None if None in library else sum(library))
 
 
 def main():
@@ -885,11 +1163,18 @@ def main():
         checks += check_backward_layer(L, ops, gen)
     checks.append(check_mse(port.losses, gen))
     checks.append(check_amsgrad(port.optim, port.aes.AE(hp).to(DEVICE), gen))
+    checks += [check_decomposed_kl(port.losses, gen, d) for d in KL_DIMS]
 
+    launches = {}
     with tempfile.TemporaryDirectory() as tmp:
-        serve_launches, _, _ = serve(port.serving, port.base, ops, hp, tmp)
-        train_launches, _, _ = train(port, hp, tmp)
-    launches = {'serve': serve_launches, 'train': train_launches}
+        launches['serve'], _, _ = serve(port.serving, port.base, ops, hp, tmp)
+        launches['train'], _, _ = train(port, hp, tmp)
+        source = TrialSource(TRAIN_TRIALS, SEED + 3, n_labels=N_LABELS)
+        ps_hp, ps_model, ps_dir, ps_best, launches['fit_ps-vae'] = fit_vae(
+            port, hp, tmp, 'ps-vae', source)
+        psvae_step(port, ps_hp, ps_model, source)
+        launches['serve_ps-vae'] = serve_psvae(port, ps_hp, ps_dir, ps_best, source)
+        launches['fit_beta-tcvae'] = fit_vae(port, hp, tmp, 'beta-tcvae', source)[-1]
 
     emit({'kernels': [kernel_row(name, [r for r in checks if r['kernel'] == name], launches)
                       for name in KERNELS]})

@@ -33,9 +33,21 @@ def _hparams(img=(2, 32, 24), n_latents=6, padding='same', **kw):
                 n_input_channels=img[0], y_pixels=img[1], x_pixels=img[2], **kw)
 
 
+def _fan_in(shape):
+    """HWIO kernels: kh * kw * Cin; dense (in, out): in; biases: 400."""
+    return int(np.prod(shape[:-1])) if len(shape) > 1 else 400
+
+
 def _pair(hp, seed=0):
+    """The JAX model, params of its tree drawn with numpy at the init's
+    scale (the tree from ``jax.eval_shape``, which compiles nothing), and the
+    port model holding them."""
     jmodel = JaxAE(hp)
-    params = jax.tree_util.tree_map(np.asarray, jmodel.init(jax.random.PRNGKey(seed)))
+    rs = np.random.RandomState(seed)
+    shapes = jax.eval_shape(jmodel.init, jax.random.PRNGKey(seed))
+    params = jax.tree_util.tree_map(
+        lambda a: rs.uniform(-1, 1, a.shape).astype(np.float32) / _fan_in(a.shape) ** 0.5,
+        shapes)
     model = AE(hp)
     model.load_state_dict(params_to_state_dict(model, params))
     return jmodel, params, model
@@ -47,7 +59,7 @@ def _pair(hp, seed=0):
 def test_forward_matches_jax(hp_kw):
     hp = _hparams(**hp_kw)
     jmodel, params, model = _pair(hp)
-    x = np.random.RandomState(0).rand(3, hp['y_pixels'], hp['x_pixels'],
+    x = np.random.RandomState(0).rand(2, hp['y_pixels'], hp['x_pixels'],
                                       hp['n_input_channels']).astype(np.float32)
     jy, jz = jmodel.forward(params, jnp.asarray(x))
     with torch.no_grad():

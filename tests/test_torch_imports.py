@@ -46,7 +46,7 @@ def test_training_path_does_not_import_h5py():
         'import behavenet_tpu_torch.fitting.training\n'
         'import behavenet_tpu_torch.fitting.ae_grid_search\n'
         'import behavenet_tpu_torch.ops.conv, behavenet_tpu_torch.ops.losses\n'
-        'import behavenet_tpu_torch.ops.optim\n'
+        'import behavenet_tpu_torch.ops.optim, behavenet_tpu_torch.models.vaes\n'
         'import chip_smoke\n'
         'bad = sorted(m for m in sys.modules\n'
         '             if m.split(".")[0] in ("h5py", "jax", "jaxlib", "behavenet_tpu"))\n'

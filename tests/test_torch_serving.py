@@ -31,7 +31,13 @@ def version(tmp_path_factory):
               n_input_channels=img[0], y_pixels=img[1], x_pixels=img[2],
               learning_rate=1e-4, l2_reg=0.0, rng_seed_model=0)
     model = AE(hp)
-    params = model.init(jax.random.PRNGKey(0))
+    # weights of the init's tree (``jax.eval_shape`` compiles nothing) drawn
+    # with numpy at a fan-in scale
+    rs = np.random.RandomState(0)
+    params = jax.tree_util.tree_map(
+        lambda a: (rs.uniform(-1, 1, a.shape) / np.sqrt(np.prod(a.shape[:-1]) if a.ndim > 1
+                                                        else 400)).astype(np.float32),
+        jax.eval_shape(model.init, jax.random.PRNGKey(0)))
     vdir = tmp_path_factory.mktemp('store') / 'version_0'
     vdir.mkdir()
     with open(vdir / 'meta_tags.pkl', 'wb') as f:
@@ -73,7 +79,7 @@ def test_default_device_is_cuda_and_never_falls_back(version, monkeypatch):
 
 def test_other_model_classes_raise(tmp_path):
     with open(tmp_path / 'meta_tags.pkl', 'wb') as f:
-        pickle.dump({'model_class': 'vae'}, f)
+        pickle.dump({'model_class': 'cond-vae'}, f)
     with pytest.raises(NotImplementedError):
         serving.load_version(str(tmp_path), device='cpu')
 

@@ -224,6 +224,6 @@ def test_ae_grid_search_refuses_tpu_and_unported_classes(store, tmp_path):
     grid = hyperparams.get_all_params(args=args)
     with pytest.raises(ValueError, match='cuda'):
         hyperparams.run_grid_search(ae_grid_search.main, grid)
-    trial = dict(next(grid.trials()), device='cpu', model_class='vae')
-    with pytest.raises(NotImplementedError, match='vae'):
+    trial = dict(next(grid.trials()), device='cpu', model_class='cond-vae')
+    with pytest.raises(NotImplementedError, match='cond-vae'):
         ae_grid_search.main(trial)

@@ -37,7 +37,10 @@ def _leaves(tree, prefix=''):
 
 def test_state_dict_to_params_inverts_params_to_state_dict():
     hp = _hparams()
-    params = jax.tree_util.tree_map(np.asarray, JaxAE(hp).init(jax.random.PRNGKey(7)))
+    rs = np.random.RandomState(7)   # any values: the maps are permutations
+    params = jax.tree_util.tree_map(
+        lambda a: rs.randn(*a.shape).astype(np.float32),
+        jax.eval_shape(JaxAE(hp).init, jax.random.PRNGKey(7)))
     model = AE(hp)
     model.load_state_dict(params_to_state_dict(model, params))
     back = state_dict_to_params(model)
@@ -50,8 +53,9 @@ def test_state_dict_to_params_inverts_params_to_state_dict():
 
 def test_fresh_model_has_the_jax_init_bounds():
     hp = _hparams()
+    # jitted: the eager init's bits in less time
     jparams = dict(_leaves(jax.tree_util.tree_map(
-        np.asarray, JaxAE(hp).init(jax.random.PRNGKey(0)))))
+        np.asarray, jax.jit(JaxAE(hp).init)(jax.random.PRNGKey(0)))))
     port = dict(_leaves(state_dict_to_params(AE(hp))))
     assert sorted(port) == sorted(jparams)
     for k, w in port.items():
