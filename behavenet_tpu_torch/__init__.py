@@ -10,8 +10,12 @@ So far it fits a conv autoencoder, VAE, beta-TC-VAE or PS-VAE
 ``fitting.training.fit``; the models are ``models.aes.AE`` and
 ``models.vaes.VAE``, ``BetaTCVAE``, ``PSVAE``) and serves a fitted one
 (``serving.load_version``): ``encode`` and ``reconstruct`` on raw uint8
-frames. On a GPU the convolutions, their gradients, the losses (the masked
-MSE and the minibatch KL decomposition) and the optimizer step run in
+frames. It segments AE latents into discrete states with the ARHMM
+(``fitting.arhmm_grid_search``, ``models.arhmm.ARHMM``, a fitted model of
+either package through ``utils.pickles.load_arhmm``). On a GPU the
+convolutions, their gradients, the losses (the masked MSE and the
+minibatch KL decomposition), the optimizer step and the ARHMM's
+log-likelihoods, message passing, Viterbi and small solves run in
 hand-written CUDA kernels (``kernels/``). Entry points run on ``'cuda'``
 unless the caller asks for ``'cpu'``.
 

@@ -9,11 +9,16 @@ the same order.
 
 ``h5py`` is imported only where an HDF5 file is opened. Trials are read
 through h5py; the JAX package's raw-offset reader (``data/raw_h5.py``) is
-not ported yet. Signals that live in export pickles (latents, states,
-predictions) belong to model classes not ported yet and raise.
+not ported yet. Of the signals that live in export pickles, the AE latents
+(``'ae_latents'``, ``'latents'``: key ``'latents'`` of
+``<lab>_<expt>_<animal>_<session>_latents.pkl``) are read, and a session
+that asks for no HDF5 signal takes its trial count from the pickle, so a
+latents-only run never imports h5py. The others (states, predictions)
+belong to model classes not ported yet and raise.
 """
 
 import os
+import pickle
 from collections import OrderedDict
 
 import numpy as np
@@ -63,6 +68,16 @@ def _to_nhwc(arr):
     return np.ascontiguousarray(np.transpose(arr, (0, 2, 3, 1)))
 
 
+def _load_latents(path, idx=None):
+    """Per-trial float32 latents from a latents pickle (key ``'latents'``;
+    JAX: data/generator.py:69)."""
+    with open(path, 'rb') as f:
+        latents = pickle.load(f)['latents']
+    if idx is None:
+        return [np.asarray(d).astype('float32') for d in latents]
+    return np.asarray(latents[idx]).astype('float32')
+
+
 def _open_h5(path):
     import h5py
     return h5py.File(path, 'r', libver='latest', swmr=True)
@@ -77,6 +92,7 @@ class SingleSessionDataset:
     """
 
     _h5_signals = ('images', 'masks', 'neural', 'labels', 'labels_sc', 'labels_masks')
+    _pkl_signals = ('ae_latents', 'latents')   # key 'latents', float32
 
     def __init__(self, data_dir, lab='', expt='', animal='', session='', signals=None,
                  transforms=None, paths=None, batch_load=True):
@@ -89,13 +105,17 @@ class SingleSessionDataset:
         self.sess_str = '%s_%s_%s_%s' % (lab, expt, animal, session)
 
         self.signals = list(signals)
-        unported = [s for s in self.signals if s not in self._h5_signals]
+        unported = [s for s in self.signals
+                    if s not in self._h5_signals + self._pkl_signals]
         if unported:
             raise NotImplementedError('signals %s (export pickles) are not ported yet'
                                       % unported)
         self.transforms = OrderedDict()
         self.paths = OrderedDict()
         for signal, transform, path in zip(signals, transforms, paths):
+            if transform is not None and signal in self._pkl_signals:
+                raise NotImplementedError('transforms of pickle-backed signals (%s) are not '
+                                          'ported yet' % signal)
             self.transforms[signal] = transform
             self.paths[signal] = path
 
@@ -106,6 +126,9 @@ class SingleSessionDataset:
                 with _open_h5(self.paths[signal]) as f:
                     self.n_trials = len(f[signal])
                 break
+            elif signal in self._pkl_signals:
+                self.n_trials = len(self._read_pkl(signal))
+                break
 
         # set by ConcatSessionsGenerator
         self.batch_idxs = None
@@ -114,7 +137,8 @@ class SingleSessionDataset:
         self.batch_load = batch_load
         self._cache = None
         if not batch_load:
-            self._cache = {s: [self._load_signal_trial(s, tr) for tr in range(self.n_trials)]
+            self._cache = {s: self._read_pkl(s) if s in self._pkl_signals else
+                           [self._load_signal_trial(s, tr) for tr in range(self.n_trials)]
                            for s in self.signals}
 
     def __len__(self):
@@ -131,8 +155,18 @@ class SingleSessionDataset:
         with _open_h5(self.paths[signal]) as f:
             return f[signal]['trial_%04i' % idx][()]
 
+    def _read_pkl(self, signal, idx=None):
+        """Every trial (or trial ``idx``) of a pickle-backed signal."""
+        try:
+            return _load_latents(self.paths[signal], idx=idx)
+        except FileNotFoundError:
+            raise NotImplementedError('Could not open %s\nMust create ae latents from model'
+                                      % self.paths[signal])
+
     def _load_signal_trial(self, signal, idx):
         """Load a single trial of one signal; returns numpy array."""
+        if signal in self._pkl_signals:
+            return self._read_pkl(signal, idx)
         if signal == 'images':
             return _to_nhwc(self._read_h5_trial(signal, idx))
         arr = self._read_h5_trial(signal, idx).astype('float32')

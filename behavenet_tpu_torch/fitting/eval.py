@@ -1,11 +1,14 @@
-"""Export of a fitted model's outputs (the port of the autoencoder part of
-``behavenet_tpu/fitting/eval.py``; reference behavenet/fitting/eval.py).
+"""Export of a fitted model's outputs (the port of the autoencoder and
+ARHMM parts of ``behavenet_tpu/fitting/eval.py``; reference
+behavenet/fitting/eval.py).
 
 ``{lab}_{expt}_{animal}_{session}_latents.pkl`` holds ``'latents'`` (one
 (T, n_latents) array per trial, empty for gap trials) and ``'trials'`` (the
 train/val/test split), as the JAX package writes it: the AE's latents, the
 posterior means of the VAE and beta-TC-VAE, and ``[y, w]`` of the PS-VAE
 (JAX: eval.py:32-52), each model's ``latents``.
+``{lab}_{expt}_{animal}_{session}_states.pkl`` holds ``'states'`` (one
+(T,) int32 Viterbi path per trial, empty for gap trials) and ``'trials'``.
 """
 
 import os
@@ -16,7 +19,7 @@ import torch
 
 from behavenet_tpu_torch.models import MODELS
 
-__all__ = ['export_latents']
+__all__ = ['export_latents', 'export_states']
 
 
 def export_latents(data_generator, model, filename=None, version=None, expt_dir=None):
@@ -52,5 +55,38 @@ def export_latents(data_generator, model, filename=None, version=None, expt_dir=
             sess + 1, data_generator.n_datasets, filename_save))
         with open(filename_save, 'wb') as f:
             pickle.dump({'latents': latents[sess], 'trials': dataset.batch_idxs}, f)
+        filenames.append(filename_save)
+    return filenames
+
+
+def export_states(hparams, data_generator, model, filename=None):
+    """Pickle the most likely state path of every train/val/test trial per
+    session (JAX: eval.py:108; reference eval.py:121-188). The paths of a
+    session's trials come from one batched Viterbi launch on the model's
+    device."""
+    data_key = 'labels' if hparams['model_class'].find('label') > -1 else 'ae_latents'
+    states = [[np.array([]) for _ in range(dataset.n_trials)]
+              for dataset in data_generator.datasets]
+    for sess, dataset in enumerate(data_generator.datasets):
+        idxs = [int(i) for dtype in ('train', 'val', 'test')
+                for i in dataset.batch_idxs[dtype]]
+        paths = model.most_likely_states_batch(
+            [np.asarray(dataset[i][data_key]) for i in idxs])
+        for i, path in zip(idxs, paths):
+            states[sess][i] = path
+
+    filenames = []
+    for sess, dataset in enumerate(data_generator.datasets):
+        if filename is None:
+            sess_id = '%s_%s_%s_%s_states.pkl' % (
+                dataset.lab, dataset.expt, dataset.animal, dataset.session)
+            filename_save = os.path.join(
+                hparams['expt_dir'], 'version_%i' % hparams['version'], sess_id)
+        else:
+            filename_save = filename
+        print('saving states %i of %i:\n%s' % (
+            sess + 1, data_generator.n_datasets, filename_save))
+        with open(filename_save, 'wb') as f:
+            pickle.dump({'states': states[sess], 'trials': dataset.batch_idxs}, f)
         filenames.append(filename_save)
     return filenames

@@ -1,7 +1,7 @@
 """Experiment store: versioned results tree, metrics logging, dedup.
 
-The port's copy of what ``ae_grid_search`` needs from
-``behavenet_tpu/fitting/experiment.py`` (reference behavenet/fitting/
+The port's copy of what ``ae_grid_search`` and ``arhmm_grid_search`` need
+from ``behavenet_tpu/fitting/experiment.py`` (reference behavenet/fitting/
 utils.py, with test-tube's Experiment replaced by :class:`Experiment`). The
 on-disk layout is the JAX package's, bit for bit: ``version_%i/``
 directories, ``metrics.csv``, ``meta_tags.pkl``, ``session_info.csv``, e.g.
@@ -17,11 +17,13 @@ import pickle
 __all__ = [
     'Experiment', 'get_subdirs', 'get_session_dir', 'get_expt_dir',
     'read_session_info_from_csv', 'export_session_info_to_csv', 'experiment_exists',
-    'get_model_params', 'export_hparams', 'create_experiment',
+    'get_model_params', 'export_hparams', 'create_experiment', 'get_best_model_version',
 ]
 
 _AE_FAMILY = ('ae', 'vae', 'beta-tcvae', 'cond-vae', 'cond-ae', 'cond-ae-msp',
               'ps-vae', 'msps-vae')
+_ARHMM_ON_LATENTS = ('arhmm', 'hmm')
+_ARHMM_ON_LABELS = ('arhmm-labels', 'hmm-labels')
 
 
 class Experiment(object):
@@ -222,9 +224,15 @@ def get_session_dir(hparams, session_source='save'):
     return session_dir, sessions_single
 
 
+def _get_transition_str(hparams):
+    if hparams['transitions'] == 'sticky':
+        return 'sticky_%.0e' % hparams['kappa']
+    return hparams['transitions']
+
+
 def get_expt_dir(hparams, model_class=None, model_type=None, expt_name=None):
     """Model-class-specific experiment directory (JAX: experiment.py:230;
-    reference :307-434), for the autoencoder family."""
+    reference :307-434), for the autoencoder family and the (AR)HMMs."""
     import copy
 
     if model_class is None:
@@ -234,14 +242,24 @@ def get_expt_dir(hparams, model_class=None, model_type=None, expt_name=None):
     if expt_name is None:
         expt_name = hparams['experiment_name']
 
-    if model_class not in _AE_FAMILY:
+    if model_class in _AE_FAMILY:
+        model_path = os.path.join(
+            model_class, model_type, '%02i_latents' % hparams['n_ae_latents'])
+        multi_key = 'ae_multisession'
+    elif model_class in _ARHMM_ON_LATENTS + _ARHMM_ON_LABELS:
+        model_path = os.path.join(
+            model_class,
+            *(['%02i_latents' % hparams['n_ae_latents']]
+              if model_class in _ARHMM_ON_LATENTS else []),
+            '%02i_states' % hparams['n_arhmm_states'],
+            _get_transition_str(hparams), hparams['noise_type'])
+        multi_key = 'arhmm_multisession'
+    else:
         raise NotImplementedError('model_class "%s" is not ported yet' % model_class)
-    model_path = os.path.join(
-        model_class, model_type, '%02i_latents' % hparams['n_ae_latents'])
-    if hparams.get('ae_multisession', None) is not None:
+    if hparams.get(multi_key, None) is not None:
         hparams_ = copy.deepcopy(hparams)
         hparams_['session'] = 'all'
-        hparams_['multisession'] = hparams['ae_multisession']
+        hparams_['multisession'] = hparams[multi_key]
         session_dir, _ = get_session_dir(hparams_)
     else:
         session_dir = hparams['session_dir']
@@ -308,9 +326,9 @@ def experiment_exists(hparams, which_version=False):
 
 def get_model_params(hparams):
     """The identity key set that dedups an experiment (JAX: experiment.py:420;
-    reference :633-753), for the autoencoder family."""
+    reference :633-753), for the autoencoder family and the (AR)HMMs."""
     model_class = hparams['model_class']
-    if model_class not in _AE_FAMILY:
+    if model_class not in _AE_FAMILY + _ARHMM_ON_LATENTS + _ARHMM_ON_LABELS:
         raise NotImplementedError('model_class "%s" is not ported yet' % model_class)
 
     hparams_less = {
@@ -320,11 +338,24 @@ def get_model_params(hparams):
         'rng_seed_model': hparams['rng_seed_model'],
         'model_class': hparams['model_class'],
         'model_type': hparams['model_type'],
+    }
+    if model_class not in _AE_FAMILY:
+        for key in ('n_arhmm_lags', 'noise_type', 'transitions'):
+            hparams_less[key] = hparams[key]
+        if hparams['transitions'] == 'sticky':
+            hparams_less['kappa'] = hparams['kappa']
+        if model_class in _ARHMM_ON_LATENTS:
+            for key in ('ae_experiment_name', 'ae_version', 'ae_model_class',
+                        'ae_model_type', 'n_ae_latents'):
+                hparams_less[key] = hparams[key]
+        return hparams_less
+
+    hparams_less.update({
         'n_ae_latents': hparams['n_ae_latents'],
         'fit_sess_io_layers': hparams['fit_sess_io_layers'],
         'learning_rate': hparams['learning_rate'],
         'l2_reg': hparams['l2_reg'],
-    }
+    })
     if model_class in ('cond-ae', 'cond-vae'):
         hparams_less['conditional_encoder'] = hparams.get('conditional_encoder', False)
     if model_class == 'cond-ae-msp':
@@ -341,6 +372,29 @@ def get_model_params(hparams):
             hparams_less['n_background'] = hparams['n_background']
             hparams_less['n_sessions_per_batch'] = hparams['n_sessions_per_batch']
     return hparams_less
+
+
+def get_best_model_version(expt_dir, measure='val_loss'):
+    """The completed version of ``expt_dir`` with the lowest ``measure`` in
+    its ``metrics.csv``, as a one-element list (JAX: experiment.py:609;
+    reference :879), read with the csv module."""
+    scores = []
+    for version in get_subdirs(expt_dir):
+        meta_file = os.path.join(expt_dir, version, 'meta_tags.pkl')
+        if not os.path.exists(meta_file):
+            continue
+        with open(meta_file, 'rb') as f:
+            if not pickle.load(f)['training_completed']:
+                continue
+        with open(os.path.join(expt_dir, version, 'metrics.csv'), newline='') as f:
+            vals = [float(row[measure]) for row in csv.DictReader(f)
+                    if row.get(measure, '') != '']
+        vals = [v for v in vals if v == v]   # pandas' min skips NaN
+        if vals:
+            scores.append((min(vals), version))
+    if not scores:
+        raise ValueError('no completed version with "%s" in %s' % (measure, expt_dir))
+    return [int(min(scores, key=lambda sv: sv[0])[1].split('_')[-1])]
 
 
 def export_hparams(hparams, exp):

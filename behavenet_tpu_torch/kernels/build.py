@@ -35,8 +35,12 @@ SOURCES = {
     'masked_mse': 'masked_mse.cu',
     'amsgrad_step': 'amsgrad_step.cu',
     'decomposed_kl': 'decomposed_kl.cu',
+    'arhmm_log_likes': 'arhmm_log_likes.cu',
+    'hmm_forward_backward': 'hmm_forward_backward.cu',
+    'hmm_viterbi': 'hmm_viterbi.cu',
+    'solve_small': 'solve_small.cu',
 }
-_HEADERS = ('igemm.cuh',)
+_HEADERS = ('igemm.cuh', 'hmm.cuh')
 
 # launches of each kernel since the last reset (callers may zero them)
 LAUNCHES = {name: 0 for name in SOURCES}
@@ -61,6 +65,12 @@ _SIGNATURES = {
     'decomposed_kl': {
         'bn_decomposed_kl_fwd': [_P] * 4 + [_I] * 2 + [_P] * 6,
         'bn_decomposed_kl_bwd': [_P] * 4 + [_I] * 2 + [_P] * 8},
+    'arhmm_log_likes': {'bn_arhmm_log_likes': [_P] * 6 + [_I] * 7 + [_P, _P]},
+    'hmm_forward_backward': {
+        'bn_hmm_forward_backward': [_P] * 4 + [_I] * 3 + [_P] * 6,
+        'bn_hmm_forward': [_P] * 4 + [_I] * 3 + [_P] * 2},
+    'hmm_viterbi': {'bn_hmm_viterbi': [_P] * 4 + [_I] * 3 + [_P] * 3},
+    'solve_small': {'bn_solve_small': [_P] * 3 + [_I] * 3 + [_P]},
 }
 
 _lock = threading.Lock()

@@ -1,5 +1,5 @@
-"""Models of the port: architecture dicts, checkpoint io, the conv AE and
-the VAE family (VAE, beta-TC-VAE, PS-VAE)."""
+"""Models of the port: architecture dicts, checkpoint io, the conv AE, the
+VAE family (VAE, beta-TC-VAE, PS-VAE) and the ARHMM (``models.arhmm``)."""
 
 from behavenet_tpu_torch.models.aes import AE, load_pretrained_ae  # noqa
 from behavenet_tpu_torch.models.vaes import VAE, BetaTCVAE, PSVAE  # noqa

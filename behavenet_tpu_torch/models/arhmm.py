@@ -1,0 +1,559 @@
+"""(AR)HMM segmentation with EM, in PyTorch (the port of
+``behavenet_tpu/models/arhmm.py``).
+
+Observations ``'ar'``, ``'gaussian'``, ``'diagonal_ar'`` and
+``'diagonal_gaussian'``; transitions ``'stationary'`` and ``'sticky'``.
+Trials are padded to a common length with a mask. One EM iteration is
+
+- the observation log-likelihoods of every frame and state
+  (:func:`log_likes`: K8 ``kernels/arhmm_log_likes.cu`` on the card);
+- forward-backward over all trials (``ops.hmm.forward_backward``: K9);
+- the closed-form M-step: the initial distribution, the transition counts
+  (plus kappa on the diagonal when sticky), and per-state weighted least
+  squares with the JAX package's Jacobi equilibration and 1e-5 ridge, solved
+  by ``ops.smallmat.solve_small`` (K11), then the weighted residual
+  covariances. Its weighted contractions are ``torch.einsum``, as they are
+  plain einsums in the JAX package.
+
+Conventions match the JAX package (and ssm): the first ``lags`` frames of
+a trial are scored under a fixed N(0, I) for every state, and the AR
+regression uses only frames with a full lag history.
+
+Not ported yet, and raising ``NotImplementedError``: the robust
+(Student's-t) observations, recurrent transitions, ``parallel_scan``,
+``em_dtype='float64'``, ``posterior_sample``, ``sample`` / ``sample_x``,
+meshes and ``iters_per_dispatch > 1``.
+"""
+
+import collections
+import contextvars
+import pickle
+
+import numpy as np
+import torch
+
+from behavenet_tpu_torch.kernels.build import launch
+from behavenet_tpu_torch.ops import hmm as hmm_ops
+from behavenet_tpu_torch.ops.smallmat import solve_small
+from behavenet_tpu_torch.utils.device import resolve_device
+
+__all__ = ['ARHMM', 'PaddedTrials', 'pad_trials', 'obs_precision', 'log_likes',
+           'log_likes_plain', 'log_likes_cuda', 'kmeans', 'check_ported']
+
+LN2PI = float(np.log(2 * np.pi))
+_OBSERVATIONS = ('ar', 'gaussian', 'diagonal_ar', 'diagonal_gaussian')
+_ROBUST = ('robust_ar', 'studentst', 'diagonal_robust_ar', 'diagonal_studentst')
+_MAX_D, _MAX_LAG_COLS = 16, 64  # K8 keeps a frame and its lags in registers
+
+# the device an unpickled model's parameters go to: ``utils.pickles.load``
+# sets it; unset, ``None`` means 'cuda' (which raises without a GPU)
+UNPICKLE_DEVICE = contextvars.ContextVar('UNPICKLE_DEVICE', default=None)
+
+# stacked trials (N, T, D) and their mask (N, T), on one device
+PaddedTrials = collections.namedtuple('PaddedTrials', ['x', 'mask'])
+
+
+def pad_trials(datas, device):
+    """List of (T_i, D) arrays -> :class:`PaddedTrials` on ``device``."""
+    datas = [np.asarray(d, dtype=np.float32) for d in datas]
+    t_max = max(d.shape[0] for d in datas)
+    x = np.zeros((len(datas), t_max, datas[0].shape[1]), dtype=np.float32)
+    mask = np.zeros((len(datas), t_max), dtype=np.float32)
+    for i, d in enumerate(datas):
+        x[i, :d.shape[0]] = d
+        mask[i, :d.shape[0]] = 1.0
+    return PaddedTrials(torch.from_numpy(x).to(device), torch.from_numpy(mask).to(device))
+
+
+def _lagged(x, lags):
+    """(N, T, D) -> design rows (N, T, D * lags) of [x_{t-1}, ..., x_{t-lags}],
+    zero where t < l (those frames are scored by the initial condition and
+    weigh nothing in the regression)."""
+    feats = []
+    for lag in range(1, lags + 1):
+        f = torch.zeros_like(x)
+        f[:, lag:] = x[:, :-lag]
+        feats.append(f)
+    return torch.cat(feats, dim=2)
+
+
+# ----------------------------------------------- observation log-likes (K8)
+
+
+def obs_precision(Sigmas, diagonal):
+    """What K8 and its plain version read of the covariances: the inverse
+    lower Cholesky factors (K, D, D) of ``Sigmas + 1e-8 I`` (NaN where the
+    factorization fails, as ``jnp.linalg.cholesky``) or, with ``diagonal``,
+    the variances clipped at 1e-8 (K, D); and the log-determinants (K,)."""
+    if diagonal:
+        var = torch.clamp(torch.diagonal(Sigmas, dim1=1, dim2=2), min=1e-8).contiguous()
+        return var, torch.log(var).sum(dim=1)
+    eye = torch.eye(Sigmas.shape[-1], dtype=Sigmas.dtype, device=Sigmas.device)
+    chol, info = torch.linalg.cholesky_ex(Sigmas + 1e-8 * eye[None])
+    chol = torch.where(info[:, None, None] > 0, torch.full_like(chol, float('nan')), chol)
+    linv = torch.linalg.solve_triangular(chol, eye.expand_as(chol).contiguous(), upper=False)
+    logdet = 2.0 * torch.log(torch.diagonal(chol, dim1=1, dim2=2)).sum(dim=1)
+    return linv.contiguous(), logdet
+
+
+def log_likes_plain(x, mask, As, bs, prec, logdet, lags, diagonal):
+    """Per-frame observation log-likelihoods (N, T, K) (JAX:
+    models/arhmm.py:187 _log_likes, for trials stacked on a leading axis),
+    plain PyTorch, from :func:`obs_precision`'s ``prec`` and ``logdet``."""
+    N, T, D = x.shape
+    K = bs.shape[0]
+    if lags > 0:
+        mus = torch.einsum('kdp,ntp->ntkd', As[:, :, :D * lags], _lagged(x, lags)) + bs
+    else:
+        mus = bs.expand(N, T, K, D)
+    diff = x[:, :, None, :] - mus                      # (N, T, K, D)
+    if diagonal:
+        maha = torch.sum(diff ** 2 / prec, dim=3)
+    else:
+        sol = torch.einsum('kde,ntke->ntkd', prec, diff)
+        maha = torch.sum(sol ** 2, dim=3)
+    ll = -0.5 * (D * LN2PI + logdet + maha)
+    if lags > 0:
+        init_ll = -0.5 * (D * LN2PI + torch.sum(x ** 2, dim=2))   # (N, T)
+        first = (torch.arange(T, device=x.device) < lags)[None, :, None]
+        ll = torch.where(first, init_ll[:, :, None], ll)
+    return ll * mask[:, :, None]
+
+
+def log_likes_cuda(x, mask, As, bs, prec, logdet, lags, diagonal):
+    """K8 on the card: :func:`log_likes_plain`'s (N, T, K)."""
+    name = 'arhmm_log_likes'
+    tensors = (x, mask, As, bs, prec, logdet)
+    for t in tensors:
+        if t.device.type != 'cuda' or t.device != x.device:
+            raise ValueError('%s: every tensor must lie on one CUDA device, got %s'
+                             % (name, [str(t.device) for t in tensors]))
+        if t.dtype != torch.float32:
+            raise ValueError('%s: tensors must be float32, got %s' % (name, t.dtype))
+    N, T, D = x.shape
+    K, P = bs.shape[0], As.shape[2]
+    want_prec = (K, D) if diagonal else (K, D, D)
+    if mask.shape != (N, T) or As.shape[:2] != (K, D) or bs.shape != (K, D) or \
+            tuple(prec.shape) != want_prec or logdet.shape != (K,) or P < D * lags:
+        raise ValueError('%s: shapes x %s, mask %s, As %s, bs %s, prec %s, logdet %s do '
+                         'not fit together' % (name, *(tuple(t.shape) for t in tensors)))
+    if D > _MAX_D or D * lags > _MAX_LAG_COLS:
+        raise ValueError('%s: takes D <= %d and D * lags <= %d, got D=%d, lags=%d'
+                         % (name, _MAX_D, _MAX_LAG_COLS, D, lags))
+    x, mask, As, bs, prec, logdet = (t.contiguous() for t in tensors)
+    out = torch.empty((N, T, K), device=x.device, dtype=torch.float32)
+    if out.numel():
+        launch(name, x.data_ptr(), mask.data_ptr(), As.data_ptr(), bs.data_ptr(),
+               prec.data_ptr(), logdet.data_ptr(), N, T, D, K, P, lags, int(diagonal),
+               out.data_ptr())
+    return out
+
+
+def log_likes(x, mask, As, bs, Sigmas, lags, diagonal):
+    """Observation log-likelihoods (N, T, K) of padded trials: K8 on a
+    ``cuda`` tensor, the plain version on a ``cpu`` one."""
+    prec, logdet = obs_precision(Sigmas, diagonal)
+    if x.device.type == 'cpu':
+        return log_likes_plain(x, mask, As, bs, prec, logdet, lags, diagonal)
+    if x.device.type != 'cuda':
+        raise ValueError('log_likes: no implementation for device %s' % x.device)
+    return log_likes_cuda(x, mask, As, bs, prec, logdet, lags, diagonal)
+
+
+# ------------------------------------------------------------------ k-means
+
+
+def _sq_dists(X, x_sq, C):
+    return np.maximum(x_sq[:, None] - 2.0 * X @ C.T + np.sum(C ** 2, axis=1)[None], 0.0)
+
+
+def _kmeans_pp(X, x_sq, K, rs):
+    """Greedy k-means++ seeding: each new center is the best of
+    2 + log(K) candidates drawn in proportion to the squared distance."""
+    n = X.shape[0]
+    n_local = 2 + int(np.log(K))
+    centers = np.empty((K, X.shape[1]))
+    centers[0] = X[rs.randint(n)]
+    closest = _sq_dists(X, x_sq, centers[:1])[:, 0]
+    for c in range(1, K):
+        cand = np.searchsorted(np.cumsum(closest), rs.uniform(size=n_local) * closest.sum())
+        cand = np.minimum(cand, n - 1)
+        trial = np.minimum(closest[:, None], _sq_dists(X, x_sq, X[cand]))
+        best = int(np.argmin(trial.sum(axis=0)))
+        closest = trial[:, best]
+        centers[c] = X[cand[best]]
+    return centers
+
+
+_KMEANS_MAX_ITER, _KMEANS_TOL = 300, 1e-4   # sklearn's KMeans defaults
+
+
+def kmeans(X, K, n_init=10, rng_seed=0):
+    """k-means in numpy: greedy k-means++ seeding from
+    ``RandomState(rng_seed)``, ``n_init`` restarts of at most 300 Lloyd
+    iterations, until the centers move less than 1e-4 times the mean
+    feature variance (an empty cluster takes the point farthest from its
+    center), the lowest inertia kept. Returns (labels (n,), centers (K, D),
+    inertia)."""
+    X = np.asarray(X, dtype=np.float64)
+    if X.shape[0] < K:
+        raise ValueError('k-means needs at least K=%d points, got %d' % (K, X.shape[0]))
+    rs = np.random.RandomState(rng_seed)
+    x_sq = np.sum(X ** 2, axis=1)
+    tol_abs = _KMEANS_TOL * np.mean(np.var(X, axis=0))
+    rows = np.arange(X.shape[0])
+    XT32 = np.ascontiguousarray(X.T, dtype=np.float32)   # (D, n): the assignments
+    best = None
+    for _ in range(n_init):
+        C = _kmeans_pp(X, x_sq, K, rs)
+        labels = None
+        for _ in range(_KMEANS_MAX_ITER):
+            # nearest center: argmin_k |c_k|^2 - 2 c_k . x (|x|^2 is the same
+            # for every k), over the (K, n) scores in float32
+            C32 = C.astype(np.float32)
+            scores = (-2.0 * C32) @ XT32 + np.sum(C32 ** 2, axis=1)[:, None]
+            new_labels = np.argmin(scores, axis=0)
+            if labels is not None and np.array_equal(new_labels, labels):
+                break
+            labels = new_labels
+            counts = np.bincount(labels, minlength=K)
+            C_new = np.stack([np.bincount(labels, weights=X[:, d], minlength=K)
+                              for d in range(X.shape[1])], axis=1)
+            C_new /= np.maximum(counts, 1)[:, None]
+            empty = np.flatnonzero(counts == 0)
+            if len(empty):
+                far = np.argsort(_sq_dists(X, x_sq, C)[rows, labels])[::-1]
+                C_new[empty] = X[far[:len(empty)]]
+            shift = np.sum((C_new - C) ** 2)
+            C = C_new
+            if shift <= tol_abs:
+                break
+        d2 = _sq_dists(X, x_sq, C)
+        labels = np.argmin(d2, axis=1)
+        inertia = float(d2[rows, labels].sum())
+        if best is None or inertia < best[2]:
+            best = (labels, C, inertia)
+    return best
+
+
+# ------------------------------------------------------------------- model
+
+
+def check_ported(observations, transitions, parallel_scan=False, dtype='float32'):
+    """Raise ``NotImplementedError`` for a configuration the port cannot fit
+    yet (naming the slice that brings it), ``ValueError`` for an invalid one."""
+    if observations in _ROBUST:
+        raise NotImplementedError(
+            'robust observations ("%s") are not ported yet (next ARHMM slice: '
+            'Student\'s-t log-likes and the nu Newton step)' % observations)
+    if observations not in _OBSERVATIONS:
+        raise ValueError('"%s" is an invalid observation type' % observations)
+    if transitions in ('recurrent', 'recurrent_only'):
+        raise NotImplementedError(
+            '"%s" transitions are not ported yet (next ARHMM slice: '
+            'expected_transitions and the Adam M-step)' % transitions)
+    if transitions not in ('stationary', 'sticky'):
+        raise ValueError('"%s" is an invalid transition type' % transitions)
+    if parallel_scan:
+        raise NotImplementedError('parallel_scan is not ported yet (next ARHMM slice: '
+                                  'the associative scans of kernel rows 13 and 14)')
+    if dtype != 'float32':
+        raise NotImplementedError('em_dtype "%s" is not ported; the port runs EM in '
+                                  'float32' % dtype)
+
+
+class ARHMM:
+    """(AR)HMM with EM fitting; the JAX package's ``ARHMM`` API (itself
+    ssm.HMM's where the reference uses it), with parameters held as float32
+    tensors on ``device`` (``None`` means ``'cuda'``)."""
+
+    def __init__(self, K, D, lags=1, observations='ar', transitions='stationary',
+                 kappa=0.0, nu=4.0, rng_seed=0, parallel_scan=False, dtype='float32',
+                 device=None):
+        check_ported(observations, transitions, parallel_scan, dtype)
+        self.device = resolve_device(device)
+        self.K = int(K)
+        self.D = int(D)
+        self.observations = observations
+        self.transitions = transitions
+        self.kappa = float(kappa)
+        self.rng_seed = rng_seed
+        self.dtype = dtype
+        self.lags = int(lags) if 'ar' in observations.split('_') else 0
+        self.diagonal = observations.startswith('diagonal')
+
+        # drawn exactly as the JAX package draws them (models/arhmm.py:111-128)
+        P = self.D * self.lags
+        rng = np.random.RandomState(rng_seed)
+        Ps = 0.95 * np.eye(K) + 0.05 * rng.rand(K, K)
+        Ps /= Ps.sum(axis=1, keepdims=True)
+        self.params = self._tensors({
+            'log_pi0': np.log(np.ones(K) / K),
+            'log_Ps': np.log(Ps),
+            'As': 0.8 * np.tile(np.eye(self.D), (K, 1, self.lags)) if self.lags > 0
+            else np.zeros((K, self.D, max(P, 1))),
+            'bs': 0.01 * rng.randn(K, self.D),
+            'Sigmas': np.tile(np.eye(self.D), (K, 1, 1)),
+            'nus': np.full((K,), float(nu)),
+        })
+
+    def _tensors(self, arrays):
+        return {k: torch.tensor(np.asarray(v), dtype=torch.float32, device=self.device)
+                for k, v in arrays.items()}
+
+    def to(self, device):
+        """Move the parameters to ``device``; returns the model."""
+        self.device = resolve_device(device)
+        self.params = {k: v.to(self.device) for k, v in self.params.items()}
+        return self
+
+    # ------------------------------------------------------------------ io
+    def __getstate__(self):
+        state = dict(self.__dict__)
+        state['params'] = {k: v.detach().cpu().numpy() for k, v in self.params.items()}
+        del state['device']
+        return state
+
+    def __setstate__(self, state):
+        # a JAX-written model carries its jit caches; they mean nothing here
+        for key in ('_fit_step', '_fit_step_sp', '_fit_scan'):
+            state.pop(key, None)
+        state.setdefault('parallel_scan', False)
+        state.setdefault('dtype', 'float32')
+        check_ported(state['observations'], state['transitions'],
+                     state['parallel_scan'], state['dtype'])
+        self.__dict__.update(state)
+        self.device = resolve_device(UNPICKLE_DEVICE.get())
+        self.params = self._tensors(state['params'])
+
+    def save(self, filepath):
+        with open(filepath, 'wb') as f:
+            pickle.dump(self, f)
+
+    @staticmethod
+    def load(filepath, device=None):
+        """A pickled model of either package, on ``device``."""
+        from behavenet_tpu_torch.utils.pickles import load_arhmm
+        return load_arhmm(filepath, device=device)
+
+    # ------------------------------------------------------ likelihood core
+    def pad(self, datas):
+        """A trial or list of trials -> :class:`PaddedTrials` on the model's
+        device (a :class:`PaddedTrials` passes through)."""
+        if isinstance(datas, PaddedTrials):
+            return PaddedTrials(datas.x.to(self.device), datas.mask.to(self.device))
+        if not isinstance(datas, (list, tuple)):
+            datas = [datas]
+        return pad_trials(datas, self.device)
+
+    def _log_likes(self, params, x, mask):
+        """Per-frame observation log-likelihoods (N, T, K) of padded trials."""
+        return log_likes(x, mask, params['As'], params['bs'], params['Sigmas'],
+                         self.lags, self.diagonal)
+
+    def _log_P(self, params):
+        """Stationary transition log-probs (K, K)."""
+        return torch.log_softmax(params['log_Ps'], dim=1)
+
+    # ------------------------------------------------------------- public api
+    def log_likelihood(self, datas):
+        """Total log-likelihood of a trial, a list of trials or
+        :class:`PaddedTrials` (ssm.HMM API), the forward pass alone."""
+        x, mask = self.pad(datas)
+        p = self.params
+        log_Z = hmm_ops.log_normalizer(p['log_pi0'], self._log_P(p),
+                                       self._log_likes(p, x, mask), mask)
+        return float(torch.sum(log_Z))
+
+    def most_likely_states_batch(self, datas):
+        """Viterbi paths of a list of trials in one launch: a list of (T_i,)
+        int32 arrays."""
+        if not isinstance(datas, (list, tuple)):
+            datas = [datas]
+        x, mask = self.pad(datas)
+        p = self.params
+        paths = hmm_ops.viterbi(p['log_pi0'], self._log_P(p),
+                                self._log_likes(p, x, mask), mask).cpu().numpy()
+        return [paths[i, :len(d)] for i, d in enumerate(datas)]
+
+    def most_likely_states(self, data, mesh=None):
+        """Viterbi path (T,) int32 of one trial (ssm.HMM API)."""
+        if mesh is not None:
+            raise NotImplementedError('sequence-parallel Viterbi (mesh) is not ported yet')
+        return self.most_likely_states_batch([data])[0]
+
+    def expected_states(self, data, mesh=None):
+        """Posterior marginals gamma (T, K) of one trial."""
+        if mesh is not None:
+            raise NotImplementedError('sequence-parallel forward-backward (mesh) is not '
+                                      'ported yet')
+        x, mask = self.pad([data])
+        p = self.params
+        gamma, _, _ = hmm_ops.forward_backward(p['log_pi0'], self._log_P(p),
+                                               self._log_likes(p, x, mask), mask)
+        return gamma[0].cpu().numpy()
+
+    def posterior_sample(self, data, key=None, mesh=None):
+        raise NotImplementedError('posterior_sample (FFBS, kernel row 15) is not ported '
+                                  'yet (next ARHMM slice)')
+
+    def sample(self, T, key=None, prefix=None, with_noise=True):
+        raise NotImplementedError('sampling from the ARHMM is not ported yet')
+
+    def sample_x(self, states, key=None, prefix=None, with_noise=True):
+        raise NotImplementedError('sampling from the ARHMM is not ported yet')
+
+    def permute(self, perm):
+        """Relabel states by ``perm`` (ssm.HMM API; the CLI's usage sort)."""
+        perm = torch.tensor(np.array(perm, dtype=np.int64), device=self.device)
+        p = self.params
+        new = dict(p)
+        new['log_pi0'] = p['log_pi0'][perm]
+        new['log_Ps'] = p['log_Ps'][perm][:, perm]
+        for key in ('As', 'bs', 'Sigmas', 'nus'):
+            new[key] = p[key][perm]
+        self.params = new
+
+    # ------------------------------------------------------------------- EM
+    def initialize(self, datas, localize=True):
+        """ssm-style initialization: k-means clusters of the frames (the
+        port's :func:`kmeans`, 10 restarts from ``rng_seed``), then per-cluster
+        (AR) least squares, as the JAX package's (models/arhmm.py:414)."""
+        datas = [np.asarray(d) for d in datas]
+        stacked = np.vstack(datas).astype(np.float64)
+        labels = kmeans(stacked, self.K, n_init=10, rng_seed=self.rng_seed)[0]
+        D, lags, K = self.D, self.lags, self.K
+
+        bs = np.zeros((K, D))
+        As = np.zeros((K, D, max(D * lags, 1)))
+        Sigmas = np.tile(np.eye(D), (K, 1, 1))
+        if lags == 0:
+            for k in range(K):
+                pts = stacked[labels == k]
+                if len(pts) > 1:
+                    bs[k] = pts.mean(axis=0)
+                    Sigmas[k] = np.cov(pts.T) + 1e-4 * np.eye(D)
+        else:
+            offset = 0
+            Xs, Ys, Ls = [], [], []
+            for d in datas:
+                T = d.shape[0]
+                if T <= lags:
+                    offset += T
+                    continue
+                feats = np.concatenate(
+                    [d[lags - l:T - l] for l in range(1, lags + 1)], axis=1)
+                Xs.append(np.concatenate([feats, np.ones((T - lags, 1))], axis=1))
+                Ys.append(d[lags:])
+                Ls.append(labels[offset + lags:offset + T])
+                offset += T
+            X, Y, L = np.vstack(Xs), np.vstack(Ys), np.concatenate(Ls)
+            for k in range(K):
+                sel = (L == k) if localize else np.ones(len(L), dtype=bool)
+                if sel.sum() < D * lags + 1:
+                    sel = np.ones(len(L), dtype=bool)
+                Xk, Yk = X[sel], Y[sel]
+                beta = np.linalg.lstsq(
+                    Xk.T @ Xk + 1e-4 * np.eye(Xk.shape[1]), Xk.T @ Yk, rcond=None)[0]
+                As[k] = beta[:-1].T
+                bs[k] = beta[-1]
+                resid = Yk - Xk @ beta
+                Sigmas[k] = (resid.T @ resid) / max(len(Yk), 1) + 1e-4 * np.eye(D)
+
+        self.params = dict(self.params)
+        self.params.update(self._tensors({'As': As, 'bs': bs, 'Sigmas': Sigmas}))
+
+    def _em_step(self, params, x, mask):
+        """One EM iteration on padded trials (N, T, D): returns (new params,
+        the total log-likelihood under ``params`` as a 0-d tensor)."""
+        ll = self._log_likes(params, x, mask)
+        gammas, log_Zs, xi_sums = hmm_ops.forward_backward(
+            params['log_pi0'], self._log_P(params), ll, mask)
+        return self._m_step(params, x, mask, gammas, xi_sums), torch.sum(log_Zs)
+
+    def _m_step(self, params, x, mask, gammas, xi_sums):
+        """All M-step updates from the posteriors (JAX: models/arhmm.py:484)."""
+        K, D, lags = self.K, self.D, self.lags
+        dev = x.device
+        new = dict(params)
+
+        pi0 = torch.mean(gammas[:, 0, :], dim=0) + 1e-8
+        new['log_pi0'] = torch.log(pi0 / torch.sum(pi0))
+
+        counts = torch.sum(xi_sums, dim=0)
+        if self.transitions == 'sticky':
+            counts = counts + self.kappa * torch.eye(K, device=dev)
+        counts = counts + 1e-8
+        new['log_Ps'] = torch.log(counts / torch.sum(counts, dim=1, keepdim=True))
+
+        # weighted least squares; frames without a full lag history weigh 0
+        w = gammas * mask[:, :, None]
+        ones = torch.ones(x.shape[:2] + (1,), device=dev)
+        if lags > 0:
+            w = w * (torch.arange(x.shape[1], device=dev) >= lags)[None, :, None]
+            Xd = torch.cat([_lagged(x, lags), ones], dim=2)
+        else:
+            Xd = ones
+        N, T, Pdim = Xd.shape
+        Xf, Yf, Wf = Xd.reshape(-1, Pdim), x.reshape(-1, D), w.reshape(-1, K)
+
+        XtWX = torch.einsum('np,nk,nq->kpq', Xf, Wf, Xf)
+        XtWY = torch.einsum('np,nk,nd->kpd', Xf, Wf, Yf)
+        # Jacobi equilibration, then a relative 1e-5 ridge: SPD, so the
+        # pivot-free unrolled solve is safe
+        s = 1.0 / torch.sqrt(torch.clamp(torch.diagonal(XtWX, dim1=1, dim2=2), min=1e-8))
+        A = XtWX * s[:, :, None] * s[:, None, :] + 1e-5 * torch.eye(Pdim, device=dev)[None]
+        beta = s[:, :, None] * solve_small(A, XtWY * s[:, :, None])   # (K, P, D)
+        if lags > 0:
+            new['As'] = beta[:, :-1, :].transpose(1, 2).contiguous()
+        new['bs'] = beta[:, -1, :].contiguous()
+
+        resid = Yf[:, None, :] - torch.einsum('np,kpd->nkd', Xf, beta)   # (N T, K, D)
+        wsum = torch.sum(Wf, dim=0)
+        if self.diagonal:
+            var = torch.sum(Wf[:, :, None] * resid ** 2, dim=0) / \
+                torch.clamp(wsum[:, None], min=1e-8) + 1e-6
+            new['Sigmas'] = torch.diag_embed(var)
+        else:
+            # sum_n W_nk r_nk r_nk^T as a (D, D) product per state and trial,
+            # then the sum over trials: as one contraction over all N T
+            # frames per state it is a GEMM with a 100k-long reduction and
+            # one output tile
+            R = resid.transpose(0, 1).reshape(K * N, T, D)
+            RW = (resid * Wf[:, :, None]).transpose(0, 1).reshape(K * N, T, D)
+            Sig = torch.bmm(RW.transpose(1, 2), R).reshape(K, N, D, D).sum(dim=1) / \
+                torch.clamp(wsum[:, None, None], min=1e-8)
+            # symmetrize, plus a scale-relative jitter that keeps the next
+            # E-step's Cholesky positive definite
+            Sig = 0.5 * (Sig + Sig.transpose(1, 2))
+            jit = 1e-6 * (1.0 + torch.diagonal(Sig, dim1=1, dim2=2).amax(dim=1))
+            new['Sigmas'] = Sig + jit[:, None, None] * torch.eye(D, device=dev)[None]
+        return new
+
+    def fit(self, datas, method='em', num_iters=1, initialize=False, tolerance=0.0,
+            mesh=None, shard_time=False, iters_per_dispatch=1):
+        """Run EM iterations (ssm.HMM.fit API subset); returns the
+        log-likelihood before each iteration's M-step, as Python floats.
+        ``datas`` is a list of trials or :class:`PaddedTrials` (then
+        ``initialize`` is not available). With ``tolerance > 0`` EM stops
+        once the relative change of the last two values is below it."""
+        if method != 'em':
+            raise NotImplementedError('only EM fitting is supported')
+        if mesh is not None or shard_time:
+            raise NotImplementedError('multi-device EM (mesh, shard_time) is not ported '
+                                      'yet (kernel row 19)')
+        if int(iters_per_dispatch) > 1:
+            raise NotImplementedError('iters_per_dispatch > 1 is not ported yet')
+        if initialize:
+            if isinstance(datas, PaddedTrials):
+                raise ValueError('initialize needs the list of trials, not PaddedTrials')
+            self.initialize(datas if isinstance(datas, (list, tuple)) else [datas])
+        x, mask = self.pad(datas)
+        lls = []
+        while len(lls) < num_iters:
+            if tolerance > 0 and len(lls) >= 2 and \
+                    abs((lls[-1] - lls[-2]) / lls[-1]) < tolerance:
+                break
+            self.params, ll = self._em_step(self.params, x, mask)
+            lls.append(float(ll))
+        return lls

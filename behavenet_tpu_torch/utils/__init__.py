@@ -1,1 +1,2 @@
-"""Host utilities of the port (config parsing, weight carry-over)."""
+"""Host utilities of the port (config parsing, weight carry-over, pickles
+of either package)."""

@@ -1,4 +1,5 @@
-"""Carry a JAX-package parameter pytree into the port's state dict, and back.
+"""Carry a JAX-package parameter pytree into the port's state dict, and back;
+and a JAX ARHMM's parameters into the port's ARHMM.
 
 The port's copy of the conv-AE half of
 ``behavenet_tpu/utils/torch_import.py:175 params_to_torch_state_dict``
@@ -20,7 +21,7 @@ the reference's torch modules want them:
 import numpy as np
 import torch
 
-__all__ = ['params_to_state_dict', 'state_dict_to_params']
+__all__ = ['params_to_state_dict', 'state_dict_to_params', 'arhmm_params_from_jax']
 
 
 def _chw_to_hwc_perm(c, h, w):
@@ -118,3 +119,13 @@ def state_dict_to_params(model):
                 np.transpose(sd['decoding.decoder.%s.weight' % name], (2, 3, 0, 1))),
             'b': sd['decoding.decoder.%s.bias' % name]}
     return {'encoder': enc, 'decoder': dec}
+
+
+def arhmm_params_from_jax(params, device=None):
+    """The port ARHMM's ``params`` (float32 tensors on ``device``, ``None``
+    meaning ``'cuda'``) from a JAX ARHMM's (``log_pi0``, ``log_Ps``, ``As``,
+    ``bs``, ``Sigmas``, ``nus``: numpy arrays, or anything ``np.asarray``
+    reads). The two packages lay them out alike."""
+    from behavenet_tpu_torch.utils.device import resolve_device
+    dev = resolve_device(device)
+    return {k: torch.tensor(_f32(v), device=dev) for k, v in params.items()}

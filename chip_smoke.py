@@ -42,12 +42,29 @@ On one CUDA GPU (an H100: the kernels are built for sm_90a) it
    plain path's with the same eps, times and profiles it; and serves the
    fitted PS-VAE through ``serving.load_version`` (``encode`` = [y, w]).
 
+7. the ARHMM (main paths 6-8): holds K8 (AR log-likelihoods, full and
+   diagonal covariance), K9 (forward-backward, on full trials and on a copy
+   with every tenth trial cut to 700 frames), K10 (Viterbi) and K11 (the
+   M-step's small solves) against their plain versions at the JAX package's
+   EM benchmark shapes (bench.py:300: K = 16 states, D = 9, AR(1), 100
+   trials of 1000 frames, sampled from a seeded ARHMM), params from a seeded
+   ``initialize``; runs ``ARHMM.fit`` for 20 EM iterations there (every LL
+   finite and non-decreasing, K8, K9 and K11 launched every iteration),
+   times an iteration beside the same EM through the plain versions and
+   profiles it; runs the port's ``arhmm_grid_search`` CLI on the card over
+   the published grid of configs/arhmm_jsons/arhmm_model.json (K = 2, 4, 8,
+   12) on a latents pickle of 50 trials of 189 frames (K8-K11 must all
+   launch inside it); and serves one fitted ``best_val_model.pt`` through
+   ``utils.pickles.load_arhmm`` (``most_likely_states``,
+   ``expected_states`` against the plain path on the card).
+
 Each phase prints one JSON line; the line before the last lists the kernels
 with their numbers, and the last line is ``{"ok": true, "device": ...}``.
 Without a CUDA device, or outside a checkout of the repository, it exits
 non-zero and prints no result. Any failure exits non-zero.
 """
 
+import contextlib
 import csv
 import json
 import os
@@ -129,12 +146,45 @@ KERNELS = {
                      'behavenet_tpu/ops/optim.py:32'),
     'decomposed_kl': ('behavenet_tpu_torch/kernels/decomposed_kl.cu',
                       'behavenet_tpu/ops/losses.py:120'),
+    'arhmm_log_likes': ('behavenet_tpu_torch/kernels/arhmm_log_likes.cu',
+                        'behavenet_tpu/models/arhmm.py:187'),
+    'hmm_forward_backward': ('behavenet_tpu_torch/kernels/hmm_forward_backward.cu',
+                             'behavenet_tpu/ops/hmm.py:115'),
+    'hmm_viterbi': ('behavenet_tpu_torch/kernels/hmm_viterbi.cu',
+                    'behavenet_tpu/ops/hmm.py:186'),
+    'solve_small': ('behavenet_tpu_torch/kernels/solve_small.cu',
+                    'behavenet_tpu/ops/smallmat.py:17'),
 }
 
 # the kernels a served request runs (an AE train step runs K1-K6, a
-# beta-TC-VAE or PS-VAE step all seven)
+# beta-TC-VAE or PS-VAE step K1-K7; ARHMM EM runs K8, K9 and K11, the
+# ARHMM CLI and serving K10 too)
 SERVE_KERNELS = ('conv2d_nhwc', 'conv_transpose2d_nhwc', 'conv_transpose2d_smallcout_sigmoid')
-AE_KERNELS = tuple(k for k in KERNELS if k != 'decomposed_kl')
+AE_KERNELS = SERVE_KERNELS + ('conv2d_grad_w_nhwc', 'masked_mse', 'amsgrad_step')
+VAE_KERNELS = AE_KERNELS + ('decomposed_kl',)
+EM_KERNELS = ('arhmm_log_likes', 'hmm_forward_backward', 'solve_small')
+ARHMM_KERNELS = EM_KERNELS + ('hmm_viterbi',)
+
+# The ARHMM at the JAX package's EM benchmark shapes (bench.py:300
+# measure_arhmm_em; the reference NP dataset's 1000-frame trials,
+# SURVEY.md:391; configs/arhmm_jsons/arhmm_training.json n_iters), and the
+# CLI's published grid on 189-frame Musall trials.
+EM_STATES, EM_DIM, EM_TRIALS, EM_FRAMES, EM_ITERS = 16, 9, 100, 1000, 20
+EM_CUT = 700                 # every tenth trial cut to 700 frames: the mask path
+EM_TIMED_ITERS = 5           # timed EM iterations, after 2 warm-up ones
+CLI_TRIALS = 50              # 40 train, 5 val, 5 test trials of TRIAL frames
+ARHMM_CONFIGS = os.path.join(HERE, 'configs', 'arhmm_jsons')
+# K8: max |d| <= LL_ABS_TOL * max(1, max|plain|) (f32 sums of 90 products
+# per frame and state in another order). K9: log_Z within LOGZ_REL_TOL,
+# gamma within GAMMA_ABS_TOL, xi_sum within XI_REL_TOL of its largest
+# entry (sums over 1000 frames in another order). K10: paths equal on at
+# least PATH_AGREE of the frames, and where they differ (a near-tie broken
+# the other way) the joint log-probabilities within PATH_LP_REL_TOL.
+# K11: within SOLVE_REL_TOL of max|plain| (10 elimination steps).
+LL_ABS_TOL, LOGZ_REL_TOL, GAMMA_ABS_TOL, XI_REL_TOL = 1e-4, 1e-5, 1e-4, 1e-4
+PATH_AGREE, PATH_LP_REL_TOL, SOLVE_REL_TOL = 0.999, 1e-5, 1e-4
+# EM's log-likelihood may not fall by more than this relative amount
+EM_LL_REL_TOL = 1e-5
 
 
 def emit(obj):
@@ -149,16 +199,17 @@ def import_port():
         raise SystemExit('behavenet_tpu_torch was imported from %s, not from '
                          'this checkout' % behavenet_tpu_torch.__file__)
     from behavenet_tpu_torch import serving
-    from behavenet_tpu_torch.fitting import experiment, training
+    from behavenet_tpu_torch.fitting import arhmm_grid_search, experiment, hyperparams, training
     from behavenet_tpu_torch.kernels import build
-    from behavenet_tpu_torch.models import aes, arch, base, vaes
+    from behavenet_tpu_torch.models import aes, arch, arhmm, base, vaes
     from behavenet_tpu_torch.ops import conv as ops
-    from behavenet_tpu_torch.ops import losses, optim
-    from behavenet_tpu_torch.utils import weights
+    from behavenet_tpu_torch.ops import hmm, losses, optim, smallmat
+    from behavenet_tpu_torch.utils import pickles, weights
     return types.SimpleNamespace(
         serving=serving, build=build, arch=arch, base=base, ops=ops, aes=aes,
         vaes=vaes, losses=losses, optim=optim, training=training,
-        experiment=experiment, weights=weights)
+        experiment=experiment, weights=weights, arhmm=arhmm, hmm=hmm, smallmat=smallmat,
+        pickles=pickles, arhmm_grid_search=arhmm_grid_search, hyperparams=hyperparams)
 
 
 def median_ms(fn, samples=5, inner=10, warmup=3):
@@ -834,10 +885,14 @@ KERNEL_OF = (('igemm_conv_kernel<unsigned char, false>', 'K1 conv2d_nhwc'),
              ('igemm_conv_kernel<float, true>', 'K2 conv_transpose2d_nhwc'),
              ('tconv_smallcout_kernel', 'K3 conv_transpose2d_smallcout_sigmoid'),
              ('gradw_', 'K4 conv2d_grad_w_nhwc'), ('mse_', 'K5 masked_mse'),
-             ('amsgrad_kernel', 'K6 amsgrad_step'), ('dkl_', 'K7 decomposed_kl'))
+             ('amsgrad_kernel', 'K6 amsgrad_step'), ('dkl_', 'K7 decomposed_kl'),
+             ('arhmm_log_likes_kernel', 'K8 arhmm_log_likes'),
+             ('forward_backward_kernel', 'K9 hmm_forward_backward'),
+             ('forward_kernel', 'K9 hmm_forward_backward (forward alone)'),
+             ('viterbi_kernel', 'K10 hmm_viterbi'), ('solve_small_kernel', 'K11 solve_small'))
 
 
-def profile_steps(fn, steps=5, warmup=2, phase='train_profile'):
+def profile_steps(fn, steps=5, warmup=2, phase='train_profile', **labels):
     """Where a train step's time goes: ``torch.profiler`` over ``steps``
     steps after ``warmup``; device time per kernel function, grouped by port
     kernel (everything else is PyTorch's: the FC matmuls, activation
@@ -875,7 +930,7 @@ def profile_steps(fn, steps=5, warmup=2, phase='train_profile'):
         groups[group] = groups.get(group, 0.0) + us / steps / 1e3
     top = sorted(by_name, key=by_name.get, reverse=True)[:12]
     return dict(
-        phase=phase, steps=steps, frames=TRIAL, bucket=BUCKET,
+        phase=phase, steps=steps, **dict(dict(frames=TRIAL, bucket=BUCKET), **labels),
         device_events=len(spans), wall_ms_per_step=wall_us / steps / 1e3,
         device_busy_ms_per_step=busy_us / steps / 1e3,
         device_idle_share=1.0 - busy_us / wall_us if spans else None,
@@ -971,7 +1026,7 @@ def fit_vae(port, hp, tmp, mc, source):
               train_trials=source.n_tot_batches['train'], seconds=fit_s,
               launches=launches, finite=finite,
               losses={k: v for k, v in logged.items() if 'loss' in k or 'r2' in k}))
-    missing = [k for k, v in launches.items() if v == 0]
+    missing = [k for k in VAE_KERNELS if launches[k] == 0]
     if missing or not finite:
         raise AssertionError('%s fit never launched %s or logged non-finite numbers'
                              % (mc, missing))
@@ -1114,6 +1169,407 @@ def serve_psvae(port, hp, vdir, best, source):
     return launches
 
 
+# ------------------------------------------------------------------ ARHMM
+
+
+def reset_launches(build):
+    for name in build.LAUNCHES:
+        build.LAUNCHES[name] = 0
+
+
+def bound(n_ops, n_bytes):
+    """The least time of a call: the larger of its operations at the f32
+    peak and its bytes (each input read once, each output written once) at
+    the memory rate."""
+    t_ops = n_ops / PEAK_F32_FLOPS * 1e3
+    t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
+    return dict(bound_ms=max(t_ops, t_bytes), t_ops_ms=t_ops, t_bytes_ms=t_bytes,
+                bound_by='operations' if t_ops >= t_bytes else 'bytes')
+
+
+def sample_arhmm(n, frames, k, d, seed):
+    """(n, frames, d) float32 trials from a seeded AR(1) HMM with k states:
+    dynamics 0.9 times a random rotation, offsets of scale 0.3, noise 0.1,
+    a state kept with probability 0.95 a frame."""
+    rs = np.random.RandomState(seed)
+    A = 0.9 * np.linalg.qr(rs.randn(k, d, d))[0]
+    b = 0.3 * rs.randn(k, d)
+    z = rs.randint(k, size=n)
+    x = np.zeros((n, frames, d))
+    x[:, 0] = rs.randn(n, d)
+    for t in range(1, frames):
+        z = np.where(rs.rand(n) < 0.95, z, rs.randint(k, size=n))
+        x[:, t] = np.einsum('nde,ne->nd', A[z], x[:, t - 1]) + b[z] + 0.1 * rs.randn(n, d)
+    return x.astype(np.float32)
+
+
+@contextlib.contextmanager
+def plain_arhmm(port):
+    """Route the ARHMM's kernel entry points to their plain versions: K8's
+    ``log_likes``, K9's ``forward_backward`` and ``log_normalizer``, K10's
+    ``viterbi`` and the M-step's K11 ``solve_small``, for the plain twin of
+    a run on the card."""
+    am, hmm = port.arhmm, port.hmm
+
+    def log_likes(x, mask, As, bs, Sigmas, lags, diagonal):
+        prec, logdet = am.obs_precision(Sigmas, diagonal)
+        return am.log_likes_plain(x, mask, As, bs, prec, logdet, lags, diagonal)
+    routes = ((am, 'log_likes', log_likes), (am, 'solve_small', port.smallmat.solve_small_plain),
+              (hmm, 'forward_backward', hmm.forward_backward_plain),
+              (hmm, 'log_normalizer', lambda *a: hmm.forward_plain(*a)[1]),
+              (hmm, 'viterbi', hmm.viterbi_plain))
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in routes]
+    for mod, name, fn in routes:
+        setattr(mod, name, fn)
+    try:
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def em_workload(port):
+    """The EM workload on the card (100 trials of 1000 frames, D = 9, from a
+    seeded 16-state ARHMM) and a 16-state model initialized on it."""
+    datas = list(sample_arhmm(EM_TRIALS, EM_FRAMES, EM_STATES, EM_DIM, SEED + 4))
+    model = port.arhmm.ARHMM(EM_STATES, EM_DIM, lags=1, rng_seed=SEED, device=DEVICE)
+    t0 = time.perf_counter()
+    model.initialize(datas)
+    init_s = time.perf_counter() - t0
+    return model, model.pad(datas), init_s
+
+
+def check_arhmm_log_likes(port, model, trials):
+    """K8 against its plain version on the EM workload: full covariance (the
+    main path) and diagonal."""
+    am = port.arhmm
+    x, mask = trials
+    p = model.params
+    N, T, D = x.shape
+    K = p['bs'].shape[0]
+    cases = {}
+    for diagonal in (False, True):
+        prec, logdet = am.obs_precision(p['Sigmas'], diagonal)
+        args = (x, mask, p['As'], p['bs'], prec, logdet, model.lags, diagonal)
+        out_k, out_p = am.log_likes_cuda(*args), am.log_likes_plain(*args)
+        torch.cuda.synchronize()
+        err = (out_k - out_p).abs().max().item()
+        tol = LL_ABS_TOL * max(1.0, out_p.abs().max().item())
+        finite = bool(torch.isfinite(out_k).all().item())
+        del out_k, out_p
+        P = D * model.lags
+        # per frame past the lags and state: mu (D P multiply-adds), bias and
+        # difference (2 D), then the lower-triangular L^-1 product (D (D + 1) / 2
+        # multiply-adds) and the squares summed (2 D), or with diagonal
+        # covariance a square, divide and add per dimension (3 D)
+        per_state = 2 * D * P + (5 * D if diagonal else D * (D + 1) + 4 * D)
+        n_ops = N * (T - model.lags) * K * per_state
+        n_bytes = 4 * (x.numel() + mask.numel() + N * T * K + p['As'].numel()
+                       + p['bs'].numel() + prec.numel() + K)
+        cases['diagonal' if diagonal else 'full'] = dict(
+            max_abs_err=err, abs_tol=tol, finite=finite,
+            ms=median_ms(lambda: am.log_likes_cuda(*args)),
+            plain_ms=median_ms(lambda: am.log_likes_plain(*args), samples=3, inner=2),
+            gflop=n_ops / 1e9, mbytes=n_bytes / 1e6, **bound(n_ops, n_bytes))
+    rec = dict(phase='arhmm_kernel_check', kernel='arhmm_log_likes', layer='full',
+               frames=N * T, trials=N, states=K, dim=D, library_ms=None, cases=cases,
+               **{k: v for k, v in cases['full'].items() if k != 'finite'})
+    emit(rec)
+    bad = [c for c, v in cases.items()
+           if not v['finite'] or v['max_abs_err'] > v['abs_tol']]
+    if bad:
+        raise AssertionError('K8 disagrees with its plain version (%s): %s' % (bad, rec))
+    return rec
+
+
+def check_forward_backward(port, model, trials):
+    """K9 against its plain version on the EM workload's log-likelihoods and
+    on a copy with every tenth trial cut to 700 frames."""
+    hmm = port.hmm
+    x, mask = trials
+    p = model.params
+    pi0, lp = p['log_pi0'], model._log_P(p)
+    ll = model._log_likes(p, x, mask)
+    cut = mask.clone()
+    cut[::10, EM_CUT:] = 0.0
+    N, T, K = ll.shape
+    cases = {}
+    for name, m in (('full', mask), ('cut', cut)):
+        llm = ll * m[:, :, None]
+        (g_k, z_k, xi_k), (g_p, z_p, xi_p) = (hmm.forward_backward_cuda(pi0, lp, llm, m),
+                                              hmm.forward_backward_plain(pi0, lp, llm, m))
+        fz_k = hmm.log_normalizer_cuda(pi0, lp, llm, m)
+        torch.cuda.synchronize()
+        frames = m.sum().item()
+        n_ops = (20 * K * K + 6 * K) * frames
+        n_bytes = 4 * (llm.numel() + m.numel() + K * K + K + g_k.numel() + N + xi_k.numel())
+        cases[name] = dict(
+            frames=frames,
+            log_z_rel_err=((z_k - z_p).abs() / z_p.abs()).max().item(),
+            forward_log_z_rel_err=((fz_k - z_p).abs() / z_p.abs()).max().item(),
+            max_abs_err=(g_k - g_p).abs().max().item(),
+            xi_rel_err=(xi_k - xi_p).abs().max().item() / xi_p.abs().max().item(),
+            padded_gamma_zero=bool((g_k[m == 0] == 0).all().item()),
+            finite=bool(torch.isfinite(g_k).all().item() and torch.isfinite(xi_k).all().item()),
+            ms=median_ms(lambda: hmm.forward_backward_cuda(pi0, lp, llm, m)),
+            fwd_ms=median_ms(lambda: hmm.log_normalizer_cuda(pi0, lp, llm, m)),
+            plain_ms=median_ms(lambda: hmm.forward_backward_plain(pi0, lp, llm, m),
+                               samples=3, inner=1, warmup=1),
+            gflop=n_ops / 1e9, mbytes=n_bytes / 1e6, **bound(n_ops, n_bytes))
+    rec = dict(phase='arhmm_kernel_check', kernel='hmm_forward_backward', layer='full',
+               frames=N * T, trials=N, states=K, log_z_rel_tol=LOGZ_REL_TOL,
+               abs_tol=GAMMA_ABS_TOL, xi_rel_tol=XI_REL_TOL, library_ms=None,
+               bound_note='the T-step dependence chain of the recursions, not these',
+               cases=cases, **{k: v for k, v in cases['full'].items()
+                               if k not in ('finite', 'padded_gamma_zero', 'frames')})
+    emit(rec)
+    bad = [c for c, v in cases.items() if not v['finite'] or not v['padded_gamma_zero']
+           or max(v['log_z_rel_err'], v['forward_log_z_rel_err']) > LOGZ_REL_TOL
+           or v['max_abs_err'] > GAMMA_ABS_TOL or v['xi_rel_err'] > XI_REL_TOL]
+    if bad:
+        raise AssertionError('K9 disagrees with its plain version (%s): %s' % (bad, rec))
+    return rec
+
+
+def check_viterbi(port, model, trials):
+    """K10 against its plain version on the EM workload: paths equal on at
+    least 99.9% of the frames, and each path's joint log-probability within
+    1e-5 of the plain path's."""
+    hmm = port.hmm
+    x, mask = trials
+    p = model.params
+    pi0, lp = p['log_pi0'], model._log_P(p)
+    ll = model._log_likes(p, x, mask)
+    N, T, K = ll.shape
+    path_k, path_p = hmm.viterbi_cuda(pi0, lp, ll, mask), hmm.viterbi_plain(pi0, lp, ll, mask)
+    torch.cuda.synchronize()
+    lp_k = hmm.path_log_prob(pi0, lp, ll, mask, path_k)
+    lp_p = hmm.path_log_prob(pi0, lp, ll, mask, path_p)
+    agree = (path_k == path_p).float().mean().item()
+    lp_rel = ((lp_k - lp_p).abs() / lp_p.abs()).max().item()
+    frames = mask.sum().item()
+    n_ops = 2 * K * K * frames
+    n_bytes = 4 * (ll.numel() + mask.numel() + K * K + K + path_k.numel())
+    rec = dict(phase='arhmm_kernel_check', kernel='hmm_viterbi', layer='full', frames=N * T,
+               trials=N, states=K, path_agreement=agree, agree_tol=PATH_AGREE,
+               path_log_prob_rel_err=lp_rel, rel_tol=PATH_LP_REL_TOL,
+               max_abs_err=(lp_k - lp_p).abs().max().item(),
+               ms=median_ms(lambda: hmm.viterbi_cuda(pi0, lp, ll, mask)),
+               plain_ms=median_ms(lambda: hmm.viterbi_plain(pi0, lp, ll, mask),
+                                  samples=3, inner=1, warmup=1),
+               library_ms=None, gflop=n_ops / 1e9, mbytes=n_bytes / 1e6,
+               bound_note='the T-step dependence chain and the backtrace, not these',
+               **bound(n_ops, n_bytes))
+    emit(rec)
+    if agree < PATH_AGREE or lp_rel > PATH_LP_REL_TOL:
+        raise AssertionError('K10 disagrees with its plain version: %s' % rec)
+    return rec
+
+
+def check_solve_small(port, model, trials):
+    """K11 at the systems one EM iteration's M-step solves on the EM workload
+    (16 equilibrated, ridged (10, 10) normal equations, 9 right-hand
+    sides), against its plain version and ``torch.linalg.solve``."""
+    am, sm = port.arhmm, port.smallmat
+    seen = []
+    real = am.solve_small
+
+    def capture(A, Y):
+        seen.append((A.clone(), Y.clone()))
+        return real(A, Y)
+    am.solve_small = capture
+    try:
+        model._em_step(model.params, *trials)
+    finally:
+        am.solve_small = real
+    A, Y = seen[0]
+    x_k, x_p = sm.solve_small_cuda(A, Y), sm.solve_small_plain(A, Y)
+    torch.cuda.synchronize()
+    scale = x_p.abs().max().item()
+    err = (x_k - x_p).abs().max().item()
+    B, n, k = Y.shape
+    n_ops = 2 * B * n * n * (n + k)
+    n_bytes = 4 * (A.numel() + 2 * Y.numel())
+    rec = dict(phase='arhmm_kernel_check', kernel='solve_small', layer='m_step', frames=B,
+               systems=B, a_shape=list(A.shape), y_shape=list(Y.shape), max_abs_err=err,
+               rel_err=err / scale, rel_tol=SOLVE_REL_TOL,
+               ms=median_ms(lambda: sm.solve_small_cuda(A, Y)),
+               plain_ms=median_ms(lambda: sm.solve_small_plain(A, Y)),
+               library_ms=median_ms(lambda: torch.linalg.solve(A, Y)),
+               **bound(n_ops, n_bytes))
+    emit(rec)
+    if not bool(torch.isfinite(x_k).all().item()) or err > SOLVE_REL_TOL * scale:
+        raise AssertionError('K11 disagrees with its plain version: %s' % rec)
+    return rec
+
+
+def arhmm_em(port, model, trials, init_s):
+    """Main path 6: ``ARHMM.fit`` from ``initialize``, 20 EM iterations of
+    the EM workload on the card; then an iteration's time beside the same
+    EM through the plain versions, and its profile."""
+    build = port.build
+    reset_launches(build)
+    t0 = time.perf_counter()
+    lls = model.fit(trials, num_iters=EM_ITERS)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = dict(build.LAUNCHES)
+    finite = bool(np.isfinite(lls).all())
+    rising = all(b >= a - EM_LL_REL_TOL * abs(a) for a, b in zip(lls, lls[1:]))
+    missing = [k for k in EM_KERNELS if launches[k] < EM_ITERS]
+
+    def step(m=model):
+        m.fit(trials, num_iters=1)
+    twin = port.arhmm.ARHMM(EM_STATES, EM_DIM, lags=1, rng_seed=SEED, device=DEVICE)
+    twin.params = dict(model.params)
+    ms = request_ms(step, reps=EM_TIMED_ITERS, warmup=2)
+    with plain_arhmm(port):
+        plain_ms = request_ms(lambda: step(twin), reps=EM_TIMED_ITERS, warmup=2)
+    rec = dict(phase='arhmm_em', trials=EM_TRIALS, frames_per_trial=EM_FRAMES,
+               states=EM_STATES, dim=EM_DIM, iterations=EM_ITERS, init_seconds=init_s,
+               fit_seconds=fit_s, lls=lls, finite=finite, non_decreasing=rising,
+               launches=launches,
+               launches_per_iteration={k: launches[k] / EM_ITERS for k in ARHMM_KERNELS},
+               ms_per_iteration=ms, iterations_per_s=1e3 / ms,
+               plain_ms_per_iteration=plain_ms, plain_iterations_per_s=1e3 / plain_ms)
+    emit(rec)
+    if missing or not finite or not rising:
+        raise AssertionError('EM on the card failed (missing %s): %s' % (missing, rec))
+    emit(profile_steps(step, phase='arhmm_em_profile', frames=EM_TRIALS * EM_FRAMES,
+                       bucket=None))
+    return launches
+
+
+def write_latents_store(port, save_dir, ids, model_cfg, training_cfg, latents):
+    """An upstream AE's completed version (``ae_version: "best"`` finds it)
+    holding a latents pickle in the experiment store's format."""
+    ae_dir = os.path.join(save_dir, *ids, model_cfg['ae_model_class'],
+                          model_cfg['ae_model_type'], '%02i_latents' % model_cfg['n_ae_latents'],
+                          model_cfg['ae_experiment_name'], 'version_0')
+    os.makedirs(ae_dir)
+    with open(os.path.join(ae_dir, 'meta_tags.pkl'), 'wb') as f:
+        pickle.dump({'rng_seed_data': training_cfg['rng_seed_data'],
+                     'trial_splits': training_cfg['trial_splits'],
+                     'training_completed': True}, f)
+    with open(os.path.join(ae_dir, 'metrics.csv'), 'w', newline='') as f:
+        csv.writer(f).writerows([['epoch', 'val_loss'], [0, 1.0]])
+    trs = [int(v) for v in training_cfg['trial_splits'].split(';')]
+    from behavenet_tpu_torch.data.generator import split_trials
+    splits = split_trials(len(latents), training_cfg['rng_seed_data'], *trs)
+    with open(os.path.join(ae_dir, '%s_latents.pkl' % '_'.join(ids)), 'wb') as f:
+        pickle.dump({'latents': list(latents), 'trials': splits}, f)
+
+
+def arhmm_cli(port, tmp):
+    """Main path 7: the port's ``arhmm_grid_search`` on the card over the
+    published grid (configs/arhmm_jsons/arhmm_model.json, K = 2, 4, 8, 12;
+    arhmm_training.json with its 20 iterations, train plots off; a compute
+    config without a device), on a latents pickle of 50 trials of 189
+    frames from a seeded 8-state ARHMM. Every logged loss finite, a states
+    pickle with one path per trial, K8-K11 launched inside it."""
+    def load(name):
+        with open(os.path.join(ARHMM_CONFIGS, 'arhmm_%s.json' % name)) as f:
+            return json.load(f)
+    model_cfg, training_cfg, compute_cfg = load('model'), load('training'), load('compute')
+    training_cfg['export_train_plots'] = False
+    training_cfg['export_states'] = True
+    compute_cfg.pop('device')
+    ids = ('musall', 'smoke', 'mouse', 'session-0')
+    save_dir = os.path.join(tmp, 'arhmm_store')
+    latents = sample_arhmm(CLI_TRIALS, TRIAL, 8, model_cfg['n_ae_latents'], SEED + 5)
+    write_latents_store(port, save_dir, ids, model_cfg, training_cfg, latents)
+    data_cfg = dict(zip(('lab', 'expt', 'animal', 'session'), ids), save_dir=save_dir,
+                    data_dir=os.path.join(tmp, 'arhmm_data'), all_source='save')
+    args = []
+    for name, cfg in (('data', data_cfg), ('model', model_cfg), ('training', training_cfg),
+                      ('compute', compute_cfg)):
+        path = os.path.join(tmp, 'arhmm_%s.json' % name)
+        with open(path, 'w') as f:
+            json.dump(cfg, f)
+        args += ['--%s_config' % name, path]
+
+    seconds = {}
+
+    def timed_main(hp):
+        t0 = time.perf_counter()
+        port.arhmm_grid_search.main(hp)
+        torch.cuda.synchronize()
+        seconds[hp['n_arhmm_states']] = time.perf_counter() - t0
+    reset_launches(port.build)
+    with open(os.path.join(tmp, 'arhmm_cli.log'), 'w') as log, \
+            contextlib.redirect_stdout(log):   # the CLI's own progress lines
+        port.hyperparams.run_grid_search(timed_main, port.hyperparams.get_all_params(
+            'grid_search', args))
+    launches = dict(port.build.LAUNCHES)
+
+    results, vdirs = {}, {}
+    for k in model_cfg['n_arhmm_states']:
+        vdir = os.path.join(save_dir, *ids, model_cfg['model_class'],
+                            '%02i_latents' % model_cfg['n_ae_latents'], '%02i_states' % k,
+                            model_cfg['transitions'], model_cfg['noise_type'],
+                            model_cfg['experiment_name'], 'version_0')
+        vdirs[k] = vdir
+        logged = read_metrics(vdir)
+        with open(os.path.join(vdir, '%s_states.pkl' % '_'.join(ids)), 'rb') as f:
+            states = pickle.load(f)['states']
+        with open(os.path.join(vdir, 'meta_tags.pkl'), 'rb') as f:
+            completed = pickle.load(f)['training_completed']
+        ok_states = len(states) == CLI_TRIALS and all(
+            s.dtype == np.int32 and s.shape == (TRIAL,) and 0 <= s.min() and s.max() < k
+            for s in states)
+        finite = all(len(v) and np.isfinite(v).all() for v in logged.values())
+        results[k] = dict(seconds=seconds.get(k), completed=completed, finite=finite,
+                          states_ok=ok_states, epochs=len(logged['tr_loss']) // 2,
+                          tr_loss=logged['tr_loss'][::2], val_loss=logged['val_loss'][::2])
+    missing = [k for k in ARHMM_KERNELS if launches[k] == 0]
+    rec = dict(phase='arhmm_cli', trials=CLI_TRIALS, frames_per_trial=TRIAL,
+               dim=model_cfg['n_ae_latents'], iterations=training_cfg['n_iters'],
+               grid=model_cfg['n_arhmm_states'], seconds_per_grid_point=seconds,
+               launches=launches, results=results)
+    emit(rec)
+    if missing or not all(r['completed'] and r['finite'] and r['states_ok']
+                          for r in results.values()):
+        raise AssertionError('the ARHMM CLI failed (missing %s): %s' % (missing, rec))
+    return vdirs[max(vdirs)], latents, launches
+
+
+def arhmm_serve(port, vdir, latents):
+    """Main path 8: a fitted ``best_val_model.pt`` loads through
+    ``load_arhmm`` on the card and decodes one trial: the Viterbi path and
+    the posteriors against the plain path's on the card."""
+    hmm = port.hmm
+    trial = latents[0]
+    reset_launches(port.build)
+    model = port.pickles.load_arhmm(os.path.join(vdir, 'best_val_model.pt'))
+    path, gamma = model.most_likely_states(trial), model.expected_states(trial)
+    torch.cuda.synchronize()
+    launches = dict(port.build.LAUNCHES)
+    with plain_arhmm(port):
+        path_p, gamma_p = model.most_likely_states(trial), model.expected_states(trial)
+    x, mask = model.pad([trial])
+    p = model.params
+    ll = model._log_likes(p, x, mask)
+    lps = [hmm.path_log_prob(p['log_pi0'], model._log_P(p), ll, mask,
+                             torch.from_numpy(z[None]).to(x.device)).item()
+           for z in (path, path_p)]
+    agree = float(np.mean(path == path_p))
+    lp_rel = abs(lps[0] - lps[1]) / abs(lps[1])
+    gamma_err = float(np.abs(gamma - gamma_p).max())
+    rec = dict(phase='arhmm_serve', states=model.K, frames=TRIAL, device=str(model.device),
+               path_agreement=agree, path_log_prob_rel_err=lp_rel, gamma_max_abs_err=gamma_err,
+               launches=launches,
+               most_likely_states_ms=request_ms(lambda: model.most_likely_states(trial)),
+               expected_states_ms=request_ms(lambda: model.expected_states(trial)))
+    emit(rec)
+    missing = [k for k in ('arhmm_log_likes', 'hmm_forward_backward', 'hmm_viterbi')
+               if launches[k] == 0]
+    if missing or agree < PATH_AGREE or lp_rel > PATH_LP_REL_TOL or \
+            gamma_err > GAMMA_ABS_TOL or model.device.type != torch.device(DEVICE).type:
+        raise AssertionError('the fitted ARHMM does not serve (missing %s): %s'
+                             % (missing, rec))
+    return launches
+
+
 def kernel_row(name, rows, launches):
     """The kernels-line entry of one kernel: sums over the rows it was
     checked at; launches from the main paths' runs."""
@@ -1164,6 +1620,9 @@ def main():
     checks.append(check_mse(port.losses, gen))
     checks.append(check_amsgrad(port.optim, port.aes.AE(hp).to(DEVICE), gen))
     checks += [check_decomposed_kl(port.losses, gen, d) for d in KL_DIMS]
+    em_model, em_trials, init_s = em_workload(port)
+    checks += [check(port, em_model, em_trials) for check in (
+        check_arhmm_log_likes, check_forward_backward, check_viterbi, check_solve_small)]
 
     launches = {}
     with tempfile.TemporaryDirectory() as tmp:
@@ -1175,6 +1634,9 @@ def main():
         psvae_step(port, ps_hp, ps_model, source)
         launches['serve_ps-vae'] = serve_psvae(port, ps_hp, ps_dir, ps_best, source)
         launches['fit_beta-tcvae'] = fit_vae(port, hp, tmp, 'beta-tcvae', source)[-1]
+        launches['arhmm_em'] = arhmm_em(port, em_model, em_trials, init_s)
+        vdir, cli_latents, launches['arhmm_cli'] = arhmm_cli(port, tmp)
+        launches['arhmm_serve'] = arhmm_serve(port, vdir, cli_latents)
 
     emit({'kernels': [kernel_row(name, [r for r in checks if r['kernel'] == name], launches)
                       for name in KERNELS]})

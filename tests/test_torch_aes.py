@@ -61,7 +61,7 @@ def test_forward_matches_jax(hp_kw):
     jmodel, params, model = _pair(hp)
     x = np.random.RandomState(0).rand(2, hp['y_pixels'], hp['x_pixels'],
                                       hp['n_input_channels']).astype(np.float32)
-    jy, jz = jmodel.forward(params, jnp.asarray(x))
+    jy, jz = jax.jit(jmodel.forward)(params, jnp.asarray(x))
     with torch.no_grad():
         y, z = model(torch.from_numpy(x))
     np.testing.assert_allclose(z.numpy(), np.asarray(jz), atol=1e-5, rtol=1e-5)

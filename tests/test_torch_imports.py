@@ -1,4 +1,5 @@
-"""The port and its chip smoke test import neither jax nor behavenet_tpu."""
+"""The port and its chip smoke test import neither jax nor behavenet_tpu,
+nor scikit-learn (the card's machine has none)."""
 
 import ast
 import glob
@@ -15,7 +16,7 @@ _FILES = sorted(glob.glob(os.path.join(_ROOT, 'behavenet_tpu_torch', '**', '*.py
 
 def _forbidden(module):
     top = module.split('.')[0]
-    return top in ('jax', 'jaxlib', 'behavenet_tpu')
+    return top in ('jax', 'jaxlib', 'behavenet_tpu', 'sklearn')
 
 
 @pytest.mark.parametrize('path', _FILES, ids=lambda p: os.path.relpath(p, _ROOT))
@@ -37,19 +38,22 @@ def test_no_jax_or_reference_package_import(path):
 
 
 def test_training_path_does_not_import_h5py():
-    """The trainer, the ops and the chip smoke test leave h5py out of a fresh
-    process: the card's machine has no h5py, and only opening an HDF5 store
-    needs it."""
+    """The trainer, the ops, the ARHMM CLI and the chip smoke test leave
+    h5py and sklearn out of a fresh process: the card's machine has
+    neither, and only opening an HDF5 store needs h5py
+    (``tests/test_torch_arhmm.py`` runs the ARHMM path in such a process)."""
     code = (
         'import sys\n'
         'sys.path.insert(0, sys.argv[1])\n'
         'import behavenet_tpu_torch.fitting.training\n'
         'import behavenet_tpu_torch.fitting.ae_grid_search\n'
+        'import behavenet_tpu_torch.fitting.arhmm_grid_search\n'
         'import behavenet_tpu_torch.ops.conv, behavenet_tpu_torch.ops.losses\n'
         'import behavenet_tpu_torch.ops.optim, behavenet_tpu_torch.models.vaes\n'
+        'import behavenet_tpu_torch.utils.pickles\n'
         'import chip_smoke\n'
-        'bad = sorted(m for m in sys.modules\n'
-        '             if m.split(".")[0] in ("h5py", "jax", "jaxlib", "behavenet_tpu"))\n'
+        'bad = sorted(m for m in sys.modules if m.split(".")[0] in\n'
+        '             ("h5py", "sklearn", "jax", "jaxlib", "behavenet_tpu"))\n'
         'assert not bad, bad\n')
     env = {k: v for k, v in os.environ.items() if k != 'PYTHONPATH'}
     proc = subprocess.run([sys.executable, '-c', code, _ROOT], env=env,

@@ -54,7 +54,7 @@ def test_encode_reconstruct_match_jax(version):
     frames = np.random.RandomState(0).randint(0, 256, (5, 32, 24, 2)).astype(np.uint8)
     # frames are independent, so the first n answers of one JAX call are
     # the reference for a request of n frames
-    ref_y, ref_z = model.forward(params, jnp.asarray(frames, jnp.float32) / 255.0)
+    ref_y, ref_z = jax.jit(model.forward)(params, jnp.asarray(frames, jnp.float32) / 255.0)
     for n in (1, 3, 5):
         z = bundle.encode(frames[:n])
         y = bundle.reconstruct(torch.from_numpy(frames[:n]))

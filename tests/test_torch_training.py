@@ -207,7 +207,7 @@ def test_ae_grid_search_writes_a_version_both_packages_load(store, tmp_path):
 
     frames = np.random.RandomState(1).randint(0, 256, (4, 16, 12, 1)).astype(np.uint8)
     params, _ = jbase.load_params(os.path.join(vdir, 'best_val_model.pt'))
-    ref_y, ref_z = JaxAE(hp).forward(params, frames.astype(np.float32) / 255.0)
+    ref_y, ref_z = jax.jit(JaxAE(hp).forward)(params, frames.astype(np.float32) / 255.0)
     bundle = serving.load_version(vdir, device='cpu')
     np.testing.assert_allclose(bundle.encode(frames).numpy(), np.asarray(ref_z), atol=1e-5)
     np.testing.assert_allclose(bundle.reconstruct(frames).numpy(), np.asarray(ref_y),

@@ -331,8 +331,8 @@ def test_grid_search_version_serves_and_loads_in_jax(mc, store, tmp_path):
     frames = np.random.RandomState(1).randint(0, 256, (4, 16, 12, 1)).astype(np.uint8)
     params, extra = jbase.load_params(os.path.join(vdir, 'best_val_model.pt'))
     assert extra == {'model_class': mc}
-    out = JAX_MODELS[mc](hp).forward(params, frames.astype(np.float32) / 255.0,
-                                     rng=jax.random.PRNGKey(0), use_mean=True)
+    out = jax.jit(lambda p, x, key: JAX_MODELS[mc](hp).forward(p, x, rng=key, use_mean=True))(
+        params, frames.astype(np.float32) / 255.0, jax.random.PRNGKey(0))
     bundle = serving.load_version(vdir, device='cpu')
     np.testing.assert_allclose(bundle.encode(frames).numpy(), np.asarray(out[2]), atol=1e-5)
     np.testing.assert_allclose(bundle.reconstruct(frames).numpy(), np.asarray(out[0]),
