@@ -11,10 +11,13 @@ the same order.
 through h5py; the JAX package's raw-offset reader (``data/raw_h5.py``) is
 not ported yet. Of the signals that live in export pickles, the AE latents
 (``'ae_latents'``, ``'latents'``: key ``'latents'`` of
-``<lab>_<expt>_<animal>_<session>_latents.pkl``) are read, and a session
-that asks for no HDF5 signal takes its trial count from the pickle, so a
-latents-only run never imports h5py. The others (states, predictions)
-belong to model classes not ported yet and raise.
+``<lab>_<expt>_<animal>_<session>_latents.pkl``, float32) and the ARHMM
+states (``'arhmm_states'``, ``'arhmm'``: key ``'states'`` of ``..._states.pkl``,
+int32) are read, with their transforms (motion energy, block shuffle, one-hot
+states, which widens int states to float32 (T, K)), and a session that asks
+for no HDF5 signal takes its trial count from the pickle, so a latents-only
+run never imports h5py. Predictions pickles belong to model classes not
+ported yet and raise.
 """
 
 import os
@@ -68,14 +71,18 @@ def _to_nhwc(arr):
     return np.ascontiguousarray(np.transpose(arr, (0, 2, 3, 1)))
 
 
-def _load_latents(path, idx=None):
-    """Per-trial float32 latents from a latents pickle (key ``'latents'``;
-    JAX: data/generator.py:69)."""
+# pickle-backed signal -> (key in the pickle, dtype) (JAX: data/generator.py:199)
+_PKL_KEYS = {'ae_latents': ('latents', 'float32'), 'latents': ('latents', 'float32'),
+             'arhmm_states': ('states', 'int32'), 'arhmm': ('states', 'int32')}
+
+
+def _load_pkl(path, key, dtype, idx=None):
+    """Per-trial arrays of an export pickle (JAX: data/generator.py:69)."""
     with open(path, 'rb') as f:
-        latents = pickle.load(f)['latents']
+        data = pickle.load(f)[key]
     if idx is None:
-        return [np.asarray(d).astype('float32') for d in latents]
-    return np.asarray(latents[idx]).astype('float32')
+        return [np.asarray(d).astype(dtype) for d in data]
+    return np.asarray(data[idx]).astype(dtype)
 
 
 def _open_h5(path):
@@ -92,7 +99,7 @@ class SingleSessionDataset:
     """
 
     _h5_signals = ('images', 'masks', 'neural', 'labels', 'labels_sc', 'labels_masks')
-    _pkl_signals = ('ae_latents', 'latents')   # key 'latents', float32
+    _pkl_signals = tuple(_PKL_KEYS)
 
     def __init__(self, data_dir, lab='', expt='', animal='', session='', signals=None,
                  transforms=None, paths=None, batch_load=True):
@@ -113,9 +120,6 @@ class SingleSessionDataset:
         self.transforms = OrderedDict()
         self.paths = OrderedDict()
         for signal, transform, path in zip(signals, transforms, paths):
-            if transform is not None and signal in self._pkl_signals:
-                raise NotImplementedError('transforms of pickle-backed signals (%s) are not '
-                                          'ported yet' % signal)
             self.transforms[signal] = transform
             self.paths[signal] = path
 
@@ -156,12 +160,23 @@ class SingleSessionDataset:
             return f[signal]['trial_%04i' % idx][()]
 
     def _read_pkl(self, signal, idx=None):
-        """Every trial (or trial ``idx``) of a pickle-backed signal."""
+        """Every trial (or trial ``idx``) of a pickle-backed signal, its
+        transform applied (JAX: data/generator.py:198-241)."""
+        key, dtype = _PKL_KEYS[signal]
         try:
-            return _load_latents(self.paths[signal], idx=idx)
+            data = _load_pkl(self.paths[signal], key, dtype, idx=idx)
         except FileNotFoundError:
-            raise NotImplementedError('Could not open %s\nMust create ae latents from model'
-                                      % self.paths[signal])
+            raise NotImplementedError('Could not open %s\nMust create %s from model'
+                                      % (self.paths[signal], key))
+        transform = self.transforms.get(signal)
+        if transform is None:
+            return data
+
+        def post(d):
+            d = transform(d)
+            # a one-hot transform widens int state vectors to (T, K) floats
+            return d.astype('float32') if d.ndim > 1 and dtype == 'int32' else d.astype(dtype)
+        return post(data) if idx is not None else [post(d) for d in data]
 
     def _load_signal_trial(self, signal, idx):
         """Load a single trial of one signal; returns numpy array."""

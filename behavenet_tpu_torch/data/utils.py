@@ -3,28 +3,95 @@
 The port's copy of the parts of ``behavenet_tpu/data/utils.py`` (reference
 behavenet/data/utils.py) for the model classes the port fits: the
 autoencoders ``'ae'``, ``'vae'``, ``'beta-tcvae'`` and ``'ps-vae'`` (video
-frames, labels) and the segmentation models ``'arhmm'`` / ``'hmm'`` (AE
+frames, labels), the segmentation models ``'arhmm'`` / ``'hmm'`` (AE
 latents from an experiment-store latents pickle) and ``'arhmm-labels'`` /
-``'hmm-labels'`` (labels). Other model classes raise
-``NotImplementedError`` until their slice is ported.
+``'hmm-labels'`` (labels), and the neural decoders (neural activity from
+the HDF5 store against AE latents, labels or ARHMM states). Other model
+classes, and neural subsampling, raise ``NotImplementedError`` until their
+slice is ported.
 """
 
 import os
 
 __all__ = ['get_data_generator_inputs', 'build_data_generator', 'check_same_training_split',
-           'get_latents_path']
+           'get_latents_path', 'get_states_path', 'get_neural_transform', 'SIGNAL_WIDTHS']
 
 _IMAGES_ONLY = ('ae', 'vae', 'beta-tcvae')
 _WITH_LABELS = ('ps-vae',)
 _ON_LATENTS = ('arhmm', 'hmm')
 _ON_LABELS = ('arhmm-labels', 'hmm-labels')
+# the hparam that holds the width of a decoder's non-neural signal
+SIGNAL_WIDTHS = {'ae_latents': 'n_ae_latents', 'labels': 'n_labels',
+                 'arhmm_states': 'n_arhmm_states'}
+
+
+def get_neural_transform(hparams):
+    """The transform of the neural signal (JAX: data/utils.py:288-317):
+    ``Threshold`` of spikes when ``neural_thresh`` > 0, ``ZScore`` of calcium
+    traces (unless ``model_type`` ends in 'neural', as JAX reads it),
+    nothing for 'ca-zscored'."""
+    from behavenet_tpu_torch.data.transforms import Compose, Threshold, ZScore
+    if hparams.get('subsample_method', 'none') != 'none':
+        raise NotImplementedError('neural subsampling is not ported yet')
+    transforms = []
+    if hparams['neural_type'] == 'spikes':
+        if hparams['neural_thresh'] > 0:
+            transforms.append(Threshold(threshold=hparams['neural_thresh'],
+                                        bin_size=hparams['neural_bin_size']))
+    elif hparams['neural_type'] == 'ca':
+        if hparams['model_type'][-6:] != 'neural':
+            transforms.append(ZScore())
+    elif hparams['neural_type'] != 'ca-zscored':
+        raise ValueError('"%s" is an invalid neural type' % hparams['neural_type'])
+    return Compose(transforms) if transforms else None
+
+
+def _decoder_inputs(hparams, sess_id, hdf5):
+    """(signals, transforms, paths) of one session of a decoder, and its
+    ``input_signal``, ``output_signal``, ``output_size`` and ``noise_dist``
+    set in ``hparams`` (JAX: data/utils.py:68-150)."""
+    from behavenet_tpu_torch.data.transforms import BlockShuffle, Compose, MakeOneHot, \
+        MotionEnergy
+    mc = hparams['model_class']
+    gaussian = 'gaussian-full' if hparams['model_type'][-2:] == 'mv' else 'gaussian'
+    other = mc.replace('neural', '').strip('-')            # 'ae', 'ae-me', 'labels', 'arhmm'
+    signal = {'ae': 'ae_latents', 'ae-me': 'ae_latents', 'labels': 'labels',
+              'arhmm': 'arhmm_states'}[other]
+    if other.startswith('ae'):
+        transform = MotionEnergy() if other == 'ae-me' else None
+        path = get_latents_path(hparams, sess_id)
+    elif other == 'labels':
+        transform, path = None, hdf5
+    else:
+        transform = BlockShuffle(hparams['shuffle_rng_seed']) \
+            if hparams.get('shuffle_rng_seed') is not None else None
+        path = get_states_path(hparams, sess_id)
+
+    if mc.startswith('neural-'):
+        hparams['input_signal'], hparams['output_signal'] = 'neural', signal
+        hparams['output_size'] = hparams[SIGNAL_WIDTHS[signal]]
+        hparams['noise_dist'] = 'categorical' if other == 'arhmm' else gaussian
+    else:
+        hparams['input_signal'], hparams['output_signal'] = signal, 'neural'
+        hparams['output_size'] = None
+        if hparams['neural_type'] == 'ca':
+            hparams['noise_dist'] = gaussian
+        elif hparams['neural_type'] == 'spikes':
+            hparams['noise_dist'] = 'poisson'
+        if other == 'arhmm':
+            # decoder inputs must be (time, K) one-hot; the reference ships
+            # MakeOneHot but never wires it in (JAX :141-147 departs here)
+            onehot = MakeOneHot(n_classes=hparams.get('n_arhmm_states'))
+            transform = Compose([transform, onehot]) if transform else onehot
+    return (['neural', signal], [get_neural_transform(hparams), transform], [hdf5, path])
 
 
 def get_data_generator_inputs(hparams, sess_ids):
     """Per-session (signals, transforms, paths) of the model class
-    (JAX: data/utils.py:17-56, :152-174; reference :15-339)."""
+    (JAX: data/utils.py:17-174; reference :15-339)."""
+    from behavenet_tpu_torch.models.decoders import DECODER_CLASSES
     mc = hparams['model_class']
-    if mc not in _IMAGES_ONLY + _WITH_LABELS + _ON_LATENTS + _ON_LABELS:
+    if mc not in _IMAGES_ONLY + _WITH_LABELS + _ON_LATENTS + _ON_LABELS + DECODER_CLASSES:
         raise NotImplementedError('model_class "%s" is not ported yet' % mc)
     if hparams.get('conditional_encoder', False):
         raise NotImplementedError('a conditional encoder is not ported yet')
@@ -33,6 +100,12 @@ def get_data_generator_inputs(hparams, sess_ids):
         hdf5 = os.path.join(
             hparams['data_dir'], sess_id['lab'], sess_id['expt'],
             sess_id['animal'], sess_id['session'], 'data.hdf5')
+        if mc in DECODER_CLASSES:
+            signals, transforms, paths = _decoder_inputs(hparams, sess_id, hdf5)
+            signals_list.append(signals)
+            transforms_list.append(transforms)
+            paths_list.append(paths)
+            continue
         if mc in _ON_LATENTS + _ON_LABELS:
             if mc in _ON_LATENTS:
                 signals = ['ae_latents']
@@ -120,6 +193,29 @@ def get_latents_path(hparams, sess_id):
         else:
             ae_version = 'version_%i' % get_best_model_version(ae_dir, 'val_loss')[0]
         path = os.path.join(ae_dir, ae_version, '%s_%s_%s_%s_latents.pkl' % (
+            sess_id['lab'], sess_id['expt'], sess_id['animal'], sess_id['session']))
+    check_same_training_split(path, hparams)
+    return path
+
+
+def get_states_path(hparams, sess_id):
+    """The ARHMM states pickle of a session (the ``'arhmm_states'`` branch of
+    JAX: data/utils.py:336-351): the ``arhmm_states_file`` hparam, else the
+    one of the upstream ARHMM's version (``arhmm_version`` when an int, else
+    the best one by val loss). Its version must share this run's data seed
+    and trial splits."""
+    from behavenet_tpu_torch.fitting.experiment import get_best_model_version, get_expt_dir
+
+    if 'arhmm_states_file' in hparams:
+        path = hparams['arhmm_states_file']
+    else:
+        arhmm_dir = get_expt_dir(hparams, model_class='arhmm',
+                                 expt_name=hparams['arhmm_experiment_name'])
+        if isinstance(hparams.get('arhmm_version'), int):
+            version = 'version_%i' % hparams['arhmm_version']
+        else:
+            version = 'version_%i' % get_best_model_version(arhmm_dir, 'val_loss')[0]
+        path = os.path.join(arhmm_dir, version, '%s_%s_%s_%s_states.pkl' % (
             sess_id['lab'], sess_id['expt'], sess_id['animal'], sess_id['session']))
     check_same_training_split(path, hparams)
     return path

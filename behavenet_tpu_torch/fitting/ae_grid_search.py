@@ -21,7 +21,7 @@ from behavenet_tpu_torch.fitting.experiment import (
 from behavenet_tpu_torch.fitting.hyperparams import (
     get_all_params, print_hparams, run_grid_search)
 from behavenet_tpu_torch.fitting.training import fit
-from behavenet_tpu_torch.models import MODELS
+from behavenet_tpu_torch.models import AE_MODELS
 from behavenet_tpu_torch.models.aes import load_pretrained_ae
 from behavenet_tpu_torch.models.base import params_finite
 from behavenet_tpu_torch.utils.device import resolve_device
@@ -40,7 +40,7 @@ def main(hparams, *args):
     """Fit one grid trial (JAX: ae_grid_search.py:21; reference :20-146)."""
     if not isinstance(hparams, dict):
         hparams = vars(hparams)
-    if hparams['model_class'] not in MODELS:
+    if hparams['model_class'] not in AE_MODELS:
         raise NotImplementedError('model_class "%s" is not ported yet'
                                   % hparams['model_class'])
     if hparams.get('export_train_plots', False):
@@ -68,7 +68,7 @@ def main(hparams, *args):
     hparams['n_datasets'] = len(sess_ids)
     if hparams['model_class'] == 'ps-vae':
         _set_n_labels(data_generator, hparams)
-    model = MODELS[hparams['model_class']](hparams)
+    model = AE_MODELS[hparams['model_class']](hparams)
     model.version = exp.version
 
     hparams['training_completed'] = False

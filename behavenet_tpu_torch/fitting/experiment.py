@@ -1,8 +1,9 @@
 """Experiment store: versioned results tree, metrics logging, dedup.
 
-The port's copy of what ``ae_grid_search`` and ``arhmm_grid_search`` need
-from ``behavenet_tpu/fitting/experiment.py`` (reference behavenet/fitting/
-utils.py, with test-tube's Experiment replaced by :class:`Experiment`). The
+The port's copy of what ``ae_grid_search``, ``arhmm_grid_search`` and
+``decoder_grid_search`` need from ``behavenet_tpu/fitting/experiment.py``
+(reference behavenet/fitting/utils.py, with test-tube's Experiment replaced
+by :class:`Experiment`). The
 on-disk layout is the JAX package's, bit for bit: ``version_%i/``
 directories, ``metrics.csv``, ``meta_tags.pkl``, ``session_info.csv``, e.g.
 ``ae/conv/08_latents/expt/version_0/best_val_model.pt``. Both packages read
@@ -14,16 +15,23 @@ import csv
 import os
 import pickle
 
+from behavenet_tpu_torch.models.decoders import DECODER_CLASSES
+
 __all__ = [
     'Experiment', 'get_subdirs', 'get_session_dir', 'get_expt_dir',
     'read_session_info_from_csv', 'export_session_info_to_csv', 'experiment_exists',
     'get_model_params', 'export_hparams', 'create_experiment', 'get_best_model_version',
+    'get_region_dir',
 ]
 
 _AE_FAMILY = ('ae', 'vae', 'beta-tcvae', 'cond-vae', 'cond-ae', 'cond-ae-msp',
               'ps-vae', 'msps-vae')
 _ARHMM_ON_LATENTS = ('arhmm', 'hmm')
 _ARHMM_ON_LABELS = ('arhmm-labels', 'hmm-labels')
+# the decoder classes by the directory layout of their upstream signal
+_DECODERS_ON_LATENTS = ('neural-ae', 'neural-ae-me', 'ae-neural')
+_DECODERS_ON_LABELS = ('neural-labels', 'labels-neural')
+_DECODERS_ON_STATES = ('neural-arhmm', 'arhmm-neural')
 
 
 class Experiment(object):
@@ -232,7 +240,8 @@ def _get_transition_str(hparams):
 
 def get_expt_dir(hparams, model_class=None, model_type=None, expt_name=None):
     """Model-class-specific experiment directory (JAX: experiment.py:230;
-    reference :307-434), for the autoencoder family and the (AR)HMMs."""
+    reference :307-434), for the autoencoder family, the (AR)HMMs and the
+    neural decoders."""
     import copy
 
     if model_class is None:
@@ -254,9 +263,21 @@ def get_expt_dir(hparams, model_class=None, model_type=None, expt_name=None):
             '%02i_states' % hparams['n_arhmm_states'],
             _get_transition_str(hparams), hparams['noise_type'])
         multi_key = 'arhmm_multisession'
+    elif model_class in DECODER_CLASSES:
+        region = get_region_dir(hparams)
+        if model_class in _DECODERS_ON_LATENTS:
+            parts = ['%02i_latents' % hparams['n_ae_latents'], model_type]
+        elif model_class in _DECODERS_ON_LABELS:
+            parts = [model_type]
+        else:
+            parts = ['%02i_latents' % hparams['n_ae_latents'],
+                     '%02i_states' % hparams['n_arhmm_states'],
+                     _get_transition_str(hparams), model_type]
+        model_path = os.path.join(model_class, *parts, region)
+        multi_key = None
     else:
         raise NotImplementedError('model_class "%s" is not ported yet' % model_class)
-    if hparams.get(multi_key, None) is not None:
+    if multi_key is not None and hparams.get(multi_key, None) is not None:
         hparams_ = copy.deepcopy(hparams)
         hparams_['session'] = 'all'
         hparams_['multisession'] = hparams[multi_key]
@@ -324,11 +345,23 @@ def experiment_exists(hparams, which_version=False):
     return found_match
 
 
+def get_region_dir(hparams):
+    """'all', '<name>-single' or '<name>-loo' (JAX: experiment.py:558;
+    reference :806)."""
+    method = hparams.get('subsample_method', 'none')
+    if method == 'none':
+        return 'all'
+    if method in ('single', 'loo'):
+        return '%s-%s' % (hparams['subsample_idxs_name'], method)
+    raise ValueError('"%s" is an invalid sampling type' % method)
+
+
 def get_model_params(hparams):
     """The identity key set that dedups an experiment (JAX: experiment.py:420;
-    reference :633-753), for the autoencoder family and the (AR)HMMs."""
+    reference :633-753), for the autoencoder family, the (AR)HMMs and the
+    neural decoders."""
     model_class = hparams['model_class']
-    if model_class not in _AE_FAMILY + _ARHMM_ON_LATENTS + _ARHMM_ON_LABELS:
+    if model_class not in _AE_FAMILY + _ARHMM_ON_LATENTS + _ARHMM_ON_LABELS + DECODER_CLASSES:
         raise NotImplementedError('model_class "%s" is not ported yet' % model_class)
 
     hparams_less = {
@@ -339,6 +372,8 @@ def get_model_params(hparams):
         'model_class': hparams['model_class'],
         'model_type': hparams['model_type'],
     }
+    if model_class in DECODER_CLASSES:
+        return dict(hparams_less, **_decoder_params(hparams))
     if model_class not in _AE_FAMILY:
         for key in ('n_arhmm_lags', 'noise_type', 'transitions'):
             hparams_less[key] = hparams[key]
@@ -372,6 +407,29 @@ def get_model_params(hparams):
             hparams_less['n_background'] = hparams['n_background']
             hparams_less['n_sessions_per_batch'] = hparams['n_sessions_per_batch']
     return hparams_less
+
+
+def _decoder_params(hparams):
+    """A decoder's dedup keys beyond the common ones (JAX: experiment.py:471-533):
+    its upstream model's, then its architecture's."""
+    model_class = hparams['model_class']
+    keys = []
+    if model_class in _DECODERS_ON_LATENTS:
+        keys = ['ae_experiment_name', 'ae_version', 'ae_model_class', 'ae_model_type',
+                'n_ae_latents']
+    elif model_class in _DECODERS_ON_STATES:
+        keys = ['arhmm_experiment_name', 'arhmm_version', 'n_arhmm_states', 'n_arhmm_lags',
+                'noise_type', 'transitions']
+        if hparams['transitions'] == 'sticky':
+            keys.append('kappa')
+        keys += ['ae_model_class', 'ae_model_type', 'n_ae_latents']
+    keys += ['learning_rate', 'n_lags', 'l2_reg', 'model_type', 'n_hid_layers']
+    if hparams['n_hid_layers'] != 0:
+        keys.append('n_hid_units')
+    keys += ['activation', 'subsample_method']
+    if hparams['subsample_method'] != 'none':
+        keys += ['subsample_idxs_name', 'subsample_idxs_group_0', 'subsample_idxs_group_1']
+    return {key: hparams[key] for key in keys}
 
 
 def get_best_model_version(expt_dir, measure='val_loss'):

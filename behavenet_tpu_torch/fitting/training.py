@@ -12,7 +12,8 @@ The port of ``behavenet_tpu/fitting/training.py`` (single-device branch,
 - validation checks on a precomputed batch schedule with fractional
   ``val_check_interval`` (:302-306);
 - the best-val checkpoint (:388-397) and per-trial test rows (:435-447);
-- latents exported at the end (:452-461).
+- latents (``method='ae'``) or a decoder's predictions (``method='nll'``)
+  exported at the end (:452-461).
 
 As in the JAX package, trials are padded up to a multiple of
 ``shape_bucket`` (32) frames with a ``frame_mask`` that keeps the loss the
@@ -132,14 +133,20 @@ class EarlyStopping(object):
                   % (epoch, self.counter, self.best_loss, self.best_epoch, curr_loss))
 
 
-def _prepare_batch(sample):
-    """A generator sample's model inputs (host side, numpy; JAX: :131)."""
+def _prepare_batch(sample, hparams):
+    """A generator sample's model inputs (host side, numpy; JAX: :131): a
+    decoder's ``predictors`` and ``targets`` are its input and output
+    signals."""
+    ins, outs = hparams.get('input_signal'), hparams.get('output_signal')
+    if ins in sample and outs in sample:
+        return {'predictors': sample[ins], 'targets': sample[outs]}
     return {key: sample[key] for key in ('images', 'masks', 'labels', 'labels_masks')
             if key in sample}
 
 
 def _bucket_batch(batch, bucket):
-    """Pad the frame axis up to the next multiple of ``bucket``; add frame_mask.
+    """Pad the frame axis up to the next multiple of ``bucket`` (with zeros,
+    integer states too); add frame_mask.
 
     Few distinct batch shapes for variable-length trials; the masked loss
     is the exact unpadded value.
@@ -166,7 +173,7 @@ def _collate(data, dataset, hparams):
     free of shared state (JAX: training.py:308)."""
     if isinstance(data, list):
         raise NotImplementedError('multi-session batches (MSPS-VAE) are not ported yet')
-    batch = _prepare_batch(data)
+    batch = _prepare_batch(data, hparams)
     bucket = hparams.get('shape_bucket', 32)
     if bucket:
         batch = _bucket_batch(batch, int(bucket))
@@ -202,8 +209,8 @@ def fit(hparams, model, data_generator, exp, method='ae', warm_start=None):
     """Fit a model with AMSGrad + early stopping, logging to the experiment
     store (JAX: training.py:342).
 
-    ``model`` is a port model (``models.aes.AE`` or one of
-    ``models.vaes``); it is moved to
+    ``model`` is a port model (``models.aes.AE``, one of ``models.vaes``,
+    or with ``method='nll'`` a ``models.decoders.Decoder``); it is moved to
     ``hparams['device']`` (default ``'cuda'``; with no GPU this raises
     unless the device is ``'cpu'``) and holds the best-val weights at the
     end. ``warm_start``, if given, maps the initial parameters (numpy
@@ -214,7 +221,7 @@ def fit(hparams, model, data_generator, exp, method='ae', warm_start=None):
         if unported(hparams.get(key)):
             raise NotImplementedError('%s=%r is not ported yet'
                                       % (key, hparams.get(key)))
-    if method != 'ae':
+    if method not in ('ae', 'nll'):
         raise NotImplementedError('fit method "%s" is not ported yet' % method)
     if hparams.get('optimizer', 'amsgrad') != 'amsgrad':
         raise NotImplementedError('optimizer "%s" is not ported yet' % hparams['optimizer'])
@@ -325,7 +332,7 @@ def fit(hparams, model, data_generator, exp, method='ae', warm_start=None):
                 batch = _to_device(batch, device)
                 step = train_step if i_epoch > 0 else eval_step
                 logger.update_metrics('train', step(batch, loss_kwargs), dataset=ds)
-                n_frames_epoch += int(batch['images'].shape[0])
+                n_frames_epoch += int(next(iter(batch.values())).shape[0])
 
             if will_log:
                 exp.log(logger.create_metric_row(
@@ -410,10 +417,15 @@ def fit(hparams, model, data_generator, exp, method='ae', warm_start=None):
             'test', i_epoch, i_test, ds, trial=trial, by_dataset=True))
     exp.save()
 
-    if hparams.get('export_latents', False):
+    if method == 'ae' and hparams.get('export_latents', False):
         print('exporting latents')
         from behavenet_tpu_torch.fitting.eval import export_latents
         export_latents(data_generator, model, version=exp.version,
                        expt_dir=hparams['expt_dir'])
+    elif method == 'nll' and hparams.get('export_predictions', False):
+        print('exporting predictions')
+        from behavenet_tpu_torch.fitting.eval import export_predictions
+        export_predictions(data_generator, model, version=exp.version,
+                           expt_dir=hparams['expt_dir'])
 
     return state_dict_to_params(model)

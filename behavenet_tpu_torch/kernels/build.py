@@ -39,6 +39,7 @@ SOURCES = {
     'hmm_forward_backward': 'hmm_forward_backward.cu',
     'hmm_viterbi': 'hmm_viterbi.cu',
     'solve_small': 'solve_small.cu',
+    'gaussian_nll': 'gaussian_nll.cu',
 }
 _HEADERS = ('igemm.cuh', 'hmm.cuh')
 
@@ -71,6 +72,9 @@ _SIGNATURES = {
         'bn_hmm_forward': [_P] * 4 + [_I] * 3 + [_P] * 2},
     'hmm_viterbi': {'bn_hmm_viterbi': [_P] * 4 + [_I] * 3 + [_P] * 3},
     'solve_small': {'bn_solve_small': [_P] * 3 + [_I] * 3 + [_P]},
+    'gaussian_nll': {
+        'bn_gaussian_nll_fwd': [_P] * 6 + [_I] * 2 + [_P],
+        'bn_gaussian_nll_bwd': [_P] * 8 + [_I] * 2 + [_P]},
 }
 
 _lock = threading.Lock()

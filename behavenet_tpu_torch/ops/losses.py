@@ -1,27 +1,35 @@
 """Losses of the port (``behavenet_tpu/ops/losses.py``): the masked MSE, the
-Gaussian log-likelihood built on it, the KL to a standard normal and the
-minibatch KL decomposition of the beta-TC-VAE and PS-VAE.
+Gaussian log-likelihood built on it, the KL to a standard normal, the
+minibatch KL decomposition of the beta-TC-VAE and PS-VAE, and the decoders'
+full-covariance Gaussian negative log-likelihood.
 
-:func:`mse` and :func:`decomposed_kl` are ``torch.autograd.Function``s whose
-forward and backward run in kernels on a ``cuda`` tensor (K5
-``kernels/masked_mse.cu``, K7 ``kernels/decomposed_kl.cu``) and in the plain
-PyTorch versions beside them on a ``cpu`` tensor, picked from the input's
-device and from nothing else.
+:func:`mse`, :func:`decomposed_kl` and :func:`gaussian_neg_log_prob` (its
+per-frame branch) are ``torch.autograd.Function``s whose forward and
+backward run in kernels on a ``cuda`` tensor (K5 ``kernels/masked_mse.cu``,
+K7 ``kernels/decomposed_kl.cu``, K12 ``kernels/gaussian_nll.cu``) and in the
+plain PyTorch versions beside them on a ``cpu`` tensor, picked from the
+input's device and from nothing else.
 """
 
 import numpy as np
 import torch
 
 from behavenet_tpu_torch.kernels.build import launch
+from behavenet_tpu_torch.ops import smallmat
 
 __all__ = ['LN2PI', 'mse', 'mse_plain', 'mse_grad_plain', 'mse_cuda', 'mse_grad_cuda',
            'gaussian_ll', 'kl_div_to_std_normal', 'decomposed_kl', 'decomposed_kl_plain',
-           'decomposed_kl_grad_plain', 'decomposed_kl_cuda', 'decomposed_kl_grad_cuda']
+           'decomposed_kl_grad_plain', 'decomposed_kl_cuda', 'decomposed_kl_grad_cuda',
+           'gaussian_neg_log_prob', 'gaussian_neg_log_prob_plain',
+           'gaussian_neg_log_prob_grad_plain', 'gaussian_neg_log_prob_cuda',
+           'gaussian_neg_log_prob_grad_cuda']
 
 LN2PI = float(np.log(2 * np.pi))
 _PER_BLOCK = 2048  # elements of one frame each block of K5 reduces
 _MASKED = -1e30    # log-density of a padded mixture component (JAX :133)
 _KL_MAX_D = 64     # widest latent space K7 takes (the arch's max_latents)
+_NLL_MAX_D = 16    # widest per-frame covariance K12 takes (JAX unrolls up to it)
+_NLL_JITTER = 1e-3  # added to the covariance's diagonal (reference losses.py:17-33)
 
 
 def _on_cpu(t):
@@ -358,3 +366,177 @@ def decomposed_kl(z, mu, logvar, frame_mask=None):
     if frame_mask is not None and frame_mask.requires_grad:
         raise ValueError('decomposed_kl: frame_mask is data; it gets no gradient')
     return tuple(_DecomposedKLFn.apply(z, mu, logvar, frame_mask).unbind(0))
+
+
+# ------------------------------------------- full-covariance Gaussian NLL (K12)
+
+
+def _nll_sigma(cov, d, frame_mask):
+    """1e-3 I + cov, with a masked frame's covariance replaced by I (JAX
+    :173, :181-182)."""
+    eye = torch.eye(d, dtype=cov.dtype, device=cov.device)
+    sigma = _NLL_JITTER * eye + cov
+    if frame_mask is not None and sigma.dim() == 3:
+        sigma = torch.where(frame_mask[:, None, None] > 0, sigma, eye)
+    return sigma
+
+
+def _weighted_mean(nll, frame_mask):
+    """(sum w nll / max(sum w, 1), the denominator); w = 1 without a mask."""
+    w = torch.ones_like(nll) if frame_mask is None else frame_mask
+    den = torch.clamp(w.sum(), min=1.0)
+    return (nll * w).sum() / den, den
+
+
+def gaussian_neg_log_prob_plain(y_pred, y_true, cov, frame_mask=None):
+    """K12's function in plain PyTorch: the per-frame branch (``cov`` (B, d,
+    d), d <= 16) of JAX ops/losses.py:161 through the unrolled
+    ``smallmat.cholesky_small`` and ``solve_tril_small``. Returns (loss,
+    denominator), the denominator being ``max(sum(frame_mask), 1)`` (B
+    without a mask)."""
+    d = y_true.shape[1]
+    chol = smallmat.cholesky_small(_nll_sigma(cov, d, frame_mask))
+    sol = smallmat.solve_tril_small(chol, y_true - y_pred)
+    maha = torch.sum(sol ** 2, dim=1)
+    logdet = 2.0 * torch.sum(torch.log(torch.diagonal(chol, dim1=1, dim2=2)), dim=1)
+    return _weighted_mean(0.5 * (d * LN2PI + logdet + maha), frame_mask)
+
+
+def gaussian_neg_log_prob_grad_plain(y_pred, y_true, cov, frame_mask, den, grad_loss):
+    """(dL/dy_pred, dL/dcov) of :func:`gaussian_neg_log_prob_plain` at
+    upstream gradient ``grad_loss``, written out as K12 computes them: with
+    S = 1e-3 I + cov, a = S^-1 (y_true - y_pred) and scale = grad_loss w /
+    den, dL/dy_pred = -scale a and dL/dcov = scale (S^-1 - a a^T) below the
+    diagonal, half that on it and 0 above it (JAX's gradient through
+    ``cholesky_small``, which reads only the lower triangle); a masked frame
+    gets no covariance gradient."""
+    B, d = y_true.shape
+    chol = smallmat.cholesky_small(_nll_sigma(cov, d, frame_mask))
+    x = smallmat.solve_tril_small(chol, y_true - y_pred)
+    a = torch.linalg.solve_triangular(chol.transpose(1, 2), x[..., None], upper=True)[..., 0]
+    eye = torch.eye(d, dtype=cov.dtype, device=cov.device).expand(B, d, d)
+    l_inv = torch.linalg.solve_triangular(chol, eye, upper=False)
+    s = l_inv.transpose(1, 2) @ l_inv - a[:, :, None] * a[:, None, :]
+    w = torch.ones(B, dtype=cov.dtype, device=cov.device) if frame_mask is None \
+        else frame_mask
+    scale = grad_loss * w / den
+    half_diag = 0.5 * torch.diag_embed(torch.diagonal(s, dim1=1, dim2=2))
+    grad_cov = (torch.tril(s, -1) + half_diag) * scale[:, None, None]
+    if frame_mask is not None:
+        grad_cov = torch.where(frame_mask[:, None, None] > 0, grad_cov,
+                               torch.zeros_like(grad_cov))
+    return -scale[:, None] * a, grad_cov
+
+
+def _check_nll(name, y_pred, y_true, cov, frame_mask):
+    tensors = [t for t in (y_pred, y_true, cov, frame_mask) if t is not None]
+    for t in tensors:
+        if t.device != y_pred.device or t.device.type != 'cuda':
+            raise ValueError('%s: every tensor must lie on one CUDA device, got %s'
+                             % (name, [str(t.device) for t in tensors]))
+        if t.dtype != torch.float32:
+            raise ValueError('%s: tensors must be float32, got %s' % (name, t.dtype))
+    if y_pred.dim() != 2 or y_true.shape != y_pred.shape:
+        raise ValueError('%s: y_pred and y_true must be one (B, d) shape, got %s and %s'
+                         % (name, tuple(y_pred.shape), tuple(y_true.shape)))
+    n, d = y_pred.shape
+    if n < 1 or not 1 <= d <= _NLL_MAX_D or tuple(cov.shape) != (n, d, d):
+        raise ValueError('%s: takes B >= 1, 1 <= d <= %d and cov (B, d, d), got '
+                         'y_pred %s and cov %s' % (name, _NLL_MAX_D, tuple(y_pred.shape),
+                                                    tuple(cov.shape)))
+    if frame_mask is not None and tuple(frame_mask.shape) != (n,):
+        raise ValueError('%s: frame_mask must be (%d,)' % (name, n))
+    return n, d
+
+
+def gaussian_neg_log_prob_cuda(y_pred, y_true, cov, frame_mask=None):
+    """K12's forward on the card: (loss, denominator) as
+    :func:`gaussian_neg_log_prob_plain`."""
+    name = 'gaussian_nll'
+    n, d = _check_nll(name, y_pred, y_true, cov, frame_mask)
+    y_pred, y_true, cov, frame_mask = (_c(t) for t in (y_pred, y_true, cov, frame_mask))
+    wnll = torch.empty(n, device=y_pred.device, dtype=torch.float32)
+    out = torch.empty(2, device=y_pred.device, dtype=torch.float32)
+    launch(name, y_pred.data_ptr(), y_true.data_ptr(), cov.data_ptr(), _ptr(frame_mask),
+           wnll.data_ptr(), out.data_ptr(), n, d, symbol='bn_gaussian_nll_fwd')
+    return out[0], out[1]
+
+
+def gaussian_neg_log_prob_grad_cuda(y_pred, y_true, cov, frame_mask, den, grad_loss):
+    """K12's backward on the card: (dL/dy_pred, dL/dcov) as
+    :func:`gaussian_neg_log_prob_grad_plain`; ``den`` and ``grad_loss`` are
+    one-element float32 tensors on the card."""
+    name = 'gaussian_nll'
+    n, d = _check_nll(name, y_pred, y_true, cov, frame_mask)
+    y_pred, y_true, cov, frame_mask, den, grad_loss = (
+        _c(t) for t in (y_pred, y_true, cov, frame_mask, den, grad_loss))
+    grad_y = torch.empty_like(y_pred)
+    grad_cov = torch.empty_like(cov)
+    launch(name, y_pred.data_ptr(), y_true.data_ptr(), cov.data_ptr(), _ptr(frame_mask),
+           den.data_ptr(), grad_loss.data_ptr(), grad_y.data_ptr(), grad_cov.data_ptr(),
+           n, d, symbol='bn_gaussian_nll_bwd')
+    return grad_y, grad_cov
+
+
+class _GaussianNLLFn(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, y_pred, y_true, cov, frame_mask):
+        fwd = gaussian_neg_log_prob_plain if _on_cpu(y_pred) else gaussian_neg_log_prob_cuda
+        loss, den = fwd(y_pred, y_true, cov, frame_mask)
+        ctx.save_for_backward(y_pred, y_true, cov, frame_mask, den)
+        return loss
+
+    @staticmethod
+    def backward(ctx, grad_loss):
+        y_pred, y_true, cov, frame_mask, den = ctx.saved_tensors
+        bwd = gaussian_neg_log_prob_grad_plain if _on_cpu(y_pred) \
+            else gaussian_neg_log_prob_grad_cuda
+        grad_y, grad_cov = bwd(y_pred, y_true, cov, frame_mask, den, grad_loss)
+        return grad_y, None, grad_cov, None
+
+
+def _gaussian_neg_log_prob_linalg(y_pred, y_true, cov, frame_mask):
+    """The shared-covariance (d, d) and the d > 16 branches of JAX :175-195,
+    which call the library's Cholesky and triangular solve there too
+    (``torch.linalg`` here, differentiated by autograd; its Cholesky
+    gradient is symmetric, as JAX's)."""
+    d = y_true.shape[1]
+    sigma = _nll_sigma(cov, d, frame_mask)
+    diff = y_true - y_pred
+    chol = torch.linalg.cholesky(sigma)
+    if sigma.dim() == 2:
+        sol = torch.linalg.solve_triangular(chol, diff.T, upper=False)     # (d, B)
+        maha = torch.sum(sol ** 2, dim=0)
+        logdet = 2.0 * torch.sum(torch.log(torch.diagonal(chol)))
+    else:
+        sol = torch.linalg.solve_triangular(chol, diff[..., None], upper=False)[..., 0]
+        maha = torch.sum(sol ** 2, dim=1)
+        logdet = 2.0 * torch.sum(torch.log(torch.diagonal(chol, dim1=1, dim2=2)), dim=1)
+    return _weighted_mean(0.5 * (d * LN2PI + logdet + maha), frame_mask)[0]
+
+
+def gaussian_neg_log_prob(y_pred, y_true, cov, frame_mask=None):
+    """Negative multivariate-normal log-probability with a learned covariance
+    (JAX: ops/losses.py:161; the reference's GaussianNegLogProb module,
+    losses.py:17-33): covariance 1e-3 I + ``cov``, mean over (valid) frames.
+
+    ``y_pred``, ``y_true``: (B, d). ``cov``: (d, d) shared, or (B, d, d) per
+    frame (the decoder's precision head, passed as a covariance as the
+    reference does). ``frame_mask`` (B,) restricts the mean to valid rows; a
+    masked row's covariance is replaced by I first, so padding cannot give
+    NaNs. A per-frame covariance with d <= 16 runs K12 on a ``cuda`` tensor
+    (its plain version on a ``cpu`` one); the other cases go through
+    ``torch.linalg``. ``y_pred`` and ``cov`` get gradients; ``y_true`` and
+    the mask are data.
+    """
+    if y_pred.device.type not in ('cpu', 'cuda'):
+        raise ValueError('gaussian_neg_log_prob: no implementation for device %s'
+                         % y_pred.device)
+    for t in (y_true, frame_mask):
+        if t is not None and t.requires_grad:
+            raise ValueError('gaussian_neg_log_prob: targets and masks are data; they '
+                             'get no gradient')
+    if cov.dim() == 3 and y_true.shape[1] <= _NLL_MAX_D:
+        return _GaussianNLLFn.apply(y_pred, y_true, cov, frame_mask)
+    return _gaussian_neg_log_prob_linalg(y_pred, y_true, cov, frame_mask)

@@ -1,17 +1,23 @@
-"""Batched solves of small linear systems (the port of
-``behavenet_tpu/ops/smallmat.py:17 solve_small``).
+"""Batched linear algebra of small matrices (the port of
+``behavenet_tpu/ops/smallmat.py``).
 
 :func:`solve_small` runs K11 (``kernels/solve_small.cu``) on a ``cuda``
 tensor and the plain PyTorch version beside it on a ``cpu`` tensor, picked
 from the input's device and from nothing else. The ARHMM's M-step solves its
 K equilibrated, ridged (P, P) normal equations with it.
+
+:func:`cholesky_small` and :func:`solve_tril_small` are the plain versions of
+the unrolled Cholesky and forward substitution, in the JAX package's
+operation order; on the card they run inside K12 (``kernels/gaussian_nll.cu``,
+``ops.losses.gaussian_neg_log_prob``), their one caller.
 """
 
 import torch
 
 from behavenet_tpu_torch.kernels.build import launch
 
-__all__ = ['solve_small', 'solve_small_plain', 'solve_small_cuda']
+__all__ = ['solve_small', 'solve_small_plain', 'solve_small_cuda', 'cholesky_small',
+           'solve_tril_small']
 
 _MAX_N = 16      # widest system K11 takes (one register per row)
 _MAX_COLS = 64   # n + k: two columns of [A | Y] per lane of a warp
@@ -98,3 +104,39 @@ def solve_small(A, Y, pivot=False):
         raise NotImplementedError('solve_small(pivot=True) has no kernel yet; the '
                                   'ARHMM M-step never pivots')
     return solve_small_cuda(A, Y)
+
+
+def cholesky_small(A):
+    """Batched lower Cholesky factor of small SPD (..., n, n) matrices (JAX:
+    ops/smallmat.py:59): column by column, reading only the lower triangle
+    ``A[j, j]``, ``A[j+1:, j]``, in the JAX package's operation order."""
+    n = A.shape[-1]
+    cols = []
+    for j in range(n):
+        s = A[..., j, j]
+        if j:
+            s = s - torch.sum(torch.stack([c[..., j] for c in cols], dim=-1) ** 2, dim=-1)
+        ljj = torch.sqrt(s)
+        col = torch.zeros_like(A[..., :, j])
+        col[..., j] = ljj
+        if j + 1 < n:
+            r = A[..., j + 1:, j]
+            if j:
+                prev = torch.stack(cols, dim=-1)                     # (..., n, j)
+                r = r - torch.einsum('...ik,...k->...i', prev[..., j + 1:, :],
+                                     prev[..., j, :])
+            col[..., j + 1:] = r / ljj[..., None]
+        cols.append(col)
+    return torch.stack(cols, dim=-1)
+
+
+def solve_tril_small(L, b):
+    """Batched forward substitution ``L x = b`` for lower (..., n, n) ``L``
+    and (..., n) ``b`` (JAX: ops/smallmat.py:81), in its operation order."""
+    xs = []
+    for i in range(L.shape[-1]):
+        acc = b[..., i]
+        for j in range(i):
+            acc = acc - L[..., i, j] * xs[j]
+        xs.append(acc / L[..., i, i])
+    return torch.stack(xs, dim=-1)

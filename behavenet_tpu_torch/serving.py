@@ -1,8 +1,10 @@
-"""Serve a fitted conv autoencoder from an experiment-store version.
+"""Serve a fitted conv autoencoder or neural decoder from an
+experiment-store version.
 
-The port's counterpart of the autoencoder heads of
+The port's counterpart of the autoencoder and decoder heads of
 ``behavenet_tpu/serving.py`` for ``model_class`` ``'ae'``, ``'vae'``,
-``'beta-tcvae'`` and ``'ps-vae'``.
+``'beta-tcvae'`` and ``'ps-vae'``, and the seven MLP decoder classes
+(``'neural-ae'``, ... , ``'arhmm-neural'``).
 Where the JAX package exports StableHLO artifacts, the port loads the
 version the JAX CLI wrote (``meta_tags.pkl`` and ``best_val_model.pt``) and
 runs the model on the GPU, its convolutions in the hand-written kernels::
@@ -15,7 +17,13 @@ runs the model on the GPU, its convolutions in the hand-written kernels::
 Both heads take raw uint8 frames (numpy or torch, NHWC) and return float32
 tensors on the bundle's device, as the JAX heads do (serving.py:80-114). A
 VAE-family model serves at its posterior mean (``use_mean=True``): ``encode``
-returns mu (``[y, w]`` for the PS-VAE) and ``reconstruct`` decodes it.
+returns mu (``[y, w]`` for the PS-VAE) and ``reconstruct`` decodes it. A
+decoder's bundle has one head, ``predict``: a (T, input_size) float32 trial
+(neural activity, or latents, labels or one-hot states) to its (T,
+output_size) predictions (JAX serving.py:177-186)::
+
+    bundle = serving.load_version('/results/.../neural-ae/.../version_0')
+    latents_hat = bundle.predict(neural)        # (T, n_neurons) float32
 """
 
 import os
@@ -23,11 +31,12 @@ import pickle
 
 import torch
 
-from behavenet_tpu_torch.models import MODELS, base
+from behavenet_tpu_torch.models import MODELS, Decoder, base
 from behavenet_tpu_torch.utils.device import resolve_device
 from behavenet_tpu_torch.utils.weights import params_to_state_dict
 
-__all__ = ['load_version', 'ServingBundle']
+__all__ = ['load_version', 'ServingBundle', 'DecoderBundle']
+
 
 class ServingBundle:
     """A loaded model's inference heads."""
@@ -61,9 +70,32 @@ class ServingBundle:
             return self.model.reconstruct(self._frames(frames))
 
 
+class DecoderBundle:
+    """A loaded decoder's inference head."""
+
+    def __init__(self, model, device):
+        self.model = model
+        self.device = device
+        self.input_size = int(model.hparams['input_size'])
+
+    def names(self):
+        return ['predict']
+
+    def predict(self, x):
+        """float32 (T, input_size) -> float32 (T, output_size) predictions."""
+        x = torch.as_tensor(x)
+        if x.dtype != torch.float32 or x.dim() != 2 or x.shape[1] != self.input_size:
+            raise ValueError('predictors must be float32 of shape (T, %d), got %s %s'
+                             % (self.input_size, x.dtype, tuple(x.shape)))
+        with torch.inference_mode():
+            return self.model.predict(x.to(self.device).contiguous())
+
+
 def load_version(version_dir, device=None):
     """Load a fitted version (``meta_tags.pkl`` + ``best_val_model.pt``, as
-    the JAX CLI writes them) onto ``device`` (default ``'cuda'``)."""
+    the JAX CLI writes them) onto ``device`` (default ``'cuda'``): a
+    :class:`ServingBundle` for the autoencoder family, a
+    :class:`DecoderBundle` for a decoder."""
     dev = resolve_device(device)
     with open(os.path.join(version_dir, 'meta_tags.pkl'), 'rb') as f:
         hparams = pickle.load(f)
@@ -73,4 +105,5 @@ def load_version(version_dir, device=None):
     model = MODELS[hparams['model_class']](hparams)
     params, _ = base.load_params(os.path.join(version_dir, 'best_val_model.pt'))
     model.load_state_dict(params_to_state_dict(model, params))
-    return ServingBundle(model.to(dev).eval(), dev)
+    bundle = DecoderBundle if isinstance(model, Decoder) else ServingBundle
+    return bundle(model.to(dev).eval(), dev)

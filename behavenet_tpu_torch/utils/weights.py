@@ -15,11 +15,18 @@ the reference's torch modules want them:
 - the PS-VAE's fixed maps are stored input-major in JAX and as the
   reference's ``encoding.A.weight`` = A.T (likewise B); its diagonal label
   map ``D`` {'d', 'b'} is ``encoding.D.weight`` / ``.bias``
-  (``torch_import.py:144-157``, ``:284-292``).
+  (``torch_import.py:144-157``, ``:284-292``);
+- a neural decoder's temporal conv ``conv`` (K, in, out) is the reference's
+  ``model.decoder.conv1d_layer_00.weight`` (out, in, K), its dense layers
+  ``dense_%d`` (in, out) are ``model.decoder.dense_layer_%02i`` (out, in),
+  counted from 1 as the reference counts its layers, and ``precision_sqrt``
+  (in, d^2) is ``model.precision_sqrt`` (d^2, in).
 """
 
 import numpy as np
 import torch
+
+from behavenet_tpu_torch.models.decoders import Decoder
 
 __all__ = ['params_to_state_dict', 'state_dict_to_params', 'arhmm_params_from_jax']
 
@@ -38,10 +45,31 @@ def _f32(a):
     return np.asarray(a, dtype=np.float32)
 
 
+def _decoder_layers(model):
+    """(JAX layer name, port module name, transpose of the JAX weight) of
+    each layer of a port ``Decoder``."""
+    out = []
+    for name in model.model.decoder:
+        if name.startswith('conv1d'):
+            out.append(('conv', 'model.decoder.' + name, (2, 1, 0)))
+        else:
+            out.append(('dense_%d' % (int(name.split('_')[-1]) - 1),
+                        'model.decoder.' + name, (1, 0)))
+    if hasattr(model.model, 'precision_sqrt'):
+        out.append(('precision_sqrt', 'model.precision_sqrt', (1, 0)))
+    return out
+
+
 def params_to_state_dict(model, params):
     """State dict (str -> float32 CPU tensor) of ``model`` (a port ``AE``,
-    ``VAE``, ``BetaTCVAE`` or ``PSVAE``) from the JAX package's numpy params
-    pytree of the same hparams."""
+    ``VAE``, ``BetaTCVAE``, ``PSVAE`` or ``Decoder``) from the JAX package's
+    numpy params pytree of the same hparams."""
+    if isinstance(model, Decoder):
+        sd = {}
+        for jname, tname, perm in _decoder_layers(model):
+            sd[tname + '.weight'] = np.transpose(_f32(params[jname]['w']), perm)
+            sd[tname + '.bias'] = _f32(params[jname]['b'])
+        return {k: torch.tensor(np.ascontiguousarray(v)) for k, v in sd.items()}
     hp = model.hparams
     enc, dec = params['encoder'], params['decoder']
     sd = {}
@@ -81,14 +109,22 @@ def params_to_state_dict(model, params):
     return {k: torch.tensor(v) for k, v in sd.items()}
 
 
-def state_dict_to_params(model):
-    """The JAX package's numpy params pytree of ``model`` (a port ``AE``):
-    the inverse of :func:`params_to_state_dict`, so a checkpoint the port
-    writes has the JAX package's layout."""
+def state_dict_to_params(model, tensors=None):
+    """The JAX package's numpy params pytree of ``model``: the inverse of
+    :func:`params_to_state_dict`, so a checkpoint the port writes has the
+    JAX package's layout. ``tensors`` (name -> tensor, default the model's
+    state dict) may be anything keyed like it, e.g. the gradients."""
     hp = model.hparams
+    if tensors is None:
+        tensors = model.state_dict()
     # copies: on the CPU ``.numpy()`` would alias the live parameters, and a
     # later optimizer step would change the returned pytree
-    sd = {k: np.array(v.detach().cpu()) for k, v in model.state_dict().items()}
+    sd = {k: np.array(v.detach().cpu()) for k, v in tensors.items()}
+    if isinstance(model, Decoder):
+        return {jname: {'w': np.ascontiguousarray(
+                            np.transpose(sd[tname + '.weight'], np.argsort(perm))),
+                        'b': sd[tname + '.bias']}
+                for jname, tname, perm in _decoder_layers(model)}
     enc, dec = {}, {}
     for name in model.encoding.encoder:
         enc['conv_%s' % name[len('conv'):]] = {

@@ -6,7 +6,7 @@
 On one CUDA GPU (an H100: the kernels are built for sm_90a) it
 
 1. prints the card's name and power limit (nvidia-smi);
-2. builds the port's CUDA kernels from the sources in this checkout;
+2. builds the port's twelve CUDA kernels from the sources in this checkout;
 3. holds each kernel against its plain PyTorch version at the shapes the
    two main paths give it, and times the kernel, the plain version and the
    one PyTorch call that computes the same function (TF32 off for every
@@ -57,6 +57,22 @@ On one CUDA GPU (an H100: the kernels are built for sm_90a) it
    launch inside it); and serves one fitted ``best_val_model.pt`` through
    ``utils.pickles.load_arhmm`` (``most_likely_states``,
    ``expected_states`` against the plain path on the card).
+8. the neural decoders (main paths 9-12) at the published decoding config
+   (configs/decoding_jsons: a 9-wide temporal conv, one hidden layer of 32
+   relu units, 9 AE latents or 4 ARHMM states) on 189-frame trials of 256
+   neural channels (a chosen width: the repo names none): K12, the
+   full-covariance Gaussian NLL, forward and backward against its plain
+   version and ``MultivariateNormal.log_prob`` at the 192-frame bucket with
+   the lag-trimmed window, d = 9 and 16, and K5 there at (192, 9) with
+   float32 targets; ``fit`` of a ``neural-ae`` ``mlp-mv``
+   (K12 and K6 must launch inside it), a ``neural-ae`` ``mlp`` (K5, K6) and a
+   ``neural-arhmm`` ``mlp`` (K6) for an eval epoch and two train epochs over
+   20 in-memory trials with targets linear in the neural input, every
+   logged number finite; the fitted ``mlp``'s and ``mlp-mv``'s gradients
+   against the plain path's, the ``mlp-mv`` step's time beside the plain
+   step's and its profile; ``predict``
+   of the fitted ``mlp-mv`` through ``serving.load_version`` on a 189- and
+   a 1000-frame trial against the float64 forward.
 
 Each phase prints one JSON line; the line before the last lists the kernels
 with their numbers, and the last line is ``{"ok": true, "device": ...}``.
@@ -154,6 +170,8 @@ KERNELS = {
                     'behavenet_tpu/ops/hmm.py:186'),
     'solve_small': ('behavenet_tpu_torch/kernels/solve_small.cu',
                     'behavenet_tpu/ops/smallmat.py:17'),
+    'gaussian_nll': ('behavenet_tpu_torch/kernels/gaussian_nll.cu',
+                     'behavenet_tpu/ops/losses.py:161'),
 }
 
 # the kernels a served request runs (an AE train step runs K1-K6, a
@@ -186,6 +204,34 @@ PATH_AGREE, PATH_LP_REL_TOL, SOLVE_REL_TOL = 0.999, 1e-5, 1e-4
 # EM's log-likelihood may not fall by more than this relative amount
 EM_LL_REL_TOL = 1e-5
 
+# The neural decoders at the published decoding config
+# (configs/decoding_jsons/decoding_ae_model.json: n_lags 4, so a 9-wide
+# temporal conv, n_max_lags 8, one hidden layer of 32 relu units, l2 1e-3,
+# 9 AE latents; decoding_arhmm_model.json: 4 states; decoding_training.json:
+# learning rate 1e-3) on 189-frame trials of N_NEURAL channels. The repo
+# names no published neural width (it is the data's own): 256 is a choice.
+N_NEURAL, DEC_LATENTS, DEC_STATES = 256, 9, 4
+DEC_HP = dict(n_lags=4, n_max_lags=8, n_hid_layers=1, n_hid_units=32, activation='relu',
+              learning_rate=1e-3, l2_reg=1e-3)
+# name -> (model_class, model_type, output signal, output width, noise_dist,
+# the kernels its fit must launch)
+DECODERS = {
+    'neural-ae-mlp-mv': ('neural-ae', 'mlp-mv', 'ae_latents', DEC_LATENTS, 'gaussian-full',
+                         ('gaussian_nll', 'amsgrad_step')),
+    'neural-ae-mlp': ('neural-ae', 'mlp', 'ae_latents', DEC_LATENTS, 'gaussian',
+                      ('masked_mse', 'amsgrad_step')),
+    'neural-arhmm-mlp': ('neural-arhmm', 'mlp', 'arhmm_states', DEC_STATES, 'categorical',
+                         ('amsgrad_step',)),
+}
+NLL_DIMS = (DEC_LATENTS, 16)   # the published latents; the widest K12 takes
+PREDICT_FRAMES = (TRIAL, 1000)
+# K12 vs its plain version: the loss within LOSS_REL_TOL, the gradients
+# within NLL_GRAD_REL_TOL of max|plain| (float32 factors of covariances
+# with condition numbers up to ~5e3, in another operation order).
+NLL_GRAD_REL_TOL = 1e-4
+# A served prediction vs the float64 forward of the same weights.
+PREDICT_ABS_TOL = 1e-4
+
 
 def emit(obj):
     print(json.dumps(obj), flush=True)
@@ -201,7 +247,7 @@ def import_port():
     from behavenet_tpu_torch import serving
     from behavenet_tpu_torch.fitting import arhmm_grid_search, experiment, hyperparams, training
     from behavenet_tpu_torch.kernels import build
-    from behavenet_tpu_torch.models import aes, arch, arhmm, base, vaes
+    from behavenet_tpu_torch.models import aes, arch, arhmm, base, decoders, vaes
     from behavenet_tpu_torch.ops import conv as ops
     from behavenet_tpu_torch.ops import hmm, losses, optim, smallmat
     from behavenet_tpu_torch.utils import pickles, weights
@@ -209,7 +255,8 @@ def import_port():
         serving=serving, build=build, arch=arch, base=base, ops=ops, aes=aes,
         vaes=vaes, losses=losses, optim=optim, training=training,
         experiment=experiment, weights=weights, arhmm=arhmm, hmm=hmm, smallmat=smallmat,
-        pickles=pickles, arhmm_grid_search=arhmm_grid_search, hyperparams=hyperparams)
+        pickles=pickles, arhmm_grid_search=arhmm_grid_search, hyperparams=hyperparams,
+        decoders=decoders)
 
 
 def median_ms(fn, samples=5, inner=10, warmup=3):
@@ -610,25 +657,35 @@ def check_backward_layer(L, ops, gen):
     return rows
 
 
-def check_mse(losses, gen):
-    """K5 at the train step's loss shape: (192, 128, 128, 2) sigmoid outputs,
-    uint8 targets, 189 real frames; forward and backward (with the sigmoid
-    term) against the plain versions and ``F.mse_loss`` forward+backward."""
+def check_mse(losses, gen, decoder=False):
+    """K5 at a train step's loss shape, forward and backward against the
+    plain versions and ``F.mse_loss`` forward+backward. The AE's: (192,
+    128, 128, 2) sigmoid outputs, uint8 targets, 189 real frames, with the
+    sigmoid term. With ``decoder``, the ``mlp`` decoder's: (192, 9) float32
+    outputs and targets under the lag-trimmed window of a 189-frame trial,
+    no sigmoid term."""
     dev = DEVICE
-    shape = (BUCKET, IMG[1], IMG[2], IMG[0])
-    y = torch.sigmoid(torch.randn(shape, device=dev, generator=gen))
-    t = torch.randint(0, 256, shape, dtype=torch.uint8, device=dev, generator=gen)
-    fm = torch.zeros(BUCKET, device=dev)
-    fm[:TRIAL] = 1.0
+    if decoder:
+        shape = (BUCKET, DEC_LATENTS)
+        y = torch.randn(shape, device=dev, generator=gen)
+        t = torch.randn(shape, device=dev, generator=gen)
+        fm = decoder_window()
+    else:
+        shape = (BUCKET, IMG[1], IMG[2], IMG[0])
+        y = torch.sigmoid(torch.randn(shape, device=dev, generator=gen))
+        t = torch.randint(0, 256, shape, dtype=torch.uint8, device=dev, generator=gen)
+        fm = torch.zeros(BUCKET, device=dev)
+        fm[:TRIAL] = 1.0
+    sigmoid = not decoder
     one = torch.ones((), device=dev)
 
     def kernel():
         loss, den = losses.mse_cuda(y, t, None, fm)
-        return loss, losses.mse_grad_cuda(y, t, None, fm, den, one, True)
+        return loss, losses.mse_grad_cuda(y, t, None, fm, den, one, sigmoid)
 
     def plain():
         loss, den = losses.mse_plain(y, t, None, fm)
-        return loss, losses.mse_grad_plain(y, t, None, fm, den, one, True)
+        return loss, losses.mse_grad_plain(y, t, None, fm, den, one, sigmoid)
     (loss_k, g_k), (loss_p, g_p) = kernel(), plain()
     torch.cuda.synchronize()
     loss_err = abs(loss_k.item() - loss_p.item()) / abs(loss_p.item())
@@ -636,17 +693,20 @@ def check_mse(losses, gen):
     del g_k, g_p
 
     yl = y.clone().requires_grad_(True)
-    tf = t.float() / 255.0
+    tf = t if decoder else t.float() / 255.0
 
     def library():
         loss = F.mse_loss(yl, tf)
         return torch.autograd.grad(loss, yl)
     n = y.numel()
-    nbytes = n * (4 + 1) + n * (4 + 1 + 4) + 2 * 4 * BUCKET   # fwd + bwd
+    # the pair as one function: y, t, the frame mask and the upstream
+    # gradient read once; the loss, its denominator and dL/dy written once
+    nbytes = n * (4 + t.element_size()) + 4 * BUCKET + 4 + 2 * 4 + 4 * n
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = 8 * n / PEAK_F32_FLOPS * 1e3
     rec = dict(phase='loss_check', kernel='masked_mse', shape=list(shape),
-               real_frames=TRIAL, loss=loss_k.item(), loss_rel_err=loss_err,
+               **(dict(layer='decoder') if decoder else {}),
+               real_frames=int(fm.sum().item()), loss=loss_k.item(), loss_rel_err=loss_err,
                loss_rel_tol=LOSS_REL_TOL, max_abs_err=max_abs, abs_tol=abs_tol,
                max_rel_err=max_rel, rel_tol=REL_TOL, mbytes=nbytes / 1e6,
                ms=median_ms(kernel), plain_ms=median_ms(plain),
@@ -884,12 +944,16 @@ KERNEL_OF = (('igemm_conv_kernel<unsigned char, false>', 'K1 conv2d_nhwc'),
              ('igemm_conv_kernel<float, false>', 'K1 conv2d_nhwc'),
              ('igemm_conv_kernel<float, true>', 'K2 conv_transpose2d_nhwc'),
              ('tconv_smallcout_kernel', 'K3 conv_transpose2d_smallcout_sigmoid'),
-             ('gradw_', 'K4 conv2d_grad_w_nhwc'), ('mse_', 'K5 masked_mse'),
+             ('gradw_', 'K4 conv2d_grad_w_nhwc'),
+             ('mse_partial_kernel', 'K5 masked_mse'), ('mse_finish_kernel', 'K5 masked_mse'),
+             ('mse_grad_kernel', 'K5 masked_mse'),
              ('amsgrad_kernel', 'K6 amsgrad_step'), ('dkl_', 'K7 decomposed_kl'),
              ('arhmm_log_likes_kernel', 'K8 arhmm_log_likes'),
              ('forward_backward_kernel', 'K9 hmm_forward_backward'),
              ('forward_kernel', 'K9 hmm_forward_backward (forward alone)'),
-             ('viterbi_kernel', 'K10 hmm_viterbi'), ('solve_small_kernel', 'K11 solve_small'))
+             ('viterbi_kernel', 'K10 hmm_viterbi'), ('solve_small_kernel', 'K11 solve_small'),
+             ('nll_frames_kernel', 'K12 gaussian_nll'),
+             ('nll_finish_kernel', 'K12 gaussian_nll'), ('nll_grad_kernel', 'K12 gaussian_nll'))
 
 
 def profile_steps(fn, steps=5, warmup=2, phase='train_profile', **labels):
@@ -1570,6 +1634,316 @@ def arhmm_serve(port, vdir, latents):
     return launches
 
 
+# ---------------------------------------------------------------- decoders
+
+
+def decoder_window(frames=TRIAL, bucket=BUCKET, max_lags=DEC_HP['n_max_lags']):
+    """The loss weights of a trial padded to its bucket: 1 on [max_lags,
+    frames - max_lags), 0 on the lag borders and the padding."""
+    w = torch.zeros(bucket, device=DEVICE)
+    w[max_lags:frames - max_lags] = 1.0
+    return w
+
+
+def check_gaussian_nll(losses, gen, d):
+    """K12 at the decoder step's shapes: (192, d) means and targets, (192,
+    d, d) covariances L L^T from a seeded precision head (32 relu hidden
+    units, weights 0.05 randn, bias I: covariance condition numbers of
+    median 26 at d = 9 and 77 at d = 16, ~5e3 at worst; at weights 0.1 the
+    medians reach 2e2-2e3, and the two float32 factors then part by ~1e-5
+    of the loss, a test of the conditioning more than of the kernel), the
+    loss weights of a 189-frame trial after the lag trim; forward and
+    backward against the plain versions and ``-MultivariateNormal(y_pred,
+    1e-3 I + cov).log_prob(y_true)`` (the reference's own module), masked
+    mean, with autograd."""
+    dev = DEVICE
+    y_pred = torch.randn((BUCKET, d), device=dev, generator=gen)
+    y_true = torch.randn((BUCKET, d), device=dev, generator=gen)
+    hidden = torch.relu(torch.randn((BUCKET, DEC_HP['n_hid_units']), device=dev,
+                                    generator=gen))
+    w_head = torch.randn((DEC_HP['n_hid_units'], d * d), device=dev, generator=gen) * 0.05
+    L = (hidden @ w_head + torch.eye(d, device=dev).reshape(-1)).reshape(BUCKET, d, d)
+    cov = L @ L.transpose(1, 2)
+    fm = decoder_window()
+    one = torch.ones((), device=dev)
+
+    def forward():
+        return losses.gaussian_neg_log_prob_cuda(y_pred, y_true, cov, fm)
+
+    def kernel():
+        loss, den = forward()
+        return (loss,) + losses.gaussian_neg_log_prob_grad_cuda(y_pred, y_true, cov, fm,
+                                                                den, one)
+
+    def plain():
+        loss, den = losses.gaussian_neg_log_prob_plain(y_pred, y_true, cov, fm)
+        return (loss,) + losses.gaussian_neg_log_prob_grad_plain(y_pred, y_true, cov, fm,
+                                                                 den, one)
+    out_k, out_p = kernel(), plain()
+    torch.cuda.synchronize()
+    loss_err = abs(out_k[0].item() - out_p[0].item()) / abs(out_p[0].item())
+    grad_err = max((a - b).abs().max().item() / b.abs().max().item()
+                   for a, b in zip(out_k[1:], out_p[1:]))
+    max_abs = max((a - b).abs().max().item() for a, b in zip(out_k, out_p))
+    finite = all(bool(torch.isfinite(t).all().item()) for t in out_k)
+    upper_zero = bool((torch.triu(out_k[2], 1) == 0).all().item())
+
+    yl, cl = y_pred.clone().requires_grad_(True), cov.clone().requires_grad_(True)
+    eye = 1e-3 * torch.eye(d, device=dev)
+
+    def library():
+        mvn = torch.distributions.MultivariateNormal(yl, covariance_matrix=eye + cl)
+        loss = -(mvn.log_prob(y_true) * fm).sum() / fm.sum()
+        return torch.autograd.grad(loss, (yl, cl))
+    valid = int(fm.sum().item())
+    # per valid frame: the factor d^3/3 + d^2 flops and the solves, logs and
+    # squares ~3 d^2 forward; the backward again the factor and four
+    # triangular solves, plus S^-1's d columns at two solves each (2 d^3)
+    n_ops = valid * (d ** 3 / 3 + 4 * d ** 2 + 7 * d ** 3 / 3 + 6 * d ** 2)
+    # the pair as one function: y_pred, y_true, the frame mask, the upstream
+    # gradient and the lower triangles of the valid frames' covariances (all
+    # the factor reads) read once; the loss, its denominator, dL/dy_pred and
+    # dL/dcov written once
+    n_bytes = 4 * (2 * BUCKET * d + BUCKET + 1 + valid * d * (d + 1) // 2
+                   + 2 + BUCKET * d + BUCKET * d * d)
+    rec = dict(phase='nll_check', kernel='gaussian_nll', layer='d=%d' % d, frames=BUCKET,
+               valid_frames=valid, dim=d, loss=out_k[0].item(), plain_loss=out_p[0].item(),
+               loss_rel_err=loss_err, loss_rel_tol=LOSS_REL_TOL, grad_rel_err=grad_err,
+               grad_rel_tol=NLL_GRAD_REL_TOL, max_abs_err=max_abs,
+               cov_grad_upper_zero=upper_zero, mflop=n_ops / 1e6, mbytes=n_bytes / 1e6,
+               ms=median_ms(kernel), fwd_ms=median_ms(forward), plain_ms=median_ms(plain),
+               library_ms=median_ms(library), **bound(n_ops, n_bytes))
+    emit(rec)
+    if not finite or not upper_zero or loss_err > LOSS_REL_TOL or grad_err > NLL_GRAD_REL_TOL:
+        raise AssertionError('K12 disagrees with its plain version: %s' % rec)
+    return rec
+
+
+class DecoderSource:
+    """In-memory trial store with the generator interface ``fit`` uses:
+    ``n`` trials of ``frames`` frames of ``channels`` z-scored neural
+    channels from a seed, and targets linear in them: latents ``x W`` plus
+    0.1 noise, or states ``argmax(x W)``; split 8/1/1 per block of 10."""
+
+    n_datasets = 1
+
+    def __init__(self, n, seed, signal, width, frames=TRIAL, channels=N_NEURAL):
+        rs = np.random.RandomState(seed)
+        self.neural = rs.randn(n, frames, channels).astype(np.float32)
+        w = rs.randn(channels, width).astype(np.float32) / np.sqrt(channels)
+        y = self.neural @ w
+        self.signal = signal
+        self.targets = np.argmax(y, axis=-1).astype(np.int32) if signal == 'arhmm_states' \
+            else (y + 0.1 * rs.randn(*y.shape)).astype(np.float32)
+        idx = np.arange(n)
+        self.idxs = {'train': idx[idx % 10 < 8], 'val': idx[idx % 10 == 8],
+                     'test': idx[idx % 10 == 9]}
+        self.n_tot_batches = {k: len(v) for k, v in self.idxs.items()}
+        self.reset_iterators('all')
+
+    def reset_iterators(self, dtype):
+        for dt in (self.idxs if dtype == 'all' else [dtype]):
+            setattr(self, '_order_' + dt, list(np.random.permutation(self.idxs[dt])))
+
+    def next_batch(self, dtype):
+        i = int(getattr(self, '_order_' + dtype).pop(0))
+        return {'neural': self.neural[i], self.signal: self.targets[i], 'batch_idx': i}, 0
+
+
+def decoder_hparams(name, tmp):
+    """The fit hparams of one of ``DECODERS`` (an eval epoch and two train
+    epochs, on the card)."""
+    mc, model_type, signal, width, noise, _ = DECODERS[name]
+    return dict(DEC_HP, model_class=mc, model_type=model_type, noise_dist=noise,
+                input_size=N_NEURAL, output_size=width, input_signal='neural',
+                output_signal=signal, rng_seed_model=SEED,
+                rng_seed_train=SEED, rng_seed_data=SEED, max_n_epochs=VAE_FIT_EPOCHS,
+                min_n_epochs=1, val_check_interval=1, enable_early_stop=False,
+                early_stop_history=10, export_predictions=False, device=DEVICE,
+                experiment_name=name, expt_dir=os.path.join(tmp, name))
+
+
+def fit_decoder(port, tmp, name, seed):
+    """Main paths 9-11: ``fit`` of a decoder on the card over 20 in-memory
+    trials; every logged number finite and its kernels launched inside it."""
+    build = port.build
+    hp = decoder_hparams(name, tmp)
+    source = DecoderSource(TRAIN_TRIALS, seed, hp['output_signal'], hp['output_size'])
+    exp = port.experiment.Experiment(name, tmp)
+    model = port.decoders.Decoder(hp)
+    reset_launches(build)
+    t0 = time.perf_counter()
+    best = port.training.fit(hp, model, source, exp, method='nll')
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = dict(build.LAUNCHES)
+    vdir = os.path.join(hp['expt_dir'], 'version_%d' % exp.version)
+    logged = read_metrics(vdir)
+    finite = all(len(v) and np.isfinite(v).all() for v in logged.values())
+    need = DECODERS[name][-1]
+    missing = [k for k in need if launches[k] == 0]
+    emit(dict(phase='decoder_fit', model=name, model_class=hp['model_class'],
+              noise_dist=hp['noise_dist'], neural_channels=N_NEURAL,
+              outputs=hp['output_size'], epochs=list(range(VAE_FIT_EPOCHS + 1)),
+              train_trials=source.n_tot_batches['train'], seconds=fit_s,
+              launches=launches, finite=finite, logged=logged))
+    if missing or not finite:
+        raise AssertionError('%s fit never launched %s or logged non-finite numbers'
+                             % (name, missing))
+    return dict(hp, version=exp.version), model, vdir, best, source, launches
+
+
+@contextlib.contextmanager
+def plain_decoder_losses(port):
+    """Route the decoder's losses to their plain versions (autograd through
+    ``gaussian_neg_log_prob_plain`` and ``mse_plain``), for the plain twin
+    of a step on the card."""
+    losses = port.losses
+    routes = (('gaussian_neg_log_prob',
+               lambda *a, **k: losses.gaussian_neg_log_prob_plain(*a, **k)[0]),
+              ('mse', lambda *a, **k: losses.mse_plain(*a, **k)[0]))
+    saved = [(name, getattr(losses, name)) for name, _ in routes]
+    for name, fn in routes:
+        setattr(losses, name, fn)
+    try:
+        yield
+    finally:
+        for name, fn in saved:
+            setattr(losses, name, fn)
+
+
+def decoder_batch(hp, source):
+    """The first train trial of ``source`` padded to its bucket, as ``fit``
+    hands it to the loss: (host arrays, tensors on the card)."""
+    idx = int(source.idxs['train'][0])
+    predictors = np.zeros((BUCKET, N_NEURAL), np.float32)
+    predictors[:TRIAL] = source.neural[idx]
+    targets = np.zeros((BUCKET, hp['output_size']), np.float32)
+    targets[:TRIAL] = source.targets[idx]
+    frame_mask = np.zeros(BUCKET, np.float32)
+    frame_mask[:TRIAL] = 1.0
+    host_batch = {'predictors': predictors, 'targets': targets, 'frame_mask': frame_mask}
+    return host_batch, {k: torch.from_numpy(v).to(DEVICE) for k, v in host_batch.items()}
+
+
+def decoder_grads(port, hp, model, batch):
+    """A fitted decoder's loss and gradients on the card (K12 for ``mlp-mv``,
+    K5 for ``mlp``, under the lag-trimmed window) against the plain path's:
+    the same forward, the plain loss differentiated by autograd."""
+    loss_kernel = 'gaussian_nll' if hp['noise_dist'] == 'gaussian-full' else 'masked_mse'
+    reset_launches(port.build)
+    model.zero_grad(set_to_none=True)
+    loss_k = model.loss_fn(batch)[0]
+    loss_k.backward()
+    grads_k = {k: p.grad.clone() for k, p in model.named_parameters()}
+    launched = port.build.LAUNCHES[loss_kernel]
+    model.zero_grad(set_to_none=True)
+    with plain_decoder_losses(port):
+        loss_p = model.loss_fn(batch)[0]
+        loss_p.backward()
+    grad_errs = {k: (grads_k[k] - p.grad).abs().max().item()
+                 / max(p.grad.abs().max().item(), 1e-30)
+                 for k, p in model.named_parameters()}
+    worst = max(grad_errs, key=grad_errs.get)
+    loss_err = abs(loss_k.item() - loss_p.item()) / abs(loss_p.item())
+    emit(dict(phase='decoder_grads', model=hp['experiment_name'], frames=BUCKET,
+              loss=loss_k.item(), plain_loss=loss_p.item(), loss_rel_err=loss_err,
+              rel_tol=GRAD_REL_TOL, loss_kernel=loss_kernel, loss_kernel_launches=launched,
+              max_rel_err=grad_errs[worst], worst=worst, rel_err=grad_errs))
+    if not launched or grad_errs[worst] > GRAD_REL_TOL or loss_err > GRAD_REL_TOL:
+        raise AssertionError('%s gradients on the card (%s launched %d times) disagree with '
+                             'the plain path: %s=%.3g, loss %.3g'
+                             % (hp['experiment_name'], loss_kernel, launched, worst,
+                                grad_errs[worst], loss_err))
+
+
+def decoder_step(port, hp, model, source):
+    """An ``mlp-mv`` train step on the card: its gradients against the plain
+    path's, its time beside the plain step's (plain losses, torch's fused
+    AMSGrad), and its profile."""
+    host_batch, batch = decoder_batch(hp, source)
+    decoder_grads(port, hp, model, batch)
+    opt = port.optim.AMSGrad(model.parameters(), lr=hp['learning_rate'],
+                             weight_decay=hp['l2_reg'])
+    twin = port.decoders.Decoder(hp).to(DEVICE)
+    twin.load_state_dict(model.state_dict())
+    adam = torch.optim.Adam(twin.parameters(), lr=hp['learning_rate'],
+                            weight_decay=hp['l2_reg'], amsgrad=True, fused=True)
+
+    def step():
+        opt.zero_grad(set_to_none=True)
+        model.loss_fn(batch)[0].backward()
+        opt.step()
+
+    def plain_step():
+        adam.zero_grad(set_to_none=True)
+        with plain_decoder_losses(port):
+            twin.loss_fn(batch)[0].backward()
+        adam.step()
+    reset_launches(port.build)
+    step()
+    torch.cuda.synchronize()
+    per_step = dict(port.build.LAUNCHES)
+    ms, plain_ms = request_ms(step), request_ms(plain_step)
+    rec = dict(phase='decoder_step', model=hp['experiment_name'], frames=TRIAL, bucket=BUCKET,
+               neural_channels=N_NEURAL, ms=ms, frames_per_s=TRIAL / ms * 1e3,
+               plain_ms=plain_ms, plain_frames_per_s=TRIAL / plain_ms * 1e3,
+               launches_per_step=per_step)
+    emit(rec)
+    emit(profile_steps(lambda: step_from_host(step, host_batch, batch),
+                       phase='decoder_profile'))
+    return per_step, rec
+
+
+def reference_predict(model, x):
+    """The decoder's forward in float64 on the card, written out: the
+    temporal conv as one matmul over the unfolded +-n_lags window."""
+    sd = {k: v.double() for k, v in model.state_dict().items()}
+    lags = int(model.hparams['n_lags'])
+    w = sd['model.decoder.conv1d_layer_00.weight']                     # (out, in, K)
+    xp = F.pad(x.double().t(), (lags, lags)).t()                        # (T + 2 lags, in)
+    windows = xp.unfold(0, 2 * lags + 1, 1)                             # (T, in, K)
+    h = windows.reshape(x.shape[0], -1) @ w.reshape(w.shape[0], -1).t() \
+        + sd['model.decoder.conv1d_layer_00.bias']
+    h = torch.relu(h)
+    return h @ sd['model.decoder.dense_layer_01.weight'].t() \
+        + sd['model.decoder.dense_layer_01.bias']
+
+
+def serve_decoder(port, hp, vdir, best, source):
+    """Main path 12: the fitted ``mlp-mv`` decoder's ``best_val_model.pt``
+    serves ``predict`` through ``load_version`` on the card, for a 189-frame
+    and a 1000-frame trial, within 1e-4 of the float64 forward."""
+    with open(os.path.join(vdir, 'meta_tags.pkl'), 'wb') as f:
+        pickle.dump(dict(hp, training_completed=True), f)
+    rs = np.random.RandomState(SEED + 7)
+    trials = {TRIAL: source.neural[0],
+              1000: rs.randn(1000, N_NEURAL).astype(np.float32)}
+    bundle = port.serving.load_version(vdir)
+    served = dict(bundle.model.state_dict())
+    same = all(torch.equal(served[k].cpu(), v) for k, v in
+               port.weights.params_to_state_dict(bundle.model, best).items())
+    rows = {}
+    for frames, x in trials.items():
+        out = bundle.predict(x)
+        with torch.inference_mode():
+            ref = reference_predict(bundle.model, torch.from_numpy(x).to(DEVICE))
+        err = (out.double() - ref).abs().max().item()
+        tol = PREDICT_ABS_TOL * max(1.0, ref.abs().max().item())
+        rows[frames] = dict(shape=list(out.shape), max_abs_err=err, tol=tol,
+                            finite=bool(torch.isfinite(out).all().item()),
+                            ms=request_ms(lambda: bundle.predict(x)))
+    ok = same and bundle.names() == ['predict'] and all(
+        r['finite'] and r['max_abs_err'] <= r['tol'] and r['shape'] == [f, DEC_LATENTS]
+        for f, r in rows.items())
+    rec = dict(phase='decoder_serve', model=hp['experiment_name'], device=str(bundle.device),
+               weights_equal=same, requests=rows, ok=ok)
+    emit(rec)
+    if not ok:
+        raise AssertionError('the fitted decoder does not serve: %s' % rec)
+    return rec
+
+
 def kernel_row(name, rows, launches):
     """The kernels-line entry of one kernel: sums over the rows it was
     checked at; launches from the main paths' runs."""
@@ -1623,6 +1997,8 @@ def main():
     em_model, em_trials, init_s = em_workload(port)
     checks += [check(port, em_model, em_trials) for check in (
         check_arhmm_log_likes, check_forward_backward, check_viterbi, check_solve_small)]
+    checks += [check_gaussian_nll(port.losses, gen, d) for d in NLL_DIMS]
+    checks.append(check_mse(port.losses, gen, decoder=True))
 
     launches = {}
     with tempfile.TemporaryDirectory() as tmp:
@@ -1637,6 +2013,15 @@ def main():
         launches['arhmm_em'] = arhmm_em(port, em_model, em_trials, init_s)
         vdir, cli_latents, launches['arhmm_cli'] = arhmm_cli(port, tmp)
         launches['arhmm_serve'] = arhmm_serve(port, vdir, cli_latents)
+        fitted = {}
+        for i, name in enumerate(DECODERS):
+            fitted[name] = fit_decoder(port, tmp, name, SEED + 8 + i)
+            launches['decoder_fit_' + name] = fitted[name][-1]
+        mlp_hp, mlp_model, _, _, mlp_source, _ = fitted['neural-ae-mlp']
+        decoder_grads(port, mlp_hp, mlp_model, decoder_batch(mlp_hp, mlp_source)[1])
+        dec_hp, dec_model, dec_dir, dec_best, dec_source, _ = fitted['neural-ae-mlp-mv']
+        decoder_step(port, dec_hp, dec_model, dec_source)
+        serve_decoder(port, dec_hp, dec_dir, dec_best, dec_source)
 
     emit({'kernels': [kernel_row(name, [r for r in checks if r['kernel'] == name], launches)
                       for name in KERNELS]})

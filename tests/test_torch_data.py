@@ -70,10 +70,13 @@ def test_generator_batches_in_the_jax_order(store, batch_load):
 
 
 def test_unported_signals_raise(store):
-    """Pickles of states and predictions are not ported yet; a latents
-    pickle is, and a missing one raises as in the JAX package."""
+    """Pickles of predictions are not ported yet; latents and states
+    pickles are, and a missing one raises as in the JAX package."""
     data_dir, path = store
-    with pytest.raises(NotImplementedError, match='arhmm_states'):
+    with pytest.raises(NotImplementedError, match='ae_predictions'):
+        tgen.SingleSessionDataset(data_dir, 'l', 'e', 'a', 's', signals=['ae_predictions'],
+                                  transforms=[None], paths=['x.pkl'])
+    with pytest.raises(NotImplementedError, match='Could not open x.pkl'):
         tgen.SingleSessionDataset(data_dir, 'l', 'e', 'a', 's', signals=['arhmm_states'],
                                   transforms=[None], paths=['x.pkl'])
     with pytest.raises(NotImplementedError, match='Could not open x.pkl'):

@@ -38,20 +38,33 @@ def test_no_jax_or_reference_package_import(path):
 
 
 def test_training_path_does_not_import_h5py():
-    """The trainer, the ops, the ARHMM CLI and the chip smoke test leave
-    h5py and sklearn out of a fresh process: the card's machine has
-    neither, and only opening an HDF5 store needs h5py
-    (``tests/test_torch_arhmm.py`` runs the ARHMM path in such a process)."""
+    """The trainer, the ops, the ARHMM and decoder CLIs, serving and the
+    chip smoke test leave h5py and sklearn out of a fresh process, and so
+    does a decoder ``fit`` from an in-memory trial source (``chip_smoke``'s,
+    at 12 channels): the card's machine has neither, and only opening an
+    HDF5 store needs h5py (``tests/test_torch_arhmm.py`` runs the ARHMM path
+    in such a process)."""
     code = (
-        'import sys\n'
+        'import sys, tempfile\n'
         'sys.path.insert(0, sys.argv[1])\n'
         'import behavenet_tpu_torch.fitting.training\n'
         'import behavenet_tpu_torch.fitting.ae_grid_search\n'
         'import behavenet_tpu_torch.fitting.arhmm_grid_search\n'
+        'import behavenet_tpu_torch.fitting.decoder_grid_search\n'
         'import behavenet_tpu_torch.ops.conv, behavenet_tpu_torch.ops.losses\n'
         'import behavenet_tpu_torch.ops.optim, behavenet_tpu_torch.models.vaes\n'
-        'import behavenet_tpu_torch.utils.pickles\n'
-        'import chip_smoke\n'
+        'import behavenet_tpu_torch.utils.pickles, behavenet_tpu_torch.serving\n'
+        'import chip_smoke as cs\n'
+        'from behavenet_tpu_torch.fitting.experiment import Experiment\n'
+        'from behavenet_tpu_torch.fitting.training import fit\n'
+        'from behavenet_tpu_torch.models.decoders import Decoder\n'
+        'cs.DEVICE = "cpu"\n'
+        'tmp = tempfile.mkdtemp()\n'
+        'hp = dict(cs.decoder_hparams("neural-ae-mlp-mv", tmp), input_size=12,\n'
+        '          max_n_epochs=1)\n'
+        'src = cs.DecoderSource(10, 0, hp["output_signal"], hp["output_size"],\n'
+        '                       frames=30, channels=12)\n'
+        'fit(hp, Decoder(hp), src, Experiment(hp["experiment_name"], tmp), method="nll")\n'
         'bad = sorted(m for m in sys.modules if m.split(".")[0] in\n'
         '             ("h5py", "sklearn", "jax", "jaxlib", "behavenet_tpu"))\n'
         'assert not bad, bad\n')
