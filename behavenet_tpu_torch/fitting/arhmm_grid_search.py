@@ -19,8 +19,11 @@ the model pickled into ``best_val_model.pt``; with ``export_states`` the
 trial's frames go to the device once; the logged LLs run the forward pass
 alone. A fit with non-finite parameters is not marked completed.
 
-Not ported, and raising ``NotImplementedError``: recurrent transitions,
-robust (Student's-t) noise, ``parallel_scan``, ``em_dtype='float64'``,
+Every ``noise_type`` (``gaussian``, ``studentst`` and their diagonal forms)
+and every ``transitions`` (``stationary``/``standard``, ``sticky``,
+``recurrent``, ``recurrent_only``) is fitted, into the JAX CLI's
+``<transitions>/<noise_type>`` directory. Not ported, and raising
+``NotImplementedError``: ``parallel_scan``, ``em_dtype='float64'``,
 ``export_train_plots`` and the JAX CLI's multi-device mesh.
 """
 

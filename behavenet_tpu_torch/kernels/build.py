@@ -11,7 +11,9 @@ parallel, one ``nvcc`` process each.
 
 There is no fallback: a missing ``nvcc`` or a failed build raises, and so
 does a launch that returns an error. :func:`launch` counts each launch in
-``LAUNCHES``, which callers may zero to see what a piece of work ran.
+``LAUNCHES``, which callers may zero to see what a piece of work ran: under
+the kernel's name, or under the name of a variant (``VARIANTS``) for the
+launchers that a later slice added beside a kernel's first ones.
 """
 
 import ctypes
@@ -21,7 +23,7 @@ import shutil
 import subprocess
 import threading
 
-__all__ = ['SOURCES', 'LAUNCHES', 'build_all', 'library', 'launch', 'ptxas_info']
+__all__ = ['SOURCES', 'VARIANTS', 'LAUNCHES', 'build_all', 'library', 'launch', 'ptxas_info']
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(os.path.dirname(_HERE), '_build')
@@ -43,8 +45,17 @@ SOURCES = {
 }
 _HEADERS = ('igemm.cuh', 'hmm.cuh')
 
-# launches of each kernel since the last reset (callers may zero them)
-LAUNCHES = {name: 0 for name in SOURCES}
+# launchers counted under a name of their own: variant -> (kernel, symbols)
+VARIANTS = {
+    'arhmm_log_likes_robust': ('arhmm_log_likes', ('bn_arhmm_log_likes_robust',)),
+    'hmm_forward_backward_tv': ('hmm_forward_backward',
+                                ('bn_hmm_forward_backward_tv', 'bn_hmm_forward_tv')),
+    'hmm_viterbi_tv': ('hmm_viterbi', ('bn_hmm_viterbi_tv',)),
+}
+_COUNTED_AS = {sym: variant for variant, (_, syms) in VARIANTS.items() for sym in syms}
+
+# launches of each kernel and variant since the last reset (callers may zero them)
+LAUNCHES = {name: 0 for name in list(SOURCES) + list(VARIANTS)}
 _FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-O3', '-std=c++17',
           '-shared', '-Xcompiler', '-fPIC', '-lineinfo', '-Xptxas', '-v']
 
@@ -66,11 +77,16 @@ _SIGNATURES = {
     'decomposed_kl': {
         'bn_decomposed_kl_fwd': [_P] * 4 + [_I] * 2 + [_P] * 6,
         'bn_decomposed_kl_bwd': [_P] * 4 + [_I] * 2 + [_P] * 8},
-    'arhmm_log_likes': {'bn_arhmm_log_likes': [_P] * 6 + [_I] * 7 + [_P, _P]},
+    'arhmm_log_likes': {
+        'bn_arhmm_log_likes': [_P] * 6 + [_I] * 7 + [_P, _P],
+        'bn_arhmm_log_likes_robust': [_P] * 7 + [_I] * 7 + [_P] * 3},
     'hmm_forward_backward': {
         'bn_hmm_forward_backward': [_P] * 4 + [_I] * 3 + [_P] * 6,
-        'bn_hmm_forward': [_P] * 4 + [_I] * 3 + [_P] * 2},
-    'hmm_viterbi': {'bn_hmm_viterbi': [_P] * 4 + [_I] * 3 + [_P] * 3},
+        'bn_hmm_forward': [_P] * 4 + [_I] * 3 + [_P] * 2,
+        'bn_hmm_forward_backward_tv': [_P] * 4 + [_I] * 3 + [_P] * 7,
+        'bn_hmm_forward_tv': [_P] * 4 + [_I] * 3 + [_P] * 2},
+    'hmm_viterbi': {'bn_hmm_viterbi': [_P] * 4 + [_I] * 3 + [_P] * 3,
+                    'bn_hmm_viterbi_tv': [_P] * 4 + [_I] * 3 + [_P] * 3},
     'solve_small': {'bn_solve_small': [_P] * 3 + [_I] * 3 + [_P]},
     'gaussian_nll': {
         'bn_gaussian_nll_fwd': [_P] * 6 + [_I] * 2 + [_P],
@@ -158,12 +174,13 @@ def library(name, symbol=None):
 
 def launch(name, *args, symbol=None):
     """Launch kernel ``name`` (its launcher ``symbol``) on PyTorch's current
-    stream with ``args``; raise if the launch fails, else count it."""
+    stream with ``args``; raise if the launch fails, else count it under
+    the kernel's name or its variant's."""
     import torch
     err = library(name, symbol)(*args, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError('%s: kernel launch failed (cudaError %d)' % (name, err))
-    LAUNCHES[name] += 1
+    LAUNCHES[_COUNTED_AS.get(symbol, name)] += 1
 
 
 def ptxas_info():

@@ -1,5 +1,7 @@
 // Warp helpers shared by the HMM recursions (hmm_forward_backward.cu K9,
 // hmm_viterbi.cu K10): one trial per warp, state k in lane k (K <= 32).
+// A time-varying log_P is (N, T-1, K, K), the step t -> t+1 of trial n at
+// log_P + (n (T-1) + t) K K.
 #pragma once
 #include <cuda_runtime.h>
 #include <math.h>
@@ -44,6 +46,25 @@ __device__ __forceinline__ void load_group(const float* __restrict__ ll,
     mt[u] = in ? __ldg(m + t) : 0.f;
     obs[u] = (in && on) ? __ldg(ll + (long long)t * K + j) : 0.f;
   }
+}
+
+// Column j (lane j) of a (K, K) tile into registers, -inf past K or when
+// `on` is false: at each i the warp reads K consecutive floats.
+template <int KMAX>
+__device__ __forceinline__ void load_col(const float* __restrict__ P, int K, int j, bool on,
+                                         float (&out)[KMAX]) {
+#pragma unroll
+  for (int i = 0; i < KMAX; ++i) out[i] = (on && i < K) ? __ldg(P + i * K + j) : -INFINITY;
+}
+
+// Row i (lane i) of a (K, K) tile into registers, -inf past K or when `on`
+// is false. The lanes read K floats apart; the tile's sectors stay in L1
+// over the K loads.
+template <int KMAX>
+__device__ __forceinline__ void load_row(const float* __restrict__ P, int K, int i, bool on,
+                                         float (&out)[KMAX]) {
+#pragma unroll
+  for (int j = 0; j < KMAX; ++j) out[j] = (on && j < K) ? __ldg(P + i * K + j) : -INFINITY;
 }
 
 }  // namespace hmm

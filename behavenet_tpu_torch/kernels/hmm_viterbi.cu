@@ -1,23 +1,28 @@
 // K10 hmm_viterbi: the most likely state path of each of a batch of padded
 // trials, float32 scores, int32 paths. Inputs as K9's: log_pi0 (K,),
-// stationary log_P (K, K), log_lik (N, T, K), mask (N, T). Outputs: the
-// backpointers (N, T-1, K) int32 (scratch) and the paths (N, T) int32.
+// log_P stationary (K, K) or, with bn_hmm_viterbi_tv, per trial and step
+// (N, T-1, K, K) (the recurrent transitions; log_P[n, t-1] below), log_lik
+// (N, T, K), mask (N, T). Outputs: the backpointers (N, T-1, K) int32
+// (scratch) and the paths (N, T) int32.
 //   delta_0 = log_pi0 + log_lik[0] m[0]
 //   psi_t(j) = argmax_i delta_{t-1}(i) + log_P[i, j]   (lowest i on ties)
 //   delta_t(j) = max_i (...) + log_lik[t, j] m[t]
 // A padded frame keeps delta and gets the identity backpointer; the path
 // ends in argmax_j delta_{T-1}(j) and is traced back through psi.
 //
-// Replaces behavenet_tpu/ops/hmm.py:186 viterbi (the sequential form; the
-// parallel one, :225 viterbi_parallel, is not ported). Ties break as
-// jnp.argmax does, to the lowest index.
+// Replaces behavenet_tpu/ops/hmm.py:186 viterbi (the sequential form, with
+// :32 _get_log_P's time-varying log_P; the parallel one, :225
+// viterbi_parallel, is not ported). Ties break as jnp.argmax does, to the
+// lowest index.
 //
 // Layout: K <= 32, one warp per trial, state j in lane j, four trials per
 // block, the log-likelihoods loaded a group of frames ahead. Each step
 // shuffles delta_{t-1} from its K lanes and keeps the running max and its
 // first index in registers; lane j stores psi_t(j), so a warp writes K
 // consecutive int32s a step. Lane 0 then traces the path back through
-// global memory in the same kernel.
+// global memory in the same kernel. Time-varying, lane j loads column j of
+// the next step's log_P (K consecutive floats a warp) while it computes the
+// current step, off the dependence chain.
 //
 // Bound: the T-step dependence chain twice over (the max-plus recursion,
 // then T dependent loads of the backtrace), not bytes or operations: at
@@ -29,9 +34,10 @@ namespace {
 using hmm::kFull;
 using hmm::kGroup;
 using hmm::kWarps;
+using hmm::load_col;
 using hmm::load_group;
 
-template <int KMAX>
+template <int KMAX, bool TV>
 __global__ void __launch_bounds__(kWarps * 32) viterbi_kernel(
     const float* __restrict__ log_pi0, const float* __restrict__ log_P,
     const float* __restrict__ log_lik, const float* __restrict__ mask, int N, int T,
@@ -43,10 +49,11 @@ __global__ void __launch_bounds__(kWarps * 32) viterbi_kernel(
   const float* ll = log_lik + (long long)n * T * K;
   const float* m = mask + (long long)n * T;
   int* bp = backptrs + (long long)n * (T > 1 ? T - 1 : 1) * K;
+  const long long KK = (long long)K * K;
+  const float* lp = TV ? log_P + (long long)n * (T - 1) * KK : log_P;
 
-  float lpc[KMAX];  // column j of log_P
-#pragma unroll
-  for (int i = 0; i < KMAX; ++i) lpc[i] = (on && i < K) ? __ldg(log_P + i * K + j) : -INFINITY;
+  float lpc[KMAX];  // column j of log_P (of the step into frame t when TV)
+  load_col<KMAX>(lp, K, j, on && (!TV || T > 1), lpc);
   float delta = on ? __ldg(log_pi0 + j) + __ldg(ll + j) * __ldg(m) : -INFINITY;
 
   float nm[kGroup], no[kGroup];
@@ -60,6 +67,8 @@ __global__ void __launch_bounds__(kWarps * 32) viterbi_kernel(
     for (int u = 0; u < kGroup; ++u) {
       const int t = t0 + u;
       if (t >= T) break;
+      float nxt[KMAX];  // the step into frame t + 1, loaded ahead
+      if (TV) load_col<KMAX>(lp + t * KK, K, j, on && t + 1 < T, nxt);
       float best = -INFINITY;
       int arg = 0;
 #pragma unroll
@@ -78,6 +87,10 @@ __global__ void __launch_bounds__(kWarps * 32) viterbi_kernel(
         arg = j;  // identity backpointer on a padded step
       }
       if (on) bp[(long long)(t - 1) * K + j] = arg;
+      if (TV) {
+#pragma unroll
+        for (int i = 0; i < KMAX; ++i) lpc[i] = nxt[i];
+      }
     }
   }
 
@@ -106,22 +119,37 @@ __global__ void __launch_bounds__(kWarps * 32) viterbi_kernel(
   }
 }
 
+template <bool TV>
+int launch_viterbi(const float* log_pi0, const float* log_P, const float* log_lik,
+                   const float* mask, int N, int T, int K, int* backptrs, int* path,
+                   void* stream) {
+  if (N < 1 || T < 1 || K < 1 || K > 32) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int blocks = (N + kWarps - 1) / kWarps;
+  if (K <= 8)
+    viterbi_kernel<8, TV><<<blocks, kWarps * 32, 0, st>>>(log_pi0, log_P, log_lik, mask, N,
+                                                          T, K, backptrs, path);
+  else if (K <= 16)
+    viterbi_kernel<16, TV><<<blocks, kWarps * 32, 0, st>>>(log_pi0, log_P, log_lik, mask, N,
+                                                           T, K, backptrs, path);
+  else
+    viterbi_kernel<32, TV><<<blocks, kWarps * 32, 0, st>>>(log_pi0, log_P, log_lik, mask, N,
+                                                           T, K, backptrs, path);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" int bn_hmm_viterbi(const float* log_pi0, const float* log_P,
                               const float* log_lik, const float* mask, int N, int T, int K,
                               int* backptrs, int* path, void* stream) {
-  if (N < 1 || T < 1 || K < 1 || K > 32) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int blocks = (N + kWarps - 1) / kWarps;
-  if (K <= 8)
-    viterbi_kernel<8><<<blocks, kWarps * 32, 0, st>>>(log_pi0, log_P, log_lik, mask, N, T,
-                                                      K, backptrs, path);
-  else if (K <= 16)
-    viterbi_kernel<16><<<blocks, kWarps * 32, 0, st>>>(log_pi0, log_P, log_lik, mask, N, T,
-                                                       K, backptrs, path);
-  else
-    viterbi_kernel<32><<<blocks, kWarps * 32, 0, st>>>(log_pi0, log_P, log_lik, mask, N, T,
-                                                       K, backptrs, path);
-  return static_cast<int>(cudaGetLastError());
+  return launch_viterbi<false>(log_pi0, log_P, log_lik, mask, N, T, K, backptrs, path,
+                               stream);
+}
+
+// log_P (N, T-1, K, K)
+extern "C" int bn_hmm_viterbi_tv(const float* log_pi0, const float* log_P,
+                                 const float* log_lik, const float* mask, int N, int T, int K,
+                                 int* backptrs, int* path, void* stream) {
+  return launch_viterbi<true>(log_pi0, log_P, log_lik, mask, N, T, K, backptrs, path, stream);
 }

@@ -2,7 +2,8 @@
 
 Covers ``model_type='conv'`` on archs without batch norm, pooling,
 per-session io layers or a last FF decoder layer: ``strides_only``, the
-published default, in 'same' or 'valid' padding. Other archs raise
+published default, in 'same' or 'valid' padding, in float32. Other archs,
+and a ``compute_dtype`` other than float32 or a ``bf16_pipeline``, raise
 ``NotImplementedError``.
 
 Activations are NHWC, as in the JAX package. Parameters carry the names and
@@ -57,6 +58,14 @@ def _param(*shape):
 def _check_supported(hparams):
     if hparams.get('model_type', 'conv') != 'conv':
         raise NotImplementedError('only model_type="conv" is ported')
+    # the JAX AE casts its convs to compute_dtype (JAX: models/aes.py:89-93,
+    # :211-213); the port's conv kernels are float32 only
+    if hparams.get('compute_dtype') not in (None, 'float32'):
+        raise NotImplementedError('compute_dtype "%s" is not ported yet: the port\'s convs '
+                                  'run in float32' % (hparams['compute_dtype'],))
+    if hparams.get('bf16_pipeline'):
+        raise NotImplementedError('bf16_pipeline is not ported yet: the port keeps its '
+                                  'activations in float32')
     unsupported = {
         'ae_batch_norm': 'batch norm', 'fit_sess_io_layers': 'per-session io layers',
         'ae_decoding_last_FF_layer': 'a last FF decoder layer',

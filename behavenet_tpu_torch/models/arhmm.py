@@ -2,25 +2,37 @@
 ``behavenet_tpu/models/arhmm.py``).
 
 Observations ``'ar'``, ``'gaussian'``, ``'diagonal_ar'`` and
-``'diagonal_gaussian'``; transitions ``'stationary'`` and ``'sticky'``.
-Trials are padded to a common length with a mask. One EM iteration is
+``'diagonal_gaussian'``, and their Student's-t forms ``'robust_ar'``,
+``'studentst'``, ``'diagonal_robust_ar'`` and ``'diagonal_studentst'``;
+transitions ``'stationary'``, ``'sticky'``, ``'recurrent'`` and
+``'recurrent_only'``. Trials are padded to a common length with a mask. One
+EM iteration is
 
 - the observation log-likelihoods of every frame and state
-  (:func:`log_likes`: K8 ``kernels/arhmm_log_likes.cu`` on the card);
-- forward-backward over all trials (``ops.hmm.forward_backward``: K9);
-- the closed-form M-step: the initial distribution, the transition counts
-  (plus kappa on the diagonal when sticky), and per-state weighted least
-  squares with the JAX package's Jacobi equilibration and 1e-5 ridge, solved
-  by ``ops.smallmat.solve_small`` (K11), then the weighted residual
-  covariances. Its weighted contractions are ``torch.einsum``, as they are
-  plain einsums in the JAX package.
+  (:func:`log_likes`, or :func:`robust_log_likes` with the scale-mixture
+  weights tau of the same pass: K8 ``kernels/arhmm_log_likes.cu`` on the
+  card);
+- the transition log-probs: stationary (K, K), or for the recurrent
+  transitions (N, T-1, K, K) driven by ``Rs x_t`` (:meth:`ARHMM._log_P`,
+  PyTorch ops, as plain ops in the JAX package);
+- forward-backward over all trials (``ops.hmm.forward_backward``: K9), which
+  with recurrent transitions also writes the per-step pairwise posteriors;
+- the M-step: the initial distribution; the transition counts (plus kappa
+  on the diagonal when sticky) or, recurrent, 25 Adam steps (lr 1e-2) on
+  the expected transitions' log-likelihood over ``log_Ps``, ``Rs`` and
+  ``r`` (the gradient by autograd, the update ``optax.adam``'s written
+  out); per-state weighted least squares (weights times tau when robust)
+  with the JAX package's Jacobi equilibration and 1e-5 ridge,
+  solved by ``ops.smallmat.solve_small`` (K11), then the weighted residual
+  covariances; robust, 10 finite-difference Newton steps on the dof nu.
+  Its weighted contractions are ``torch.einsum``, as they are plain einsums
+  in the JAX package.
 
 Conventions match the JAX package (and ssm): the first ``lags`` frames of
 a trial are scored under a fixed N(0, I) for every state, and the AR
 regression uses only frames with a full lag history.
 
-Not ported yet, and raising ``NotImplementedError``: the robust
-(Student's-t) observations, recurrent transitions, ``parallel_scan``,
+Not ported yet, and raising ``NotImplementedError``: ``parallel_scan``,
 ``em_dtype='float64'``, ``posterior_sample``, ``sample`` / ``sample_x``,
 meshes and ``iters_per_dispatch > 1``.
 """
@@ -38,11 +50,15 @@ from behavenet_tpu_torch.ops.smallmat import solve_small
 from behavenet_tpu_torch.utils.device import resolve_device
 
 __all__ = ['ARHMM', 'PaddedTrials', 'pad_trials', 'obs_precision', 'log_likes',
-           'log_likes_plain', 'log_likes_cuda', 'kmeans', 'check_ported']
+           'log_likes_plain', 'log_likes_cuda', 'student_t_terms', 'robust_log_likes',
+           'robust_log_likes_plain', 'robust_log_likes_cuda', 'kmeans', 'check_ported']
 
 LN2PI = float(np.log(2 * np.pi))
 _OBSERVATIONS = ('ar', 'gaussian', 'diagonal_ar', 'diagonal_gaussian')
 _ROBUST = ('robust_ar', 'studentst', 'diagonal_robust_ar', 'diagonal_studentst')
+_TRANSITIONS = ('stationary', 'sticky', 'recurrent', 'recurrent_only')
+_RECURRENT_ADAM_STEPS, _RECURRENT_ADAM_LR = 25, 1e-2   # models/arhmm.py:670-680
+_NU_NEWTON_STEPS = 10                                   # models/arhmm.py:613
 _MAX_D, _MAX_LAG_COLS = 16, 64  # K8 keeps a frame and its lags in registers
 
 # the device an unpickled model's parameters go to: ``utils.pickles.load``
@@ -67,13 +83,12 @@ def pad_trials(datas, device):
 
 def _lagged(x, lags):
     """(N, T, D) -> design rows (N, T, D * lags) of [x_{t-1}, ..., x_{t-lags}],
-    zero where t < l (those frames are scored by the initial condition and
-    weigh nothing in the regression)."""
-    feats = []
-    for lag in range(1, lags + 1):
-        f = torch.zeros_like(x)
-        f[:, lag:] = x[:, :-lag]
-        feats.append(f)
+    x[(t - l) mod T] of the padded trial where t < l, as the JAX package's
+    ``jnp.roll`` (models/arhmm.py:61 ``_make_lagged``): the Gaussian
+    log-likelihoods of those frames are replaced by the initial condition
+    and they weigh nothing in the regression, but the tau weights read
+    them."""
+    feats = [torch.roll(x, lag, dims=1) for lag in range(1, lags + 1)]
     return torch.cat(feats, dim=2)
 
 
@@ -96,34 +111,46 @@ def obs_precision(Sigmas, diagonal):
     return linv.contiguous(), logdet
 
 
-def log_likes_plain(x, mask, As, bs, prec, logdet, lags, diagonal):
-    """Per-frame observation log-likelihoods (N, T, K) (JAX:
-    models/arhmm.py:187 _log_likes, for trials stacked on a leading axis),
-    plain PyTorch, from :func:`obs_precision`'s ``prec`` and ``logdet``."""
+def _maha(x, As, bs, prec, lags, diagonal):
+    """The Mahalanobis distances (N, T, K) of every frame from each state's
+    AR mean, from :func:`obs_precision`'s ``prec``."""
     N, T, D = x.shape
     K = bs.shape[0]
     if lags > 0:
-        mus = torch.einsum('kdp,ntp->ntkd', As[:, :, :D * lags], _lagged(x, lags)) + bs
+        mus = torch.einsum('kdp,ntp->ntkd', As[:, :, :D * lags],
+                           _lagged(x, lags)) + bs
     else:
         mus = bs.expand(N, T, K, D)
     diff = x[:, :, None, :] - mus                      # (N, T, K, D)
     if diagonal:
-        maha = torch.sum(diff ** 2 / prec, dim=3)
-    else:
-        sol = torch.einsum('kde,ntke->ntkd', prec, diff)
-        maha = torch.sum(sol ** 2, dim=3)
-    ll = -0.5 * (D * LN2PI + logdet + maha)
+        return torch.sum(diff ** 2 / prec, dim=3)
+    sol = torch.einsum('kde,ntke->ntkd', prec, diff)
+    return torch.sum(sol ** 2, dim=3)
+
+
+def _initial_condition(x, ll, mask, lags):
+    """``ll`` with the first ``lags`` frames scored under N(0, I), times the
+    mask."""
     if lags > 0:
+        D, T = x.shape[2], x.shape[1]
         init_ll = -0.5 * (D * LN2PI + torch.sum(x ** 2, dim=2))   # (N, T)
         first = (torch.arange(T, device=x.device) < lags)[None, :, None]
         ll = torch.where(first, init_ll[:, :, None], ll)
     return ll * mask[:, :, None]
 
 
-def log_likes_cuda(x, mask, As, bs, prec, logdet, lags, diagonal):
-    """K8 on the card: :func:`log_likes_plain`'s (N, T, K)."""
-    name = 'arhmm_log_likes'
-    tensors = (x, mask, As, bs, prec, logdet)
+def log_likes_plain(x, mask, As, bs, prec, logdet, lags, diagonal):
+    """Per-frame observation log-likelihoods (N, T, K) (JAX:
+    models/arhmm.py:187 _log_likes, for trials stacked on a leading axis),
+    plain PyTorch, from :func:`obs_precision`'s ``prec`` and ``logdet``."""
+    maha = _maha(x, As, bs, prec, lags, diagonal)
+    ll = -0.5 * (x.shape[2] * LN2PI + logdet + maha)
+    return _initial_condition(x, ll, mask, lags)
+
+
+def _check_log_likes(name, tensors, lags, diagonal):
+    """K8's input checks: x, mask, As, bs, prec, logdet (or c)[, nus]."""
+    x, mask, As, bs, prec, logdet = tensors[:6]
     for t in tensors:
         if t.device.type != 'cuda' or t.device != x.device:
             raise ValueError('%s: every tensor must lie on one CUDA device, got %s'
@@ -136,10 +163,19 @@ def log_likes_cuda(x, mask, As, bs, prec, logdet, lags, diagonal):
     if mask.shape != (N, T) or As.shape[:2] != (K, D) or bs.shape != (K, D) or \
             tuple(prec.shape) != want_prec or logdet.shape != (K,) or P < D * lags:
         raise ValueError('%s: shapes x %s, mask %s, As %s, bs %s, prec %s, logdet %s do '
-                         'not fit together' % (name, *(tuple(t.shape) for t in tensors)))
+                         'not fit together' % (name, *(tuple(t.shape) for t in tensors[:6])))
     if D > _MAX_D or D * lags > _MAX_LAG_COLS:
         raise ValueError('%s: takes D <= %d and D * lags <= %d, got D=%d, lags=%d'
                          % (name, _MAX_D, _MAX_LAG_COLS, D, lags))
+
+
+def log_likes_cuda(x, mask, As, bs, prec, logdet, lags, diagonal):
+    """K8 on the card: :func:`log_likes_plain`'s (N, T, K)."""
+    name = 'arhmm_log_likes'
+    tensors = (x, mask, As, bs, prec, logdet)
+    _check_log_likes(name, tensors, lags, diagonal)
+    N, T, D = x.shape
+    K, P = bs.shape[0], As.shape[2]
     x, mask, As, bs, prec, logdet = (t.contiguous() for t in tensors)
     out = torch.empty((N, T, K), device=x.device, dtype=torch.float32)
     if out.numel():
@@ -158,6 +194,64 @@ def log_likes(x, mask, As, bs, Sigmas, lags, diagonal):
     if x.device.type != 'cuda':
         raise ValueError('log_likes: no implementation for device %s' % x.device)
     return log_likes_cuda(x, mask, As, bs, prec, logdet, lags, diagonal)
+
+
+def student_t_terms(nus, logdet, D):
+    """What K8's Student's-t form and its plain version read of the dof:
+    ``nus`` clipped at 1e-2 and the per-state constant lgamma((nu + D) / 2)
+    - lgamma(nu / 2) - D / 2 log(nu pi) - logdet / 2 (K,) (JAX:
+    models/arhmm.py:212-214)."""
+    nus = torch.clamp(nus, min=1e-2)
+    c = torch.lgamma(0.5 * (nus + D)) - torch.lgamma(0.5 * nus) \
+        - 0.5 * D * torch.log(nus * np.pi) - 0.5 * logdet
+    return nus.contiguous(), c.contiguous()
+
+
+def robust_log_likes_plain(x, mask, As, bs, prec, c, nus, lags, diagonal, with_tau=False):
+    """Student's-t observation log-likelihoods (N, T, K) (JAX:
+    models/arhmm.py:211-215) and, with ``with_tau``, the scale-mixture
+    weights tau = (nu + D) / (nu + maha) (N, T, K) of every frame, unmasked,
+    the first ``lags`` frames' from the wrapped history (JAX: :616
+    ``_tau_weights``), else None; from :func:`student_t_terms`' ``nus`` and
+    ``c``."""
+    D = x.shape[2]
+    maha = _maha(x, As, bs, prec, lags, diagonal)
+    ll = c - 0.5 * (nus + D) * torch.log1p(maha / nus)
+    tau = (nus + D) / (nus + maha) if with_tau else None
+    return _initial_condition(x, ll, mask, lags), tau
+
+
+def robust_log_likes_cuda(x, mask, As, bs, prec, c, nus, lags, diagonal, with_tau=False):
+    """K8's Student's-t launcher on the card: (ll, tau or None) as
+    :func:`robust_log_likes_plain`."""
+    name = 'arhmm_log_likes'
+    N, T, D = x.shape
+    K = bs.shape[0]
+    _check_log_likes(name, (x, mask, As, bs, prec, c, nus), lags, diagonal)
+    if nus.shape != (K,):
+        raise ValueError('%s: nus must be (K,), got %s' % (name, tuple(nus.shape)))
+    x, mask, As, bs, prec, c, nus = (t.contiguous() for t in (x, mask, As, bs, prec, c, nus))
+    out = torch.empty((N, T, K), device=x.device, dtype=torch.float32)
+    tau = torch.empty((N, T, K), device=x.device, dtype=torch.float32) if with_tau else None
+    if out.numel():
+        launch(name, x.data_ptr(), mask.data_ptr(), As.data_ptr(), bs.data_ptr(),
+               prec.data_ptr(), c.data_ptr(), nus.data_ptr(), N, T, D, K, As.shape[2], lags,
+               int(diagonal), out.data_ptr(), tau.data_ptr() if with_tau else None,
+               symbol='bn_arhmm_log_likes_robust')
+    return out, tau
+
+
+def robust_log_likes(x, mask, As, bs, Sigmas, nus, lags, diagonal, with_tau=False):
+    """Student's-t observation log-likelihoods (N, T, K) of padded trials and,
+    with ``with_tau``, their scale-mixture weights (else None): K8 on a
+    ``cuda`` tensor, the plain version on a ``cpu`` one."""
+    prec, logdet = obs_precision(Sigmas, diagonal)
+    nus, c = student_t_terms(nus, logdet, x.shape[2])
+    if x.device.type == 'cpu':
+        return robust_log_likes_plain(x, mask, As, bs, prec, c, nus, lags, diagonal, with_tau)
+    if x.device.type != 'cuda':
+        raise ValueError('robust_log_likes: no implementation for device %s' % x.device)
+    return robust_log_likes_cuda(x, mask, As, bs, prec, c, nus, lags, diagonal, with_tau)
 
 
 # ------------------------------------------------------------------ k-means
@@ -242,17 +336,9 @@ def kmeans(X, K, n_init=10, rng_seed=0):
 def check_ported(observations, transitions, parallel_scan=False, dtype='float32'):
     """Raise ``NotImplementedError`` for a configuration the port cannot fit
     yet (naming the slice that brings it), ``ValueError`` for an invalid one."""
-    if observations in _ROBUST:
-        raise NotImplementedError(
-            'robust observations ("%s") are not ported yet (next ARHMM slice: '
-            'Student\'s-t log-likes and the nu Newton step)' % observations)
-    if observations not in _OBSERVATIONS:
+    if observations not in _OBSERVATIONS + _ROBUST:
         raise ValueError('"%s" is an invalid observation type' % observations)
-    if transitions in ('recurrent', 'recurrent_only'):
-        raise NotImplementedError(
-            '"%s" transitions are not ported yet (next ARHMM slice: '
-            'expected_transitions and the Adam M-step)' % transitions)
-    if transitions not in ('stationary', 'sticky'):
+    if transitions not in _TRANSITIONS:
         raise ValueError('"%s" is an invalid transition type' % transitions)
     if parallel_scan:
         raise NotImplementedError('parallel_scan is not ported yet (next ARHMM slice: '
@@ -281,13 +367,14 @@ class ARHMM:
         self.dtype = dtype
         self.lags = int(lags) if 'ar' in observations.split('_') else 0
         self.diagonal = observations.startswith('diagonal')
+        self.robust = observations in _ROBUST
 
         # drawn exactly as the JAX package draws them (models/arhmm.py:111-128)
         P = self.D * self.lags
         rng = np.random.RandomState(rng_seed)
         Ps = 0.95 * np.eye(K) + 0.05 * rng.rand(K, K)
         Ps /= Ps.sum(axis=1, keepdims=True)
-        self.params = self._tensors({
+        params = {
             'log_pi0': np.log(np.ones(K) / K),
             'log_Ps': np.log(Ps),
             'As': 0.8 * np.tile(np.eye(self.D), (K, 1, self.lags)) if self.lags > 0
@@ -295,7 +382,16 @@ class ARHMM:
             'bs': 0.01 * rng.randn(K, self.D),
             'Sigmas': np.tile(np.eye(self.D), (K, 1, 1)),
             'nus': np.full((K,), float(nu)),
-        })
+        }
+        if self.recurrent:
+            params['Rs'] = 0.01 * rng.randn(K, self.D)
+            params['r'] = np.zeros(K)
+        self.params = self._tensors(params)
+
+    @property
+    def recurrent(self):
+        """Whether the transitions are input-driven, (N, T-1, K, K)."""
+        return self.transitions in ('recurrent', 'recurrent_only')
 
     def _tensors(self, arrays):
         return {k: torch.tensor(np.asarray(v), dtype=torch.float32, device=self.device)
@@ -320,6 +416,7 @@ class ARHMM:
             state.pop(key, None)
         state.setdefault('parallel_scan', False)
         state.setdefault('dtype', 'float32')
+        state.setdefault('robust', state['observations'] in _ROBUST)
         check_ported(state['observations'], state['transitions'],
                      state['parallel_scan'], state['dtype'])
         self.__dict__.update(state)
@@ -346,14 +443,32 @@ class ARHMM:
             datas = [datas]
         return pad_trials(datas, self.device)
 
-    def _log_likes(self, params, x, mask):
-        """Per-frame observation log-likelihoods (N, T, K) of padded trials."""
-        return log_likes(x, mask, params['As'], params['bs'], params['Sigmas'],
-                         self.lags, self.diagonal)
+    def _log_likes(self, params, x, mask, with_tau=False):
+        """Per-frame observation log-likelihoods (N, T, K) of padded trials;
+        with ``with_tau`` also the robust scale-mixture weights (N, T, K),
+        None unless the observations are Student's t."""
+        if self.robust:
+            ll, tau = robust_log_likes(x, mask, params['As'], params['bs'],
+                                       params['Sigmas'], params['nus'], self.lags,
+                                       self.diagonal, with_tau)
+        else:
+            ll, tau = log_likes(x, mask, params['As'], params['bs'], params['Sigmas'],
+                                self.lags, self.diagonal), None
+        return (ll, tau) if with_tau else ll
 
-    def _log_P(self, params):
-        """Stationary transition log-probs (K, K)."""
-        return torch.log_softmax(params['log_Ps'], dim=1)
+    def _log_P(self, params, x=None):
+        """Transition log-probs: (K, K) for stationary or sticky transitions;
+        recurrent, (N, T-1, K, K) from the padded trials ``x``, the step t ->
+        t+1 driven by ``Rs x_t`` (JAX: models/arhmm.py:226)."""
+        if not self.recurrent:
+            return torch.log_softmax(params['log_Ps'], dim=1)
+        drive = torch.einsum('kd,ntd->ntk', params['Rs'], x[:, :-1])   # (N, T-1, K)
+        if self.transitions == 'recurrent':
+            logits = params['log_Ps'][None, None] + drive[:, :, None, :]
+        else:   # recurrent_only: no base matrix
+            N, S, K = drive.shape
+            logits = (drive + params['r'])[:, :, None, :].expand(N, S, K, K)
+        return torch.log_softmax(logits, dim=3)
 
     # ------------------------------------------------------------- public api
     def log_likelihood(self, datas):
@@ -361,7 +476,7 @@ class ARHMM:
         :class:`PaddedTrials` (ssm.HMM API), the forward pass alone."""
         x, mask = self.pad(datas)
         p = self.params
-        log_Z = hmm_ops.log_normalizer(p['log_pi0'], self._log_P(p),
+        log_Z = hmm_ops.log_normalizer(p['log_pi0'], self._log_P(p, x),
                                        self._log_likes(p, x, mask), mask)
         return float(torch.sum(log_Z))
 
@@ -372,7 +487,7 @@ class ARHMM:
             datas = [datas]
         x, mask = self.pad(datas)
         p = self.params
-        paths = hmm_ops.viterbi(p['log_pi0'], self._log_P(p),
+        paths = hmm_ops.viterbi(p['log_pi0'], self._log_P(p, x),
                                 self._log_likes(p, x, mask), mask).cpu().numpy()
         return [paths[i, :len(d)] for i, d in enumerate(datas)]
 
@@ -389,7 +504,7 @@ class ARHMM:
                                       'ported yet')
         x, mask = self.pad([data])
         p = self.params
-        gamma, _, _ = hmm_ops.forward_backward(p['log_pi0'], self._log_P(p),
+        gamma, _, _ = hmm_ops.forward_backward(p['log_pi0'], self._log_P(p, x),
                                                self._log_likes(p, x, mask), mask)
         return gamma[0].cpu().numpy()
 
@@ -410,8 +525,9 @@ class ARHMM:
         new = dict(p)
         new['log_pi0'] = p['log_pi0'][perm]
         new['log_Ps'] = p['log_Ps'][perm][:, perm]
-        for key in ('As', 'bs', 'Sigmas', 'nus'):
-            new[key] = p[key][perm]
+        for key in ('As', 'bs', 'Sigmas', 'nus', 'Rs', 'r'):
+            if key in p:
+                new[key] = p[key][perm]
         self.params = new
 
     # ------------------------------------------------------------------- EM
@@ -466,13 +582,19 @@ class ARHMM:
     def _em_step(self, params, x, mask):
         """One EM iteration on padded trials (N, T, D): returns (new params,
         the total log-likelihood under ``params`` as a 0-d tensor)."""
-        ll = self._log_likes(params, x, mask)
-        gammas, log_Zs, xi_sums = hmm_ops.forward_backward(
-            params['log_pi0'], self._log_P(params), ll, mask)
-        return self._m_step(params, x, mask, gammas, xi_sums), torch.sum(log_Zs)
+        ll, tau = self._log_likes(params, x, mask, with_tau=True)
+        post = hmm_ops.forward_backward(params['log_pi0'], self._log_P(params, x), ll, mask,
+                                        with_xi=self.recurrent)
+        gammas, log_Zs, xi_sums = post[:3]
+        new = self._m_step(params, x, mask, gammas, xi_sums, tau)
+        if self.recurrent:
+            new.update(self._m_step_recurrent(params, x, post[3]))
+        return new, torch.sum(log_Zs)
 
-    def _m_step(self, params, x, mask, gammas, xi_sums):
-        """All M-step updates from the posteriors (JAX: models/arhmm.py:484)."""
+    def _m_step(self, params, x, mask, gammas, xi_sums, tau=None):
+        """All M-step updates from the posteriors but the recurrent
+        transitions' (JAX: models/arhmm.py:484), with the robust weights
+        ``tau`` (N, T, K) under ``params``."""
         K, D, lags = self.K, self.D, self.lags
         dev = x.device
         new = dict(params)
@@ -480,14 +602,17 @@ class ARHMM:
         pi0 = torch.mean(gammas[:, 0, :], dim=0) + 1e-8
         new['log_pi0'] = torch.log(pi0 / torch.sum(pi0))
 
-        counts = torch.sum(xi_sums, dim=0)
-        if self.transitions == 'sticky':
-            counts = counts + self.kappa * torch.eye(K, device=dev)
-        counts = counts + 1e-8
-        new['log_Ps'] = torch.log(counts / torch.sum(counts, dim=1, keepdim=True))
+        if not self.recurrent:
+            counts = torch.sum(xi_sums, dim=0)
+            if self.transitions == 'sticky':
+                counts = counts + self.kappa * torch.eye(K, device=dev)
+            counts = counts + 1e-8
+            new['log_Ps'] = torch.log(counts / torch.sum(counts, dim=1, keepdim=True))
 
         # weighted least squares; frames without a full lag history weigh 0
         w = gammas * mask[:, :, None]
+        if self.robust:
+            w = w * tau
         ones = torch.ones(x.shape[:2] + (1,), device=dev)
         if lags > 0:
             w = w * (torch.arange(x.shape[1], device=dev) >= lags)[None, :, None]
@@ -509,7 +634,7 @@ class ARHMM:
         new['bs'] = beta[:, -1, :].contiguous()
 
         resid = Yf[:, None, :] - torch.einsum('np,kpd->nkd', Xf, beta)   # (N T, K, D)
-        wsum = torch.sum(Wf, dim=0)
+        wsum = torch.sum(Wf, dim=0)   # tau included, as the JAX package's code has it
         if self.diagonal:
             var = torch.sum(Wf[:, :, None] * resid ** 2, dim=0) / \
                 torch.clamp(wsum[:, None], min=1e-8) + 1e-6
@@ -528,7 +653,65 @@ class ARHMM:
             Sig = 0.5 * (Sig + Sig.transpose(1, 2))
             jit = 1e-6 * (1.0 + torch.diagonal(Sig, dim1=1, dim2=2).amax(dim=1))
             new['Sigmas'] = Sig + jit[:, None, None] * torch.eye(D, device=dev)[None]
+
+        if self.robust:
+            new['nus'] = self._m_step_nu(params, mask, gammas, tau)
         return new
+
+    def _m_step_nu(self, params, mask, gammas, taus):
+        """Newton steps on the per-state dof (JAX: models/arhmm.py:582): the
+        root of log(nu/2) - digamma(nu/2) + c, with c = 1 + E_w[E[log tau]
+        - tau] under the old params (every frame weighs its posterior, the
+        first ``lags`` frames too), the derivative a forward difference of
+        step 1e-3 nu, each step clipped to [1, 200]."""
+        D = self.D
+        w = gammas * mask[:, :, None]
+        wsum = torch.clamp(torch.sum(w, dim=(0, 1)), min=1e-8)
+        nus = torch.clamp(params['nus'], min=1e-2)
+        e_log_tau = torch.digamma(0.5 * (nus + D)) + torch.log(taus) \
+            - torch.log(0.5 * (nus + D))
+        c = 1.0 + torch.sum(w * (e_log_tau - taus), dim=(0, 1)) / wsum
+        nu = nus
+        for _ in range(_NU_NEWTON_STEPS):
+            half = 0.5 * nu
+            f = torch.log(half) - torch.digamma(half) + c
+            eps = 1e-3 * nu
+            half2 = 0.5 * (nu + eps)
+            f2 = torch.log(half2) - torch.digamma(half2) + c
+            grad = (f2 - f) / eps
+            step = f / torch.where(torch.abs(grad) > 1e-12, grad, torch.full_like(grad, -1e-12))
+            nu = torch.clamp(nu - step, 1.0, 200.0)
+        return nu
+
+    def _m_step_recurrent(self, params, x, xis):
+        """The recurrent transitions' gradient M-step (JAX:
+        models/arhmm.py:641): 25 Adam steps on -sum xis log_P_new over
+        ``log_Ps``, ``Rs`` and ``r``, from the per-step pairwise posteriors
+        ``xis`` (N, T-1, K, K) under the old params; the gradient by
+        autograd, the update ``optax.adam(1e-2)``'s (b1 0.9, b2 0.999, eps
+        1e-8, written out: a parameter the objective does not read keeps its
+        value, as a zero gradient leaves it in optax). Returns the three
+        tensors."""
+        keys = ('log_Ps', 'Rs', 'r')
+        trans = [params[k].detach().clone() for k in keys]
+        mu = [torch.zeros_like(p) for p in trans]
+        nu = [torch.zeros_like(p) for p in trans]
+        xis = xis.detach()
+        b1, b2, eps, lr = 0.9, 0.999, 1e-8, _RECURRENT_ADAM_LR
+        for step in range(1, _RECURRENT_ADAM_STEPS + 1):
+            leaves = [p.detach().requires_grad_(True) for p in trans]
+            with torch.enable_grad():
+                loss = -torch.sum(xis * self._log_P(dict(params, **dict(zip(keys, leaves))),
+                                                    x))
+                grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+            for i, g in enumerate(grads):
+                if g is None:
+                    continue
+                mu[i] = (1 - b1) * g + b1 * mu[i]
+                nu[i] = (1 - b2) * g * g + b2 * nu[i]
+                upd = (mu[i] / (1 - b1 ** step)) / (torch.sqrt(nu[i] / (1 - b2 ** step)) + eps)
+                trans[i] = trans[i] - lr * upd
+        return dict(zip(keys, trans))
 
     def fit(self, datas, method='em', num_iters=1, initialize=False, tolerance=0.0,
             mesh=None, shard_time=False, iters_per_dispatch=1):

@@ -20,6 +20,8 @@ Parameters carry the reference's module names: ``decoder.conv1d_layer_00``
 ported yet and raise.
 """
 
+import contextlib
+
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
@@ -48,6 +50,41 @@ def _param(*shape):
     return nn.Parameter(torch.empty(shape))
 
 
+@contextlib.contextmanager
+def _f32_cudnn():
+    """cuDNN convolutions accumulate in float32 inside, not in TF32 (PyTorch's
+    default, ``torch.backends.cudnn.allow_tf32``), as JAX accumulates the
+    temporal conv (JAX :96-102); the other cuDNN flags stay as they are."""
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+
+
+class _TemporalConv(torch.autograd.Function):
+    """``F.conv1d`` with 'same' padding, its forward and backward both
+    under :func:`_f32_cudnn` (autograd runs the backward after the forward
+    has returned, so a pin around the forward alone would miss it)."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, padding):
+        ctx.save_for_backward(x, weight)
+        ctx.padding = padding
+        with _f32_cudnn():
+            return F.conv1d(x, weight, bias, padding=padding)
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, weight = ctx.saved_tensors
+        with _f32_cudnn():
+            gx, gw, gb = torch.ops.aten.convolution_backward(
+                grad, x, weight, [weight.shape[0]], [1], [ctx.padding], [1], False, [0], 1,
+                list(ctx.needs_input_grad[:3]))
+        return gx, gw, gb, None
+
+
 class _Conv1d(nn.Module):
     """Temporal conv over a (T, in) trial, 'same' padding; weight (out, in, K)."""
 
@@ -59,7 +96,7 @@ class _Conv1d(nn.Module):
 
     def forward(self, x):
         # a cross-correlation, as lax.conv_general_dilated: no flip
-        return F.conv1d(x.t()[None], self.weight, self.bias, padding=self.n_lags)[0].t()
+        return _TemporalConv.apply(x.t()[None], self.weight, self.bias, self.n_lags)[0].t()
 
 
 class _Linear(nn.Module):

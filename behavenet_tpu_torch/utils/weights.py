@@ -160,8 +160,9 @@ def state_dict_to_params(model, tensors=None):
 def arhmm_params_from_jax(params, device=None):
     """The port ARHMM's ``params`` (float32 tensors on ``device``, ``None``
     meaning ``'cuda'``) from a JAX ARHMM's (``log_pi0``, ``log_Ps``, ``As``,
-    ``bs``, ``Sigmas``, ``nus``: numpy arrays, or anything ``np.asarray``
-    reads). The two packages lay them out alike."""
+    ``bs``, ``Sigmas``, ``nus``, and with recurrent transitions ``Rs`` and
+    ``r``: numpy arrays, or anything ``np.asarray`` reads). The two packages
+    lay them out alike."""
     from behavenet_tpu_torch.utils.device import resolve_device
     dev = resolve_device(device)
     return {k: torch.tensor(_f32(v), device=dev) for k, v in params.items()}

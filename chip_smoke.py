@@ -6,12 +6,14 @@
 On one CUDA GPU (an H100: the kernels are built for sm_90a) it
 
 1. prints the card's name and power limit (nvidia-smi);
-2. builds the port's twelve CUDA kernels from the sources in this checkout;
+2. builds the port's twelve CUDA kernel sources from this checkout;
 3. holds each kernel against its plain PyTorch version at the shapes the
    two main paths give it, and times the kernel, the plain version and the
    one PyTorch call that computes the same function (TF32 off for every
-   float32 reference), on the published default conv AE (Whiteway et al
-   2021) and the reference's 2-view 128x128 frames:
+   float32 reference: ``tf32_off`` around the phases up to the ARHMM's and
+   around the decoders' library yardsticks; the decoder phases run under
+   PyTorch's default flags, as users run them), on the published default
+   conv AE (Whiteway et al 2021) and the reference's 2-view 128x128 frames:
    - the forward convs (K1-K3) at the 189-frame trial batch;
    - the backward of every layer at the train step's 192-frame bucket:
      grad-w in K4, grad-x in K2 (of a conv) or K1 (of a transposed conv);
@@ -56,7 +58,19 @@ On one CUDA GPU (an H100: the kernels are built for sm_90a) it
    12) on a latents pickle of 50 trials of 189 frames (K8-K11 must all
    launch inside it); and serves one fitted ``best_val_model.pt`` through
    ``utils.pickles.load_arhmm`` (``most_likely_states``,
-   ``expected_states`` against the plain path on the card).
+   ``expected_states`` against the plain path on the card). Then the
+   recurrent and robust ARHMM at the same shapes: K8's Student's-t launcher
+   (log-likelihoods and the scale-mixture weights tau, full and diagonal),
+   K9's time-varying one (gamma, log_Z, xi_sum and the per-step xi, with
+   (100, 999, 16, 16) log-transitions of a seeded 'recurrent' model on full
+   trials and of a 'recurrent_only' one with every tenth trial cut to 700
+   frames) and K10's time-varying one, each against its plain version; 20
+   EM iterations of 'recurrent' transitions with 'robust_ar' observations
+   through ``ARHMM.fit`` (every LL finite, the last above the first; one
+   iteration's LL and parameters against the plain EM; timed and
+   profiled); the CLI over the same grid with ``transitions: recurrent``
+   and ``noise_type: studentst``, and its K = 12 model served through
+   ``load_arhmm``.
 8. the neural decoders (main paths 9-12) at the published decoding config
    (configs/decoding_jsons: a 9-wide temporal conv, one hidden layer of 32
    relu units, 9 AE latents or 4 ARHMM states) on 189-frame trials of 256
@@ -172,6 +186,13 @@ KERNELS = {
                     'behavenet_tpu/ops/smallmat.py:17'),
     'gaussian_nll': ('behavenet_tpu_torch/kernels/gaussian_nll.cu',
                      'behavenet_tpu/ops/losses.py:161'),
+    # the launchers added beside K8-K10 for the recurrent and robust ARHMM
+    'arhmm_log_likes_robust': ('behavenet_tpu_torch/kernels/arhmm_log_likes.cu',
+                               'behavenet_tpu/models/arhmm.py:211'),
+    'hmm_forward_backward_tv': ('behavenet_tpu_torch/kernels/hmm_forward_backward.cu',
+                                'behavenet_tpu/ops/hmm.py:167'),
+    'hmm_viterbi_tv': ('behavenet_tpu_torch/kernels/hmm_viterbi.cu',
+                       'behavenet_tpu/ops/hmm.py:186'),
 }
 
 # the kernels a served request runs (an AE train step runs K1-K6, a
@@ -182,6 +203,10 @@ AE_KERNELS = SERVE_KERNELS + ('conv2d_grad_w_nhwc', 'masked_mse', 'amsgrad_step'
 VAE_KERNELS = AE_KERNELS + ('decomposed_kl',)
 EM_KERNELS = ('arhmm_log_likes', 'hmm_forward_backward', 'solve_small')
 ARHMM_KERNELS = EM_KERNELS + ('hmm_viterbi',)
+# a recurrent + robust ARHMM's EM, CLI and serving run the launchers for
+# Student's-t observations and time-varying transitions
+RECURRENT_EM_KERNELS = ('arhmm_log_likes_robust', 'hmm_forward_backward_tv', 'solve_small')
+RECURRENT_KERNELS = RECURRENT_EM_KERNELS + ('hmm_viterbi_tv',)
 
 # The ARHMM at the JAX package's EM benchmark shapes (bench.py:300
 # measure_arhmm_em; the reference NP dataset's 1000-frame trials,
@@ -203,6 +228,16 @@ LL_ABS_TOL, LOGZ_REL_TOL, GAMMA_ABS_TOL, XI_REL_TOL = 1e-4, 1e-5, 1e-4, 1e-4
 PATH_AGREE, PATH_LP_REL_TOL, SOLVE_REL_TOL = 0.999, 1e-5, 1e-4
 # EM's log-likelihood may not fall by more than this relative amount
 EM_LL_REL_TOL = 1e-5
+# The recurrent + robust ARHMM (transitions 'recurrent', observations
+# 'robust_ar') at the same shapes: 20 EM iterations through ARHMM.fit, whose
+# last LL must exceed its first (the JAX package's standard,
+# tests/test_models/test_arhmm.py:284-294). One iteration from the same
+# params on the card and through the plain versions: the LL within
+# EM_LL_REL_TOL, each parameter within REC_PARAM_REL_TOL of its largest
+# entry (25 Adam steps turn posterior differences of ~1e-5 into parameter
+# differences of ~1e-4 of their scale). The kernel checks draw Rs and r at
+# REC_DRIVE so that log_P moves from step to step.
+REC_EM_ITERS, REC_PARAM_REL_TOL, REC_DRIVE = 20, 1e-3, 0.5
 
 # The neural decoders at the published decoding config
 # (configs/decoding_jsons/decoding_ae_model.json: n_lags 4, so a 9-wide
@@ -235,6 +270,27 @@ PREDICT_ABS_TOL = 1e-4
 
 def emit(obj):
     print(json.dumps(obj), flush=True)
+
+
+@contextlib.contextmanager
+def tf32_off():
+    """float32, not TF32, in cuDNN and cuBLAS while the references run: the
+    phases before the decoders hold the kernels against plain versions and
+    library calls that go through cuDNN's convs (the port's own paths there
+    run no cuDNN); the decoder phases run under PyTorch's default flags, as
+    users run them, and set this around their library yardsticks only."""
+    flags = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
+
+
+def tf32_flags():
+    """PyTorch's TF32 flags as they stand (defaults: cuDNN True, cuBLAS False)."""
+    return dict(cudnn=torch.backends.cudnn.allow_tf32,
+                cublas=torch.backends.cuda.matmul.allow_tf32)
 
 
 def import_port():
@@ -939,8 +995,16 @@ def step_from_host(step, host_batch, batch):
     step()
 
 
-# kernel function name -> the port kernel it belongs to
-KERNEL_OF = (('igemm_conv_kernel<unsigned char, false>', 'K1 conv2d_nhwc'),
+# kernel function name -> the port kernel it belongs to (the robust and
+# time-varying instances of K8-K10 first: their template flag is true)
+KERNEL_OF = tuple(
+    ('%s<%d, true>' % (fn, k), label) for fn, label in (
+        ('arhmm_log_likes_kernel', 'K8 arhmm_log_likes (robust)'),
+        ('forward_backward_kernel', 'K9 hmm_forward_backward (time-varying)'),
+        ('forward_kernel', 'K9 hmm_forward_backward (forward alone, time-varying)'),
+        ('viterbi_kernel', 'K10 hmm_viterbi (time-varying)'))
+    for k in (8, 16, 32, 64)) + (
+             ('igemm_conv_kernel<unsigned char, false>', 'K1 conv2d_nhwc'),
              ('igemm_conv_kernel<float, false>', 'K1 conv2d_nhwc'),
              ('igemm_conv_kernel<float, true>', 'K2 conv_transpose2d_nhwc'),
              ('tconv_smallcout_kernel', 'K3 conv_transpose2d_smallcout_sigmoid'),
@@ -1270,15 +1334,22 @@ def sample_arhmm(n, frames, k, d, seed):
 @contextlib.contextmanager
 def plain_arhmm(port):
     """Route the ARHMM's kernel entry points to their plain versions: K8's
-    ``log_likes``, K9's ``forward_backward`` and ``log_normalizer``, K10's
-    ``viterbi`` and the M-step's K11 ``solve_small``, for the plain twin of
-    a run on the card."""
+    ``log_likes`` and ``robust_log_likes``, K9's ``forward_backward`` and
+    ``log_normalizer``, K10's ``viterbi`` and the M-step's K11
+    ``solve_small``, for the plain twin of a run on the card."""
     am, hmm = port.arhmm, port.hmm
 
     def log_likes(x, mask, As, bs, Sigmas, lags, diagonal):
         prec, logdet = am.obs_precision(Sigmas, diagonal)
         return am.log_likes_plain(x, mask, As, bs, prec, logdet, lags, diagonal)
-    routes = ((am, 'log_likes', log_likes), (am, 'solve_small', port.smallmat.solve_small_plain),
+
+    def robust_log_likes(x, mask, As, bs, Sigmas, nus, lags, diagonal, with_tau=False):
+        prec, logdet = am.obs_precision(Sigmas, diagonal)
+        nus, c = am.student_t_terms(nus, logdet, x.shape[2])
+        return am.robust_log_likes_plain(x, mask, As, bs, prec, c, nus, lags, diagonal,
+                                         with_tau)
+    routes = ((am, 'log_likes', log_likes), (am, 'robust_log_likes', robust_log_likes),
+              (am, 'solve_small', port.smallmat.solve_small_plain),
               (hmm, 'forward_backward', hmm.forward_backward_plain),
               (hmm, 'log_normalizer', lambda *a: hmm.forward_plain(*a)[1]),
               (hmm, 'viterbi', hmm.viterbi_plain))
@@ -1467,8 +1538,199 @@ def check_solve_small(port, model, trials):
     return rec
 
 
+def recurrent_arhmm(port, model, transitions, observations):
+    """A fresh ``transitions`` / ``observations`` ARHMM at the EM shapes
+    (its own seeded Rs, r and dof 4) holding ``model``'s initialized
+    ``log_pi0``, ``log_Ps`` and AR params."""
+    m = port.arhmm.ARHMM(EM_STATES, EM_DIM, lags=1, observations=observations,
+                         transitions=transitions, rng_seed=SEED, device=DEVICE)
+    m.params.update({k: model.params[k].clone()
+                     for k in ('log_pi0', 'log_Ps', 'As', 'bs', 'Sigmas')})
+    return m
+
+
+def recurrent_models(port, model):
+    """Seeded recurrent + robust ARHMMs for the kernel checks: one with
+    'recurrent' transitions (observations 'robust_ar'), one with
+    'recurrent_only' ('diagonal_robust_ar'), their dofs drawn in [2, 10] and
+    Rs (and r) at REC_DRIVE, so the drive Rs x_t moves log_P from step to
+    step."""
+    rs = np.random.RandomState(SEED + 9)
+    out = {}
+    for transitions, obs in (('recurrent', 'robust_ar'),
+                             ('recurrent_only', 'diagonal_robust_ar')):
+        m = recurrent_arhmm(port, model, transitions, obs)
+        m.params.update(m._tensors({
+            'nus': rs.uniform(2, 10, EM_STATES), 'Rs': REC_DRIVE * rs.randn(EM_STATES, EM_DIM),
+            'r': REC_DRIVE * rs.randn(EM_STATES)}))
+        out[transitions] = m
+    return out
+
+
+def check_robust_log_likes(port, model, trials):
+    """K8's Student's-t launcher against its plain version on the EM
+    workload: log-likelihoods and the scale-mixture weights tau (the first
+    frame's from the wrapped history), full covariance and diagonal."""
+    am = port.arhmm
+    x, mask = trials
+    p = model.params
+    N, T, D = x.shape
+    K = p['bs'].shape[0]
+    cases = {}
+    for diagonal in (False, True):
+        prec, logdet = am.obs_precision(p['Sigmas'], diagonal)
+        nus, c = am.student_t_terms(p['nus'], logdet, D)
+        args = (x, mask, p['As'], p['bs'], prec, c, nus, model.lags, diagonal, True)
+        (ll_k, tau_k), (ll_p, tau_p) = am.robust_log_likes_cuda(*args), \
+            am.robust_log_likes_plain(*args)
+        torch.cuda.synchronize()
+        ll_err = (ll_k - ll_p).abs().max().item()
+        tau_err = (tau_k - tau_p).abs().max().item()
+        finite = bool(torch.isfinite(ll_k).all().item() and torch.isfinite(tau_k).all().item())
+        ll_tol = LL_ABS_TOL * max(1.0, ll_p.abs().max().item())
+        tau_tol = LL_ABS_TOL * max(1.0, tau_p.abs().max().item())
+        del ll_k, tau_k, ll_p, tau_p
+        P = D * model.lags
+        # K8's Gaussian work per frame past the lags and state, then the
+        # Student's-t terms: a divide, a log1p, a multiply-add for ll and an
+        # add and a divide for tau; tau's frames include the first ones
+        per_state = 2 * D * P + (5 * D if diagonal else D * (D + 1) + 4 * D) + 6
+        n_ops = N * T * K * per_state
+        n_bytes = 4 * (x.numel() + mask.numel() + 2 * N * T * K + p['As'].numel()
+                       + p['bs'].numel() + prec.numel() + 2 * K)
+        cases['diagonal' if diagonal else 'full'] = dict(
+            max_abs_err=max(ll_err, tau_err), ll_max_abs_err=ll_err, ll_abs_tol=ll_tol,
+            tau_max_abs_err=tau_err, tau_abs_tol=tau_tol, finite=finite,
+            ms=median_ms(lambda: am.robust_log_likes_cuda(*args)),
+            plain_ms=median_ms(lambda: am.robust_log_likes_plain(*args), samples=3, inner=2),
+            gflop=n_ops / 1e9, mbytes=n_bytes / 1e6, **bound(n_ops, n_bytes))
+    rec = dict(phase='arhmm_kernel_check', kernel='arhmm_log_likes_robust', layer='full',
+               frames=N * T, trials=N, states=K, dim=D, library_ms=None, cases=cases,
+               **{k: v for k, v in cases['full'].items() if k != 'finite'})
+    emit(rec)
+    bad = [c for c, v in cases.items() if not v['finite'] or v['ll_max_abs_err'] >
+           v['ll_abs_tol'] or v['tau_max_abs_err'] > v['tau_abs_tol']]
+    if bad:
+        raise AssertionError('K8 (robust) disagrees with its plain version (%s): %s'
+                             % (bad, rec))
+    return rec
+
+
+def check_forward_backward_tv(port, models, trials):
+    """K9's time-varying launcher against its plain version on the EM
+    workload: gamma, log_Z, xi_sum and the per-step xi, with log_P (100,
+    999, 16, 16) from the seeded 'recurrent' model over full trials and
+    from the 'recurrent_only' one over a copy with every tenth trial cut to
+    700 frames; and the forward pass alone. log_Z within LOGZ_REL_TOL and
+    xi_sum within XI_REL_TOL of the plain version's; gamma and xi within
+    GAMMA_ABS_TOL, or twice the plain float32 version's own distance, of
+    the plain version run in float64."""
+    hmm = port.hmm
+    x, mask = trials
+    cut = mask.clone()
+    cut[::10, EM_CUT:] = 0.0
+    cases = {}
+    for name, m in (('recurrent', mask), ('recurrent_only', cut)):
+        model = models[name]
+        p = model.params
+        pi0, lp = p['log_pi0'], model._log_P(p, x)
+        ll = model._log_likes(p, x, m)
+        N, T, K = ll.shape
+        out_k = hmm.forward_backward_cuda(pi0, lp, ll, m, with_xi=True)
+        out_p = hmm.forward_backward_plain(pi0, lp, ll, m, with_xi=True)
+        g_d, _, _, xi_d = hmm.forward_backward_plain(pi0.double(), lp.double(), ll.double(),
+                                                     m.double(), with_xi=True)
+        fz_k = hmm.log_normalizer_cuda(pi0, lp, ll, m)
+        torch.cuda.synchronize()
+        (g_k, z_k, s_k, xi_k), (g_p, z_p, s_p, xi_p) = out_k, out_p
+        # |alpha| reaches ~|log_Z| ~ 1e4 after 1000 steps, where one float32
+        # ulp is ~1e-3 in log space: the kernel is held to the float64
+        # posteriors within twice the plain float32 version's own error
+        vs_f64 = {name: max((g.double() - g_d).abs().max().item(),
+                            (xi.double() - xi_d).abs().max().item())
+                  for name, g, xi in (('kernel', g_k, xi_k), ('plain', g_p, xi_p))}
+        del g_d, xi_d
+        pair = (m[:, :-1] * m[:, 1:]) == 0
+        frames = m.sum().item()
+        n_ops = (20 * K * K + 6 * K) * frames
+        n_bytes = 4 * (ll.numel() + m.numel() + lp.numel() + K + g_k.numel() + N
+                       + s_k.numel() + xi_k.numel())
+        cases[name] = dict(
+            frames=frames,
+            log_z_rel_err=((z_k - z_p).abs() / z_p.abs()).max().item(),
+            forward_log_z_rel_err=((fz_k - z_p).abs() / z_p.abs()).max().item(),
+            max_abs_err=max((g_k - g_p).abs().max().item(), (xi_k - xi_p).abs().max().item()),
+            gamma_max_abs_err=(g_k - g_p).abs().max().item(),
+            xi_max_abs_err=(xi_k - xi_p).abs().max().item(),
+            xi_sum_rel_err=(s_k - s_p).abs().max().item() / s_p.abs().max().item(),
+            max_abs_log_z=z_p.abs().max().item(), kernel_err_vs_f64=vs_f64['kernel'],
+            plain_err_vs_f64=vs_f64['plain'],
+            posterior_tol=max(GAMMA_ABS_TOL, 2 * vs_f64['plain']),
+            padded_zero=bool((g_k[m == 0] == 0).all().item() and (xi_k[pair] == 0).all().item()),
+            finite=bool(torch.isfinite(g_k).all().item() and torch.isfinite(xi_k).all().item()),
+            ms=median_ms(lambda: hmm.forward_backward_cuda(pi0, lp, ll, m, with_xi=True)),
+            xi_sum_only_ms=median_ms(lambda: hmm.forward_backward_cuda(pi0, lp, ll, m)),
+            fwd_ms=median_ms(lambda: hmm.log_normalizer_cuda(pi0, lp, ll, m)),
+            plain_ms=median_ms(lambda: hmm.forward_backward_plain(pi0, lp, ll, m, with_xi=True),
+                               samples=3, inner=1, warmup=1),
+            gflop=n_ops / 1e9, mbytes=n_bytes / 1e6, **bound(n_ops, n_bytes))
+        del out_k, out_p, g_k, g_p, xi_k, xi_p, lp
+    rec = dict(phase='arhmm_kernel_check', kernel='hmm_forward_backward_tv', layer='full',
+               frames=EM_TRIALS * EM_FRAMES, trials=EM_TRIALS, states=EM_STATES,
+               log_z_rel_tol=LOGZ_REL_TOL, abs_tol=GAMMA_ABS_TOL, xi_rel_tol=XI_REL_TOL,
+               library_ms=None,
+               bound_note='the T-step dependence chain of the recursions, not these',
+               cases=cases, **{k: v for k, v in cases['recurrent'].items()
+                               if k not in ('finite', 'padded_zero', 'frames')})
+    emit(rec)
+    bad = [c for c, v in cases.items() if not v['finite'] or not v['padded_zero']
+           or max(v['log_z_rel_err'], v['forward_log_z_rel_err']) > LOGZ_REL_TOL
+           or v['kernel_err_vs_f64'] > v['posterior_tol'] or v['xi_sum_rel_err'] > XI_REL_TOL]
+    if bad:
+        raise AssertionError('K9 (time-varying) disagrees with its plain version (%s): %s'
+                             % (bad, rec))
+    return rec
+
+
+def check_viterbi_tv(port, models, trials):
+    """K10's time-varying launcher against its plain version on the EM
+    workload with the seeded 'recurrent' model's log_P: paths equal on at
+    least 99.9% of the frames, each path's joint log-probability within
+    1e-5 of the plain path's."""
+    hmm = port.hmm
+    x, mask = trials
+    model = models['recurrent']
+    p = model.params
+    pi0, lp = p['log_pi0'], model._log_P(p, x)
+    ll = model._log_likes(p, x, mask)
+    N, T, K = ll.shape
+    path_k, path_p = hmm.viterbi_cuda(pi0, lp, ll, mask), hmm.viterbi_plain(pi0, lp, ll, mask)
+    torch.cuda.synchronize()
+    lp_k = hmm.path_log_prob(pi0, lp, ll, mask, path_k)
+    lp_p = hmm.path_log_prob(pi0, lp, ll, mask, path_p)
+    agree = (path_k == path_p).float().mean().item()
+    lp_rel = ((lp_k - lp_p).abs() / lp_p.abs()).max().item()
+    frames = mask.sum().item()
+    n_ops = 2 * K * K * frames
+    n_bytes = 4 * (ll.numel() + mask.numel() + lp.numel() + K + path_k.numel())
+    rec = dict(phase='arhmm_kernel_check', kernel='hmm_viterbi_tv', layer='full', frames=N * T,
+               trials=N, states=K, path_agreement=agree, agree_tol=PATH_AGREE,
+               path_log_prob_rel_err=lp_rel, rel_tol=PATH_LP_REL_TOL,
+               max_abs_err=(lp_k - lp_p).abs().max().item(),
+               ms=median_ms(lambda: hmm.viterbi_cuda(pi0, lp, ll, mask)),
+               plain_ms=median_ms(lambda: hmm.viterbi_plain(pi0, lp, ll, mask),
+                                  samples=3, inner=1, warmup=1),
+               library_ms=None, gflop=n_ops / 1e9, mbytes=n_bytes / 1e6,
+               bound_note='the T-step dependence chain and the backtrace, not these',
+               **bound(n_ops, n_bytes))
+    emit(rec)
+    if agree < PATH_AGREE or lp_rel > PATH_LP_REL_TOL:
+        raise AssertionError('K10 (time-varying) disagrees with its plain version: %s' % rec)
+    return rec
+
+
 def arhmm_em(port, model, trials, init_s):
-    """Main path 6: ``ARHMM.fit`` from ``initialize``, 20 EM iterations of
+    """Main path 6a: ``ARHMM.fit`` from ``initialize``, 20 EM iterations of
     the EM workload on the card; then an iteration's time beside the same
     EM through the plain versions, and its profile."""
     build = port.build
@@ -1504,6 +1766,67 @@ def arhmm_em(port, model, trials, init_s):
     return launches
 
 
+def arhmm_em_recurrent(port, model, trials):
+    """Main path 6b: ``ARHMM.fit`` of a recurrent + robust ARHMM
+    (:func:`recurrent_arhmm`: 'recurrent' transitions, 'robust_ar'
+    observations) for REC_EM_ITERS iterations
+    on the card: every LL finite, the last above the first, K8's robust
+    launcher, K9's time-varying one and K11 every iteration. Before it, one
+    iteration from the same params on the card and through the plain
+    versions (LL and every parameter); after it, an iteration's time beside
+    the plain EM's, and its profile."""
+    build = port.build
+    x, mask = trials
+    p0 = dict(model.params)
+    new_k, ll_k = model._em_step(p0, x, mask)
+    with plain_arhmm(port):
+        new_p, ll_p = model._em_step(p0, x, mask)
+    torch.cuda.synchronize()
+    ll_rel = abs(ll_k.item() - ll_p.item()) / abs(ll_p.item())
+    param_err = {k: (new_k[k] - new_p[k]).abs().max().item()
+                 / max(new_p[k].abs().max().item(), 1e-30) for k in new_p}
+    del new_k, new_p
+
+    reset_launches(build)
+    t0 = time.perf_counter()
+    lls = model.fit(trials, num_iters=REC_EM_ITERS)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = dict(build.LAUNCHES)
+    finite = bool(np.isfinite(lls).all())
+    rising = lls[-1] > lls[0]
+    missing = [k for k in RECURRENT_EM_KERNELS if launches[k] < REC_EM_ITERS]
+
+    def step(m=model):
+        m.fit(trials, num_iters=1)
+    twin = port.arhmm.ARHMM(EM_STATES, EM_DIM, lags=1, observations=model.observations,
+                            transitions=model.transitions, rng_seed=SEED, device=DEVICE)
+    twin.params = dict(model.params)
+    ms = request_ms(step, reps=EM_TIMED_ITERS, warmup=2)
+    with plain_arhmm(port):
+        plain_ms = request_ms(lambda: step(twin), reps=EM_TIMED_ITERS, warmup=2)
+    rec = dict(phase='arhmm_em_recurrent', transitions=model.transitions,
+               observations=model.observations, trials=EM_TRIALS, frames_per_trial=EM_FRAMES,
+               states=EM_STATES, dim=EM_DIM, iterations=REC_EM_ITERS, fit_seconds=fit_s,
+               lls=lls, finite=finite, last_above_first=rising, launches=launches,
+               launches_per_iteration={k: launches[k] / REC_EM_ITERS
+                                       for k in RECURRENT_KERNELS},
+               one_iteration=dict(ll=ll_k.item(), plain_ll=ll_p.item(), ll_rel_err=ll_rel,
+                                  ll_rel_tol=EM_LL_REL_TOL, param_rel_err=param_err,
+                                  param_rel_tol=REC_PARAM_REL_TOL),
+               ms_per_iteration=ms, iterations_per_s=1e3 / ms,
+               plain_ms_per_iteration=plain_ms, plain_iterations_per_s=1e3 / plain_ms,
+               peak_mib=torch.cuda.max_memory_allocated() / 2 ** 20)
+    emit(rec)
+    if missing or not finite or not rising or ll_rel > EM_LL_REL_TOL or \
+            max(param_err.values()) > REC_PARAM_REL_TOL:
+        raise AssertionError('the recurrent EM on the card failed (missing %s): %s'
+                             % (missing, rec))
+    emit(profile_steps(step, phase='arhmm_em_recurrent_profile',
+                       frames=EM_TRIALS * EM_FRAMES, bucket=None))
+    return launches
+
+
 def write_latents_store(port, save_dir, ids, model_cfg, training_cfg, latents):
     """An upstream AE's completed version (``ae_version: "best"`` finds it)
     holding a latents pickle in the experiment store's format."""
@@ -1524,21 +1847,25 @@ def write_latents_store(port, save_dir, ids, model_cfg, training_cfg, latents):
         pickle.dump({'latents': list(latents), 'trials': splits}, f)
 
 
-def arhmm_cli(port, tmp):
+def arhmm_cli(port, tmp, kernels=ARHMM_KERNELS, **model):
     """Main path 7: the port's ``arhmm_grid_search`` on the card over the
-    published grid (configs/arhmm_jsons/arhmm_model.json, K = 2, 4, 8, 12;
-    arhmm_training.json with its 20 iterations, train plots off; a compute
-    config without a device), on a latents pickle of 50 trials of 189
-    frames from a seeded 8-state ARHMM. Every logged loss finite, a states
-    pickle with one path per trial, K8-K11 launched inside it."""
+    published grid (configs/arhmm_jsons/arhmm_model.json, K = 2, 4, 8, 12,
+    with the ``model`` keys changed; arhmm_training.json with its 20
+    iterations, train plots off; a compute config without a device), on a
+    latents pickle of 50 trials of 189 frames from a seeded 8-state ARHMM.
+    Every logged loss finite, a states pickle with one path per trial,
+    ``kernels`` launched inside it."""
     def load(name):
         with open(os.path.join(ARHMM_CONFIGS, 'arhmm_%s.json' % name)) as f:
             return json.load(f)
     model_cfg, training_cfg, compute_cfg = load('model'), load('training'), load('compute')
+    model_cfg.update(model)
     training_cfg['export_train_plots'] = False
     training_cfg['export_states'] = True
     compute_cfg.pop('device')
     ids = ('musall', 'smoke', 'mouse', 'session-0')
+    tmp = os.path.join(tmp, 'arhmm_cli_%s_%s' % (model_cfg['transitions'],
+                                                 model_cfg['noise_type']))
     save_dir = os.path.join(tmp, 'arhmm_store')
     latents = sample_arhmm(CLI_TRIALS, TRIAL, 8, model_cfg['n_ae_latents'], SEED + 5)
     write_latents_store(port, save_dir, ids, model_cfg, training_cfg, latents)
@@ -1585,8 +1912,9 @@ def arhmm_cli(port, tmp):
         results[k] = dict(seconds=seconds.get(k), completed=completed, finite=finite,
                           states_ok=ok_states, epochs=len(logged['tr_loss']) // 2,
                           tr_loss=logged['tr_loss'][::2], val_loss=logged['val_loss'][::2])
-    missing = [k for k in ARHMM_KERNELS if launches[k] == 0]
-    rec = dict(phase='arhmm_cli', trials=CLI_TRIALS, frames_per_trial=TRIAL,
+    missing = [k for k in kernels if launches[k] == 0]
+    rec = dict(phase='arhmm_cli', transitions=model_cfg['transitions'],
+               noise_type=model_cfg['noise_type'], trials=CLI_TRIALS, frames_per_trial=TRIAL,
                dim=model_cfg['n_ae_latents'], iterations=training_cfg['n_iters'],
                grid=model_cfg['n_arhmm_states'], seconds_per_grid_point=seconds,
                launches=launches, results=results)
@@ -1597,10 +1925,12 @@ def arhmm_cli(port, tmp):
     return vdirs[max(vdirs)], latents, launches
 
 
-def arhmm_serve(port, vdir, latents):
+def arhmm_serve(port, vdir, latents, kernels=('arhmm_log_likes', 'hmm_forward_backward',
+                                               'hmm_viterbi')):
     """Main path 8: a fitted ``best_val_model.pt`` loads through
     ``load_arhmm`` on the card and decodes one trial: the Viterbi path and
-    the posteriors against the plain path's on the card."""
+    the posteriors against the plain path's on the card, ``kernels``
+    launched."""
     hmm = port.hmm
     trial = latents[0]
     reset_launches(port.build)
@@ -1613,20 +1943,21 @@ def arhmm_serve(port, vdir, latents):
     x, mask = model.pad([trial])
     p = model.params
     ll = model._log_likes(p, x, mask)
-    lps = [hmm.path_log_prob(p['log_pi0'], model._log_P(p), ll, mask,
+    lps = [hmm.path_log_prob(p['log_pi0'], model._log_P(p, x), ll, mask,
                              torch.from_numpy(z[None]).to(x.device)).item()
            for z in (path, path_p)]
     agree = float(np.mean(path == path_p))
     lp_rel = abs(lps[0] - lps[1]) / abs(lps[1])
     gamma_err = float(np.abs(gamma - gamma_p).max())
-    rec = dict(phase='arhmm_serve', states=model.K, frames=TRIAL, device=str(model.device),
+    rec = dict(phase='arhmm_serve', transitions=model.transitions,
+               observations=model.observations, states=model.K, frames=TRIAL,
+               device=str(model.device),
                path_agreement=agree, path_log_prob_rel_err=lp_rel, gamma_max_abs_err=gamma_err,
                launches=launches,
                most_likely_states_ms=request_ms(lambda: model.most_likely_states(trial)),
                expected_states_ms=request_ms(lambda: model.expected_states(trial)))
     emit(rec)
-    missing = [k for k in ('arhmm_log_likes', 'hmm_forward_backward', 'hmm_viterbi')
-               if launches[k] == 0]
+    missing = [k for k in kernels if launches[k] == 0]
     if missing or agree < PATH_AGREE or lp_rel > PATH_LP_REL_TOL or \
             gamma_err > GAMMA_ABS_TOL or model.device.type != torch.device(DEVICE).type:
         raise AssertionError('the fitted ARHMM does not serve (missing %s): %s'
@@ -1695,6 +2026,8 @@ def check_gaussian_nll(losses, gen, d):
         mvn = torch.distributions.MultivariateNormal(yl, covariance_matrix=eye + cl)
         loss = -(mvn.log_prob(y_true) * fm).sum() / fm.sum()
         return torch.autograd.grad(loss, (yl, cl))
+    with tf32_off():
+        library_ms = median_ms(library)
     valid = int(fm.sum().item())
     # per valid frame: the factor d^3/3 + d^2 flops and the solves, logs and
     # squares ~3 d^2 forward; the backward again the factor and four
@@ -1712,7 +2045,7 @@ def check_gaussian_nll(losses, gen, d):
                grad_rel_tol=NLL_GRAD_REL_TOL, max_abs_err=max_abs,
                cov_grad_upper_zero=upper_zero, mflop=n_ops / 1e6, mbytes=n_bytes / 1e6,
                ms=median_ms(kernel), fwd_ms=median_ms(forward), plain_ms=median_ms(plain),
-               library_ms=median_ms(library), **bound(n_ops, n_bytes))
+               library_ms=library_ms, **bound(n_ops, n_bytes))
     emit(rec)
     if not finite or not upper_zero or loss_err > LOSS_REL_TOL or grad_err > NLL_GRAD_REL_TOL:
         raise AssertionError('K12 disagrees with its plain version: %s' % rec)
@@ -1782,7 +2115,7 @@ def fit_decoder(port, tmp, name, seed):
     finite = all(len(v) and np.isfinite(v).all() for v in logged.values())
     need = DECODERS[name][-1]
     missing = [k for k in need if launches[k] == 0]
-    emit(dict(phase='decoder_fit', model=name, model_class=hp['model_class'],
+    emit(dict(phase='decoder_fit', model=name, model_class=hp['model_class'], tf32=tf32_flags(),
               noise_dist=hp['noise_dist'], neural_channels=N_NEURAL,
               outputs=hp['output_size'], epochs=list(range(VAE_FIT_EPOCHS + 1)),
               train_trials=source.n_tot_batches['train'], seconds=fit_s,
@@ -1846,7 +2179,7 @@ def decoder_grads(port, hp, model, batch):
                  for k, p in model.named_parameters()}
     worst = max(grad_errs, key=grad_errs.get)
     loss_err = abs(loss_k.item() - loss_p.item()) / abs(loss_p.item())
-    emit(dict(phase='decoder_grads', model=hp['experiment_name'], frames=BUCKET,
+    emit(dict(phase='decoder_grads', model=hp['experiment_name'], frames=BUCKET, tf32=tf32_flags(),
               loss=loss_k.item(), plain_loss=loss_p.item(), loss_rel_err=loss_err,
               rel_tol=GRAD_REL_TOL, loss_kernel=loss_kernel, loss_kernel_launches=launched,
               max_rel_err=grad_errs[worst], worst=worst, rel_err=grad_errs))
@@ -1886,6 +2219,7 @@ def decoder_step(port, hp, model, source):
     per_step = dict(port.build.LAUNCHES)
     ms, plain_ms = request_ms(step), request_ms(plain_step)
     rec = dict(phase='decoder_step', model=hp['experiment_name'], frames=TRIAL, bucket=BUCKET,
+               tf32=tf32_flags(),
                neural_channels=N_NEURAL, ms=ms, frames_per_s=TRIAL / ms * 1e3,
                plain_ms=plain_ms, plain_frames_per_s=TRIAL / plain_ms * 1e3,
                launches_per_step=per_step)
@@ -1937,6 +2271,7 @@ def serve_decoder(port, hp, vdir, best, source):
         r['finite'] and r['max_abs_err'] <= r['tol'] and r['shape'] == [f, DEC_LATENTS]
         for f, r in rows.items())
     rec = dict(phase='decoder_serve', model=hp['experiment_name'], device=str(bundle.device),
+               tf32=tf32_flags(),
                weights_equal=same, requests=rows, ok=ok)
     emit(rec)
     if not ok:
@@ -1971,8 +2306,7 @@ def main():
         return 1
     port = import_port()
     ops = port.ops
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+    default_flags = tf32_flags()
 
     smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
                           '--format=csv,noheader'], capture_output=True, text=True,
@@ -1988,31 +2322,47 @@ def main():
     hp = model_hparams(port.arch)
     gen = torch.Generator(device=DEVICE)
     gen.manual_seed(SEED)
-    checks = [check_layer(L, ops, gen) for L in layer_shapes(hp, TRIAL)]
-    for L in layer_shapes(hp, BUCKET):
-        checks += check_backward_layer(L, ops, gen)
-    checks.append(check_mse(port.losses, gen))
-    checks.append(check_amsgrad(port.optim, port.aes.AE(hp).to(DEVICE), gen))
-    checks += [check_decomposed_kl(port.losses, gen, d) for d in KL_DIMS]
-    em_model, em_trials, init_s = em_workload(port)
-    checks += [check(port, em_model, em_trials) for check in (
-        check_arhmm_log_likes, check_forward_backward, check_viterbi, check_solve_small)]
+    with tf32_off():
+        checks = [check_layer(L, ops, gen) for L in layer_shapes(hp, TRIAL)]
+        for L in layer_shapes(hp, BUCKET):
+            checks += check_backward_layer(L, ops, gen)
+        checks.append(check_mse(port.losses, gen))
+        checks.append(check_amsgrad(port.optim, port.aes.AE(hp).to(DEVICE), gen))
+        checks += [check_decomposed_kl(port.losses, gen, d) for d in KL_DIMS]
+        em_model, em_trials, init_s = em_workload(port)
+        checks += [check(port, em_model, em_trials) for check in (
+            check_arhmm_log_likes, check_forward_backward, check_viterbi, check_solve_small)]
+        rec_models = recurrent_models(port, em_model)
+        checks.append(check_robust_log_likes(port, rec_models['recurrent'], em_trials))
+        checks += [check(port, rec_models, em_trials)
+                   for check in (check_forward_backward_tv, check_viterbi_tv)]
     checks += [check_gaussian_nll(port.losses, gen, d) for d in NLL_DIMS]
     checks.append(check_mse(port.losses, gen, decoder=True))
 
     launches = {}
     with tempfile.TemporaryDirectory() as tmp:
-        launches['serve'], _, _ = serve(port.serving, port.base, ops, hp, tmp)
-        launches['train'], _, _ = train(port, hp, tmp)
-        source = TrialSource(TRAIN_TRIALS, SEED + 3, n_labels=N_LABELS)
-        ps_hp, ps_model, ps_dir, ps_best, launches['fit_ps-vae'] = fit_vae(
-            port, hp, tmp, 'ps-vae', source)
-        psvae_step(port, ps_hp, ps_model, source)
-        launches['serve_ps-vae'] = serve_psvae(port, ps_hp, ps_dir, ps_best, source)
-        launches['fit_beta-tcvae'] = fit_vae(port, hp, tmp, 'beta-tcvae', source)[-1]
-        launches['arhmm_em'] = arhmm_em(port, em_model, em_trials, init_s)
-        vdir, cli_latents, launches['arhmm_cli'] = arhmm_cli(port, tmp)
-        launches['arhmm_serve'] = arhmm_serve(port, vdir, cli_latents)
+        with tf32_off():
+            launches['serve'], _, _ = serve(port.serving, port.base, ops, hp, tmp)
+            launches['train'], _, _ = train(port, hp, tmp)
+            source = TrialSource(TRAIN_TRIALS, SEED + 3, n_labels=N_LABELS)
+            ps_hp, ps_model, ps_dir, ps_best, launches['fit_ps-vae'] = fit_vae(
+                port, hp, tmp, 'ps-vae', source)
+            psvae_step(port, ps_hp, ps_model, source)
+            launches['serve_ps-vae'] = serve_psvae(port, ps_hp, ps_dir, ps_best, source)
+            launches['fit_beta-tcvae'] = fit_vae(port, hp, tmp, 'beta-tcvae', source)[-1]
+            launches['arhmm_em'] = arhmm_em(port, em_model, em_trials, init_s)
+            launches['arhmm_em_recurrent'] = arhmm_em_recurrent(
+                port, recurrent_arhmm(port, em_model, 'recurrent', 'robust_ar'), em_trials)
+            del em_model, em_trials, rec_models
+            vdir, cli_latents, launches['arhmm_cli'] = arhmm_cli(port, tmp)
+            launches['arhmm_serve'] = arhmm_serve(port, vdir, cli_latents)
+            vdir, cli_latents, launches['arhmm_cli_recurrent'] = arhmm_cli(
+                port, tmp, RECURRENT_KERNELS, transitions='recurrent', noise_type='studentst')
+            launches['arhmm_serve_recurrent'] = arhmm_serve(
+                port, vdir, cli_latents, ('arhmm_log_likes_robust', 'hmm_forward_backward_tv',
+                                          'hmm_viterbi_tv'))
+        if tf32_flags() != default_flags:
+            raise AssertionError('the TF32 flags were left changed: %s' % tf32_flags())
         fitted = {}
         for i, name in enumerate(DECODERS):
             fitted[name] = fit_decoder(port, tmp, name, SEED + 8 + i)

@@ -93,7 +93,12 @@ def test_state_dict_matches_reference_export():
 
 @pytest.mark.parametrize('change', [
     {'ae_batch_norm': True}, {'model_type': 'linear'},
-    {'ae_encoding_layer_type': ['conv', 'maxpool', 'conv', 'conv', 'conv']}])
+    {'ae_encoding_layer_type': ['conv', 'maxpool', 'conv', 'conv', 'conv']},
+    {'compute_dtype': 'bfloat16'}, {'bf16_pipeline': True}])
 def test_unported_archs_raise(change):
+    """Unported archs and dtypes raise; a float32 ``compute_dtype`` is the
+    port's own and builds."""
     with pytest.raises(NotImplementedError):
         AE(dict(_hparams(), **change))
+    if 'compute_dtype' in change:
+        AE(dict(_hparams(), compute_dtype='float32', bf16_pipeline=False))

@@ -175,7 +175,8 @@ def test_kmeans_initialize_matches_sklearn():
 def test_jax_written_model_loads_without_jax(datas, tmp_path):
     """A JAX-written ``best_val_model.pt`` (``ARHMM.save``, as the JAX CLI
     pickles it) loads through ``load_arhmm`` in a process that never
-    imports jax or behavenet_tpu, and gives JAX's Viterbi paths; the same
+    imports jax or behavenet_tpu, and gives JAX's Viterbi paths; so does a
+    recurrent, robust one (its paths as the port's of the same params); the same
     process reads a latents pickle, initializes (k-means), fits and pickles
     a model without importing sklearn or h5py."""
     j = JaxARHMM(K, D, lags=1, rng_seed=4)
@@ -184,6 +185,16 @@ def test_jax_written_model_loads_without_jax(datas, tmp_path):
     j.hparams = {'n_arhmm_states': K, 'noise_type': 'gaussian'}
     j.save(path)
     np.savez(str(tmp_path / 'io.npz'), *datas, *_decode_jax(j, datas)[0])
+    # a recurrent, robust one: its Viterbi paths as the port decodes its
+    # parameters here
+    kw = dict(lags=1, observations='robust_ar', transitions='recurrent', rng_seed=4)
+    jr = JaxARHMM(K, D, **kw)
+    jr.params = dict(jr.params, As=j.params['As'], bs=j.params['bs'],
+                     Sigmas=j.params['Sigmas'])
+    jr.save(str(tmp_path / 'recurrent.pt'))
+    tr = ARHMM(K, D, device='cpu', **kw)
+    tr.params = arhmm_params_from_jax(_np_params(jr), device='cpu')
+    np.savez(str(tmp_path / 'recurrent.npz'), *tr.most_likely_states_batch(datas))
     with open(str(tmp_path / 'l_e_a_s_latents.pkl'), 'wb') as f:
         pickle.dump({'latents': datas, 'trials': None}, f)
     code = (
@@ -199,6 +210,12 @@ def test_jax_written_model_loads_without_jax(datas, tmp_path):
         '    got = m.most_likely_states(io["arr_%d" % i])\n'
         '    assert np.array_equal(got, io["arr_%d" % (n + i)]), i\n'
         'assert m.hparams["n_arhmm_states"] == m.K\n'
+        'r = load_arhmm(os.path.join(tmp, "recurrent.pt"), device="cpu")\n'
+        'want = np.load(os.path.join(tmp, "recurrent.npz"))\n'
+        'assert r.recurrent and r.robust and r.params["Rs"].shape == (r.K, r.D)\n'
+        'for i in range(n):\n'
+        '    assert np.array_equal(r.most_likely_states(io["arr_%d" % i]),\n'
+        '                          want["arr_%d" % i]), i\n'
         'ds = SingleSessionDataset(tmp, signals=["ae_latents"], transforms=[None],\n'
         '                          paths=[os.path.join(tmp, "l_e_a_s_latents.pkl")])\n'
         'x = [ds[i]["ae_latents"] for i in range(len(ds))]\n'
@@ -256,9 +273,8 @@ def test_port_model_pickles_round_trip(em_pair, tmp_path, datas):
 
 
 def test_unported_configurations_raise():
-    for kw in (dict(observations='robust_ar'), dict(transitions='recurrent'),
-               dict(transitions='recurrent_only'), dict(parallel_scan=True),
-               dict(dtype='float64')):
+    for kw in (dict(parallel_scan=True), dict(dtype='float64'),
+               dict(observations='robust_ar', transitions='recurrent', parallel_scan=True)):
         with pytest.raises(NotImplementedError):
             ARHMM(K, D, device='cpu', **kw)
     t = ARHMM(K, D, device='cpu')
@@ -400,8 +416,9 @@ def test_cli_best_ae_version_matches_jax(cli_run):
 
 
 @pytest.mark.parametrize('model,exc', [
-    (dict(transitions='recurrent'), NotImplementedError),
-    (dict(noise_type='studentst'), NotImplementedError),
+    (dict(em_dtype='float64'), NotImplementedError),
+    (dict(transitions='recurrent', noise_type='studentst', parallel_scan=True),
+     NotImplementedError),
     (dict(parallel_scan=True), NotImplementedError),
 ])
 def test_cli_refuses_unported_configurations(cli_run, model, exc):
@@ -412,6 +429,39 @@ def test_cli_refuses_unported_configurations(cli_run, model, exc):
         with pytest.raises(exc):
             arhmm_grid_search.main(hp)
     assert not os.path.exists(os.path.join(tmp, 'refused'))
+
+
+@pytest.mark.parametrize('transitions,noise_type', [('recurrent', 'studentst'),
+                                                    ('recurrent_only', 'diagonal_studentst')])
+def test_cli_writes_recurrent_and_robust_versions(cli_run, transitions, noise_type):
+    """The CLI fits recurrent transitions with Student's-t noise into the
+    experiment store's ``<transitions>/<noise_type>`` directory; the fitted,
+    usage-sorted model decodes every trial into its states pickle."""
+    from behavenet_tpu_torch.fitting.hyperparams import get_all_params, run_grid_search
+    _, _, latents, tmp = cli_run
+    save_dir = os.path.join(tmp, transitions)
+    _write_ae_store(save_dir, latents)
+    args = _write_configs(tmp, save_dir, n_arhmm_states=[2], transitions=transitions,
+                          noise_type=noise_type)
+    run_grid_search(arhmm_grid_search.main, get_all_params('grid_search', args))
+    vdir = os.path.join(save_dir, LAB, EXPT, ANIMAL, SESSION, 'arhmm', '%02i_latents' % D,
+                        '02_states', transitions, noise_type, 'arhmm-expt', 'version_0')
+    with open(os.path.join(vdir, 'meta_tags.pkl'), 'rb') as f:
+        meta = pickle.load(f)
+    assert meta['training_completed'] and meta['transitions'] == transitions
+    with open(os.path.join(vdir, 'metrics.csv'), newline='') as f:
+        losses = [float(r['tr_loss']) for r in csv.DictReader(f) if r['tr_loss'] != '']
+    assert len(losses) == 8 and np.all(np.isfinite(losses))
+    model = pickles.load_arhmm(os.path.join(vdir, 'best_val_model.pt'), device='cpu')
+    assert model.transitions == transitions and model.robust
+    assert model.observations == ('robust_ar' if noise_type == 'studentst'
+                                  else 'diagonal_robust_ar')
+    with open(os.path.join(vdir, '%s_%s_%s_%s_states.pkl'
+                           % (LAB, EXPT, ANIMAL, SESSION)), 'rb') as f:
+        states = pickle.load(f)['states']
+    assert len(states) == N_TRIALS
+    for path, x in zip(states, latents):
+        np.testing.assert_array_equal(path, model.most_likely_states(x))
 
 
 def test_cli_runs_on_the_gpu_unless_asked_for_the_cpu(cli_run):

@@ -136,6 +136,31 @@ def test_loss_metrics_and_grads_match_jax(noise, masked):
                                        err_msg='%s/%s' % (layer, leaf))
 
 
+def test_temporal_conv_runs_without_tf32(monkeypatch):
+    """The temporal conv's forward and backward run with cuDNN's TF32 off
+    (float32 accumulation, as JAX's conv), whatever the global flag says,
+    and leave the flag as they found it."""
+    import torch.nn.functional as F
+    from behavenet_tpu_torch.models import decoders
+    seen = []
+    conv1d, conv_bwd = F.conv1d, torch.ops.aten.convolution_backward
+
+    def record(name, fn):
+        def wrapped(*args, **kwargs):
+            seen.append((name, torch.backends.cudnn.allow_tf32))
+            return fn(*args, **kwargs)
+        return wrapped
+    monkeypatch.setattr(F, 'conv1d', record('forward', conv1d))
+    monkeypatch.setattr(torch.ops.aten, 'convolution_backward', record('backward', conv_bwd))
+    monkeypatch.setattr(torch.backends.cudnn, 'allow_tf32', True)
+    hp = _hp('gaussian')
+    model = _port(hp, _jax_params(hp))
+    model.loss_fn({k: torch.from_numpy(v) for k, v in _batch('gaussian').items()})[0].backward()
+    assert seen == [('forward', False), ('backward', False)]
+    assert torch.backends.cudnn.allow_tf32
+    assert isinstance(model.model.decoder.conv1d_layer_00, decoders._Conv1d)
+
+
 def test_unported_decoders_raise():
     with pytest.raises(NotImplementedError, match='LSTM'):
         Decoder(dict(_hp('gaussian'), model_type='lstm'))

@@ -1,9 +1,11 @@
 """The port's trainer and CLI against the JAX package's.
 
 On the tiny HDF5 store of tests/test_fitting/test_resume.py (1x16x12 frames,
-20-frame trials padded to 32, two conv layers), the port's ``fit`` starts
-from the JAX init (carried in with ``warm_start``) and batches in the JAX
-``fit``'s order. Tolerance: the per-epoch losses in metrics.csv within rtol
+20-frame trials padded to 32, two conv layers), the two ``fit``s start from
+the same parameters (the JAX init's tree, from ``jax.eval_shape``, drawn
+with numpy at the init's scale: the JAX model's ``init`` returns them and
+the port's ``fit`` takes them through ``warm_start``) and the port's
+batches come in the JAX ``fit``'s order. Tolerance: the per-epoch losses in metrics.csv within rtol
 1e-4, the best-val parameters within atol 1e-5 (float32, other summation
 orders over 16 AMSGrad steps).
 """
@@ -83,14 +85,26 @@ def store(tmp_path_factory):
     return data_dir, _write_store(data_dir)
 
 
+def _fan_in(shape):
+    """HWIO kernels: kh * kw * Cin; dense (in, out): in; biases: 400."""
+    return int(np.prod(shape[:-1])) if len(shape) > 1 else 400
+
+
 @pytest.fixture(scope='module')
 def jax_run(store, tmp_path_factory):
+    """The JAX ``fit`` from numpy-drawn parameters of its init's tree: the
+    eager ``init`` would compile some 25 random-number programs (~9 s on the
+    CPU) for parameters that the port's fit is handed anyway."""
     data_dir, path = store
     expt = str(tmp_path_factory.mktemp('jax'))
     hp = _hparams(os.path.join(expt, 'x'), 2)
     exp = JaxExperiment('x', expt)
     model = JaxAE(hp)
-    init = jax.tree_util.tree_map(np.asarray, model.init(jax.random.PRNGKey(0)))
+    rs = np.random.RandomState(0)
+    init = jax.tree_util.tree_map(
+        lambda a: rs.uniform(-1, 1, a.shape).astype(np.float32) / _fan_in(a.shape) ** 0.5,
+        jax.eval_shape(model.init, jax.random.PRNGKey(0)))
+    model.init = lambda key: jax.tree_util.tree_map(jax.numpy.asarray, init)
     jax_fit(hp, model, _generator(JaxGenerator, data_dir, path), exp, method='ae')
     return hp['expt_dir'], init
 

@@ -8,6 +8,12 @@ metrics rtol 1e-5, gradients within 1e-5 of each tensor's largest entry, a
 PS-VAE ``fit``'s per-epoch losses rtol 1e-4 against the JAX ``fit`` on a
 tiny HDF5 store with a ``labels`` group (1x16x12 frames, 20-frame trials
 padded to 32, two conv layers), served answers atol 1e-5.
+
+The weights are the JAX init's tree (``jax.eval_shape``, which compiles
+nothing) drawn with numpy at the init's scale, with the PS-VAE's fixed
+A and B maps the init's own: the eager JAX init compiles some 25
+random-number programs (~9 s on the CPU) for numbers whose distribution no
+parity test here reads.
 """
 
 import csv
@@ -69,10 +75,35 @@ def _hparams(mc, expt_dir=None, max_n_epochs=4, **kw):
                 expt_dir=expt_dir, rng_seed_data=0, device='cpu', **dict(CLASSES[mc], **kw))
 
 
+def _fan_in(shape):
+    """HWIO kernels: kh * kw * Cin; dense (in, out): in; biases: 400."""
+    return int(np.prod(shape[:-1])) if len(shape) > 1 else 400
+
+
+def _fixed_maps(jmodel, key):
+    """The PS-VAE init's A and B (numpy-made orthogonal maps): compiled
+    alone, every random draw of the init is dead code."""
+    return jax.tree_util.tree_map(np.asarray, jax.jit(
+        lambda k: {n: jmodel.init(k)['encoder'][n] for n in ('A', 'B')})(key))
+
+
+def _numpy_init(jmodel, seed=0):
+    """Params of the JAX init's tree, drawn with numpy at its scale; a
+    PS-VAE's A and B are the init's own."""
+    rs = np.random.RandomState(seed)
+    key = jax.random.PRNGKey(seed)
+    params = jax.tree_util.tree_map(
+        lambda a: rs.uniform(-1, 1, a.shape).astype(np.float32) / _fan_in(a.shape) ** 0.5,
+        jax.eval_shape(jmodel.init, key))
+    if 'A' in params['encoder']:
+        params['encoder'].update(_fixed_maps(jmodel, key))
+    return params
+
+
 def _pair(mc, seed=0, **kw):
     hp = _hparams(mc, **kw)
     jmodel = JAX_MODELS[mc](hp)
-    params = jax.tree_util.tree_map(np.asarray, jmodel.init(jax.random.PRNGKey(seed)))
+    params = _numpy_init(jmodel, seed)
     model = PORT_MODELS[mc](hp)
     model.load_state_dict(params_to_state_dict(model, params))
     return hp, jmodel, params, model
@@ -150,7 +181,7 @@ def test_loss_schedules_match_jax(mc, kw):
 def test_psvae_heads_equal_jax_bits_and_get_no_update():
     for seed in (0, 5):
         hp = dict(_hparams('ps-vae'), rng_seed_model=seed)
-        jp = JAX_MODELS['ps-vae'](hp).init(jax.random.PRNGKey(0))['encoder']
+        jp = _fixed_maps(JAX_MODELS['ps-vae'](hp), jax.random.PRNGKey(0))
         sd = PORT_MODELS['ps-vae'](hp).state_dict()
         np.testing.assert_array_equal(sd['encoding.A.weight'].numpy().T, np.asarray(jp['A']))
         np.testing.assert_array_equal(sd['encoding.B.weight'].numpy().T, np.asarray(jp['B']))
@@ -230,7 +261,8 @@ def jax_psvae_run(store, tmp_path_factory):
     expt = str(tmp_path_factory.mktemp('jax'))
     hp = dict(_hparams('ps-vae', os.path.join(expt, 'x'), 2), **PS_FIT)
     model = JAX_MODELS['ps-vae'](hp)
-    init = jax.tree_util.tree_map(np.asarray, model.init(jax.random.PRNGKey(0)))
+    init = _numpy_init(model)
+    model.init = lambda key: jax.tree_util.tree_map(jnp.asarray, init)
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(jvaes, 'reparameterize', _jax_reparameterize)
         jax_fit(hp, model, _generator(JaxGenerator, data_dir, path),
