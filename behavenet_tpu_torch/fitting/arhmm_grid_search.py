@@ -22,9 +22,10 @@ alone. A fit with non-finite parameters is not marked completed.
 Every ``noise_type`` (``gaussian``, ``studentst`` and their diagonal forms)
 and every ``transitions`` (``stationary``/``standard``, ``sticky``,
 ``recurrent``, ``recurrent_only``) is fitted, into the JAX CLI's
-``<transitions>/<noise_type>`` directory. Not ported, and raising
-``NotImplementedError``: ``parallel_scan``, ``em_dtype='float64'``,
-``export_train_plots`` and the JAX CLI's multi-device mesh.
+``<transitions>/<noise_type>`` directory. ``parallel_scan: true`` runs the
+message passes as parallel-prefix scans (K13, K14). Not ported, and raising
+``NotImplementedError``: ``em_dtype='float64'``, ``export_train_plots`` and
+the JAX CLI's multi-device mesh.
 """
 
 import os
@@ -76,8 +77,7 @@ def main(hparams, *args):
         raise NotImplementedError('training plots are not ported yet; set '
                                   '"export_train_plots": false')
     device = resolve_device(hparams.get('device'))   # fail before any work
-    check_ported(obs_type, transitions, bool(hparams.get('parallel_scan', False)),
-                 hparams.get('em_dtype', 'float32'))
+    check_ported(obs_type, transitions, hparams.get('em_dtype', 'float32'))
 
     print_hparams(hparams)
 
@@ -118,7 +118,8 @@ def main(hparams, *args):
     hmm = ARHMM(
         hparams['n_arhmm_states'], obs_dim, lags=hparams['n_arhmm_lags'],
         observations=obs_type, transitions=transitions, kappa=hparams.get('kappa', 0),
-        rng_seed=hparams['rng_seed_model'], device=device)
+        rng_seed=hparams['rng_seed_model'],
+        parallel_scan=bool(hparams.get('parallel_scan', False)), device=device)
     hmm.initialize(latents['train'], localize=hparams['n_arhmm_lags'] > 0)
     hparams['training_completed'] = False
     export_hparams(hparams, exp)

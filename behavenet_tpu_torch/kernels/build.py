@@ -42,15 +42,27 @@ SOURCES = {
     'hmm_viterbi': 'hmm_viterbi.cu',
     'solve_small': 'solve_small.cu',
     'gaussian_nll': 'gaussian_nll.cu',
+    'hmm_scan': 'hmm_scan.cu',
+    'hmm_sample_posterior': 'hmm_sample.cu',
 }
-_HEADERS = ('igemm.cuh', 'hmm.cuh')
+_HEADERS = ('igemm.cuh', 'hmm.cuh', 'hmm_backtrace.cuh')
 
-# launchers counted under a name of their own: variant -> (kernel, symbols)
+# launchers counted under a name of their own: variant -> (kernel, symbols);
+# K14 and K16 share a source with K13 and K15, and K9's forward pass that
+# writes the filtered alphas for K15 is counted apart from its other
+# launchers
 VARIANTS = {
     'arhmm_log_likes_robust': ('arhmm_log_likes', ('bn_arhmm_log_likes_robust',)),
     'hmm_forward_backward_tv': ('hmm_forward_backward',
                                 ('bn_hmm_forward_backward_tv', 'bn_hmm_forward_tv')),
+    'hmm_forward_alpha': ('hmm_forward_backward', ('bn_hmm_forward_alpha',)),
+    'hmm_forward_alpha_tv': ('hmm_forward_backward', ('bn_hmm_forward_alpha_tv',)),
     'hmm_viterbi_tv': ('hmm_viterbi', ('bn_hmm_viterbi_tv',)),
+    'hmm_scan_tv': ('hmm_scan', ('bn_hmm_scan_forward_backward_tv', 'bn_hmm_scan_forward_tv')),
+    'hmm_viterbi_scan': ('hmm_scan', ('bn_hmm_viterbi_scan',)),
+    'hmm_viterbi_scan_tv': ('hmm_scan', ('bn_hmm_viterbi_scan_tv',)),
+    'hmm_sample_posterior_tv': ('hmm_sample_posterior', ('bn_hmm_sample_posterior_tv',)),
+    'hmm_sample_states': ('hmm_sample_posterior', ('bn_hmm_sample_states',)),
 }
 _COUNTED_AS = {sym: variant for variant, (_, syms) in VARIANTS.items() for sym in syms}
 
@@ -84,13 +96,26 @@ _SIGNATURES = {
         'bn_hmm_forward_backward': [_P] * 4 + [_I] * 3 + [_P] * 6,
         'bn_hmm_forward': [_P] * 4 + [_I] * 3 + [_P] * 2,
         'bn_hmm_forward_backward_tv': [_P] * 4 + [_I] * 3 + [_P] * 7,
-        'bn_hmm_forward_tv': [_P] * 4 + [_I] * 3 + [_P] * 2},
+        'bn_hmm_forward_tv': [_P] * 4 + [_I] * 3 + [_P] * 2,
+        'bn_hmm_forward_alpha': [_P] * 4 + [_I] * 3 + [_P] * 3,
+        'bn_hmm_forward_alpha_tv': [_P] * 4 + [_I] * 3 + [_P] * 3},
     'hmm_viterbi': {'bn_hmm_viterbi': [_P] * 4 + [_I] * 3 + [_P] * 3,
                     'bn_hmm_viterbi_tv': [_P] * 4 + [_I] * 3 + [_P] * 3},
     'solve_small': {'bn_solve_small': [_P] * 3 + [_I] * 3 + [_P]},
     'gaussian_nll': {
         'bn_gaussian_nll_fwd': [_P] * 6 + [_I] * 2 + [_P],
         'bn_gaussian_nll_bwd': [_P] * 8 + [_I] * 2 + [_P]},
+    'hmm_scan': {
+        'bn_hmm_scan_forward_backward': [_P] * 4 + [_I] * 4 + [_P] * 9,
+        'bn_hmm_scan_forward_backward_tv': [_P] * 4 + [_I] * 4 + [_P] * 10,
+        'bn_hmm_scan_forward': [_P] * 4 + [_I] * 4 + [_P] * 5,
+        'bn_hmm_scan_forward_tv': [_P] * 4 + [_I] * 4 + [_P] * 5,
+        'bn_hmm_viterbi_scan': [_P] * 4 + [_I] * 4 + [_P] * 7,
+        'bn_hmm_viterbi_scan_tv': [_P] * 4 + [_I] * 4 + [_P] * 7},
+    'hmm_sample_posterior': {
+        'bn_hmm_sample_posterior': [_P] * 5 + [_I] * 4 + [_P] * 5,
+        'bn_hmm_sample_posterior_tv': [_P] * 5 + [_I] * 4 + [_P] * 5,
+        'bn_hmm_sample_states': [_P] * 4 + [_I] * 3 + [_P] * 2},
 }
 
 _lock = threading.Lock()

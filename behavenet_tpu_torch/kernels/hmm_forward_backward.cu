@@ -16,7 +16,9 @@
 // for the recurrent M-step's second forward-backward under the same
 // parameters, :650-655: one launch here gives both).
 // bn_hmm_forward(_tv) runs the forward pass alone and writes log_Z only
-// (models/arhmm.py:248 _batch_ll, every epoch of the CLI).
+// (models/arhmm.py:248 _batch_ll, every epoch of the CLI);
+// bn_hmm_forward_alpha(_tv) writes log_alpha too, for K15's sequential
+// posterior sampling (ops/hmm.py:333-334).
 //
 // Layout: K <= 32 and state k lives in lane k of a warp. Each step's
 // logsumexp over the previous state shuffles the K values from their lanes
@@ -25,7 +27,8 @@
 // log_alpha to scratch, warp 1 the backward one (log_beta) at the same
 // time; after a barrier all four warps split the frames and write gamma and
 // their partial xi sums, which warp 0 adds in a fixed order: no atomics, so
-// a rerun gives the same bits. Stationary, lane i holds row i of log_P in
+// a rerun gives the same bits (hmm.cuh posterior_frames and reduce_parts,
+// which K13 shares). Stationary, lane i holds row i of log_P in
 // registers for the whole trial. Time-varying, the recursions load the next
 // step's column (forward, coalesced) or row (backward) of log_P into
 // registers while they compute the current step, so the loads leave the
@@ -52,8 +55,6 @@ using hmm::load_col;
 using hmm::load_group;
 using hmm::load_row;
 using hmm::warp_logsumexp;
-using hmm::warp_max;
-using hmm::warp_sum;
 
 // log sum_i exp(other_i + coef[i]) over i < K, other_i held by lane i:
 // the logsumexp of one step of a recursion, max first.
@@ -159,16 +160,6 @@ __device__ void backward_pass(const float* __restrict__ log_P, const float* __re
   }
 }
 
-// gamma_t of lane i's state: subtract the row max, then the logsumexp of
-// what is left.
-__device__ __forceinline__ void write_gamma(float a, const float* lb, long long tK, int i,
-                                            bool on, float mt, float* __restrict__ gamma) {
-  float lg = on ? a + lb[tK + i] : -INFINITY;
-  lg = lg - warp_max(lg);
-  const float lse = logf(warp_sum(on ? expf(lg) : 0.f));
-  if (on) gamma[tK + i] = expf(lg - lse) * mt;
-}
-
 // One block per trial; TV: log_P (N, T-1, K, K) and xi (N, T-1, K, K) or null.
 template <int KMAX, bool TV>
 __global__ void __launch_bounds__(kWarps * 32) forward_backward_kernel(
@@ -196,130 +187,29 @@ __global__ void __launch_bounds__(kWarps * 32) forward_backward_kernel(
   }
   __syncthreads();  // log_alpha and log_beta are visible to the block
 
-  const bool on = lane < K;
   const int chunk = (T + kWarps - 1) / kWarps;
   const int t0 = warp * chunk, t1 = min(T, t0 + chunk);
-  float acc[KMAX];
-#pragma unroll
-  for (int k = 0; k < KMAX; ++k) acc[k] = 0.f;
-  if (!TV) {
-    // lane i: xi_t(i, j) = alpha_t(i) + log_P[i, j] + (log_lik[t+1, j] m[t+1]
-    // + beta_{t+1}(j)), row i of log_P in registers; acc[j] sums xi(i, j)
-    const int i = lane;
-    float lpr[KMAX];
-    load_row<KMAX>(lp, K, i, on, lpr);
-    for (int t = t0; t < t1; ++t) {
-      const float mt = __ldg(m + t);
-      const float a = on ? la[(long long)t * K + i] : -INFINITY;
-      write_gamma(a, lb, (long long)t * K, i, on, mt, g);
-      if (t + 1 >= T) continue;
-      const float mt1 = __ldg(m + t + 1);
-      const float w = on ? __ldg(ll + (long long)(t + 1) * K + i) * mt1 +
-                               lb[(long long)(t + 1) * K + i]
-                         : -INFINITY;
-      float x[KMAX];
-      float rmax = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < KMAX; ++j) {
-        if (j < K) {
-          x[j] = a + lpr[j] + __shfl_sync(kFull, w, j);
-          rmax = fmaxf(rmax, x[j]);
-        }
-      }
-      const float mx = warp_max(on ? rmax : -INFINITY);
-      float rs = 0.f;
-#pragma unroll
-      for (int j = 0; j < KMAX; ++j) {
-        if (j < K) {
-          x[j] = x[j] - mx;
-          if (on) rs += expf(x[j]);
-        }
-      }
-      const float lz = logf(warp_sum(rs));
-      const float pm = mt * mt1;
-      if (pm != 0.f && on) {
-#pragma unroll
-        for (int j = 0; j < KMAX; ++j)
-          if (j < K) acc[j] += expf(x[j] - lz) * pm;
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < KMAX; ++j) part[(warp * 32 + i) * KMAX + j] = acc[j];
-  } else {
-    // lane j: xi_t(i, j) for every i from column j of log_P[t]; acc[i] sums
-    // xi(i, j), and xi[t][i][j] is stored by lane j (coalesced over j)
-    const int j = lane;
-    float* xo = xi == nullptr ? nullptr : xi + (long long)n * (T - 1) * KK;
-    for (int t = t0; t < t1; ++t) {
-      const float mt = __ldg(m + t);
-      const float a = on ? la[(long long)t * K + j] : -INFINITY;
-      write_gamma(a, lb, (long long)t * K, j, on, mt, g);
-      if (t + 1 >= T) continue;
-      float lpc[KMAX];
-      load_col<KMAX>(lp + t * KK, K, j, on, lpc);
-      const float mt1 = __ldg(m + t + 1);
-      const float w = on ? __ldg(ll + (long long)(t + 1) * K + j) * mt1 +
-                               lb[(long long)(t + 1) * K + j]
-                         : -INFINITY;
-      float x[KMAX];
-      float cmax = -INFINITY;
-#pragma unroll
-      for (int i = 0; i < KMAX; ++i) {
-        if (i < K) {
-          x[i] = __shfl_sync(kFull, a, i) + lpc[i] + w;
-          cmax = fmaxf(cmax, x[i]);
-        }
-      }
-      const float mx = warp_max(on ? cmax : -INFINITY);
-      float cs = 0.f;
-#pragma unroll
-      for (int i = 0; i < KMAX; ++i) {
-        if (i < K) {
-          x[i] = x[i] - mx;
-          if (on) cs += expf(x[i]);
-        }
-      }
-      const float lz = logf(warp_sum(cs));
-      const float pm = mt * mt1;
-      if (on) {
-#pragma unroll
-        for (int i = 0; i < KMAX; ++i) {
-          if (i < K) {
-            const float v = expf(x[i] - lz);
-            if (pm != 0.f) acc[i] += v * pm;
-            if (xo != nullptr) xo[t * KK + i * K + j] = v * pm;
-          }
-        }
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < KMAX; ++i) part[(warp * KMAX + i) * 32 + j] = acc[i];
-  }
+  float* xo = (TV && xi != nullptr) ? xi + (long long)n * (T - 1) * KK : nullptr;
+  hmm::posterior_frames<KMAX, TV>(la, lb, ll, m, lp, T, K, t0, t1, g, xo,
+                                  part + warp * 32 * KMAX);
   __syncthreads();
-  if (warp == 0 && on) {
-    for (int k = 0; k < K; ++k) {
-      // stationary: lane i writes row i; time-varying: lane j column j
-      const int idx = TV ? (k * 32 + lane) : ((lane * KMAX) + k);
-      const int stride = TV ? KMAX * 32 : 32 * KMAX;
-      float s = part[idx];
-#pragma unroll
-      for (int w = 1; w < kWarps; ++w) s += part[w * stride + idx];
-      xi_sum[(long long)n * KK + (TV ? (long long)k * K + lane : (long long)lane * K + k)] = s;
-    }
-  }
+  if (warp == 0) hmm::reduce_parts<KMAX, TV>(part, K, xi_sum + (long long)n * KK);
 }
 
-// The forward pass alone: one warp per trial, log_Z only.
+// The forward pass alone: one warp per trial, log_Z and, when given,
+// log_alpha (N, T, K) (the filtered alphas that K15's sequential posterior
+// sampling reads).
 template <int KMAX, bool TV>
 __global__ void __launch_bounds__(kWarps * 32) forward_kernel(
     const float* __restrict__ log_pi0, const float* __restrict__ log_P,
     const float* __restrict__ log_lik, const float* __restrict__ mask, int N, int T,
-    int K, float* __restrict__ log_Z) {
+    int K, float* __restrict__ log_Z, float* __restrict__ log_alpha) {
   const int n = blockIdx.x * kWarps + threadIdx.x / 32;
   if (n >= N) return;  // whole warps leave together
   const float* lp = TV ? log_P + (long long)n * (T - 1) * K * K : log_P;
-  const float last = forward_pass<KMAX, TV>(log_pi0, lp, log_lik + (long long)n * T * K,
-                                            mask + (long long)n * T, T, K, nullptr);
+  const float last = forward_pass<KMAX, TV>(
+      log_pi0, lp, log_lik + (long long)n * T * K, mask + (long long)n * T, T, K,
+      log_alpha == nullptr ? nullptr : log_alpha + (long long)n * T * K);
   const float lz = warp_logsumexp(last);
   if (threadIdx.x % 32 == 0) log_Z[n] = lz;
 }
@@ -347,19 +237,20 @@ int launch_forward_backward(const float* log_pi0, const float* log_P, const floa
 
 template <bool TV>
 int launch_forward(const float* log_pi0, const float* log_P, const float* log_lik,
-                   const float* mask, int N, int T, int K, float* log_Z, void* stream) {
+                   const float* mask, int N, int T, int K, float* log_Z, float* log_alpha,
+                   void* stream) {
   if (bad_args(N, T, K)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int blocks = (N + kWarps - 1) / kWarps;
   if (K <= 8)
     forward_kernel<8, TV><<<blocks, kWarps * 32, 0, st>>>(log_pi0, log_P, log_lik, mask, N,
-                                                          T, K, log_Z);
+                                                          T, K, log_Z, log_alpha);
   else if (K <= 16)
     forward_kernel<16, TV><<<blocks, kWarps * 32, 0, st>>>(log_pi0, log_P, log_lik, mask, N,
-                                                           T, K, log_Z);
+                                                           T, K, log_Z, log_alpha);
   else
     forward_kernel<32, TV><<<blocks, kWarps * 32, 0, st>>>(log_pi0, log_P, log_lik, mask, N,
-                                                           T, K, log_Z);
+                                                           T, K, log_Z, log_alpha);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -387,11 +278,28 @@ extern "C" int bn_hmm_forward_backward_tv(const float* log_pi0, const float* log
 extern "C" int bn_hmm_forward(const float* log_pi0, const float* log_P,
                               const float* log_lik, const float* mask, int N, int T, int K,
                               float* log_Z, void* stream) {
-  return launch_forward<false>(log_pi0, log_P, log_lik, mask, N, T, K, log_Z, stream);
+  return launch_forward<false>(log_pi0, log_P, log_lik, mask, N, T, K, log_Z, nullptr,
+                               stream);
 }
 
 extern "C" int bn_hmm_forward_tv(const float* log_pi0, const float* log_P,
                                  const float* log_lik, const float* mask, int N, int T, int K,
                                  float* log_Z, void* stream) {
-  return launch_forward<true>(log_pi0, log_P, log_lik, mask, N, T, K, log_Z, stream);
+  return launch_forward<true>(log_pi0, log_P, log_lik, mask, N, T, K, log_Z, nullptr,
+                              stream);
+}
+
+// The forward pass writing log_alpha (N, T, K) beside log_Z.
+extern "C" int bn_hmm_forward_alpha(const float* log_pi0, const float* log_P,
+                                    const float* log_lik, const float* mask, int N, int T,
+                                    int K, float* log_Z, float* log_alpha, void* stream) {
+  return launch_forward<false>(log_pi0, log_P, log_lik, mask, N, T, K, log_Z, log_alpha,
+                               stream);
+}
+
+extern "C" int bn_hmm_forward_alpha_tv(const float* log_pi0, const float* log_P,
+                                       const float* log_lik, const float* mask, int N, int T,
+                                       int K, float* log_Z, float* log_alpha, void* stream) {
+  return launch_forward<true>(log_pi0, log_P, log_lik, mask, N, T, K, log_Z, log_alpha,
+                              stream);
 }

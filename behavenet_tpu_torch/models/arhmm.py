@@ -15,8 +15,9 @@ EM iteration is
 - the transition log-probs: stationary (K, K), or for the recurrent
   transitions (N, T-1, K, K) driven by ``Rs x_t`` (:meth:`ARHMM._log_P`,
   PyTorch ops, as plain ops in the JAX package);
-- forward-backward over all trials (``ops.hmm.forward_backward``: K9), which
-  with recurrent transitions also writes the per-step pairwise posteriors;
+- forward-backward over all trials (``ops.hmm.forward_backward``: K9, or
+  K13 with ``parallel_scan``), which with recurrent transitions also
+  writes the per-step pairwise posteriors;
 - the M-step: the initial distribution; the transition counts (plus kappa
   on the diagonal when sticky) or, recurrent, 25 Adam steps (lr 1e-2) on
   the expected transitions' log-likelihood over ``log_Ps``, ``Rs`` and
@@ -32,9 +33,18 @@ Conventions match the JAX package (and ssm): the first ``lags`` frames of
 a trial are scored under a fixed N(0, I) for every state, and the AR
 regression uses only frames with a full lag history.
 
-Not ported yet, and raising ``NotImplementedError``: ``parallel_scan``,
-``em_dtype='float64'``, ``posterior_sample``, ``sample`` / ``sample_x``,
-meshes and ``iters_per_dispatch > 1``.
+With ``parallel_scan`` the message passes of EM, ``log_likelihood``,
+``expected_states`` and ``most_likely_states`` run as chunked
+parallel-prefix scans (K13, K14 on the card): the same results to float32
+roundoff, for long sessions. ``posterior_sample`` draws posterior state
+paths (forward filtering, backward sampling: K15 on the card); ``sample``
+draws a stationary or sticky model's state chain with K16 and the
+recurrent models' states and every observation in host loops over numpy,
+as the JAX package does. Randomness comes from a ``torch.Generator``
+(``generator``, in place of the JAX package's ``key``).
+
+Not ported yet, and raising ``NotImplementedError``: ``em_dtype='float64'``
+(ROADMAP A1c), meshes and ``iters_per_dispatch > 1``.
 """
 
 import collections
@@ -333,19 +343,16 @@ def kmeans(X, K, n_init=10, rng_seed=0):
 # ------------------------------------------------------------------- model
 
 
-def check_ported(observations, transitions, parallel_scan=False, dtype='float32'):
+def check_ported(observations, transitions, dtype='float32'):
     """Raise ``NotImplementedError`` for a configuration the port cannot fit
     yet (naming the slice that brings it), ``ValueError`` for an invalid one."""
     if observations not in _OBSERVATIONS + _ROBUST:
         raise ValueError('"%s" is an invalid observation type' % observations)
     if transitions not in _TRANSITIONS:
         raise ValueError('"%s" is an invalid transition type' % transitions)
-    if parallel_scan:
-        raise NotImplementedError('parallel_scan is not ported yet (next ARHMM slice: '
-                                  'the associative scans of kernel rows 13 and 14)')
     if dtype != 'float32':
         raise NotImplementedError('em_dtype "%s" is not ported; the port runs EM in '
-                                  'float32' % dtype)
+                                  'float32 (float64 EM is ROADMAP item A1c)' % dtype)
 
 
 class ARHMM:
@@ -356,7 +363,7 @@ class ARHMM:
     def __init__(self, K, D, lags=1, observations='ar', transitions='stationary',
                  kappa=0.0, nu=4.0, rng_seed=0, parallel_scan=False, dtype='float32',
                  device=None):
-        check_ported(observations, transitions, parallel_scan, dtype)
+        check_ported(observations, transitions, dtype)
         self.device = resolve_device(device)
         self.K = int(K)
         self.D = int(D)
@@ -364,6 +371,9 @@ class ARHMM:
         self.transitions = transitions
         self.kappa = float(kappa)
         self.rng_seed = rng_seed
+        # parallel-prefix message passing (K13, K14): the same results to
+        # float32 roundoff, shorter chains on long trials
+        self.parallel_scan = bool(parallel_scan)
         self.dtype = dtype
         self.lags = int(lags) if 'ar' in observations.split('_') else 0
         self.diagonal = observations.startswith('diagonal')
@@ -417,8 +427,7 @@ class ARHMM:
         state.setdefault('parallel_scan', False)
         state.setdefault('dtype', 'float32')
         state.setdefault('robust', state['observations'] in _ROBUST)
-        check_ported(state['observations'], state['transitions'],
-                     state['parallel_scan'], state['dtype'])
+        check_ported(state['observations'], state['transitions'], state['dtype'])
         self.__dict__.update(state)
         self.device = resolve_device(UNPICKLE_DEVICE.get())
         self.params = self._tensors(state['params'])
@@ -477,7 +486,8 @@ class ARHMM:
         x, mask = self.pad(datas)
         p = self.params
         log_Z = hmm_ops.log_normalizer(p['log_pi0'], self._log_P(p, x),
-                                       self._log_likes(p, x, mask), mask)
+                                       self._log_likes(p, x, mask), mask,
+                                       parallel=self.parallel_scan)
         return float(torch.sum(log_Z))
 
     def most_likely_states_batch(self, datas):
@@ -487,8 +497,8 @@ class ARHMM:
             datas = [datas]
         x, mask = self.pad(datas)
         p = self.params
-        paths = hmm_ops.viterbi(p['log_pi0'], self._log_P(p, x),
-                                self._log_likes(p, x, mask), mask).cpu().numpy()
+        paths = hmm_ops.viterbi(p['log_pi0'], self._log_P(p, x), self._log_likes(p, x, mask),
+                                mask, parallel=self.parallel_scan).cpu().numpy()
         return [paths[i, :len(d)] for i, d in enumerate(datas)]
 
     def most_likely_states(self, data, mesh=None):
@@ -505,18 +515,109 @@ class ARHMM:
         x, mask = self.pad([data])
         p = self.params
         gamma, _, _ = hmm_ops.forward_backward(p['log_pi0'], self._log_P(p, x),
-                                               self._log_likes(p, x, mask), mask)
+                                               self._log_likes(p, x, mask), mask,
+                                               parallel=self.parallel_scan)
         return gamma[0].cpu().numpy()
 
-    def posterior_sample(self, data, key=None, mesh=None):
-        raise NotImplementedError('posterior_sample (FFBS, kernel row 15) is not ported '
-                                  'yet (next ARHMM slice)')
+    def posterior_sample(self, data, generator=None, mesh=None):
+        """A state path z ~ p(z | data) of one trial, (T,) int32 (JAX:
+        models/arhmm.py:296): forward filtering, backward sampling with
+        presampled predecessor maps (``ops.hmm.sample_posterior``; with
+        ``parallel_scan`` the filter is the parallel scan), the uniforms
+        from ``generator`` (on the model's device; ``None``: seeded from
+        numpy)."""
+        if mesh is not None:
+            raise NotImplementedError('sequence-parallel posterior sampling (mesh) is not '
+                                      'ported yet')
+        x, mask = self.pad([data])
+        p = self.params
+        path = hmm_ops.sample_posterior(p['log_pi0'], self._log_P(p, x),
+                                        self._log_likes(p, x, mask), mask,
+                                        parallel=self.parallel_scan, generator=generator)
+        return path[0].cpu().numpy()
 
-    def sample(self, T, key=None, prefix=None, with_noise=True):
-        raise NotImplementedError('sampling from the ARHMM is not ported yet')
+    def _numpy_params(self):
+        return {k: v.detach().cpu().numpy().astype(np.float64) for k, v in self.params.items()}
 
-    def sample_x(self, states, key=None, prefix=None, with_noise=True):
-        raise NotImplementedError('sampling from the ARHMM is not ported yet')
+    def sample(self, T, generator=None, prefix=None, with_noise=True):
+        """(states (T,) int32, observations (T, D) float32) from the generative
+        model (JAX: models/arhmm.py:336). A stationary or sticky model draws
+        its state chain first (``ops.hmm.sample_states``: K16 on the card),
+        then the observations; recurrent transitions make z_{t+1} depend on
+        x_t, so states and observations are drawn together in a host loop.
+        The noise comes from ``generator`` (on the model's device; ``None``:
+        seeded from numpy)."""
+        gen = hmm_ops.generator_for(self.device, generator)
+        if not self.recurrent:
+            lp = torch.log_softmax(self.params['log_Ps'], dim=1)
+            zs = hmm_ops.sample_states(self.params['log_pi0'], lp, T, generator=gen)[0]
+            zs = zs.cpu().numpy()
+            return zs, self.sample_x(zs, generator=gen, prefix=prefix, with_noise=with_noise)
+
+        K, D = self.K, self.D
+        p = self._numpy_params()
+        rs = np.random.RandomState(int(torch.randint(0, 2 ** 31 - 1, (1,), generator=gen,
+                                                     device=self.device)))
+        pi0 = np.exp(p['log_pi0'] - p['log_pi0'].max())
+        pi0 /= pi0.sum()
+        chols = np.linalg.cholesky(p['Sigmas'] + 1e-8 * np.eye(D))
+        noise = self._noise(gen, T)
+        hist = [] if prefix is None else [np.asarray(v) for v in prefix]
+        zs = np.zeros(T, dtype=np.int32)
+        xs = np.zeros((T, D), dtype=np.float32)
+        for t in range(T):
+            if t == 0:
+                zs[0] = rs.choice(K, p=pi0)
+            else:
+                drive = p['Rs'] @ xs[t - 1]
+                if self.transitions == 'recurrent':
+                    logits = p['log_Ps'][zs[t - 1]] + drive
+                else:   # recurrent_only: the logits ignore the previous state
+                    logits = drive + p['r']
+                q = np.exp(logits - logits.max())
+                zs[t] = rs.choice(K, p=q / q.sum())
+            mu = self._ar_mean(p, int(zs[t]), t, xs, hist)
+            xs[t] = mu + (chols[zs[t]] @ noise[t] if with_noise else 0.0)
+        return zs, xs
+
+    def _noise(self, gen, T):
+        """(T, D) standard normal noise from ``gen``, as float64 numpy."""
+        return torch.randn((T, self.D), generator=gen, device=self.device).cpu().numpy() \
+            .astype(np.float64)
+
+    def _ar_mean(self, p, k, t, xs, hist):
+        """The mean of x_t under state k given the sample so far (JAX:
+        models/arhmm.py:378): the lags reach into ``hist`` (the prefix)
+        before frame 0, and read zeros past it."""
+        D, lags = self.D, self.lags
+        mu = p['bs'][k].copy()
+        for lag in range(1, lags + 1):
+            if t - lag >= 0:
+                x_lag = xs[t - lag]
+            elif len(hist) >= lag - t:
+                x_lag = hist[-(lag - t)]
+            else:
+                x_lag = np.zeros(D)
+            mu += p['As'][k][:, (lag - 1) * D:lag * D] @ x_lag
+        return mu
+
+    def sample_x(self, states, generator=None, prefix=None, with_noise=True):
+        """Observations (T, D) float32 given a state sequence (JAX:
+        models/arhmm.py:396), the noise from ``generator`` (on the model's
+        device; ``None``: seeded from numpy)."""
+        gen = hmm_ops.generator_for(self.device, generator)
+        states = np.asarray(states)
+        T, D = len(states), self.D
+        p = self._numpy_params()
+        chols = np.linalg.cholesky(p['Sigmas'] + 1e-8 * np.eye(D))
+        noise = self._noise(gen, T)
+        xs = np.zeros((T, D), dtype=np.float32)
+        hist = [] if prefix is None else [np.asarray(v) for v in prefix]
+        for t in range(T):
+            k = int(states[t])
+            mu = self._ar_mean(p, k, t, xs, hist)
+            xs[t] = mu + (chols[k] @ noise[t] if with_noise else 0.0)
+        return xs
 
     def permute(self, perm):
         """Relabel states by ``perm`` (ssm.HMM API; the CLI's usage sort)."""
@@ -584,7 +685,7 @@ class ARHMM:
         the total log-likelihood under ``params`` as a 0-d tensor)."""
         ll, tau = self._log_likes(params, x, mask, with_tau=True)
         post = hmm_ops.forward_backward(params['log_pi0'], self._log_P(params, x), ll, mask,
-                                        with_xi=self.recurrent)
+                                        with_xi=self.recurrent, parallel=self.parallel_scan)
         gammas, log_Zs, xi_sums = post[:3]
         new = self._m_step(params, x, mask, gammas, xi_sums, tau)
         if self.recurrent:

@@ -6,7 +6,7 @@
 On one CUDA GPU (an H100: the kernels are built for sm_90a) it
 
 1. prints the card's name and power limit (nvidia-smi);
-2. builds the port's twelve CUDA kernel sources from this checkout;
+2. builds the port's fourteen CUDA kernel sources from this checkout;
 3. holds each kernel against its plain PyTorch version at the shapes the
    two main paths give it, and times the kernel, the plain version and the
    one PyTorch call that computes the same function (TF32 off for every
@@ -70,7 +70,22 @@ On one CUDA GPU (an H100: the kernels are built for sm_90a) it
    iteration's LL and parameters against the plain EM; timed and
    profiled); the CLI over the same grid with ``transitions: recurrent``
    and ``noise_type: studentst``, and its K = 12 model served through
-   ``load_arhmm``.
+   ``load_arhmm``. Then ``parallel_scan`` and sampling at the same shapes:
+   K13 (the chunked log-semiring scan and K9's posterior pass) against the
+   plain parallel version and K9, K14 (the (max, +) scan and the chunked
+   backtrace) against the plain parallel version and K10, K15 (posterior
+   draws and their composition) against the plain draws from the same
+   uniforms and alphas, each stationary and time-varying on full and cut
+   trials; K16 (prior state chains) on 1,000 chains of 1,000 steps against
+   its plain version and softmax(log_Ps); K15's draws of one trial against
+   its posterior marginals; 20 EM iterations with ``parallel_scan`` of the
+   stationary and of the recurrent + robust model (one iteration against
+   the sequential EM, timed beside it, profiled; the recurrent model then
+   decodes and samples a trial); one 100,000-frame session decoded with
+   K13 / K14 against K9 / K10 and the plain parallel version in float64;
+   the CLI over the published grid with ``parallel_scan: true``, its K = 12
+   model served through ``load_arhmm`` (decoding, ``posterior_sample``,
+   ``sample(1000)``).
 8. the neural decoders (main paths 9-12) at the published decoding config
    (configs/decoding_jsons: a 9-wide temporal conv, one hidden layer of 32
    relu units, 9 AE latents or 4 ARHMM states) on 189-frame trials of 256
@@ -193,6 +208,26 @@ KERNELS = {
                                 'behavenet_tpu/ops/hmm.py:167'),
     'hmm_viterbi_tv': ('behavenet_tpu_torch/kernels/hmm_viterbi.cu',
                        'behavenet_tpu/ops/hmm.py:186'),
+    # the parallel-prefix scans (K13, K14) and the samplers (K15, K16), with
+    # their time-varying launchers
+    'hmm_scan': ('behavenet_tpu_torch/kernels/hmm_scan.cu', 'behavenet_tpu/ops/hmm.py:404'),
+    'hmm_scan_tv': ('behavenet_tpu_torch/kernels/hmm_scan.cu', 'behavenet_tpu/ops/hmm.py:65'),
+    'hmm_viterbi_scan': ('behavenet_tpu_torch/kernels/hmm_scan.cu',
+                         'behavenet_tpu/ops/hmm.py:225'),
+    'hmm_viterbi_scan_tv': ('behavenet_tpu_torch/kernels/hmm_scan.cu',
+                            'behavenet_tpu/ops/hmm.py:225'),
+    'hmm_sample_posterior': ('behavenet_tpu_torch/kernels/hmm_sample.cu',
+                             'behavenet_tpu/ops/hmm.py:310'),
+    'hmm_sample_posterior_tv': ('behavenet_tpu_torch/kernels/hmm_sample.cu',
+                                'behavenet_tpu/ops/hmm.py:280'),
+    'hmm_sample_states': ('behavenet_tpu_torch/kernels/hmm_sample.cu',
+                          'behavenet_tpu/ops/hmm.py:353'),
+    # K9's forward pass writing the filtered alphas that K15 draws from
+    # without parallel_scan
+    'hmm_forward_alpha': ('behavenet_tpu_torch/kernels/hmm_forward_backward.cu',
+                          'behavenet_tpu/ops/hmm.py:39'),
+    'hmm_forward_alpha_tv': ('behavenet_tpu_torch/kernels/hmm_forward_backward.cu',
+                             'behavenet_tpu/ops/hmm.py:39'),
 }
 
 # the kernels a served request runs (an AE train step runs K1-K6, a
@@ -238,6 +273,27 @@ EM_LL_REL_TOL = 1e-5
 # differences of ~1e-4 of their scale). The kernel checks draw Rs and r at
 # REC_DRIVE so that log_P moves from step to step.
 REC_EM_ITERS, REC_PARAM_REL_TOL, REC_DRIVE = 20, 1e-3, 0.5
+# parallel_scan (K13, K14) and sampling (K15, K16) at the same shapes, and
+# one 100,000-frame session (the JAX package's long-trial design point,
+# behavenet_tpu/ops/hmm.py:118-121). K13's posteriors and log_Z are held to
+# the plain parallel version run in float64 within max(the K9 tolerances,
+# twice the larger error of K9 and of the plain float32 version): at |log_Z|
+# ~ 1e4 (EM shapes) to ~1e6 (100k frames) one float32 ulp of alpha is
+# 1e-3 to 0.06 in log space. K14 as K10 (PATH_AGREE, PATH_LP_REL_TOL, the
+# joint log-probabilities in float64). K15 and K16 against their plain
+# versions from the same uniforms: paths equal, or agreeing on PATH_AGREE
+# of the frames with each first differing draw a near-tie (the two states'
+# scores within DRAW_TIE_TOL). Draw frequencies within SAMPLE_SE standard
+# errors (plus one draw's worth, for a count's discreteness) of gamma (K15,
+# SAMPLE_DRAWS draws of one trial) and of softmax(log_Ps) (K16, CHAINS
+# chains of CHAIN_STEPS steps).
+PARALLEL_EM_KERNELS = ('arhmm_log_likes', 'hmm_scan', 'solve_small')
+PARALLEL_REC_EM_KERNELS = ('arhmm_log_likes_robust', 'hmm_scan_tv', 'solve_small')
+PARALLEL_REC_DECODE_KERNELS = ('hmm_viterbi_scan_tv', 'hmm_sample_posterior_tv')
+PARALLEL_CLI_KERNELS = ('arhmm_log_likes', 'solve_small', 'hmm_scan', 'hmm_viterbi_scan')
+LONG_FRAMES = 100000
+SAMPLE_DRAWS, CHAINS, CHAIN_STEPS, SAMPLE_LEN = 400, 1000, 1000, 1000
+DRAW_TIE_TOL, SAMPLE_SE = 1e-5, 5.0
 
 # The neural decoders at the published decoding config
 # (configs/decoding_jsons/decoding_ae_model.json: n_lags 4, so a 9-wide
@@ -1017,7 +1073,14 @@ KERNEL_OF = tuple(
              ('forward_kernel', 'K9 hmm_forward_backward (forward alone)'),
              ('viterbi_kernel', 'K10 hmm_viterbi'), ('solve_small_kernel', 'K11 solve_small'),
              ('nll_frames_kernel', 'K12 gaussian_nll'),
-             ('nll_finish_kernel', 'K12 gaussian_nll'), ('nll_grad_kernel', 'K12 gaussian_nll'))
+             ('nll_finish_kernel', 'K12 gaussian_nll'), ('nll_grad_kernel', 'K12 gaussian_nll'),
+             ('LogSum', 'K13 hmm_scan'), ('posterior_kernel', 'K13 hmm_scan'),
+             ('sum_parts_kernel', 'K13 hmm_scan'), ('MaxPlus', 'K14 hmm_viterbi_scan'),
+             ('compose_chunks_kernel', 'K14/K15 backtrace'),
+             ('chunk_bounds_kernel', 'K14/K15 backtrace'),
+             ('chunk_paths_kernel', 'K14/K15 backtrace'),
+             ('draw_maps_kernel', 'K15 hmm_sample_posterior'),
+             ('sample_states_kernel', 'K16 hmm_sample_states'))
 
 
 def profile_steps(fn, steps=5, warmup=2, phase='train_profile', **labels):
@@ -1315,13 +1378,16 @@ def bound(n_ops, n_bytes):
                 bound_by='operations' if t_ops >= t_bytes else 'bytes')
 
 
-def sample_arhmm(n, frames, k, d, seed):
+def sample_arhmm(n, frames, k, d, seed, path_seed=None):
     """(n, frames, d) float32 trials from a seeded AR(1) HMM with k states:
     dynamics 0.9 times a random rotation, offsets of scale 0.3, noise 0.1,
-    a state kept with probability 0.95 a frame."""
+    a state kept with probability 0.95 a frame. With ``path_seed`` the
+    states and noise come from that seed, the model from ``seed``."""
     rs = np.random.RandomState(seed)
     A = 0.9 * np.linalg.qr(rs.randn(k, d, d))[0]
     b = 0.3 * rs.randn(k, d)
+    if path_seed is not None:
+        rs = np.random.RandomState(path_seed)
     z = rs.randint(k, size=n)
     x = np.zeros((n, frames, d))
     x[:, 0] = rs.randn(n, d)
@@ -1335,8 +1401,9 @@ def sample_arhmm(n, frames, k, d, seed):
 def plain_arhmm(port):
     """Route the ARHMM's kernel entry points to their plain versions: K8's
     ``log_likes`` and ``robust_log_likes``, K9's ``forward_backward`` and
-    ``log_normalizer``, K10's ``viterbi`` and the M-step's K11
-    ``solve_small``, for the plain twin of a run on the card."""
+    ``log_normalizer`` (K13's with ``parallel``), K10's (K14's) ``viterbi``
+    and the M-step's K11 ``solve_small``, for the plain twin of a run on
+    the card."""
     am, hmm = port.arhmm, port.hmm
 
     def log_likes(x, mask, As, bs, Sigmas, lags, diagonal):
@@ -1348,11 +1415,15 @@ def plain_arhmm(port):
         nus, c = am.student_t_terms(nus, logdet, x.shape[2])
         return am.robust_log_likes_plain(x, mask, As, bs, prec, c, nus, lags, diagonal,
                                          with_tau)
+    def log_normalizer(*args, parallel=False):
+        return (hmm.forward_parallel_plain if parallel else hmm.forward_plain)(*args)[1]
+
+    def viterbi(*args, parallel=False):
+        return (hmm.viterbi_parallel_plain if parallel else hmm.viterbi_plain)(*args)
     routes = ((am, 'log_likes', log_likes), (am, 'robust_log_likes', robust_log_likes),
               (am, 'solve_small', port.smallmat.solve_small_plain),
               (hmm, 'forward_backward', hmm.forward_backward_plain),
-              (hmm, 'log_normalizer', lambda *a: hmm.forward_plain(*a)[1]),
-              (hmm, 'viterbi', hmm.viterbi_plain))
+              (hmm, 'log_normalizer', log_normalizer), (hmm, 'viterbi', viterbi))
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in routes]
     for mod, name, fn in routes:
         setattr(mod, name, fn)
@@ -1538,12 +1609,13 @@ def check_solve_small(port, model, trials):
     return rec
 
 
-def recurrent_arhmm(port, model, transitions, observations):
+def recurrent_arhmm(port, model, transitions, observations, parallel_scan=False):
     """A fresh ``transitions`` / ``observations`` ARHMM at the EM shapes
     (its own seeded Rs, r and dof 4) holding ``model``'s initialized
     ``log_pi0``, ``log_Ps`` and AR params."""
     m = port.arhmm.ARHMM(EM_STATES, EM_DIM, lags=1, observations=observations,
-                         transitions=transitions, rng_seed=SEED, device=DEVICE)
+                         transitions=transitions, rng_seed=SEED, parallel_scan=parallel_scan,
+                         device=DEVICE)
     m.params.update({k: model.params[k].clone()
                      for k in ('log_pi0', 'log_Ps', 'As', 'bs', 'Sigmas')})
     return m
@@ -1864,8 +1936,9 @@ def arhmm_cli(port, tmp, kernels=ARHMM_KERNELS, **model):
     training_cfg['export_states'] = True
     compute_cfg.pop('device')
     ids = ('musall', 'smoke', 'mouse', 'session-0')
-    tmp = os.path.join(tmp, 'arhmm_cli_%s_%s' % (model_cfg['transitions'],
-                                                 model_cfg['noise_type']))
+    tmp = os.path.join(tmp, 'arhmm_cli_%s_%s%s' % (
+        model_cfg['transitions'], model_cfg['noise_type'],
+        '_parallel' if model_cfg.get('parallel_scan') else ''))
     save_dir = os.path.join(tmp, 'arhmm_store')
     latents = sample_arhmm(CLI_TRIALS, TRIAL, 8, model_cfg['n_ae_latents'], SEED + 5)
     write_latents_store(port, save_dir, ids, model_cfg, training_cfg, latents)
@@ -1914,7 +1987,9 @@ def arhmm_cli(port, tmp, kernels=ARHMM_KERNELS, **model):
                           tr_loss=logged['tr_loss'][::2], val_loss=logged['val_loss'][::2])
     missing = [k for k in kernels if launches[k] == 0]
     rec = dict(phase='arhmm_cli', transitions=model_cfg['transitions'],
-               noise_type=model_cfg['noise_type'], trials=CLI_TRIALS, frames_per_trial=TRIAL,
+               noise_type=model_cfg['noise_type'],
+               parallel_scan=bool(model_cfg.get('parallel_scan', False)),
+               trials=CLI_TRIALS, frames_per_trial=TRIAL,
                dim=model_cfg['n_ae_latents'], iterations=training_cfg['n_iters'],
                grid=model_cfg['n_arhmm_states'], seconds_per_grid_point=seconds,
                launches=launches, results=results)
@@ -1950,7 +2025,8 @@ def arhmm_serve(port, vdir, latents, kernels=('arhmm_log_likes', 'hmm_forward_ba
     lp_rel = abs(lps[0] - lps[1]) / abs(lps[1])
     gamma_err = float(np.abs(gamma - gamma_p).max())
     rec = dict(phase='arhmm_serve', transitions=model.transitions,
-               observations=model.observations, states=model.K, frames=TRIAL,
+               observations=model.observations, parallel_scan=model.parallel_scan,
+               states=model.K, frames=TRIAL,
                device=str(model.device),
                path_agreement=agree, path_log_prob_rel_err=lp_rel, gamma_max_abs_err=gamma_err,
                launches=launches,
@@ -1961,6 +2037,654 @@ def arhmm_serve(port, vdir, latents, kernels=('arhmm_log_likes', 'hmm_forward_ba
     if missing or agree < PATH_AGREE or lp_rel > PATH_LP_REL_TOL or \
             gamma_err > GAMMA_ABS_TOL or model.device.type != torch.device(DEVICE).type:
         raise AssertionError('the fitted ARHMM does not serve (missing %s): %s'
+                             % (missing, rec))
+    return launches
+
+
+# ------------------------------------------- parallel scans and sampling
+
+
+def scan_cases(port, model, rec_models, trials):
+    """The inputs of the K13-K15 checks at the EM shapes: (name, log_pi0,
+    log_P, log_lik, mask) of the stationary model on full trials and on the
+    copy with every tenth trial cut to EM_CUT frames, and of the seeded
+    'recurrent' (full trials) and 'recurrent_only' (cut) models, whose
+    log_P is (100, 999, 16, 16)."""
+    x, mask = trials
+    cut = mask.clone()
+    cut[::10, EM_CUT:] = 0.0
+    p = model.params
+    ll = model._log_likes(p, x, mask)
+    cases = [('stationary_full', p['log_pi0'], model._log_P(p), ll, mask),
+             ('stationary_cut', p['log_pi0'], model._log_P(p), ll * cut[:, :, None], cut)]
+    for name, m, label in (('recurrent', mask, 'recurrent_full'),
+                           ('recurrent_only', cut, 'recurrent_only_cut')):
+        rm = rec_models[name]
+        rp = rm.params
+        cases.append((label, rp['log_pi0'], rm._log_P(rp, x), rm._log_likes(rp, x, m), m))
+    return cases
+
+
+def case_row(kernel, cases, extra, bad_of):
+    """The check line of one kernel (or launcher) over its cases: the first
+    case's numbers on the line, every case's under ``cases``; raises if any
+    case fails ``bad_of``."""
+    first = next(iter(cases.values()))
+    rec = dict(phase='arhmm_kernel_check', kernel=kernel, layer=next(iter(cases)),
+               frames=first['frames'], trials=EM_TRIALS, states=EM_STATES, library_ms=None,
+               cases=cases, **extra,
+               **{k: first[k] for k in ('max_abs_err', 'ms', 'plain_ms', 'bound_ms',
+                                        't_ops_ms', 't_bytes_ms', 'bound_by')})
+    for k in ('ms', 'plain_ms', 'bound_ms', 't_ops_ms', 't_bytes_ms'):
+        rec[k] = sum(c[k] for c in cases.values())
+    rec['max_abs_err'] = max(c['max_abs_err'] for c in cases.values())
+    emit(rec)
+    bad = [name for name, c in cases.items() if bad_of(c)]
+    if bad:
+        raise AssertionError('%s disagrees with its plain version (%s): %s' % (kernel, bad, rec))
+    return rec
+
+
+def check_scan(port, cases):
+    """K13 against the plain parallel version (``forward_backward_plain``
+    with ``parallel``) and against K9 on the four cases: log_Z (and that of
+    the forward phases alone) within LOGZ_REL_TOL of the plain version's,
+    xi_sum within XI_REL_TOL of plain's; log_Z, gamma and (time-varying) the
+    per-step xi within the module's tolerances of the plain parallel version
+    run in float64, and log_Z within that tolerance plus K9's own error of
+    K9's (a trial whose log_Z is near 0 makes a relative error large: K9's
+    sequential float32 recursions carry ~1e-3 of absolute error over 1000
+    frames). Returns the stationary and the time-varying launcher's
+    lines."""
+    hmm = port.hmm
+    rows = []
+    for kernel, tv in (('hmm_scan', False), ('hmm_scan_tv', True)):
+        res = {}
+        for name, pi0, lp, ll, m in cases:
+            if (lp.dim() == 4) != tv:
+                continue
+            N, T, K = ll.shape
+            out_k = hmm.forward_backward_scan_cuda(pi0, lp, ll, m, with_xi=tv)
+            out_9 = hmm.forward_backward_cuda(pi0, lp, ll, m, with_xi=tv)
+            out_p = hmm.forward_backward_plain(pi0, lp, ll, m, with_xi=tv, parallel=True)
+            out_d = hmm.forward_backward_plain(*(t.double() for t in (pi0, lp, ll, m)),
+                                               with_xi=tv, parallel=True)
+            fz_k = hmm.forward_scan_cuda(pi0, lp, ll, m)
+            torch.cuda.synchronize()
+
+            def vs_f64(out):
+                err = (out[0].double() - out_d[0]).abs().max().item()
+                if tv:
+                    err = max(err, (out[3].double() - out_d[3]).abs().max().item())
+                return err
+            errs = {who: vs_f64(o) for who, o in (('kernel', out_k), ('k9', out_9),
+                                                   ('plain', out_p))}
+            z_d = out_d[1]
+            z_errs = {who: ((o[1].double() - z_d).abs() / z_d.abs()).max().item()
+                      for who, o in (('kernel', out_k), ('k9', out_9), ('plain', out_p))}
+            (g_k, z_k, s_k), (g_9, z_9), (g_p, z_p, s_p) = out_k[:3], out_9[:2], out_p[:3]
+            pair = (m[:, :-1] * m[:, 1:]) == 0
+            padded = bool((g_k[m == 0] == 0).all().item())
+            if tv:
+                padded = padded and bool((out_k[3][pair] == 0).all().item())
+            frames = m.sum().item()
+            # the function's own operations, as K9's bound counts them (the
+            # same outputs from the same inputs); the chunk products' K-term
+            # reductions for K rows and K lanes (5 K^3 a frame: add, max,
+            # subtract, exp, sum) are work the chunked design adds, reported
+            # beside the bound as chunk_gflop
+            n_ops = (20 * K * K + 6 * K) * frames
+            n_bytes = 4 * (ll.numel() + m.numel() + lp.numel() + K + g_k.numel() + N
+                           + s_k.numel() + (out_k[3].numel() if tv else 0))
+            res[name] = dict(
+                frames=N * T, real_frames=frames,
+                log_z_rel_err=((z_k - z_p).abs() / z_p.abs()).max().item(),
+                log_z_rel_err_vs_k9=((z_k - z_9).abs() / z_9.abs()).max().item(),
+                forward_log_z_rel_err=((fz_k - z_p).abs() / z_p.abs()).max().item(),
+                max_abs_err=(g_k - g_p).abs().max().item(),
+                gamma_max_abs_err_vs_k9=(g_k - g_9).abs().max().item(),
+                xi_sum_rel_err=(s_k - s_p).abs().max().item() / s_p.abs().max().item(),
+                err_vs_f64=errs, log_z_rel_err_vs_f64=z_errs,
+                posterior_tol=max(GAMMA_ABS_TOL, 2 * max(errs['k9'], errs['plain'])),
+                log_z_tol=max(LOGZ_REL_TOL, 2 * max(z_errs['k9'], z_errs['plain'])),
+                max_abs_log_z=z_p.abs().max().item(), padded_zero=padded,
+                finite=bool(torch.isfinite(g_k).all().item()),
+                ms=median_ms(lambda: hmm.forward_backward_scan_cuda(pi0, lp, ll, m,
+                                                                    with_xi=tv)),
+                fwd_ms=median_ms(lambda: hmm.forward_scan_cuda(pi0, lp, ll, m)),
+                k9_ms=median_ms(lambda: hmm.forward_backward_cuda(pi0, lp, ll, m, with_xi=tv)),
+                plain_ms=median_ms(lambda: hmm.forward_backward_plain(
+                    pi0, lp, ll, m, with_xi=tv, parallel=True), samples=3, inner=1, warmup=1),
+                gflop=n_ops / 1e9, chunk_gflop=5 * K ** 3 * frames / 1e9,
+                mbytes=n_bytes / 1e6, **bound(n_ops, n_bytes))
+            del out_k, out_9, out_p, out_d
+        rows.append(case_row(
+            kernel, res, dict(log_z_rel_tol=LOGZ_REL_TOL, xi_rel_tol=XI_REL_TOL,
+                              bound_note='the chains of the chunks, not these'),
+            lambda c: (not c['finite'] or not c['padded_zero']
+                       or max(c['log_z_rel_err'], c['forward_log_z_rel_err']) > LOGZ_REL_TOL
+                       or c['log_z_rel_err_vs_f64']['kernel'] > c['log_z_tol']
+                       or c['log_z_rel_err_vs_k9'] > c['log_z_tol']
+                       + c['log_z_rel_err_vs_f64']['k9']
+                       or c['xi_sum_rel_err'] > XI_REL_TOL
+                       or c['err_vs_f64']['kernel'] > c['posterior_tol'])))
+    return rows
+
+
+def path_lp64(port, pi0, lp, ll, m, path):
+    """Joint log-probabilities (N,) of paths, in float64."""
+    return port.hmm.path_log_prob(pi0.double(), lp.double(), ll.double(), m.double(), path)
+
+
+def check_viterbi_scan(port, cases):
+    """K14 against the plain parallel version and K10 on the four cases:
+    paths equal on at least PATH_AGREE of the frames, the joint
+    log-probabilities (float64) within PATH_LP_REL_TOL."""
+    hmm = port.hmm
+    rows = []
+    for kernel, tv in (('hmm_viterbi_scan', False), ('hmm_viterbi_scan_tv', True)):
+        res = {}
+        for name, pi0, lp, ll, m in cases:
+            if (lp.dim() == 4) != tv:
+                continue
+            N, T, K = ll.shape
+            path_k = hmm.viterbi_scan_cuda(pi0, lp, ll, m)
+            path_10 = hmm.viterbi_cuda(pi0, lp, ll, m)
+            path_p = hmm.viterbi_parallel_plain(pi0, lp, ll, m)
+            torch.cuda.synchronize()
+            lps = {who: path_lp64(port, pi0, lp, ll, m, z)
+                   for who, z in (('kernel', path_k), ('k10', path_10), ('plain', path_p))}
+
+            def rel(a, b):
+                return ((lps[a] - lps[b]).abs() / lps[b].abs()).max().item()
+            frames = m.sum().item()
+            # the function's own operations, as K10's bound counts them (the
+            # same paths from the same inputs); the (max, +) chunk products
+            # (3 K^3 a frame: add, compare, select) are work the chunked
+            # design adds, reported beside the bound as chunk_gflop
+            n_ops = 2 * K * K * frames
+            n_bytes = 4 * (ll.numel() + m.numel() + lp.numel() + K + path_k.numel())
+            res[name] = dict(
+                frames=N * T, real_frames=frames,
+                path_agreement=(path_k == path_p).float().mean().item(),
+                path_agreement_vs_k10=(path_k == path_10).float().mean().item(),
+                path_log_prob_rel_err=rel('kernel', 'plain'),
+                path_log_prob_rel_err_vs_k10=rel('kernel', 'k10'),
+                max_abs_err=(lps['kernel'] - lps['plain']).abs().max().item(),
+                ms=median_ms(lambda: hmm.viterbi_scan_cuda(pi0, lp, ll, m)),
+                k10_ms=median_ms(lambda: hmm.viterbi_cuda(pi0, lp, ll, m)),
+                plain_ms=median_ms(lambda: hmm.viterbi_parallel_plain(pi0, lp, ll, m),
+                                   samples=3, inner=1, warmup=1),
+                gflop=n_ops / 1e9, chunk_gflop=3 * K ** 3 * frames / 1e9,
+                mbytes=n_bytes / 1e6, **bound(n_ops, n_bytes))
+        rows.append(case_row(
+            kernel, res, dict(agree_tol=PATH_AGREE, rel_tol=PATH_LP_REL_TOL,
+                              bound_note='the chains of the chunks and the backtrace'),
+            lambda c: (min(c['path_agreement'], c['path_agreement_vs_k10']) < PATH_AGREE
+                       or max(c['path_log_prob_rel_err'],
+                              c['path_log_prob_rel_err_vs_k10']) > PATH_LP_REL_TOL)))
+    return rows
+
+
+def draw_gaps(hmm, la, lp, m, u_last, u_maps, path_k, path_p):
+    """For each trial whose kernel and plain posterior paths differ, the gap
+    between the two chosen states' scores at the last frame where they
+    differ (the paths agree after it, so both drew from the same row)."""
+    gaps = []
+    N, T, K = la.shape
+    diff = path_k != path_p
+    for n in torch.nonzero(diff.any(dim=1)).flatten().tolist():
+        t = int(torch.nonzero(diff[n]).max())
+        a, b = int(path_k[n, t]), int(path_p[n, t])
+        if t == T - 1:
+            last = la[n, -1]
+            s = last - last.max() + hmm.gumbel(u_last[n])
+        else:
+            k = int(path_p[n, t + 1])
+            lpt = lp if lp.dim() == 2 else lp[n, t]
+            logits = la[n, t] + lpt[:, k]
+            shift = logits.max()
+            shift = shift if torch.isfinite(shift) else torch.zeros_like(shift)
+            s = (logits - shift) + hmm.gumbel(u_maps[n, t, k])
+        gaps.append(abs(s[a] - s[b]).item())
+    return gaps
+
+
+def check_sample_posterior(port, cases, gen):
+    """K15 against the plain draws and composition from the same uniforms
+    and the same filtered alphas, on the four cases, the alphas from K13's
+    forward phases and from K9's forward pass: paths equal, or agreeing on
+    PATH_AGREE of the frames with each first differing draw a near-tie."""
+    hmm = port.hmm
+    rows = []
+    for kernel, tv in (('hmm_sample_posterior', False), ('hmm_sample_posterior_tv', True)):
+        res = {}
+        for name, pi0, lp, ll, m in cases:
+            if (lp.dim() == 4) != tv:
+                continue
+            N, T, K = ll.shape
+            u_last = hmm.uniforms((N, K), gen, ll.device)
+            u_maps = hmm.uniforms((N, T - 1, K, K), gen, ll.device)
+            alphas = {'k13': hmm.forward_scan_cuda(pi0, lp, ll, m, with_alpha=True)[0],
+                      'k9': hmm.forward_alpha_cuda(pi0, lp, ll, m)[0]}
+            sub = {}
+            for src, la in alphas.items():
+                path_k = hmm.sample_posterior_cuda(la, lp, m, u_last, u_maps)
+                z_last, psi = hmm.presample_path_draws_plain(la, lp, m, u_last, u_maps)
+                path_p = hmm._backtrace(psi, z_last, parallel=True)
+                torch.cuda.synchronize()
+                gaps = draw_gaps(hmm, la, lp, m, u_last, u_maps, path_k, path_p)
+                sub[src] = dict(equal=bool(torch.equal(path_k, path_p)),
+                                agreement=(path_k == path_p).float().mean().item(),
+                                differing_trials=len(gaps),
+                                max_gap=max(gaps) if gaps else 0.0)
+            la = alphas['k13']
+            # per entry of the (N, T-1, K, K) draws: an add, a subtract, the
+            # max, two logs and a negation, an add and a compare
+            n_ops = 8 * N * (T - 1) * K * K
+            n_bytes = 4 * (la.numel() + lp.numel() + m.numel() + u_last.numel()
+                           + u_maps.numel() + N * T)
+
+            def plain(la=la):
+                z_last, psi = hmm.presample_path_draws_plain(la, lp, m, u_last, u_maps)
+                return hmm._backtrace(psi, z_last, parallel=True)
+            res[name] = dict(
+                frames=N * T, real_frames=m.sum().item(), from_alphas=sub,
+                max_abs_err=float(max(1.0 - v['agreement'] for v in sub.values())),
+                ms=median_ms(lambda: hmm.sample_posterior_cuda(la, lp, m, u_last, u_maps)),
+                plain_ms=median_ms(plain, samples=3, inner=1, warmup=1),
+                gflop=n_ops / 1e9, mbytes=n_bytes / 1e6, **bound(n_ops, n_bytes))
+            del alphas, u_maps
+        rows.append(case_row(
+            kernel, res, dict(agree_tol=PATH_AGREE, tie_tol=DRAW_TIE_TOL,
+                              err_note='max_abs_err: the share of frames that differ'),
+            lambda c: any(not v['equal'] and (v['agreement'] < PATH_AGREE
+                                               or v['max_gap'] > DRAW_TIE_TOL)
+                          for v in c['from_alphas'].values())))
+    return rows
+
+
+def check_forward_alpha(port, cases):
+    """K9's forward pass that writes the filtered alphas (K15's input
+    without ``parallel``) against ``forward_plain`` on the four cases:
+    log_Z within LOGZ_REL_TOL of the plain version's, each frame's filtered
+    probabilities (softmax of log_alpha over the states) within
+    GAMMA_ABS_TOL, and log_alpha itself, every frame padded ones included
+    (K15 draws z_T from the last), against the plain version in float64
+    within LOGZ_REL_TOL of the trial's largest |log_alpha| or twice the
+    plain float32 version's own distance."""
+    hmm = port.hmm
+    rows = []
+    for kernel, tv in (('hmm_forward_alpha', False), ('hmm_forward_alpha_tv', True)):
+        res = {}
+        for name, pi0, lp, ll, m in cases:
+            if (lp.dim() == 4) != tv:
+                continue
+            N, T, K = ll.shape
+            a_k, z_k = hmm.forward_alpha_cuda(pi0, lp, ll, m)
+            a_p, z_p = hmm.forward_plain(pi0, lp, ll, m)
+            a_d = hmm.forward_plain(*(t.double() for t in (pi0, lp, ll, m)))[0]
+            torch.cuda.synchronize()
+            scale = a_d.abs().amax(dim=(1, 2))
+            err_k = ((a_k.double() - a_d).abs().amax(dim=(1, 2)) / scale).max().item()
+            err_p = ((a_p.double() - a_d).abs().amax(dim=(1, 2)) / scale).max().item()
+            filt_err = (torch.softmax(a_k, dim=2) - torch.softmax(a_p, dim=2)).abs().max().item()
+            frames = m.sum().item()
+            # per frame the forward recursion's K-term logsumexp for K
+            # states (5 K^2: add, max, subtract, exp, sum) and the masked
+            # log-likelihood added (2 K)
+            n_ops = (5 * K * K + 2 * K) * frames
+            n_bytes = 4 * (ll.numel() + m.numel() + lp.numel() + K + a_k.numel() + N)
+            res[name] = dict(
+                frames=N * T, real_frames=frames,
+                log_z_rel_err=((z_k - z_p).abs() / z_p.abs()).max().item(),
+                filtered_max_abs_err=filt_err, alpha_rel_err_vs_f64=err_k,
+                plain_alpha_rel_err_vs_f64=err_p,
+                alpha_rel_tol=max(LOGZ_REL_TOL, 2 * err_p), max_abs_err=filt_err,
+                finite=bool(torch.isfinite(a_k).all().item()),
+                ms=median_ms(lambda: hmm.forward_alpha_cuda(pi0, lp, ll, m)),
+                plain_ms=median_ms(lambda: hmm.forward_plain(pi0, lp, ll, m),
+                                   samples=3, inner=1, warmup=1),
+                gflop=n_ops / 1e9, mbytes=n_bytes / 1e6, **bound(n_ops, n_bytes))
+            del a_k, a_p, a_d
+        rows.append(case_row(
+            kernel, res, dict(log_z_rel_tol=LOGZ_REL_TOL, abs_tol=GAMMA_ABS_TOL,
+                              err_note='max_abs_err: of the filtered probabilities',
+                              bound_note='the T-step dependence chain, not these'),
+            lambda c: (not c['finite'] or c['log_z_rel_err'] > LOGZ_REL_TOL
+                       or c['filtered_max_abs_err'] > GAMMA_ABS_TOL
+                       or c['alpha_rel_err_vs_f64'] > c['alpha_rel_tol'])))
+    return rows
+
+
+def chain_gaps(hmm, pi0, lp, u0, u, path_k, path_p):
+    """For each chain whose kernel and plain state paths differ, the gap
+    between the two chosen states' scores at the first step where they
+    differ (both drew from the same row there)."""
+    gaps = []
+    diff = path_k != path_p
+    for b in torch.nonzero(diff.any(dim=1)).flatten().tolist():
+        t = int(torch.nonzero(diff[b]).min())
+        logits = pi0 if t == 0 else lp[path_p[b, t - 1].long()]
+        s = logits + hmm.gumbel(u0[b] if t == 0 else u[b, t - 1])
+        gaps.append(abs(s[int(path_k[b, t])] - s[int(path_p[b, t])]).item())
+    return gaps
+
+
+def check_sample_states(port, model, gen):
+    """K16 against its plain version from the same uniforms on CHAINS chains
+    of CHAIN_STEPS steps of the model's stationary chain (paths equal, or
+    each first differing draw a near-tie), and its transition frequencies
+    over those steps (and initial-state frequencies) against
+    softmax(log_Ps) (softmax(log_pi0)) within SAMPLE_SE standard errors."""
+    hmm = port.hmm
+    pi0 = model.params['log_pi0']
+    lp = torch.log_softmax(model.params['log_Ps'], dim=1)
+    K = pi0.shape[0]
+    B, T = CHAINS, CHAIN_STEPS
+    u0 = hmm.uniforms((B, K), gen, pi0.device)
+    u = hmm.uniforms((B, T - 1, K), gen, pi0.device)
+    path_k = hmm.sample_states_cuda(pi0, lp, u0, u)
+    path_p = hmm.sample_states_plain(pi0, lp, u0, u)
+    torch.cuda.synchronize()
+    gaps = chain_gaps(hmm, pi0, lp, u0, u, path_k, path_p)
+    z = path_k.long()
+    counts = torch.bincount((z[:, :-1] * K + z[:, 1:]).flatten(), minlength=K * K).reshape(
+        K, K).double()
+    rows_n = counts.sum(dim=1, keepdim=True)
+    P = torch.softmax(lp.double(), dim=1)
+    freq = counts / rows_n.clamp(min=1)
+    trans_z = ((freq - P).abs() / torch.sqrt(P * (1 - P) / rows_n.clamp(min=1))
+               .clamp(min=1e-30))
+    trans_ok = bool(((freq - P).abs() <= SAMPLE_SE * torch.sqrt(P * (1 - P) / rows_n)
+                     + 1.0 / rows_n.clamp(min=1)).all().item())
+    p0 = torch.softmax(pi0.double(), dim=0)
+    f0 = torch.bincount(z[:, 0], minlength=K).double() / B
+    init_ok = bool(((f0 - p0).abs() <= SAMPLE_SE * torch.sqrt(p0 * (1 - p0) / B)
+                    + 1.0 / B).all().item())
+    n_ops = 5 * B * T * K
+    n_bytes = 4 * (K + K * K + u0.numel() + u.numel() + B * T)
+    rec = dict(phase='arhmm_kernel_check', kernel='hmm_sample_states', layer='chains',
+               frames=B * T, chains=B, steps=T, states=K, equal=bool(torch.equal(path_k, path_p)),
+               agreement=(path_k == path_p).float().mean().item(), differing_chains=len(gaps),
+               max_gap=max(gaps) if gaps else 0.0, tie_tol=DRAW_TIE_TOL,
+               max_abs_err=1.0 - (path_k == path_p).float().mean().item(),
+               err_note='max_abs_err: the share of steps that differ',
+               transition_max_z=trans_z.max().item(), transitions_ok=trans_ok,
+               initial_ok=init_ok, se_tol=SAMPLE_SE,
+               ms=median_ms(lambda: hmm.sample_states_cuda(pi0, lp, u0, u)),
+               plain_ms=median_ms(lambda: hmm.sample_states_plain(pi0, lp, u0, u),
+                                  samples=3, inner=1, warmup=1),
+               library_ms=None, gflop=n_ops / 1e9, mbytes=n_bytes / 1e6,
+               bound_note='the T-step chain of each thread', **bound(n_ops, n_bytes))
+    emit(rec)
+    if (not rec['equal'] and rec['max_gap'] > DRAW_TIE_TOL) or not trans_ok or not init_ok:
+        raise AssertionError('K16 disagrees with its plain version or its chain: %s' % rec)
+    return rec
+
+
+def check_posterior_marginals(port, model, trials, gen):
+    """K15's draws follow the posterior: SAMPLE_DRAWS draws of the first EM
+    trial (repeated over the trial axis, one ``sample_posterior`` call with
+    ``parallel``: K13's alphas, then K15), each frame's state frequencies
+    within SAMPLE_SE standard errors (plus 1 / SAMPLE_DRAWS) of K13's
+    gamma."""
+    hmm = port.hmm
+    x, mask = trials
+    p = model.params
+    n = SAMPLE_DRAWS
+    xs, ms = x[:1].expand(n, -1, -1).contiguous(), mask[:1].expand(n, -1).contiguous()
+    pi0, lp = p['log_pi0'], model._log_P(p)
+    ll = model._log_likes(p, xs, ms)
+    gamma = hmm.forward_backward_scan_cuda(pi0, lp, ll[:1], ms[:1])[0][0].double()
+    paths = hmm.sample_posterior(pi0, lp, ll, ms, parallel=True, generator=gen).long()
+    K = gamma.shape[1]
+    freq = torch.stack([(paths == k).double().mean(dim=0) for k in range(K)], dim=1)
+    se = torch.sqrt(gamma * (1 - gamma) / n)
+    dev = (freq - gamma).abs()
+    ok = bool((dev <= SAMPLE_SE * se + 1.0 / n).all().item())
+    rec = dict(phase='arhmm_posterior_marginals', draws=n, frames=x.shape[1], states=K,
+               max_abs_dev=dev.max().item(), se_tol=SAMPLE_SE, ok=ok,
+               frames_over_3se=int((dev > 3 * se + 1.0 / n).sum().item()))
+    emit(rec)
+    if not ok:
+        raise AssertionError("K15's draws do not follow the posterior: %s" % rec)
+
+
+def arhmm_em_parallel(port, model, trials, kernels, iters):
+    """Main paths 6c and 6d: ``ARHMM.fit`` with ``parallel_scan`` for
+    ``iters`` EM iterations on the card (K13 and ``kernels`` every
+    iteration; every LL finite and, stationary, non-decreasing, recurrent,
+    the last above the first). Before it, one iteration from the same
+    params beside the sequential EM's (LL within EM_LL_REL_TOL, every new
+    parameter within REC_PARAM_REL_TOL of its largest entry); after it,
+    an iteration's time beside the sequential one's and its profile; a
+    recurrent model then decodes and samples one trial (K14's and K15's
+    time-varying launchers)."""
+    build = port.build
+    x, mask = trials
+    twin = port.arhmm.ARHMM(EM_STATES, EM_DIM, lags=1, observations=model.observations,
+                            transitions=model.transitions, rng_seed=SEED, device=DEVICE)
+    twin.params = dict(model.params)
+    p0 = dict(model.params)
+    new_par, ll_par = model._em_step(p0, x, mask)
+    new_seq, ll_seq = twin._em_step(p0, x, mask)
+    ll_par, ll_seq = ll_par.item(), ll_seq.item()
+    ll_rel = abs(ll_par - ll_seq) / abs(ll_seq)
+    param_err = {k: (new_par[k] - new_seq[k]).abs().max().item()
+                 / max(new_seq[k].abs().max().item(), 1e-30) for k in new_seq}
+    del new_par, new_seq
+
+    reset_launches(build)
+    t0 = time.perf_counter()
+    lls = model.fit(trials, num_iters=iters)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    decode = {}
+    if model.recurrent:
+        trial = x[0].cpu().numpy()
+        decode['path'] = model.most_likely_states(trial)
+        decode['sample'] = model.posterior_sample(trial, generator=torch.Generator(
+            device=DEVICE).manual_seed(SEED))
+        torch.cuda.synchronize()
+    launches = dict(build.LAUNCHES)
+    finite = bool(np.isfinite(lls).all())
+    if model.recurrent:
+        rising = lls[-1] > lls[0]
+    else:
+        rising = all(b >= a - EM_LL_REL_TOL * abs(a) for a, b in zip(lls, lls[1:]))
+    missing = [k for k in kernels if launches[k] < iters]
+    missing += [k for k in (PARALLEL_REC_DECODE_KERNELS if model.recurrent else ())
+                if launches[k] == 0]
+
+    def step(m=model):
+        m.fit(trials, num_iters=1)
+    twin.params = dict(model.params)
+    ms = request_ms(step, reps=EM_TIMED_ITERS, warmup=2)
+    seq_ms = request_ms(lambda: step(twin), reps=EM_TIMED_ITERS, warmup=2)
+    rec = dict(phase='arhmm_em_parallel', transitions=model.transitions,
+               observations=model.observations, trials=EM_TRIALS, frames_per_trial=EM_FRAMES,
+               states=EM_STATES, dim=EM_DIM, iterations=iters, fit_seconds=fit_s, lls=lls,
+               finite=finite, rising=rising, launches=launches,
+               launches_per_iteration={k: launches[k] / iters for k in kernels},
+               one_iteration=dict(ll=ll_par, sequential_ll=ll_seq, ll_rel_err=ll_rel,
+                                  ll_rel_tol=EM_LL_REL_TOL, param_rel_err=param_err,
+                                  param_rel_tol=REC_PARAM_REL_TOL),
+               ms_per_iteration=ms, sequential_ms_per_iteration=seq_ms,
+               decoded={k: [int(v.min()), int(v.max()), len(v)] for k, v in decode.items()})
+    emit(rec)
+    if missing or not finite or not rising or ll_rel > EM_LL_REL_TOL or \
+            max(param_err.values()) > REC_PARAM_REL_TOL:
+        raise AssertionError('EM with parallel_scan on the card failed (missing %s): %s'
+                             % (missing, rec))
+    emit(profile_steps(step, phase='arhmm_em_parallel_profile', frames=EM_TRIALS * EM_FRAMES,
+                       bucket=None, transitions=model.transitions))
+    return launches
+
+
+def long_session(port, model):
+    """Main path 6e: one LONG_FRAMES-frame session sampled from the seeded
+    16-state ARHMM of the EM workload (its own states and noise), decoded
+    by the fitted EM model with ``parallel_scan``
+    (``expected_states``: K13, ``most_likely_states``: K14) and without
+    (K9, K10). K13's posteriors and log_Z against the plain parallel version
+    in float64 within max(the K9 tolerances, twice K9's own error); K14's
+    path against K10's by agreement and float64 joint log-probability. Each
+    call timed, and the kernels alone on its inputs."""
+    hmm, build = port.hmm, port.build
+    t0 = time.perf_counter()
+    data = sample_arhmm(1, LONG_FRAMES, EM_STATES, EM_DIM, SEED + 4, path_seed=SEED + 6)[0]
+    sample_s = time.perf_counter() - t0
+    par = port.arhmm.ARHMM(EM_STATES, EM_DIM, lags=1, rng_seed=SEED, parallel_scan=True,
+                           device=DEVICE)
+    seq = port.arhmm.ARHMM(EM_STATES, EM_DIM, lags=1, rng_seed=SEED, device=DEVICE)
+    par.params = seq.params = dict(model.params)
+    reset_launches(build)
+    gamma_par, path_par = par.expected_states(data), par.most_likely_states(data)
+    gamma_seq, path_seq = seq.expected_states(data), seq.most_likely_states(data)
+    torch.cuda.synchronize()
+    launches = dict(build.LAUNCHES)
+
+    x, mask = par.pad([data])
+    p = par.params
+    pi0, lp, ll = p['log_pi0'], par._log_P(p), par._log_likes(p, x, mask)
+    g_d, z_d, _ = hmm.forward_backward_plain(pi0.double(), lp.double(), ll.double(),
+                                             mask.double(), parallel=True)
+    g_d = g_d[0].cpu().numpy()
+    z13, z9 = (hmm.log_normalizer(pi0, lp, ll, mask, parallel=flag) for flag in (True, False))
+    z_err = {who: abs(z.item() - z_d.item()) / abs(z_d.item())
+             for who, z in (('k13', z13), ('k9', z9))}
+    g_err = {who: float(np.abs(g - g_d).max())
+             for who, g in (('k13', gamma_par), ('k9', gamma_seq))}
+    lps = [path_lp64(port, pi0, lp, ll, mask, torch.from_numpy(z[None]).to(DEVICE)).item()
+           for z in (path_par, path_seq)]
+    agree = float(np.mean(path_par == path_seq))
+    lp_rel = abs(lps[0] - lps[1]) / abs(lps[1])
+    g_tol = max(GAMMA_ABS_TOL, 2 * g_err['k9'])
+    z_tol = max(LOGZ_REL_TOL, 2 * z_err['k9'])
+    K = EM_STATES
+    frames = LONG_FRAMES
+    rec = dict(phase='arhmm_long_session', frames=frames, states=K, dim=EM_DIM,
+               sample_seconds=sample_s, log_z=z_d.item(), launches=launches,
+               log_z_rel_err_vs_f64=z_err, log_z_rel_tol=z_tol,
+               gamma_max_abs_err_vs_f64=g_err, gamma_tol=g_tol,
+               gamma_argmax_agreement=float(np.mean(gamma_par.argmax(1) == gamma_seq.argmax(1))),
+               path_agreement=agree, agree_tol=PATH_AGREE, path_log_prob_rel_err=lp_rel,
+               rel_tol=PATH_LP_REL_TOL,
+               expected_states_ms=dict(k13=request_ms(lambda: par.expected_states(data), reps=5),
+                                       k9=request_ms(lambda: seq.expected_states(data), reps=5)),
+               most_likely_states_ms=dict(
+                   k14=request_ms(lambda: par.most_likely_states(data), reps=5),
+                   k10=request_ms(lambda: seq.most_likely_states(data), reps=5)),
+               posterior_sample_ms=request_ms(lambda: par.posterior_sample(data), reps=5),
+               kernel_ms=dict(
+                   k13=median_ms(lambda: hmm.forward_backward_scan_cuda(pi0, lp, ll, mask),
+                                 samples=3, inner=3),
+                   k13_forward=median_ms(lambda: hmm.forward_scan_cuda(pi0, lp, ll, mask),
+                                         samples=3, inner=3),
+                   k9=median_ms(lambda: hmm.forward_backward_cuda(pi0, lp, ll, mask),
+                                samples=3, inner=1, warmup=1),
+                   k14=median_ms(lambda: hmm.viterbi_scan_cuda(pi0, lp, ll, mask),
+                                 samples=3, inner=3),
+                   k10=median_ms(lambda: hmm.viterbi_cuda(pi0, lp, ll, mask),
+                                 samples=3, inner=1, warmup=1),
+                   plain_parallel=median_ms(lambda: hmm.forward_backward_plain(
+                       pi0, lp, ll, mask, parallel=True), samples=3, inner=1, warmup=1)),
+               k13_bound_ms=bound((20 * K * K + 6 * K) * frames,
+                                  4 * (ll.numel() * 2 + mask.numel() + K * K + K + 1 + K * K))
+               ['bound_ms'],
+               k14_bound_ms=bound(2 * K * K * frames,
+                                  4 * (ll.numel() + mask.numel() + K * K + K + frames))
+               ['bound_ms'])
+    emit(rec)
+    missing = [k for k in ('hmm_scan', 'hmm_viterbi_scan', 'hmm_forward_backward',
+                           'hmm_viterbi') if launches[k] == 0]
+    if missing or z_err['k13'] > z_tol or g_err['k13'] > g_tol or agree < PATH_AGREE or \
+            lp_rel > PATH_LP_REL_TOL:
+        raise AssertionError('the long session disagrees (missing %s): %s' % (missing, rec))
+    return launches
+
+
+def arhmm_sample_serve(port, vdir, latents, kernels):
+    """Main path 8c: a fitted model loads through ``load_arhmm`` and
+    samples: ``posterior_sample`` of one trial (K9's forward pass writing
+    the alphas, or with ``parallel_scan`` K13's forward phases; then K15)
+    and, stationary, ``sample(SAMPLE_LEN)`` (K16 draws the state chain, the
+    host the observations), ``kernels`` launched. The served draws are
+    held against the plain versions from the same uniforms (the generator's
+    state replayed): K15's path against the plain draws and composition
+    from the same alphas, K16's chain against ``sample_states_plain``, each
+    equal or differing only at near-ties, and the observations against
+    ``sample_x`` of the plain chain from the same noise. States in range,
+    observations finite, both calls timed."""
+    hmm = port.hmm
+    trial = latents[0]
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 7)
+    reset_launches(port.build)
+    model = port.pickles.load_arhmm(os.path.join(vdir, 'best_val_model.pt'))
+    post_state = gen.get_state()
+    z = model.posterior_sample(trial, generator=gen)
+    sample_state = gen.get_state()
+    zs, xs = model.sample(SAMPLE_LEN, generator=gen)
+    torch.cuda.synchronize()
+    launches = dict(port.build.LAUNCHES)
+
+    def replay(state):
+        g = torch.Generator(device=DEVICE)
+        g.set_state(state)
+        return g
+    x, mask = model.pad([trial])
+    p = model.params
+    pi0, lp, ll = p['log_pi0'], model._log_P(p, x), model._log_likes(p, x, mask)
+    K = model.K
+    g = replay(post_state)
+    u_last = hmm.uniforms((1, K), g, x.device)
+    u_maps = hmm.uniforms((1, TRIAL - 1, K, K), g, x.device)
+    if model.parallel_scan:
+        la = hmm.forward_scan_cuda(pi0, lp, ll, mask, with_alpha=True)[0]
+    else:
+        la = hmm.forward_alpha_cuda(pi0, lp, ll, mask)[0]
+    z_last, psi = hmm.presample_path_draws_plain(la, lp, mask, u_last, u_maps)
+    z_p = hmm._backtrace(psi, z_last, parallel=True)
+    z_k = torch.from_numpy(z[None]).to(x.device)
+    gaps = draw_gaps(hmm, la, lp, mask, u_last, u_maps, z_k, z_p)
+    posterior = dict(equal=bool(torch.equal(z_k, z_p)), agreement=(z_k == z_p).float().mean()
+                     .item(), max_gap=max(gaps) if gaps else 0.0)
+    ok = ((posterior['equal'] or posterior['max_gap'] <= DRAW_TIE_TOL)
+          and z.dtype == np.int32 and z.shape == (TRIAL,) and 0 <= z.min() and z.max() < K
+          and zs.dtype == np.int32 and zs.shape == (SAMPLE_LEN,) and 0 <= zs.min()
+          and zs.max() < K and xs.dtype == np.float32
+          and xs.shape == (SAMPLE_LEN, model.D) and bool(np.isfinite(xs).all()))
+    chain = None
+    if not model.recurrent:
+        lp_s = torch.log_softmax(p['log_Ps'], dim=1)
+        g = replay(sample_state)
+        u0 = hmm.uniforms((1, K), g, x.device)
+        u = hmm.uniforms((1, SAMPLE_LEN - 1, K), g, x.device)
+        zs_p = hmm.sample_states_plain(pi0, lp_s, u0, u)
+        zs_k = torch.from_numpy(zs[None]).to(x.device)
+        c_gaps = chain_gaps(hmm, pi0, lp_s, u0, u, zs_k, zs_p)
+        xs_p = model.sample_x(zs_p[0].cpu().numpy(), generator=g)
+        chain = dict(equal=bool(torch.equal(zs_k, zs_p)),
+                     agreement=(zs_k == zs_p).float().mean().item(),
+                     max_gap=max(c_gaps) if c_gaps else 0.0,
+                     observations_equal=bool(np.array_equal(xs, xs_p)))
+        ok = ok and (chain['observations_equal'] if chain['equal']
+                     else chain['max_gap'] <= DRAW_TIE_TOL)
+    lp64 = path_lp64(port, pi0, lp, ll, mask, z_k).item()
+    rec = dict(phase='arhmm_sample_serve', transitions=model.transitions,
+               observations=model.observations, states=K, frames=TRIAL,
+               parallel_scan=model.parallel_scan, sample_len=SAMPLE_LEN, ok=bool(ok),
+               posterior_vs_plain=posterior, chain_vs_plain=chain, tie_tol=DRAW_TIE_TOL,
+               posterior_path_log_prob=lp64, sampled_states_used=int(len(np.unique(zs))),
+               launches=launches,
+               posterior_sample_ms=request_ms(lambda: model.posterior_sample(trial,
+                                                                             generator=gen)),
+               sample_ms=request_ms(lambda: model.sample(SAMPLE_LEN, generator=gen), reps=3))
+    emit(rec)
+    missing = [k for k in kernels if launches[k] == 0]
+    if missing or not ok or not np.isfinite(lp64):
+        raise AssertionError('the fitted ARHMM does not sample (missing %s): %s'
                              % (missing, rec))
     return launches
 
@@ -2332,10 +3056,19 @@ def main():
         em_model, em_trials, init_s = em_workload(port)
         checks += [check(port, em_model, em_trials) for check in (
             check_arhmm_log_likes, check_forward_backward, check_viterbi, check_solve_small)]
+        init_params = dict(em_model.params)
         rec_models = recurrent_models(port, em_model)
         checks.append(check_robust_log_likes(port, rec_models['recurrent'], em_trials))
         checks += [check(port, rec_models, em_trials)
                    for check in (check_forward_backward_tv, check_viterbi_tv)]
+        scan_in = scan_cases(port, em_model, rec_models, em_trials)
+        for check in (check_scan, check_viterbi_scan):
+            checks += check(port, scan_in)
+        checks += check_sample_posterior(port, scan_in, gen)
+        checks += check_forward_alpha(port, scan_in)
+        del scan_in
+        checks.append(check_sample_states(port, em_model, gen))
+        check_posterior_marginals(port, em_model, em_trials, gen)
     checks += [check_gaussian_nll(port.losses, gen, d) for d in NLL_DIMS]
     checks.append(check_mse(port.losses, gen, decoder=True))
 
@@ -2351,16 +3084,38 @@ def main():
             launches['serve_ps-vae'] = serve_psvae(port, ps_hp, ps_dir, ps_best, source)
             launches['fit_beta-tcvae'] = fit_vae(port, hp, tmp, 'beta-tcvae', source)[-1]
             launches['arhmm_em'] = arhmm_em(port, em_model, em_trials, init_s)
+            par_model = port.arhmm.ARHMM(EM_STATES, EM_DIM, lags=1, rng_seed=SEED,
+                                         parallel_scan=True, device=DEVICE)
+            par_model.params = init_params
+            launches['arhmm_em_parallel'] = arhmm_em_parallel(
+                port, par_model, em_trials, PARALLEL_EM_KERNELS, EM_ITERS)
             launches['arhmm_em_recurrent'] = arhmm_em_recurrent(
                 port, recurrent_arhmm(port, em_model, 'recurrent', 'robust_ar'), em_trials)
-            del em_model, em_trials, rec_models
+            launches['arhmm_em_recurrent_parallel'] = arhmm_em_parallel(
+                port, recurrent_arhmm(port, em_model, 'recurrent', 'robust_ar',
+                                      parallel_scan=True),
+                em_trials, PARALLEL_REC_EM_KERNELS, REC_EM_ITERS)
+            launches['arhmm_long_session'] = long_session(port, em_model)
+            del em_model, em_trials, rec_models, par_model, init_params
             vdir, cli_latents, launches['arhmm_cli'] = arhmm_cli(port, tmp)
             launches['arhmm_serve'] = arhmm_serve(port, vdir, cli_latents)
+            launches['arhmm_sample_serve'] = arhmm_sample_serve(
+                port, vdir, cli_latents, ('hmm_forward_alpha', 'hmm_sample_posterior',
+                                          'hmm_sample_states'))
             vdir, cli_latents, launches['arhmm_cli_recurrent'] = arhmm_cli(
                 port, tmp, RECURRENT_KERNELS, transitions='recurrent', noise_type='studentst')
             launches['arhmm_serve_recurrent'] = arhmm_serve(
                 port, vdir, cli_latents, ('arhmm_log_likes_robust', 'hmm_forward_backward_tv',
                                           'hmm_viterbi_tv'))
+            launches['arhmm_sample_serve_recurrent'] = arhmm_sample_serve(
+                port, vdir, cli_latents, ('hmm_forward_alpha_tv', 'hmm_sample_posterior_tv'))
+            vdir, cli_latents, launches['arhmm_cli_parallel'] = arhmm_cli(
+                port, tmp, PARALLEL_CLI_KERNELS, parallel_scan=True)
+            launches['arhmm_serve_parallel'] = arhmm_serve(
+                port, vdir, cli_latents, ('arhmm_log_likes', 'hmm_scan', 'hmm_viterbi_scan'))
+            launches['arhmm_sample_serve_parallel'] = arhmm_sample_serve(
+                port, vdir, cli_latents, ('hmm_scan', 'hmm_sample_posterior',
+                                          'hmm_sample_states'))
         if tf32_flags() != default_flags:
             raise AssertionError('the TF32 flags were left changed: %s' % tf32_flags())
         fitted = {}
@@ -2373,8 +3128,12 @@ def main():
         decoder_step(port, dec_hp, dec_model, dec_source)
         serve_decoder(port, dec_hp, dec_dir, dec_best, dec_source)
 
-    emit({'kernels': [kernel_row(name, [r for r in checks if r['kernel'] == name], launches)
-                      for name in KERNELS]})
+    rows = [kernel_row(name, [r for r in checks if r['kernel'] == name], launches)
+            for name in KERNELS]
+    idle = [r['name'] for r in rows if r['launches'] == 0]
+    if idle:
+        raise AssertionError('kernels that no main path launched: %s' % idle)
+    emit({'kernels': rows})
     emit({'ok': True, 'device': {'platform': 'gpu', 'kind': kind,
                                  'count': torch.cuda.device_count()}})
     return 0

@@ -273,16 +273,17 @@ def test_port_model_pickles_round_trip(em_pair, tmp_path, datas):
 
 
 def test_unported_configurations_raise():
-    for kw in (dict(parallel_scan=True), dict(dtype='float64'),
-               dict(observations='robust_ar', transitions='recurrent', parallel_scan=True)):
-        with pytest.raises(NotImplementedError):
+    """float64 EM (ROADMAP A1c) and ``iters_per_dispatch > 1`` are refused;
+    ``parallel_scan``, posterior sampling and sampling are ported
+    (tests/test_torch_arhmm_sampling.py)."""
+    for kw in (dict(dtype='float64'),
+               dict(observations='robust_ar', transitions='recurrent', dtype='float64')):
+        with pytest.raises(NotImplementedError, match='A1c'):
             ARHMM(K, D, device='cpu', **kw)
-    t = ARHMM(K, D, device='cpu')
-    for call in (lambda: t.posterior_sample(np.zeros((5, D))), lambda: t.sample(5),
-                 lambda: t.sample_x(np.zeros(5, int)),
-                 lambda: t.fit([np.zeros((5, D))], iters_per_dispatch=2)):
-        with pytest.raises(NotImplementedError):
-            call()
+    t = ARHMM(K, D, device='cpu', parallel_scan=True)
+    assert t.parallel_scan
+    with pytest.raises(NotImplementedError):
+        t.fit([np.zeros((5, D))], iters_per_dispatch=2)
     with pytest.raises(RuntimeError, match='CUDA'):
         ARHMM(K, D)   # device=None means 'cuda', which this machine lacks
 
@@ -417,18 +418,43 @@ def test_cli_best_ae_version_matches_jax(cli_run):
 
 @pytest.mark.parametrize('model,exc', [
     (dict(em_dtype='float64'), NotImplementedError),
-    (dict(transitions='recurrent', noise_type='studentst', parallel_scan=True),
-     NotImplementedError),
-    (dict(parallel_scan=True), NotImplementedError),
-])
+    (dict(transitions='recurrent', noise_type='studentst', parallel_scan=True), None),
+    (dict(parallel_scan=True), None),
+], ids=['model0-NotImplementedError', 'model1-NotImplementedError',
+        'model2-NotImplementedError'])   # the ids of the cases' earlier refusals
 def test_cli_refuses_unported_configurations(cli_run, model, exc):
-    from behavenet_tpu_torch.fitting.hyperparams import get_all_params
-    _, _, _, tmp = cli_run
-    args = _write_configs(tmp, os.path.join(tmp, 'refused'), **model)
-    for hp in get_all_params('grid_search', args).trials():
-        with pytest.raises(exc):
-            arhmm_grid_search.main(hp)
-    assert not os.path.exists(os.path.join(tmp, 'refused'))
+    """``em_dtype: float64`` is refused before any work; ``parallel_scan:
+    true`` fits on the CPU: a completed version whose pickled model carries
+    the flag and whose states pickle holds its Viterbi paths."""
+    from behavenet_tpu_torch.fitting.hyperparams import get_all_params, run_grid_search
+    _, _, latents, tmp = cli_run
+    name = 'refused' if exc else 'parallel_%s' % model.get('transitions', 'stationary')
+    save_dir = os.path.join(tmp, name)
+    if exc:
+        args = _write_configs(tmp, save_dir, **model)
+        for hp in get_all_params('grid_search', args).trials():
+            with pytest.raises(exc):
+                arhmm_grid_search.main(hp)
+        assert not os.path.exists(save_dir)
+        return
+    _write_ae_store(save_dir, latents)
+    model = dict(model, n_arhmm_states=[2])
+    run_grid_search(arhmm_grid_search.main, get_all_params(
+        'grid_search', _write_configs(tmp, save_dir, **model)))
+    transitions = model.get('transitions', 'stationary')
+    noise_type = model.get('noise_type', 'gaussian')
+    vdir = os.path.join(save_dir, LAB, EXPT, ANIMAL, SESSION, 'arhmm', '%02i_latents' % D,
+                        '02_states', transitions, noise_type, 'arhmm-expt', 'version_0')
+    with open(os.path.join(vdir, 'meta_tags.pkl'), 'rb') as f:
+        meta = pickle.load(f)
+    assert meta['training_completed'] and meta['parallel_scan']
+    fitted = pickles.load_arhmm(os.path.join(vdir, 'best_val_model.pt'), device='cpu')
+    assert fitted.parallel_scan and fitted.transitions == transitions
+    with open(os.path.join(vdir, '%s_%s_%s_%s_states.pkl'
+                           % (LAB, EXPT, ANIMAL, SESSION)), 'rb') as f:
+        states = pickle.load(f)['states']
+    for path, x in zip(states, latents):
+        np.testing.assert_array_equal(path, fitted.most_likely_states(x))
 
 
 @pytest.mark.parametrize('transitions,noise_type', [('recurrent', 'studentst'),

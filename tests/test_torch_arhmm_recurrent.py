@@ -334,15 +334,17 @@ def test_recurrent_m_step_is_adam_on_the_expected_transitions(em_pair, datas):
 
 def test_ported_configurations_construct():
     """Every observation type with every transition type builds, on the CPU
-    as asked; the still-unported options raise."""
+    as asked, with ``parallel_scan`` too; float64 EM still raises."""
     for obs in ('ar', 'robust_ar', 'diagonal_robust_ar', 'studentst', 'diagonal_studentst'):
         for transitions in ('stationary', 'sticky', 'recurrent', 'recurrent_only'):
             m = ARHMM(K, D, observations=obs, transitions=transitions, device='cpu')
             assert m.robust == (obs != 'ar')
             assert ('Rs' in m.params) == m.recurrent
-    for kw in (dict(parallel_scan=True), dict(dtype='float64')):
-        with pytest.raises(NotImplementedError):
-            ARHMM(K, D, observations='robust_ar', transitions='recurrent', device='cpu', **kw)
+    assert ARHMM(K, D, observations='robust_ar', transitions='recurrent', device='cpu',
+                 parallel_scan=True).parallel_scan
+    with pytest.raises(NotImplementedError, match='A1c'):
+        ARHMM(K, D, observations='robust_ar', transitions='recurrent', device='cpu',
+              dtype='float64')
     with pytest.raises(ValueError):
         ARHMM(K, D, transitions='bogus', device='cpu')
 

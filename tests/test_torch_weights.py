@@ -53,9 +53,10 @@ def test_state_dict_to_params_inverts_params_to_state_dict():
 
 def test_fresh_model_has_the_jax_init_bounds():
     hp = _hparams()
-    # jitted: the eager init's bits in less time
-    jparams = dict(_leaves(jax.tree_util.tree_map(
-        np.asarray, jax.jit(JaxAE(hp).init)(jax.random.PRNGKey(0)))))
+    # jitted, at LLVM optimization level 0: the eager init's bits in less time
+    key = jax.random.PRNGKey(0)
+    init = jax.jit(JaxAE(hp).init).lower(key).compile({'xla_backend_optimization_level': 0})
+    jparams = dict(_leaves(jax.tree_util.tree_map(np.asarray, init(key))))
     port = dict(_leaves(state_dict_to_params(AE(hp))))
     assert sorted(port) == sorted(jparams)
     for k, w in port.items():
