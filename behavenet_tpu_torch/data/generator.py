@@ -9,15 +9,17 @@ the same order.
 
 ``h5py`` is imported only where an HDF5 file is opened. Trials are read
 through h5py; the JAX package's raw-offset reader (``data/raw_h5.py``) is
-not ported yet. Of the signals that live in export pickles, the AE latents
-(``'ae_latents'``, ``'latents'``: key ``'latents'`` of
-``<lab>_<expt>_<animal>_<session>_latents.pkl``, float32) and the ARHMM
-states (``'arhmm_states'``, ``'arhmm'``: key ``'states'`` of ``..._states.pkl``,
-int32) are read, with their transforms (motion energy, block shuffle, one-hot
-states, which widens int states to float32 (T, K)), and a session that asks
-for no HDF5 signal takes its trial count from the pickle, so a latents-only
-run never imports h5py. Predictions pickles belong to model classes not
-ported yet and raise.
+not ported yet. The signals that live in export pickles are read with
+their transforms (motion energy, block shuffle, one-hot states, which widens
+int states to float32 (T, K)): the AE latents (``'ae_latents'``,
+``'latents'``: key ``'latents'`` of
+``<lab>_<expt>_<animal>_<session>_latents.pkl``, float32), the ARHMM states
+(``'arhmm_states'``, ``'arhmm'``: key ``'states'`` of ``..._states.pkl``,
+int32) and the neural decoders' predictions (``'ae_predictions'``,
+``'arhmm_predictions'``: key ``'predictions'`` of ``..._predictions.pkl``,
+float32, their NaN lag-border rows kept). A session that asks for no HDF5
+signal takes its trial count from the pickle, so a run on pickles alone
+never imports h5py.
 """
 
 import os
@@ -73,7 +75,9 @@ def _to_nhwc(arr):
 
 # pickle-backed signal -> (key in the pickle, dtype) (JAX: data/generator.py:199)
 _PKL_KEYS = {'ae_latents': ('latents', 'float32'), 'latents': ('latents', 'float32'),
-             'arhmm_states': ('states', 'int32'), 'arhmm': ('states', 'int32')}
+             'arhmm_states': ('states', 'int32'), 'arhmm': ('states', 'int32'),
+             'ae_predictions': ('predictions', 'float32'),
+             'arhmm_predictions': ('predictions', 'float32')}
 
 
 def _load_pkl(path, key, dtype, idx=None):
@@ -112,11 +116,9 @@ class SingleSessionDataset:
         self.sess_str = '%s_%s_%s_%s' % (lab, expt, animal, session)
 
         self.signals = list(signals)
-        unported = [s for s in self.signals
-                    if s not in self._h5_signals + self._pkl_signals]
-        if unported:
-            raise NotImplementedError('signals %s (export pickles) are not ported yet'
-                                      % unported)
+        for signal in self.signals:
+            if signal not in self._h5_signals + self._pkl_signals:
+                raise ValueError('"%s" is an invalid signal type' % signal)
         self.transforms = OrderedDict()
         self.paths = OrderedDict()
         for signal, transform, path in zip(signals, transforms, paths):

@@ -5,8 +5,10 @@ behavenet/data/utils.py) for the model classes the port fits: the
 autoencoders ``'ae'``, ``'vae'``, ``'beta-tcvae'`` and ``'ps-vae'`` (video
 frames, labels), the segmentation models ``'arhmm'`` / ``'hmm'`` (AE
 latents from an experiment-store latents pickle) and ``'arhmm-labels'`` /
-``'hmm-labels'`` (labels), and the neural decoders (neural activity from
-the HDF5 store against AE latents, labels or ARHMM states). Other model
+``'hmm-labels'`` (labels), the neural decoders (neural activity from the
+HDF5 store against AE latents, labels or ARHMM states) and the Bayesian
+decoder ``'bayesian-decoding'`` (AE latents, the neural decoders'
+predictions and ARHMM states, all from export pickles). Other model
 classes, and neural subsampling, raise ``NotImplementedError`` until their
 slice is ported.
 """
@@ -14,12 +16,14 @@ slice is ported.
 import os
 
 __all__ = ['get_data_generator_inputs', 'build_data_generator', 'check_same_training_split',
-           'get_latents_path', 'get_states_path', 'get_neural_transform', 'SIGNAL_WIDTHS']
+           'get_latents_path', 'get_states_path', 'get_predictions_path',
+           'get_neural_transform', 'SIGNAL_WIDTHS']
 
 _IMAGES_ONLY = ('ae', 'vae', 'beta-tcvae')
 _WITH_LABELS = ('ps-vae',)
 _ON_LATENTS = ('arhmm', 'hmm')
 _ON_LABELS = ('arhmm-labels', 'hmm-labels')
+_BAYESIAN = 'bayesian-decoding'
 # the hparam that holds the width of a decoder's non-neural signal
 SIGNAL_WIDTHS = {'ae_latents': 'n_ae_latents', 'labels': 'n_labels',
                  'arhmm_states': 'n_arhmm_states'}
@@ -91,7 +95,8 @@ def get_data_generator_inputs(hparams, sess_ids):
     (JAX: data/utils.py:17-174; reference :15-339)."""
     from behavenet_tpu_torch.models.decoders import DECODER_CLASSES
     mc = hparams['model_class']
-    if mc not in _IMAGES_ONLY + _WITH_LABELS + _ON_LATENTS + _ON_LABELS + DECODER_CLASSES:
+    if mc not in _IMAGES_ONLY + _WITH_LABELS + _ON_LATENTS + _ON_LABELS + DECODER_CLASSES + \
+            (_BAYESIAN,):
         raise NotImplementedError('model_class "%s" is not ported yet' % mc)
     if hparams.get('conditional_encoder', False):
         raise NotImplementedError('a conditional encoder is not ported yet')
@@ -106,10 +111,12 @@ def get_data_generator_inputs(hparams, sess_ids):
             transforms_list.append(transforms)
             paths_list.append(paths)
             continue
-        if mc in _ON_LATENTS + _ON_LABELS:
+        if mc in _ON_LATENTS + _ON_LABELS + (_BAYESIAN,):
             if mc in _ON_LATENTS:
                 signals = ['ae_latents']
                 transforms, paths = [None], [get_latents_path(hparams, sess_id)]
+            elif mc == _BAYESIAN:
+                signals, transforms, paths = _bayesian_inputs(hparams, sess_id)
             else:
                 signals, transforms, paths = ['labels'], [None], [hdf5]
             for flag, signal in (('load_videos', 'images'), ('use_output_mask', 'masks')):
@@ -131,6 +138,23 @@ def get_data_generator_inputs(hparams, sess_ids):
         transforms_list.append(transforms)
         paths_list.append(paths)
     return hparams, signals_list, transforms_list, paths_list
+
+
+def _bayesian_inputs(hparams, sess_id):
+    """(signals, transforms, paths) of one session of the Bayesian decoder
+    (JAX: data/utils.py:176-185): the AE latents, the two neural decoders'
+    predictions (of the session the hparams name, as in JAX) and the ARHMM
+    states, block-shuffled when ``shuffle_rng_seed`` is set."""
+    from behavenet_tpu_torch.data.transforms import BlockShuffle
+    ae_path = get_latents_path(hparams, sess_id)
+    states_path = get_states_path(hparams, sess_id)
+    own = {key: hparams[key] for key in ('lab', 'expt', 'animal', 'session')}
+    ae_pred = get_predictions_path(hparams, own, 'neural-ae')
+    arhmm_pred = get_predictions_path(hparams, own, 'neural-arhmm')
+    shuffle = BlockShuffle(hparams['shuffle_rng_seed']) \
+        if hparams.get('shuffle_rng_seed') is not None else None
+    return (['ae_latents', 'ae_predictions', 'arhmm_predictions', 'arhmm_states'],
+            [None, None, None, shuffle], [ae_path, ae_pred, arhmm_pred, states_path])
 
 
 def build_data_generator(hparams, sess_ids, export_csv=True):
@@ -216,6 +240,33 @@ def get_states_path(hparams, sess_id):
         else:
             version = 'version_%i' % get_best_model_version(arhmm_dir, 'val_loss')[0]
         path = os.path.join(arhmm_dir, version, '%s_%s_%s_%s_states.pkl' % (
+            sess_id['lab'], sess_id['expt'], sess_id['animal'], sess_id['session']))
+    check_same_training_split(path, hparams)
+    return path
+
+
+def get_predictions_path(hparams, sess_id, model_class):
+    """A neural decoder's predictions pickle of a session (the
+    ``'neural_ae_predictions'`` and ``'neural_arhmm_predictions'`` branches
+    of JAX: data/utils.py:353-386) for ``model_class`` ``'neural-ae'`` or
+    ``'neural-arhmm'``: the ``ae_predictions_file`` / ``arhmm_predictions_file``
+    hparam, else the one of the decoder's version (``neural_ae_version`` /
+    ``neural_arhmm_version`` when an int, else the best one by val loss).
+    Its version must share this run's data seed and trial splits."""
+    from behavenet_tpu_torch.fitting.experiment import get_best_model_version, get_expt_dir
+
+    key = {'neural-ae': 'ae', 'neural-arhmm': 'arhmm'}[model_class]
+    if '%s_predictions_file' % key in hparams:
+        path = hparams['%s_predictions_file' % key]
+    else:
+        expt_dir = get_expt_dir(
+            hparams, model_class=model_class,
+            expt_name=hparams['neural_%s_experiment_name' % key],
+            model_type=hparams['neural_%s_model_type' % key])
+        version = hparams.get('neural_%s_version' % key)
+        if not isinstance(version, int):
+            version = get_best_model_version(expt_dir, 'val_loss')[0]
+        path = os.path.join(expt_dir, 'version_%i' % version, '%s_%s_%s_%s_predictions.pkl' % (
             sess_id['lab'], sess_id['expt'], sess_id['animal'], sess_id['session']))
     check_same_training_split(path, hparams)
     return path

@@ -1,7 +1,8 @@
 """Experiment store: versioned results tree, metrics logging, dedup.
 
-The port's copy of what ``ae_grid_search``, ``arhmm_grid_search`` and
-``decoder_grid_search`` need from ``behavenet_tpu/fitting/experiment.py``
+The port's copy of what ``ae_grid_search``, ``arhmm_grid_search``,
+``decoder_grid_search`` and ``bayesian_decoder_grid_search`` need from
+``behavenet_tpu/fitting/experiment.py``
 (reference behavenet/fitting/utils.py, with test-tube's Experiment replaced
 by :class:`Experiment`). The
 on-disk layout is the JAX package's, bit for bit: ``version_%i/``
@@ -32,6 +33,7 @@ _ARHMM_ON_LABELS = ('arhmm-labels', 'hmm-labels')
 _DECODERS_ON_LATENTS = ('neural-ae', 'neural-ae-me', 'ae-neural')
 _DECODERS_ON_LABELS = ('neural-labels', 'labels-neural')
 _DECODERS_ON_STATES = ('neural-arhmm', 'arhmm-neural')
+_BAYESIAN = 'bayesian-decoding'
 
 
 class Experiment(object):
@@ -240,8 +242,8 @@ def _get_transition_str(hparams):
 
 def get_expt_dir(hparams, model_class=None, model_type=None, expt_name=None):
     """Model-class-specific experiment directory (JAX: experiment.py:230;
-    reference :307-434), for the autoencoder family, the (AR)HMMs and the
-    neural decoders."""
+    reference :307-434), for the autoencoder family, the (AR)HMMs, the
+    neural decoders and the Bayesian decoder."""
     import copy
 
     if model_class is None:
@@ -274,6 +276,12 @@ def get_expt_dir(hparams, model_class=None, model_type=None, expt_name=None):
                      '%02i_states' % hparams['n_arhmm_states'],
                      _get_transition_str(hparams), model_type]
         model_path = os.path.join(model_class, *parts, region)
+        multi_key = None
+    elif model_class == _BAYESIAN:
+        model_path = os.path.join(
+            model_class, '%02i_latents' % hparams['n_ae_latents'],
+            '%02i_states' % hparams['n_arhmm_states'],
+            _get_transition_str(hparams), hparams['noise_type'], get_region_dir(hparams))
         multi_key = None
     else:
         raise NotImplementedError('model_class "%s" is not ported yet' % model_class)
@@ -358,10 +366,11 @@ def get_region_dir(hparams):
 
 def get_model_params(hparams):
     """The identity key set that dedups an experiment (JAX: experiment.py:420;
-    reference :633-753), for the autoencoder family, the (AR)HMMs and the
-    neural decoders."""
+    reference :633-753), for the autoencoder family, the (AR)HMMs, the
+    neural decoders and the Bayesian decoder."""
     model_class = hparams['model_class']
-    if model_class not in _AE_FAMILY + _ARHMM_ON_LATENTS + _ARHMM_ON_LABELS + DECODER_CLASSES:
+    if model_class not in _AE_FAMILY + _ARHMM_ON_LATENTS + _ARHMM_ON_LABELS + DECODER_CLASSES \
+            + (_BAYESIAN,):
         raise NotImplementedError('model_class "%s" is not ported yet' % model_class)
 
     hparams_less = {
@@ -374,6 +383,9 @@ def get_model_params(hparams):
     }
     if model_class in DECODER_CLASSES:
         return dict(hparams_less, **_decoder_params(hparams))
+    if model_class == _BAYESIAN:
+        return dict(hparams_less, n_ae_latents=hparams['n_ae_latents'],
+                    n_arhmm_states=hparams['n_arhmm_states'])
     if model_class not in _AE_FAMILY:
         for key in ('n_arhmm_lags', 'noise_type', 'transitions'):
             hparams_less[key] = hparams[key]

@@ -44,13 +44,14 @@ SOURCES = {
     'gaussian_nll': 'gaussian_nll.cu',
     'hmm_scan': 'hmm_scan.cu',
     'hmm_sample_posterior': 'hmm_sample.cu',
+    'imm_filter': 'imm.cu',
 }
 _HEADERS = ('igemm.cuh', 'hmm.cuh', 'hmm_backtrace.cuh')
 
 # launchers counted under a name of their own: variant -> (kernel, symbols);
-# K14 and K16 share a source with K13 and K15, and K9's forward pass that
-# writes the filtered alphas for K15 is counted apart from its other
-# launchers
+# K14 and K16 share a source with K13 and K15, K18 (the RTS smoother) with
+# K17 (the IMM filter), and K9's forward pass that writes the filtered
+# alphas for K15 is counted apart from its other launchers
 VARIANTS = {
     'arhmm_log_likes_robust': ('arhmm_log_likes', ('bn_arhmm_log_likes_robust',)),
     'hmm_forward_backward_tv': ('hmm_forward_backward',
@@ -63,6 +64,7 @@ VARIANTS = {
     'hmm_viterbi_scan_tv': ('hmm_scan', ('bn_hmm_viterbi_scan_tv',)),
     'hmm_sample_posterior_tv': ('hmm_sample_posterior', ('bn_hmm_sample_posterior_tv',)),
     'hmm_sample_states': ('hmm_sample_posterior', ('bn_hmm_sample_states',)),
+    'rts_smoother': ('imm_filter', ('bn_rts_smoother',)),
 }
 _COUNTED_AS = {sym: variant for variant, (_, syms) in VARIANTS.items() for sym in syms}
 
@@ -116,6 +118,9 @@ _SIGNATURES = {
         'bn_hmm_sample_posterior': [_P] * 5 + [_I] * 4 + [_P] * 5,
         'bn_hmm_sample_posterior_tv': [_P] * 5 + [_I] * 4 + [_P] * 5,
         'bn_hmm_sample_states': [_P] * 4 + [_I] * 3 + [_P] * 2},
+    'imm_filter': {
+        'bn_imm_filter': [_P] * 9 + [_I] * 4 + [_P] * 5,
+        'bn_rts_smoother': [_P] * 6 + [_I] * 3 + [_P] * 3},
 }
 
 _lock = threading.Lock()

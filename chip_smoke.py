@@ -6,7 +6,7 @@
 On one CUDA GPU (an H100: the kernels are built for sm_90a) it
 
 1. prints the card's name and power limit (nvidia-smi);
-2. builds the port's fourteen CUDA kernel sources from this checkout;
+2. builds the port's fifteen CUDA kernel sources from this checkout;
 3. holds each kernel against its plain PyTorch version at the shapes the
    two main paths give it, and times the kernel, the plain version and the
    one PyTorch call that computes the same function (TF32 off for every
@@ -102,6 +102,21 @@ On one CUDA GPU (an H100: the kernels are built for sm_90a) it
    step's and its profile; ``predict``
    of the fitted ``mlp-mv`` through ``serving.load_version`` on a 189- and
    a 1000-frame trial against the float64 forward.
+9. the Bayesian decoder (main paths 13-14) at the published config
+   (configs/bayesian_jsons: 9 AE latents, the ARHMM CLI's K = 4 version,
+   lags 1, Gaussian, stationary; state evidence and smoothing on): K17
+   (the IMM filter) and K18 (the RTS smoother) against their plain versions
+   at the CLI's shape (a 189-frame trial with NaN lag borders in the
+   192-frame bucket), at lags 2 and at K = 12, filter alone and with the
+   smoother, and on one 10,000-frame trial against the plain versions in
+   float64; the port's ``bayesian_decoder_grid_search`` on the card over
+   the stationary ARHMM CLI's store, with the two neural decoders'
+   predictions pickles written in their export format (K9, K10, K17 and
+   K18 must launch inside it; every exported trial finite; the decoded
+   test MSE below the raw predictions'); and ``decode`` of one trial from
+   the loaded K = 4 models of the stationary and the ``parallel_scan`` CLIs
+   (K13, K14) against their plain twins, timed with and without smoothing
+   and profiled.
 
 Each phase prints one JSON line; the line before the last lists the kernels
 with their numbers, and the last line is ``{"ok": true, "device": ...}``.
@@ -228,6 +243,10 @@ KERNELS = {
                           'behavenet_tpu/ops/hmm.py:39'),
     'hmm_forward_alpha_tv': ('behavenet_tpu_torch/kernels/hmm_forward_backward.cu',
                              'behavenet_tpu/ops/hmm.py:39'),
+    # the Bayesian decoder's IMM filter (K17) and RTS smoother (K18)
+    'imm_filter': ('behavenet_tpu_torch/kernels/imm.cu', 'behavenet_tpu/models/bayesian.py:299'),
+    'rts_smoother': ('behavenet_tpu_torch/kernels/imm.cu',
+                     'behavenet_tpu/models/bayesian.py:340'),
 }
 
 # the kernels a served request runs (an AE train step runs K1-K6, a
@@ -251,6 +270,7 @@ EM_STATES, EM_DIM, EM_TRIALS, EM_FRAMES, EM_ITERS = 16, 9, 100, 1000, 20
 EM_CUT = 700                 # every tenth trial cut to 700 frames: the mask path
 EM_TIMED_ITERS = 5           # timed EM iterations, after 2 warm-up ones
 CLI_TRIALS = 50              # 40 train, 5 val, 5 test trials of TRIAL frames
+CLI_IDS = ('musall', 'smoke', 'mouse', 'session-0')
 ARHMM_CONFIGS = os.path.join(HERE, 'configs', 'arhmm_jsons')
 # K8: max |d| <= LL_ABS_TOL * max(1, max|plain|) (f32 sums of 90 products
 # per frame and state in another order). K9: log_Z within LOGZ_REL_TOL,
@@ -323,6 +343,26 @@ NLL_GRAD_REL_TOL = 1e-4
 # A served prediction vs the float64 forward of the same weights.
 PREDICT_ABS_TOL = 1e-4
 
+# The Bayesian decoder at the published config (configs/bayesian_jsons: the
+# ARHMM CLI's K = 4 version over the 9 latents, lags 1, Gaussian noise,
+# stationary transitions; state evidence and smoothing on) on the ARHMM
+# CLI's 189-frame trials, NaN-padded to the 192-frame bucket. K17 and K18
+# are held to their plain versions at IMM_CASES ((K, lags): the CLI's, the
+# shift block of lags 2, the published ARHMM grid's largest K) within
+# IMM_REL_TOL of each output's max(1, max|plain|) (float32 chains of 192
+# steps in another operation order), and on one IMM_LONG-frame trial to
+# the plain versions in float64 within twice the float32 plain version's
+# own distance. A served decode against its plain twin:
+# latents, covariances and posteriors within BAYES_ABS_TOL (relative as
+# above), states equal.
+BAYES_CONFIGS = os.path.join(HERE, 'configs', 'bayesian_jsons')
+BAYES_STATES = 4
+IMM_CASES = {'cli': (BAYES_STATES, 1), 'lags2': (BAYES_STATES, 2), 'k12': (12, 1)}
+IMM_LONG = 10000
+IMM_REL_TOL, BAYES_ABS_TOL = 1e-4, 1e-4
+BAYES_KERNELS = ('hmm_forward_backward', 'hmm_viterbi', 'imm_filter', 'rts_smoother')
+BAYES_PARALLEL_KERNELS = ('hmm_scan', 'hmm_viterbi_scan', 'imm_filter', 'rts_smoother')
+
 
 def emit(obj):
     print(json.dumps(obj), flush=True)
@@ -357,18 +397,20 @@ def import_port():
         raise SystemExit('behavenet_tpu_torch was imported from %s, not from '
                          'this checkout' % behavenet_tpu_torch.__file__)
     from behavenet_tpu_torch import serving
-    from behavenet_tpu_torch.fitting import arhmm_grid_search, experiment, hyperparams, training
+    from behavenet_tpu_torch.fitting import (arhmm_grid_search, bayesian_decoder_grid_search,
+                                             experiment, hyperparams, training)
     from behavenet_tpu_torch.kernels import build
-    from behavenet_tpu_torch.models import aes, arch, arhmm, base, decoders, vaes
+    from behavenet_tpu_torch.models import aes, arch, arhmm, base, bayesian, decoders, vaes
     from behavenet_tpu_torch.ops import conv as ops
-    from behavenet_tpu_torch.ops import hmm, losses, optim, smallmat
+    from behavenet_tpu_torch.ops import hmm, imm, losses, optim, smallmat
     from behavenet_tpu_torch.utils import pickles, weights
     return types.SimpleNamespace(
         serving=serving, build=build, arch=arch, base=base, ops=ops, aes=aes,
         vaes=vaes, losses=losses, optim=optim, training=training,
         experiment=experiment, weights=weights, arhmm=arhmm, hmm=hmm, smallmat=smallmat,
         pickles=pickles, arhmm_grid_search=arhmm_grid_search, hyperparams=hyperparams,
-        decoders=decoders)
+        decoders=decoders, imm=imm, bayesian=bayesian,
+        bayesian_decoder_grid_search=bayesian_decoder_grid_search)
 
 
 def median_ms(fn, samples=5, inner=10, warmup=3):
@@ -1080,7 +1122,8 @@ KERNEL_OF = tuple(
              ('chunk_bounds_kernel', 'K14/K15 backtrace'),
              ('chunk_paths_kernel', 'K14/K15 backtrace'),
              ('draw_maps_kernel', 'K15 hmm_sample_posterior'),
-             ('sample_states_kernel', 'K16 hmm_sample_states'))
+             ('sample_states_kernel', 'K16 hmm_sample_states'),
+             ('imm_filter_kernel', 'K17 imm_filter'), ('rts_smoother_kernel', 'K18 rts_smoother'))
 
 
 def profile_steps(fn, steps=5, warmup=2, phase='train_profile', **labels):
@@ -1926,7 +1969,8 @@ def arhmm_cli(port, tmp, kernels=ARHMM_KERNELS, **model):
     iterations, train plots off; a compute config without a device), on a
     latents pickle of 50 trials of 189 frames from a seeded 8-state ARHMM.
     Every logged loss finite, a states pickle with one path per trial,
-    ``kernels`` launched inside it."""
+    ``kernels`` launched inside it. Returns the version dir of each K, the
+    latents, the launches and the store."""
     def load(name):
         with open(os.path.join(ARHMM_CONFIGS, 'arhmm_%s.json' % name)) as f:
             return json.load(f)
@@ -1935,7 +1979,7 @@ def arhmm_cli(port, tmp, kernels=ARHMM_KERNELS, **model):
     training_cfg['export_train_plots'] = False
     training_cfg['export_states'] = True
     compute_cfg.pop('device')
-    ids = ('musall', 'smoke', 'mouse', 'session-0')
+    ids = CLI_IDS
     tmp = os.path.join(tmp, 'arhmm_cli_%s_%s%s' % (
         model_cfg['transitions'], model_cfg['noise_type'],
         '_parallel' if model_cfg.get('parallel_scan') else ''))
@@ -1997,7 +2041,8 @@ def arhmm_cli(port, tmp, kernels=ARHMM_KERNELS, **model):
     if missing or not all(r['completed'] and r['finite'] and r['states_ok']
                           for r in results.values()):
         raise AssertionError('the ARHMM CLI failed (missing %s): %s' % (missing, rec))
-    return vdirs[max(vdirs)], latents, launches
+    return types.SimpleNamespace(vdirs=vdirs, latents=latents, launches=launches,
+                                 save_dir=save_dir)
 
 
 def arhmm_serve(port, vdir, latents, kernels=('arhmm_log_likes', 'hmm_forward_backward',
@@ -2689,6 +2734,320 @@ def arhmm_sample_serve(port, vdir, latents, kernels):
     return launches
 
 
+# ------------------------------------------------------ the Bayesian decoder
+
+
+def imm_inputs(port, K, lags, frames, seed, bucket=None):
+    """The inputs of K17 and K18 as ``decode`` forms them for one trial: a
+    seeded stationary ARHMM with K states over the published 9 latents (AR
+    weights ``0.9 / lags`` times random rotations, offsets of scale 0.3,
+    noise covariances ~0.01), its decoder with R = 0.25 I, and a trial from
+    ``sample_arhmm`` observed through predictions with noise 0.5 and NaN in
+    the decoders' ``n_max_lags`` frames at each end, NaN-padded to
+    ``bucket`` frames; gamma from the discrete pass (K9)."""
+    D = DEC_LATENTS
+    rs = np.random.RandomState(seed)
+    model = port.arhmm.ARHMM(K, D, lags=lags, rng_seed=seed, device=DEVICE)
+    rot = np.linalg.qr(rs.randn(K * lags, D, D))[0].reshape(K, lags, D, D)
+    m = rs.randn(K, D, D)
+    P = 0.9 * np.eye(K) + 0.1 * rs.dirichlet(np.ones(K), size=K)
+    params = {k: v.cpu().numpy() for k, v in model.params.items()}
+    params.update(As=(0.9 / lags) * np.concatenate(list(rot.transpose(1, 0, 2, 3)), axis=2),
+                  bs=0.3 * rs.randn(K, D), log_Ps=np.log(P),
+                  Sigmas=0.002 * m @ m.transpose(0, 2, 1) + 0.01 * np.eye(D))
+    model.params = model._tensors(params)
+    dec = port.bayesian.BayesianDecoder(model, obs_noise=0.25 * np.eye(D))
+    x = sample_arhmm(1, frames, 8, D, seed + 1)[0]
+    y = x + 0.5 * rs.randn(frames, D).astype(np.float32)
+    y[:DEC_HP['n_max_lags']] = y[frames - DEC_HP['n_max_lags']:] = np.nan
+    T = bucket or frames
+    y = np.concatenate([y, np.full((T - frames, D), np.nan, np.float32)])
+    q = np.asarray(torch.softmax(torch.from_numpy(rs.randn(T, K)), dim=1), np.float32)
+    q[np.isnan(y).any(axis=1)] = np.nan
+    gamma = dec.decode(y, q, as_numpy=False)['states_posterior']
+    m = torch.from_numpy((~np.isnan(y).any(axis=1)).astype(np.float32)).to(DEVICE)
+    y0 = torch.from_numpy(np.nan_to_num(y)).to(DEVICE)
+    As, bs, Qs = dec._aug_dynamics()
+    mu0, Sigma0 = dec._init_moments(y0, gamma)
+    return (y0, m, gamma, As, bs, Qs, dec.R, mu0, Sigma0)
+
+
+def imm_bounds(T, D, K, n, observed):
+    """(operations, bytes) of K17 and of K18 on one trial: the function's
+    own work (multiply-adds as two operations; a Gauss-Jordan pivot, as
+    JAX's ``solve_small`` computes it, one division an entry of the pivot
+    row and a multiply and a subtract an entry of the tile), each input
+    read once, each output written once; the predict on the T - 1 later
+    steps, the update only on the ``observed`` frames."""
+    filt_ops = (T - 1) * (4 * K * n ** 3 + 8 * K * n ** 2) + \
+        observed * (D * (2 * D + 1) * (D + n) + 2 * n ** 3 + 2 * n * D)
+    filt_bytes = 4 * (T * (D + 1 + K) + 2 * K * n * n + K * n + D * D + n + n * n +
+                      (2 * T - 1) * (n + n * n))
+    smooth_ops = (T - 1) * (2 * K * n * n + 6 * n ** 3 + 6 * n * n + n * (2 * n + 1) * 2 * n)
+    smooth_bytes = 4 * ((3 * T - 1) * (n + n * n) + T * K + K * n * n)
+    return (filt_ops, filt_bytes), (smooth_ops, smooth_bytes)
+
+
+def imm_errors(got, want):
+    """Max |got - want| over the outputs, each relative to max(1, its max
+    |want|)."""
+    return max(((g.double() - w.double()).abs().max() / max(1.0, w.abs().max().item()))
+               .item() for g, w in zip(got, want))
+
+
+def check_imm(port):
+    """K17 and K18 against their plain versions on the card (the smoother
+    on the plain filter's moments), each case filter alone (``smooth``
+    off) and filter + smoother (on): the CLI's shape (a 189-frame trial in
+    the 192-frame bucket, K = 4, 9 latents, lags 1), lags 2 (n = 18, the
+    shift block) and K = 12 (the published ARHMM grid's largest); then one
+    IMM_LONG-frame trial, K17 then K18, against the plain versions in
+    float64 on the host: within twice the float32 plain version's own
+    distance."""
+    imm = port.imm
+    rows = {'imm_filter': {}, 'rts_smoother': {}}
+    for name, (K, lags) in IMM_CASES.items():
+        ins = imm_inputs(port, K, lags, TRIAL, SEED + 20, bucket=BUCKET)
+        n = ins[3].shape[-1]
+        f_k, f_p = imm.imm_filter_cuda(*ins), imm.imm_filter_plain(*ins)
+        s_k = imm.rts_smoother_cuda(*f_p, ins[2], ins[3])
+        s_p = imm.rts_smoother_plain(*f_p, ins[2], ins[3])
+        torch.cuda.synchronize()
+        observed = int(ins[1].sum().item())
+        bounds = imm_bounds(BUCKET, DEC_LATENTS, K, n, observed)
+        for kernel, err, fn, plain, (n_ops, n_bytes) in (
+                ('imm_filter', imm_errors(f_k, f_p), lambda: imm.imm_filter_cuda(*ins),
+                 lambda: imm.imm_filter_plain(*ins), bounds[0]),
+                ('rts_smoother', imm_errors(s_k, s_p),
+                 lambda: imm.rts_smoother_cuda(*f_p, ins[2], ins[3]),
+                 lambda: imm.rts_smoother_plain(*f_p, ins[2], ins[3]), bounds[1])):
+            ms = median_ms(fn)
+            rows[kernel][name] = dict(
+                frames=BUCKET, observed=observed, states=K, lags=lags, n=n, max_abs_err=err,
+                finite=all(bool(torch.isfinite(t).all().item())
+                           for t in (f_k if kernel == 'imm_filter' else s_k)),
+                ms=ms, us_per_step=ms * 1e3 / BUCKET,
+                plain_ms=median_ms(plain, samples=3, inner=1, warmup=1),
+                gflop=n_ops / 1e9, mbytes=n_bytes / 1e6, **bound(n_ops, n_bytes))
+
+    ins = [t.cpu() for t in imm_inputs(port, BAYES_STATES, 1, IMM_LONG, SEED + 21)]
+    dev_ins = [t.to(DEVICE) for t in ins]
+    t0 = time.perf_counter()
+    f_k = imm.imm_filter_cuda(*dev_ins)
+    s_k = imm.rts_smoother_cuda(*f_k, dev_ins[2], dev_ins[3])
+    torch.cuda.synchronize()
+    kernel_s = time.perf_counter() - t0
+    f32 = imm.imm_filter_plain(*ins)
+    s32 = imm.rts_smoother_plain(*f32, ins[2], ins[3])
+    f64 = imm.imm_filter_plain(*ins, dtype=torch.float64)
+    s64 = imm.rts_smoother_plain(*f64, ins[2], ins[3], dtype=torch.float64)
+    long = {}
+    for kernel, got, p32, p64 in (('imm_filter', f_k, f32, f64),
+                                  ('rts_smoother', s_k, s32, s64)):
+        k_err = imm_errors([t.cpu() for t in got], p64)
+        p_err = imm_errors(p32, p64)
+        long[kernel] = dict(frames=IMM_LONG, kernel_vs_float64=k_err, plain32_vs_float64=p_err,
+                            tol=2 * p_err,
+                            finite=all(bool(torch.isfinite(t).all().item()) for t in got))
+    out = []
+    for kernel, cases in rows.items():
+        first = cases['cli']
+        rec = dict(phase='bayesian_kernel_check', kernel=kernel, layer='cli', library_ms=None,
+                   rel_tol=IMM_REL_TOL, cases=cases, long_trial=long[kernel],
+                   long_trial_kernels_s=kernel_s,
+                   bound_note='the T-step dependence chain, not these',
+                   **{k: first[k] for k in ('frames', 'max_abs_err', 'ms', 'plain_ms',
+                                            'bound_ms', 't_ops_ms', 't_bytes_ms', 'bound_by')})
+        emit(rec)
+        bad = [c for c, v in cases.items() if not v['finite'] or v['max_abs_err'] > IMM_REL_TOL]
+        lg = long[kernel]
+        if bad or not lg['finite'] or lg['kernel_vs_float64'] > lg['tol']:
+            raise AssertionError('%s disagrees with its plain version (%s): %s'
+                                 % (kernel, bad, rec))
+        out.append(rec)
+    return out
+
+
+@contextlib.contextmanager
+def plain_bayesian(port):
+    """The Bayesian decoder's plain twin: the ARHMM's kernel entry points
+    (``plain_arhmm``) and K17 / K18 routed to their plain versions."""
+    imm = port.imm
+    saved = imm.imm_filter, imm.rts_smoother
+    imm.imm_filter, imm.rts_smoother = imm.imm_filter_plain, imm.rts_smoother_plain
+    try:
+        with plain_arhmm(port):
+            yield
+    finally:
+        imm.imm_filter, imm.rts_smoother = saved
+
+
+def write_decoder_store(save_dir, ids, mc, parts, training_cfg, predictions):
+    """A decoder's completed version holding a predictions pickle in the
+    decoders' export format (``fitting.eval.export_predictions``)."""
+    vdir = os.path.join(save_dir, *ids, mc, *parts, 'all', 'grid_search', 'version_0')
+    os.makedirs(vdir)
+    with open(os.path.join(vdir, 'meta_tags.pkl'), 'wb') as f:
+        pickle.dump({'rng_seed_data': training_cfg['rng_seed_data'],
+                     'trial_splits': training_cfg['trial_splits'],
+                     'training_completed': True}, f)
+    with open(os.path.join(vdir, 'metrics.csv'), 'w', newline='') as f:
+        csv.writer(f).writerows([['epoch', 'val_loss'], [0, 1.0]])
+    trs = [int(v) for v in training_cfg['trial_splits'].split(';')]
+    from behavenet_tpu_torch.data.generator import split_trials
+    with open(os.path.join(vdir, '%s_predictions.pkl' % '_'.join(ids)), 'wb') as f:
+        pickle.dump({'predictions': predictions,
+                     'trials': split_trials(len(predictions), training_cfg['rng_seed_data'],
+                                            *trs)}, f)
+
+
+def decoder_exports(latents, states, K, seed):
+    """What the two neural decoders would export for the CLI's trials: the
+    latents plus seeded noise (0.5) and state logits (2 on the ARHMM's state,
+    plus unit noise), NaN in the ``n_max_lags`` frames at each end."""
+    rs = np.random.RandomState(seed)
+    lag = DEC_HP['n_max_lags']
+    preds, logits = [], []
+    for x, z in zip(latents, states):
+        p = (x + 0.5 * rs.randn(*x.shape)).astype(np.float32)
+        g = (2.0 * np.eye(K)[z] + rs.randn(len(z), K)).astype(np.float32)
+        for a in (p, g):
+            a[:lag] = a[len(a) - lag:] = np.nan
+        preds.append(p)
+        logits.append(g)
+    return preds, logits
+
+
+def bayesian_cli(port, tmp, cli, kernels, name='bayesian_cli'):
+    """Main path 13: the port's ``bayesian_decoder_grid_search`` on the card
+    at the published config (configs/bayesian_jsons, the compute config's
+    device dropped) over the ARHMM CLI's store ``cli``: its AE latents, its
+    K = BAYES_STATES version's ``best_val_model.pt`` and states pickle, and
+    the two decoders' predictions written here. ``kernels`` launched inside
+    it, every exported trial finite and of its trial's length, the decoded
+    test MSE below the raw predictions' on the same frames. Returns the
+    launches and the predictions."""
+    vdir, latents, store, ids = cli.vdirs[BAYES_STATES], cli.latents, cli.save_dir, CLI_IDS
+
+    def load(cfg):
+        with open(os.path.join(BAYES_CONFIGS, 'bayesian_%s.json' % cfg)) as f:
+            return json.load(f)
+    data_cfg, model_cfg, training_cfg, compute_cfg = (
+        load(c) for c in ('data', 'model', 'training', 'compute'))
+    compute_cfg.pop('device')
+    data_cfg.update(dict(zip(('lab', 'expt', 'animal', 'session'), ids)), save_dir=store,
+                    data_dir=os.path.join(tmp, 'bayes_data'))
+    with open(os.path.join(vdir, '%s_states.pkl' % '_'.join(ids)), 'rb') as f:
+        states = pickle.load(f)['states']
+    preds, logits = decoder_exports(latents, states, BAYES_STATES, SEED + 22)
+    D = model_cfg['n_ae_latents']
+    write_decoder_store(store, ids, 'neural-ae', ['%02i_latents' % D, 'mlp'], training_cfg,
+                        preds)
+    write_decoder_store(store, ids, 'neural-arhmm',
+                        ['%02i_latents' % D, '%02i_states' % BAYES_STATES,
+                         model_cfg['transitions'], 'mlp'], training_cfg, logits)
+    args = []
+    for cfg_name, cfg in (('data', data_cfg), ('model', model_cfg), ('training', training_cfg),
+                          ('compute', compute_cfg)):
+        path = os.path.join(tmp, '%s_%s.json' % (name, cfg_name))
+        with open(path, 'w') as f:
+            json.dump(cfg, f)
+        args += ['--%s_config' % cfg_name, path]
+
+    seconds = []
+
+    def timed_main(hp):
+        t0 = time.perf_counter()
+        port.bayesian_decoder_grid_search.main(hp)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+    reset_launches(port.build)
+    with open(os.path.join(tmp, '%s.log' % name), 'w') as log, \
+            contextlib.redirect_stdout(log):
+        port.hyperparams.run_grid_search(timed_main, port.hyperparams.get_all_params(
+            'grid_search', args))
+    launches = dict(port.build.LAUNCHES)
+
+    out_dir = os.path.join(store, *ids, model_cfg['model_class'], '%02i_latents' % D,
+                           '%02i_states' % BAYES_STATES, model_cfg['transitions'],
+                           model_cfg['noise_type'], 'all', model_cfg['experiment_name'],
+                           'version_0')
+    logged = read_metrics(out_dir)
+    with open(os.path.join(out_dir, '%s_latents.pkl' % '_'.join(ids)), 'rb') as f:
+        exported = pickle.load(f)
+    with open(os.path.join(out_dir, '%s_states.pkl' % '_'.join(ids)), 'rb') as f:
+        dec_states = pickle.load(f)['states']
+    with open(os.path.join(out_dir, 'meta_tags.pkl'), 'rb') as f:
+        completed = pickle.load(f)['training_completed']
+    decoded = exported['latents']
+    ok_shapes = all(z.shape == x.shape and np.isfinite(z).all() and s.shape == (len(x),)
+                    and 0 <= s.min() and s.max() < BAYES_STATES
+                    for z, s, x in zip(decoded, dec_states, latents))
+    test = [int(i) for i in exported['trials']['test']]
+    raw_se, dec_se = [], []
+    for i in test:
+        good = np.isfinite(preds[i]).all(axis=1)
+        raw_se.append(((preds[i] - latents[i])[good] ** 2).ravel())
+        dec_se.append(((decoded[i] - latents[i])[good] ** 2).ravel())
+    raw_mse = float(np.mean(np.concatenate(raw_se)))
+    dec_mse = float(np.mean(np.concatenate(dec_se)))
+    missing = [k for k in kernels if launches[k] == 0]
+    rec = dict(phase=name, trials=len(latents), frames_per_trial=TRIAL, states=BAYES_STATES,
+               dim=D, seconds_per_session=seconds, completed=completed, exports_ok=ok_shapes,
+               test_trials=test, raw_test_mse=raw_mse, decoded_test_mse=dec_mse,
+               logged={k: v for k, v in logged.items() if len(v)}, launches=launches)
+    emit(rec)
+    finite = all(np.isfinite(v).all() for v in logged.values() if len(v))
+    if missing or not completed or not ok_shapes or not finite or not dec_mse < raw_mse:
+        raise AssertionError('the Bayesian decoder CLI failed (missing %s): %s'
+                             % (missing, rec))
+    return launches, preds, logits
+
+
+def bayesian_serve(port, vdir, latents, preds, logits, kernels, name='bayesian_serve'):
+    """Main path 14: a fitted ``best_val_model.pt`` loads through
+    ``load_arhmm`` on the card into a ``BayesianDecoder`` (R from the first
+    40 trials' residuals), which decodes one 189-frame trial: ``kernels``
+    launched, latents and covariances within BAYES_ABS_TOL of the plain
+    twin's on the card (K9-K10 or K13-K14 and K17-K18 routed to their plain
+    versions), states equal; latency with ``smooth`` on and off beside the
+    plain twin's, and a profile with the device's idle share."""
+    model = port.pickles.load_arhmm(os.path.join(vdir, 'best_val_model.pt'))
+    dec = port.bayesian.BayesianDecoder(model)
+    dec.estimate_obs_noise(latents[:40], preds[:40])
+    softmax = port.bayesian_decoder_grid_search._softmax_rows
+    i = len(latents) - 1
+    y, q = preds[i], softmax(logits[i])
+    reset_launches(port.build)
+    out = dec.decode(y, q)
+    torch.cuda.synchronize()
+    launches = dict(port.build.LAUNCHES)
+    with plain_bayesian(port):
+        out_p = dec.decode(y, q)
+        plain_lat = {smooth: request_ms(lambda: dec.decode(y, q, smooth=smooth), reps=3,
+                                        warmup=1) for smooth in (True, False)}
+    errs = {k: float(np.abs(out[k] - out_p[k]).max() / max(1.0, np.abs(out_p[k]).max()))
+            for k in ('latents', 'latents_cov', 'states_posterior')}
+    equal = bool(np.array_equal(out['states'], out_p['states']))
+    rec = dict(phase=name, states=model.K, frames=len(y), parallel_scan=model.parallel_scan,
+               device=str(dec.device), rel_errs=errs, states_equal=equal,
+               abs_tol=BAYES_ABS_TOL, launches=launches,
+               decode_ms={smooth: request_ms(lambda: dec.decode(y, q, smooth=smooth))
+                          for smooth in (True, False)},
+               plain_decode_ms=plain_lat,
+               raw_mse=float(np.nanmean((y - latents[i]) ** 2)),
+               decoded_mse=float(np.mean((out['latents'] - latents[i]) ** 2)))
+    emit(rec)
+    emit(profile_steps(lambda: dec.decode(y, q), phase=name + '_profile', frames=len(y),
+                       bucket=len(y), states=model.K, parallel_scan=model.parallel_scan))
+    missing = [k for k in kernels if launches[k] == 0]
+    if missing or not equal or max(errs.values()) > BAYES_ABS_TOL or \
+            not np.isfinite(out['latents']).all():
+        raise AssertionError('the Bayesian decoder does not serve (missing %s): %s'
+                             % (missing, rec))
+    return launches
+
+
 # ---------------------------------------------------------------- decoders
 
 
@@ -3069,6 +3428,7 @@ def main():
         del scan_in
         checks.append(check_sample_states(port, em_model, gen))
         check_posterior_marginals(port, em_model, em_trials, gen)
+        checks += check_imm(port)
     checks += [check_gaussian_nll(port.losses, gen, d) for d in NLL_DIMS]
     checks.append(check_mse(port.losses, gen, decoder=True))
 
@@ -3097,25 +3457,38 @@ def main():
                 em_trials, PARALLEL_REC_EM_KERNELS, REC_EM_ITERS)
             launches['arhmm_long_session'] = long_session(port, em_model)
             del em_model, em_trials, rec_models, par_model, init_params
-            vdir, cli_latents, launches['arhmm_cli'] = arhmm_cli(port, tmp)
+            stat_cli = arhmm_cli(port, tmp)
+            launches['arhmm_cli'] = stat_cli.launches
+            vdir, cli_latents = stat_cli.vdirs[max(stat_cli.vdirs)], stat_cli.latents
             launches['arhmm_serve'] = arhmm_serve(port, vdir, cli_latents)
             launches['arhmm_sample_serve'] = arhmm_sample_serve(
                 port, vdir, cli_latents, ('hmm_forward_alpha', 'hmm_sample_posterior',
                                           'hmm_sample_states'))
-            vdir, cli_latents, launches['arhmm_cli_recurrent'] = arhmm_cli(
-                port, tmp, RECURRENT_KERNELS, transitions='recurrent', noise_type='studentst')
+            cli = arhmm_cli(port, tmp, RECURRENT_KERNELS, transitions='recurrent',
+                            noise_type='studentst')
+            launches['arhmm_cli_recurrent'] = cli.launches
+            vdir, cli_latents = cli.vdirs[max(cli.vdirs)], cli.latents
             launches['arhmm_serve_recurrent'] = arhmm_serve(
                 port, vdir, cli_latents, ('arhmm_log_likes_robust', 'hmm_forward_backward_tv',
                                           'hmm_viterbi_tv'))
             launches['arhmm_sample_serve_recurrent'] = arhmm_sample_serve(
                 port, vdir, cli_latents, ('hmm_forward_alpha_tv', 'hmm_sample_posterior_tv'))
-            vdir, cli_latents, launches['arhmm_cli_parallel'] = arhmm_cli(
-                port, tmp, PARALLEL_CLI_KERNELS, parallel_scan=True)
+            par_cli = arhmm_cli(port, tmp, PARALLEL_CLI_KERNELS, parallel_scan=True)
+            launches['arhmm_cli_parallel'] = par_cli.launches
+            vdir, cli_latents = par_cli.vdirs[max(par_cli.vdirs)], par_cli.latents
             launches['arhmm_serve_parallel'] = arhmm_serve(
                 port, vdir, cli_latents, ('arhmm_log_likes', 'hmm_scan', 'hmm_viterbi_scan'))
             launches['arhmm_sample_serve_parallel'] = arhmm_sample_serve(
                 port, vdir, cli_latents, ('hmm_scan', 'hmm_sample_posterior',
                                           'hmm_sample_states'))
+            launches['bayesian_cli'], preds, logits = bayesian_cli(
+                port, tmp, stat_cli, BAYES_KERNELS)
+            launches['bayesian_serve'] = bayesian_serve(
+                port, stat_cli.vdirs[BAYES_STATES], stat_cli.latents, preds, logits,
+                BAYES_KERNELS)
+            launches['bayesian_serve_parallel'] = bayesian_serve(
+                port, par_cli.vdirs[BAYES_STATES], par_cli.latents, preds, logits,
+                BAYES_PARALLEL_KERNELS, name='bayesian_serve_parallel')
         if tf32_flags() != default_flags:
             raise AssertionError('the TF32 flags were left changed: %s' % tf32_flags())
         fitted = {}

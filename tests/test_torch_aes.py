@@ -5,7 +5,6 @@ products summed in different orders through ten layers at a small size).
 """
 
 import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -15,6 +14,7 @@ from behavenet_tpu.models import arch as jarch
 from behavenet_tpu.utils.torch_import import params_to_torch_state_dict
 from behavenet_tpu_torch.models.aes import AE
 from behavenet_tpu_torch.utils.weights import params_to_state_dict
+from tests.jax_low import jit_low
 
 
 def _hparams(img=(2, 32, 24), n_latents=6, padding='same', **kw):
@@ -53,6 +53,7 @@ def _pair(hp, seed=0):
     return jmodel, params, model
 
 
+
 @pytest.mark.parametrize('hp_kw', [
     {}, {'img': (1, 32, 24)}, {'subpixel_decoder': False}, {'padding': 'valid'}],
     ids=['2view', '1view', 'no_subpixel', 'valid'])
@@ -61,7 +62,7 @@ def test_forward_matches_jax(hp_kw):
     jmodel, params, model = _pair(hp)
     x = np.random.RandomState(0).rand(2, hp['y_pixels'], hp['x_pixels'],
                                       hp['n_input_channels']).astype(np.float32)
-    jy, jz = jax.jit(jmodel.forward)(params, jnp.asarray(x))
+    jy, jz = jit_low(jmodel.forward, params, x)
     with torch.no_grad():
         y, z = model(torch.from_numpy(x))
     np.testing.assert_allclose(z.numpy(), np.asarray(jz), atol=1e-5, rtol=1e-5)

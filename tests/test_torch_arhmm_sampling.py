@@ -21,6 +21,7 @@ from behavenet_tpu.ops import hmm as jhmm
 from behavenet_tpu_torch.models.arhmm import ARHMM
 from behavenet_tpu_torch.ops import hmm
 from behavenet_tpu_torch.utils import pickles
+from tests.jax_low import jit_low
 
 N, T, K = 3, 40, 4
 SHORT = 29
@@ -45,12 +46,6 @@ def _t(*arrays):
     return [torch.from_numpy(np.ascontiguousarray(a)) for a in arrays]
 
 
-def _compiled(fn, *args):
-    """``fn(*args)`` through ``jax.jit``, compiled at LLVM optimization
-    level 0 (the same XLA program, built in less time)."""
-    compiled = jax.jit(fn).lower(*args).compile({'xla_backend_optimization_level': 0})
-    return compiled(*args)
-
 
 def _uniform(key, shape):
     return jax.random.uniform(key, shape, minval=TINY, maxval=1.0)
@@ -71,7 +66,7 @@ def posterior_case(request):
         return (_uniform(k_last, (K,)), _uniform(k_maps, (T - 1, K, K)),
                 jhmm.sample_posterior(key, pi0, lp, ll, m, parallel=False),
                 jhmm.sample_posterior(key, pi0, lp, ll, m, parallel=True))
-    out = _compiled(jax.vmap(one, in_axes=(0, None, 0 if tv else None, 0, 0)), keys, *chain)
+    out = jit_low(jax.vmap(one, in_axes=(0, None, 0 if tv else None, 0, 0)), keys, *chain)
     u_last, u_maps, seq, par = (np.asarray(v) for v in out)
     return chain, u_last, u_maps, {False: seq, True: par}
 
@@ -99,7 +94,7 @@ def test_sample_states_equals_jax_from_its_uniforms():
         u = jax.vmap(lambda k: _uniform(k, (K,)))(jax.random.split(k_scan, T - 1))
         return (_uniform(k0, (K,)), u,
                 jhmm.sample_states(key, jnp.asarray(log_pi0), jnp.asarray(log_P), T))
-    u0, u, want = (np.asarray(v) for v in _compiled(jax.vmap(one), keys))
+    u0, u, want = (np.asarray(v) for v in jit_low(jax.vmap(one), keys))
     got = hmm.sample_states_plain(*_t(log_pi0, log_P, u0, u))
     assert got.dtype == torch.int32
     np.testing.assert_array_equal(got.numpy(), want)

@@ -3,8 +3,11 @@
 The autograd Functions of ``behavenet_tpu_torch.ops.conv`` run on the CPU
 with their plain pieces (the same geometry the CUDA kernels K1, K2 and K4
 get on the card) and are held against ``jax.vjp`` of
-``behavenet_tpu.ops.conv``. Tolerance: float32, atol 1e-5 * max(1, |ref|)
-and rtol 1e-5 (the same products summed in other orders).
+``behavenet_tpu.ops.conv``, each case's forward and VJP jitted as one
+program compiled at LLVM optimization level 0 (a fraction of the eager
+calls' compile time; the two agree to ~1e-7 of the outputs' scale).
+Tolerance: float32, atol 1e-5 * max(1, |ref|) and rtol 1e-5 (the same
+products summed in other orders).
 """
 
 import jax
@@ -17,6 +20,7 @@ from behavenet_tpu.ops import conv as jops
 from behavenet_tpu_torch.models.aes import AE
 from behavenet_tpu_torch.ops import conv as tops
 from behavenet_tpu_torch.ops import losses as tlosses
+from tests.jax_low import jit_low
 
 
 def _close(port, ref):
@@ -33,6 +37,15 @@ def _act(x, activation):
     if activation == 'sigmoid':
         return jax.nn.sigmoid(x)
     return x
+
+
+def _vjp(f, primals, ct):
+    """``f(*primals)`` and its VJP at ``ct`` (``jax.vjp``), jitted and
+    compiled at LLVM optimization level 0."""
+    def run(primals, ct):
+        y, vjp = jax.vjp(f, *primals)
+        return y, vjp(ct)
+    return jit_low(run, [jnp.asarray(p) for p in primals], jnp.asarray(ct))
 
 
 def _port_grads(fn, x, w, b, gy):
@@ -59,9 +72,8 @@ def test_conv2d_grads_match_jax_vjp(shape, co, k, s, pad_y, pad_x, act):
     gy = rng.randn(shape[0], oh, ow, co).astype(np.float32)
     y, gx, gw, gb = _port_grads(
         lambda xt, wt, bt: tops.conv2d(xt, wt, bt, s, pad_y, pad_x, act), x, w, b, gy)
-    ref_y, vjp = jax.vjp(lambda a, c, d: _act(jops.conv2d(a, c, d, s, pad_y, pad_x), act),
-                         jnp.asarray(x), jnp.asarray(w), jnp.asarray(b))
-    rgx, rgw, rgb = vjp(jnp.asarray(gy))
+    ref_y, (rgx, rgw, rgb) = _vjp(
+        lambda a, c, d: _act(jops.conv2d(a, c, d, s, pad_y, pad_x), act), (x, w, b), gy)
     _close(y, ref_y)
     _close(gx, rgx)
     _close(gw, rgw)
@@ -79,9 +91,8 @@ def test_conv2d_grads_match_jax_s2dgw_path(monkeypatch):
     gy = rng.randn(2, 8, 6, 8).astype(np.float32)
     _, gx, gw, gb = _port_grads(
         lambda xt, wt, bt: tops.conv2d(xt, wt, bt, 2, (1, 2), (1, 2)), x, w, b, gy)
-    _, vjp = jax.vjp(lambda a, c, d: jops.conv2d(a, c, d, 2, (1, 2), (1, 2)),
-                     jnp.asarray(x), jnp.asarray(w), jnp.asarray(b))
-    for port, ref in zip((gx, gw, gb), vjp(jnp.asarray(gy))):
+    _, refs = _vjp(lambda a, c, d: jops.conv2d(a, c, d, 2, (1, 2), (1, 2)), (x, w, b), gy)
+    for port, ref in zip((gx, gw, gb), refs):
         _close(port, ref)
 
 
@@ -95,11 +106,9 @@ def test_uint8_first_layer_gets_weight_grads_only():
         lambda xt, wt, bt: tops.conv2d(xt, wt, bt, 2, (1, 2), (1, 2), 'leaky_relu'),
         x, w, b, gy)
     assert gx is None
-    _, vjp = jax.vjp(
+    _, (rgw, rgb) = _vjp(
         lambda c, d: jops.leaky_relu(jops.conv2d(jnp.asarray(x, jnp.float32) / 255.0,
-                                                 c, d, 2, (1, 2), (1, 2))),
-        jnp.asarray(w), jnp.asarray(b))
-    rgw, rgb = vjp(jnp.asarray(gy))
+                                                 c, d, 2, (1, 2), (1, 2))), (w, b), gy)
     _close(gw, rgw)
     _close(gb, rgb)
 
@@ -123,12 +132,11 @@ def test_conv_transpose2d_grads_match_jax_vjp(k, s, pad_y, pad_x, out_pad, block
         lambda xt, wt, bt: tops.conv_transpose2d(xt, wt, bt, s, pad_y, pad_x, out_pad,
                                                  block=block, activation=act),
         x, w, b, gy)
-    ref_y, vjp = jax.vjp(
+    ref_y, refs = _vjp(
         lambda a, c, d: _act(jops.conv_transpose2d(a, c, d, s, pad_y, pad_x, out_pad,
-                                                   block=block), act),
-        jnp.asarray(x), jnp.asarray(w), jnp.asarray(b))
+                                                   block=block), act), (x, w, b), gy)
     _close(y, ref_y)
-    for port, ref in zip((gx, gw, gb), vjp(jnp.asarray(gy))):
+    for port, ref in zip((gx, gw, gb), refs):
         _close(port, ref)
 
 

@@ -6,6 +6,7 @@ agree exactly.
 """
 
 import os
+import pickle
 
 import h5py
 import numpy as np
@@ -69,19 +70,37 @@ def test_generator_batches_in_the_jax_order(store, batch_load):
                 np.testing.assert_array_equal(a['masks'], b['masks'])
 
 
-def test_unported_signals_raise(store):
-    """Pickles of predictions are not ported yet; latents and states
-    pickles are, and a missing one raises as in the JAX package."""
+def test_unported_signals_raise(store, tmp_path):
+    """Every export-pickle signal is ported: a missing pickle raises as in
+    the JAX package, an unknown signal is invalid, and a predictions pickle
+    reads as JAX reads it, its NaN lag-border rows kept."""
     data_dir, path = store
-    with pytest.raises(NotImplementedError, match='ae_predictions'):
-        tgen.SingleSessionDataset(data_dir, 'l', 'e', 'a', 's', signals=['ae_predictions'],
+    for signal in ('arhmm_states', 'ae_latents', 'ae_predictions', 'arhmm_predictions'):
+        with pytest.raises(NotImplementedError, match='Could not open x.pkl'):
+            tgen.SingleSessionDataset(data_dir, 'l', 'e', 'a', 's', signals=[signal],
+                                      transforms=[None], paths=['x.pkl'])
+    with pytest.raises(ValueError, match='invalid signal'):
+        tgen.SingleSessionDataset(data_dir, 'l', 'e', 'a', 's', signals=['bogus'],
                                   transforms=[None], paths=['x.pkl'])
-    with pytest.raises(NotImplementedError, match='Could not open x.pkl'):
-        tgen.SingleSessionDataset(data_dir, 'l', 'e', 'a', 's', signals=['arhmm_states'],
-                                  transforms=[None], paths=['x.pkl'])
-    with pytest.raises(NotImplementedError, match='Could not open x.pkl'):
-        tgen.SingleSessionDataset(data_dir, 'l', 'e', 'a', 's', signals=['ae_latents'],
-                                  transforms=[None], paths=['x.pkl'])
+
+    rng = np.random.RandomState(1)
+    preds = [rng.randn(6 + i, 3) for i in range(4)]
+    for p in preds:
+        p[:2] = p[-2:] = np.nan
+    pkl = str(tmp_path / 'p.pkl')
+    with open(pkl, 'wb') as f:
+        pickle.dump({'predictions': preds, 'trials': None}, f)
+    for signal in ('ae_predictions', 'arhmm_predictions'):
+        for batch_load in (True, False):
+            args = dict(signals=[signal], transforms=[None], paths=[pkl],
+                        batch_load=batch_load)
+            a = jgen.SingleSessionDataset(data_dir, 'l', 'e', 'a', 's', **args)
+            b = tgen.SingleSessionDataset(data_dir, 'l', 'e', 'a', 's', **args)
+            assert len(a) == len(b) == 4
+            for i in range(4):
+                assert b[i][signal].dtype == np.float32
+                np.testing.assert_array_equal(b[i][signal], a[i][signal])
+                assert np.isnan(b[i][signal][:2]).all() and np.isnan(b[i][signal][-2:]).all()
 
 
 def test_transforms_match_jax():

@@ -39,6 +39,7 @@ from behavenet_tpu_torch.fitting.experiment import Experiment
 from behavenet_tpu_torch.fitting.training import fit
 from behavenet_tpu_torch.models.decoders import Decoder
 from behavenet_tpu_torch.utils.weights import params_to_state_dict, state_dict_to_params
+from tests.jax_low import jit_low
 
 IDS = {'lab': 'l', 'expt': 'e', 'animal': 'a', 'session': 's'}
 N, OUT, T, N_TRIALS = 8, 3, 40, 10
@@ -65,11 +66,6 @@ def _jax_params(hp, seed=0):
         params['precision_sqrt']['b'] = np.eye(OUT, dtype=np.float32).reshape(-1)
     return params
 
-
-def _jit(fn, *args):
-    """``fn`` compiled for ``args`` at LLVM optimization level 0 (the same
-    XLA program, built faster), called on them."""
-    return jax.jit(fn).lower(*args).compile({'xla_backend_optimization_level': 0})(*args)
 
 
 def _port(hp, params):
@@ -98,7 +94,7 @@ def test_mlp_forward_matches_jax(noise, n_hid_layers):
     hp = _hp(noise, n_hid_layers, activation='lrelu' if n_hid_layers == 2 else 'relu')
     params = _jax_params(hp)
     x = _batch(noise)['predictors']
-    want, want_prec = _jit(JaxDecoder(hp).forward, params, x)
+    want, want_prec = jit_low(JaxDecoder(hp).forward, params, x)
     got, got_prec = _port(hp, params)(torch.from_numpy(x))
     np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), rtol=0, atol=1e-5)
     if noise == 'gaussian-full':
@@ -118,7 +114,7 @@ def test_loss_metrics_and_grads_match_jax(noise, masked):
     if not masked:
         del batch['frame_mask']
     jmodel = JaxDecoder(hp)
-    (want, want_m), want_g = _jit(jax.value_and_grad(
+    (want, want_m), want_g = jit_low(jax.value_and_grad(
         lambda p, b: jmodel.loss_fn(p, b, None), has_aux=True), params, batch)
     model = _port(hp, params)
     loss, metrics = model.loss_fn({k: torch.from_numpy(v) for k, v in batch.items()})
@@ -353,7 +349,7 @@ def test_decoder_grid_search_writes_a_version_both_packages_load(cli_versions, s
     params, extra = jbase.load_params(os.path.join(vdir, 'best_val_model.pt'))
     assert extra == {'model_class': mc}
     x = ((_trial(store) - _trial(store).mean(0)) / _trial(store).std(0)).astype(np.float32)
-    want = np.asarray(_jit(JaxDecoder(hp).forward, params, x)[0])
+    want = np.asarray(jit_low(JaxDecoder(hp).forward, params, x)[0])
     bundle = serving.load_version(vdir, device='cpu')
     assert bundle.names() == ['predict']
     got = bundle.predict(x)

@@ -16,6 +16,7 @@ import torch
 
 from behavenet_tpu.ops import losses as jlosses
 from behavenet_tpu_torch.ops import losses as tlosses
+from tests.jax_low import jit_low
 
 
 def _inputs(b, d, masked, seed=0):
@@ -28,6 +29,7 @@ def _inputs(b, d, masked, seed=0):
         fm = np.ones(b, np.float32)
         fm[-max(1, b // 8):] = 0.0
     return z, mu, lv, fm
+
 
 
 def _j(a):
@@ -54,8 +56,7 @@ def test_decomposed_kl_and_grads_match_jax(b, d, masked):
     def jf(z_, mu_, lv_):
         terms = jlosses.decomposed_kl(z_, mu_, lv_, frame_mask=_j(fm))
         return sum(float(u) * t for u, t in zip(up, terms)), terms
-    (_, ref), ref_g = jax.jit(jax.value_and_grad(jf, argnums=(0, 1, 2), has_aux=True))(
-        jnp.asarray(z), jnp.asarray(mu), jnp.asarray(lv))
+    (_, ref), ref_g = jit_low(jax.value_and_grad(jf, argnums=(0, 1, 2), has_aux=True), z, mu, lv)
 
     zt, mut, lvt = _t(z, True), _t(mu, True), _t(lv, True)
     terms = tlosses.decomposed_kl(zt, mut, lvt, _t(fm))
@@ -110,8 +111,8 @@ def test_gaussian_ll_and_grad_match_jax(masks, masked, uint8):
     m = (rs.rand(*shape) > 0.3).astype(np.float32) if masks else None
     fm = np.array([1, 1, 1, 0, 1, 1, 0, 0], np.float32) if masked else None
     jt = jnp.asarray(t, jnp.float32) / 255.0 if uint8 else jnp.asarray(t)
-    ref, ref_g = jax.value_and_grad(
-        lambda a: jlosses.gaussian_ll(jt, a, _j(m), frame_mask=_j(fm)))(jnp.asarray(y))
+    ref, ref_g = jit_low(jax.value_and_grad(
+        lambda a: jlosses.gaussian_ll(jt, a, _j(m), frame_mask=_j(fm))), y)
     yt = torch.from_numpy(y).requires_grad_()
     ll = tlosses.gaussian_ll(yt, torch.from_numpy(t), _t(m), frame_mask=_t(fm))
     ll.backward()

@@ -22,6 +22,7 @@ import torch
 
 from behavenet_tpu.ops import losses as jlosses
 from behavenet_tpu_torch.ops import losses as tlosses
+from tests.jax_low import jit_low
 
 B = 12
 
@@ -41,9 +42,7 @@ def _inputs(d, shared, seed=0):
 def _jax(y_pred, y_true, cov, fm):
     def f(a, c):
         return jlosses.gaussian_neg_log_prob(a, y_true, c, frame_mask=fm)
-    compiled = jax.jit(jax.value_and_grad(f, argnums=(0, 1))).lower(y_pred, cov).compile(
-        {'xla_backend_optimization_level': 0})
-    value, (g_y, g_cov) = compiled(y_pred, cov)
+    value, (g_y, g_cov) = jit_low(jax.value_and_grad(f, argnums=(0, 1)), y_pred, cov)
     return float(value), np.asarray(g_y), np.asarray(g_cov)
 
 

@@ -11,6 +11,7 @@ from behavenet_tpu.ops import hmm as jhmm
 from behavenet_tpu.ops import smallmat as jsmallmat
 from behavenet_tpu_torch.kernels import build
 from behavenet_tpu_torch.ops import hmm, smallmat
+from tests.jax_low import jit_low
 
 N, T, K = 5, 30, 4
 SHORT = 19   # one trial is shorter, so the padded-frame path runs
@@ -33,6 +34,7 @@ def _chain(seed=0, ties=False):
             mask.astype(f32))
 
 
+
 @pytest.fixture(scope='module')
 def chain():
     return _chain()
@@ -42,8 +44,8 @@ def chain():
 def jax_fb(chain):
     """JAX's forward-backward of every trial, vmapped once for the module."""
     pi0, lp, ll, m = chain
-    fn = jax.jit(jax.vmap(jhmm.forward_backward, in_axes=(None, None, 0, 0)))
-    return [np.asarray(v) for v in fn(pi0, lp, ll, m)]
+    fn = jax.vmap(jhmm.forward_backward, in_axes=(None, None, 0, 0))
+    return [np.asarray(v) for v in jit_low(fn, pi0, lp, ll, m)]
 
 
 def _t(*arrays):
@@ -52,8 +54,7 @@ def _t(*arrays):
 
 def test_forward_matches_jax(chain):
     pi0, lp, ll, m = chain
-    fwd = jax.jit(jax.vmap(jhmm.forward, in_axes=(None, None, 0, 0)))
-    want_alpha, want_z = fwd(pi0, lp, ll, m)
+    want_alpha, want_z = jit_low(jax.vmap(jhmm.forward, in_axes=(None, None, 0, 0)), pi0, lp, ll, m)
     alpha, log_z = hmm.forward_plain(*_t(pi0, lp, ll, m))
     np.testing.assert_allclose(log_z.numpy(), np.asarray(want_z), rtol=1e-6)
     np.testing.assert_allclose(alpha.numpy(), np.asarray(want_alpha), rtol=1e-6, atol=1e-5)
@@ -63,9 +64,9 @@ def test_forward_matches_jax(chain):
 
 def test_backward_matches_jax(chain):
     _, lp, ll, m = chain
-    bwd = jax.jit(jax.vmap(jhmm.backward, in_axes=(None, 0, 0)))
+    want = jit_low(jax.vmap(jhmm.backward, in_axes=(None, 0, 0)), lp, ll, m)
     np.testing.assert_allclose(hmm.backward_plain(*_t(lp, ll, m)).numpy(),
-                               np.asarray(bwd(lp, ll, m)), rtol=1e-6, atol=1e-5)
+                               np.asarray(want), rtol=1e-6, atol=1e-5)
 
 
 def test_forward_backward_matches_jax(chain, jax_fb):
@@ -84,8 +85,7 @@ def test_viterbi_matches_jax(ties):
     """Paths equal on tie-free data; on exact ties both take the lowest
     state index (jnp.argmax's rule)."""
     pi0, lp, ll, m = _chain(seed=1, ties=ties)
-    vit = jax.jit(jax.vmap(jhmm.viterbi, in_axes=(None, None, 0, 0)))
-    want = np.asarray(vit(pi0, lp, ll, m))
+    want = np.asarray(jit_low(jax.vmap(jhmm.viterbi, in_axes=(None, None, 0, 0)), pi0, lp, ll, m))
     path = hmm.viterbi(*_t(pi0, lp, ll, m))
     assert path.dtype == torch.int32
     np.testing.assert_array_equal(path.numpy(), want)
@@ -105,11 +105,11 @@ def test_solve_small_matches_jax(n, k):
     B = rs.randn(6, n, n)
     A = (B @ np.swapaxes(B, 1, 2) + n * np.eye(n)).astype(np.float32)
     Y = rs.randn(6, n, k).astype(np.float32)
-    want = np.asarray(jax.jit(jsmallmat.solve_small)(A, Y))
+    want = np.asarray(jit_low(jsmallmat.solve_small, A, Y))
     got = smallmat.solve_small(torch.from_numpy(A), torch.from_numpy(Y)).numpy()
     np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6 * np.abs(want).max())
     # a vector right-hand side
-    want_v = np.asarray(jax.jit(jsmallmat.solve_small)(A, Y[..., 0]))
+    want_v = np.asarray(jit_low(jsmallmat.solve_small, A, Y[..., 0]))
     got_v = smallmat.solve_small(torch.from_numpy(A), torch.from_numpy(Y[..., 0])).numpy()
     np.testing.assert_allclose(got_v, want_v, rtol=1e-6, atol=1e-6 * np.abs(want_v).max())
 
@@ -119,7 +119,7 @@ def test_solve_small_pivot_matches_jax():
     A = rs.randn(5, 6, 6).astype(np.float32)
     A[:, 0, 0] = 0.0   # needs a row swap
     Y = rs.randn(5, 6, 2).astype(np.float32)
-    want = np.asarray(jax.jit(jsmallmat.solve_small, static_argnums=2)(A, Y, True))
+    want = np.asarray(jit_low(lambda a, y: jsmallmat.solve_small(a, y, True), A, Y))
     got = smallmat.solve_small(torch.from_numpy(A), torch.from_numpy(Y), pivot=True).numpy()
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
 

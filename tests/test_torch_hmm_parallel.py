@@ -14,6 +14,7 @@ import torch
 from behavenet_tpu.ops import hmm as jhmm
 from behavenet_tpu.ops import scans as jscans
 from behavenet_tpu_torch.ops import hmm, scans
+from tests.jax_low import jit_low
 
 N, T, K = 3, 40, 4
 SHORT = 29
@@ -35,12 +36,6 @@ def _chain(seed, tv):
             mask.astype(f32))
 
 
-def _compiled(fn, *args):
-    """``fn(*args)`` through ``jax.jit``, compiled at LLVM optimization
-    level 0 (the same XLA program, built in less time)."""
-    compiled = jax.jit(fn).lower(*args).compile({'xla_backend_optimization_level': 0})
-    return compiled(*args)
-
 
 def _t(*arrays):
     return [torch.from_numpy(np.ascontiguousarray(a)) for a in arrays]
@@ -60,7 +55,7 @@ def case(request):
                     bwd=jhmm.backward_parallel(lp, ll, m),
                     xi=jhmm.expected_transitions(pi0, lp, ll, m),
                     viterbi=jhmm.viterbi_parallel(pi0, lp, ll, m))
-    out = _compiled(jax.vmap(one, in_axes=(None, 0 if tv else None, 0, 0)), *chain)
+    out = jit_low(jax.vmap(one, in_axes=(None, 0 if tv else None, 0, 0)), *chain)
     return chain, jax.tree_util.tree_map(np.asarray, out)
 
 

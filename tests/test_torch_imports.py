@@ -38,12 +38,12 @@ def test_no_jax_or_reference_package_import(path):
 
 
 def test_training_path_does_not_import_h5py():
-    """The trainer, the ops, the ARHMM and decoder CLIs, serving and the
-    chip smoke test leave h5py and sklearn out of a fresh process, and so
-    does a decoder ``fit`` from an in-memory trial source (``chip_smoke``'s,
-    at 12 channels): the card's machine has neither, and only opening an
-    HDF5 store needs h5py (``tests/test_torch_arhmm.py`` runs the ARHMM path
-    in such a process)."""
+    """The trainer, the ops, the ARHMM, decoder and Bayesian decoder CLIs,
+    serving and the chip smoke test leave h5py and sklearn out of a fresh
+    process, and so does a decoder ``fit`` from an in-memory trial source
+    (``chip_smoke``'s, at 12 channels): the card's machine has neither, and
+    only opening an HDF5 store needs h5py (``tests/test_torch_arhmm.py``
+    runs the ARHMM path in such a process)."""
     code = (
         'import sys, tempfile\n'
         'sys.path.insert(0, sys.argv[1])\n'
@@ -51,6 +51,7 @@ def test_training_path_does_not_import_h5py():
         'import behavenet_tpu_torch.fitting.ae_grid_search\n'
         'import behavenet_tpu_torch.fitting.arhmm_grid_search\n'
         'import behavenet_tpu_torch.fitting.decoder_grid_search\n'
+        'import behavenet_tpu_torch.fitting.bayesian_decoder_grid_search\n'
         'import behavenet_tpu_torch.ops.conv, behavenet_tpu_torch.ops.losses\n'
         'import behavenet_tpu_torch.ops.optim, behavenet_tpu_torch.models.vaes\n'
         'import behavenet_tpu_torch.utils.pickles, behavenet_tpu_torch.serving\n'

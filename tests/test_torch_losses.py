@@ -15,6 +15,7 @@ import torch
 
 from behavenet_tpu.ops import losses as jlosses
 from behavenet_tpu_torch.ops import losses as tlosses
+from tests.jax_low import jit_low
 
 SHAPE = (6, 8, 7, 2)
 
@@ -33,6 +34,7 @@ def _t(a):
     return None if a is None else torch.from_numpy(a)
 
 
+
 def _j(a):
     return None if a is None else jnp.asarray(a)
 
@@ -43,8 +45,8 @@ def _j(a):
 def test_mse_value_and_grad_match_jax(masks, frame_mask, uint8):
     y, t, m, fm = _inputs(0, masks, frame_mask, uint8)
     jt = jnp.asarray(t, jnp.float32) / 255.0 if uint8 else jnp.asarray(t)
-    ref, ref_g = jax.value_and_grad(
-        lambda a: jlosses.mse(a, jt, _j(m), frame_mask=_j(fm)))(jnp.asarray(y))
+    ref, ref_g = jit_low(jax.value_and_grad(
+        lambda a: jlosses.mse(a, jt, _j(m), frame_mask=_j(fm))), y)
     yt = torch.from_numpy(y).requires_grad_()
     loss = tlosses.mse(yt, _t(t), _t(m), _t(fm))
     loss.backward()
@@ -61,8 +63,8 @@ def test_sigmoid_output_grad_is_the_sigmoid_inputs(frame_mask):
     u = rng.randn(*SHAPE).astype(np.float32)
     _, t, _, fm = _inputs(2, False, frame_mask, True)
     jt = jnp.asarray(t, jnp.float32) / 255.0
-    ref, ref_g = jax.value_and_grad(
-        lambda a: jlosses.mse(jax.nn.sigmoid(a), jt, frame_mask=_j(fm)))(jnp.asarray(u))
+    ref, ref_g = jit_low(jax.value_and_grad(
+        lambda a: jlosses.mse(jax.nn.sigmoid(a), jt, frame_mask=_j(fm))), u)
     ut = torch.from_numpy(u).requires_grad_()
     y = torch.sigmoid(ut).detach().requires_grad_()
     loss = tlosses.mse(y, _t(t), None, _t(fm), sigmoid_output=True)

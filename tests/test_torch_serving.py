@@ -10,7 +10,6 @@ import subprocess
 import sys
 
 import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -18,6 +17,7 @@ import torch
 from behavenet_tpu.models import AE, arch
 from behavenet_tpu.models import base as models_base
 from behavenet_tpu_torch import serving
+from tests.jax_low import jit_low
 
 _ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), '..')
 
@@ -47,6 +47,7 @@ def version(tmp_path_factory):
     return str(vdir), model, params
 
 
+
 def test_encode_reconstruct_match_jax(version):
     vdir, model, params = version
     bundle = serving.load_version(vdir, device='cpu')
@@ -54,7 +55,7 @@ def test_encode_reconstruct_match_jax(version):
     frames = np.random.RandomState(0).randint(0, 256, (5, 32, 24, 2)).astype(np.uint8)
     # frames are independent, so the first n answers of one JAX call are
     # the reference for a request of n frames
-    ref_y, ref_z = jax.jit(model.forward)(params, jnp.asarray(frames, jnp.float32) / 255.0)
+    ref_y, ref_z = jit_low(model.forward, params, frames.astype(np.float32) / 255.0)
     for n in (1, 3, 5):
         z = bundle.encode(frames[:n])
         y = bundle.reconstruct(torch.from_numpy(frames[:n]))

@@ -34,6 +34,7 @@ from behavenet_tpu_torch.fitting.experiment import Experiment
 from behavenet_tpu_torch.fitting.training import fit
 from behavenet_tpu_torch.models.aes import AE
 from behavenet_tpu_torch.models.base import load_params
+from tests.jax_low import jit_low
 
 IDS = {'lab': 'l', 'expt': 'e', 'animal': 'a', 'session': 's'}
 
@@ -179,6 +180,7 @@ def test_fit_needs_a_gpu_unless_asked_for_the_cpu(monkeypatch, tmp_path):
         fit(dict(hp, device='tpu'), AE(hp), None, None)
 
 
+
 def _write_configs(tmp, data_dir, save_dir, device='cpu'):
     configs = {
         'data': {'lab': 'l', 'expt': 'e', 'animal': 'a', 'session': 's',
@@ -221,7 +223,7 @@ def test_ae_grid_search_writes_a_version_both_packages_load(store, tmp_path):
 
     frames = np.random.RandomState(1).randint(0, 256, (4, 16, 12, 1)).astype(np.uint8)
     params, _ = jbase.load_params(os.path.join(vdir, 'best_val_model.pt'))
-    ref_y, ref_z = jax.jit(JaxAE(hp).forward)(params, frames.astype(np.float32) / 255.0)
+    ref_y, ref_z = jit_low(JaxAE(hp).forward, params, frames.astype(np.float32) / 255.0)
     bundle = serving.load_version(vdir, device='cpu')
     np.testing.assert_allclose(bundle.encode(frames).numpy(), np.asarray(ref_z), atol=1e-5)
     np.testing.assert_allclose(bundle.reconstruct(frames).numpy(), np.asarray(ref_y),

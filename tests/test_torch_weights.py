@@ -16,6 +16,7 @@ from behavenet_tpu.models import arch as jarch
 from behavenet_tpu_torch.models import base
 from behavenet_tpu_torch.models.aes import AE, load_pretrained_ae
 from behavenet_tpu_torch.utils.weights import params_to_state_dict, state_dict_to_params
+from tests.jax_low import jit_low
 
 
 def _hparams(seed=0, n_latents=6):
@@ -55,8 +56,7 @@ def test_fresh_model_has_the_jax_init_bounds():
     hp = _hparams()
     # jitted, at LLVM optimization level 0: the eager init's bits in less time
     key = jax.random.PRNGKey(0)
-    init = jax.jit(JaxAE(hp).init).lower(key).compile({'xla_backend_optimization_level': 0})
-    jparams = dict(_leaves(jax.tree_util.tree_map(np.asarray, init(key))))
+    jparams = dict(_leaves(jax.tree_util.tree_map(np.asarray, jit_low(JaxAE(hp).init, key))))
     port = dict(_leaves(state_dict_to_params(AE(hp))))
     assert sorted(port) == sorted(jparams)
     for k, w in port.items():
