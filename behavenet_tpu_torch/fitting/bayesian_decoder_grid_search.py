@@ -25,9 +25,10 @@ CLIs would otherwise dedup each other's versions.
 Model-config keys: the ae_*/arhmm_*/neural_* upstream selectors (as in the
 decoder configs), plus optional ``state_evidence_weight`` (float, weight on
 the neural state-decoder evidence), ``use_state_evidence`` (bool, default
-true) and ``smooth`` (bool, run the backward pass; default true).
-``parallel_scan: true`` (the associative Kalman filter and smoother) is not
-ported yet and raises ``NotImplementedError``.
+true), ``smooth`` (bool, run the backward pass; default true) and
+``parallel_scan`` (bool, decode with ``parallel=True``: the associative
+Kalman filter and smoother and the parallel-prefix discrete pass; default
+false).
 """
 
 import os
@@ -72,10 +73,6 @@ def main(hparams, *args):
     bayesian_decoder_grid_search.py:60)."""
     if not isinstance(hparams, dict):
         hparams = vars(hparams)
-    if hparams.get('parallel_scan', False):
-        raise NotImplementedError('"parallel_scan": true (the associative Kalman filter and '
-                                  'smoother) is not ported yet (ROADMAP item A2b, kernel '
-                                  'row 17)')
     device = resolve_device(hparams.get('device'))   # fail before any work
     print_hparams(hparams)
 
@@ -109,6 +106,7 @@ def main(hparams, *args):
     dec.estimate_obs_noise(lat_tr, pred_tr)
 
     smooth = bool(hparams.get('smooth', True))
+    parallel = bool(hparams.get('parallel_scan', False))
     use_state_evidence = bool(hparams.get('use_state_evidence', True))
     # length-bucket trials by NaN-padding: padded rows carry zero evidence,
     # which is exact for the valid prefix (a no-evidence future contributes
@@ -138,7 +136,7 @@ def main(hparams, *args):
             q = _softmax_rows(data['arhmm_predictions']) if use_state_evidence else None
             out = dec.decode(pad_nan(preds),
                              arhmm_predictions=None if q is None else pad_nan(q),
-                             smooth=smooth)
+                             smooth=smooth, parallel=parallel)
             trial = int(data['batch_idx'])
             latents_out[sess][trial] = out['latents'][:T]
             states_out[sess][trial] = out['states'][:T]

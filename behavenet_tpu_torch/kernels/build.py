@@ -45,13 +45,16 @@ SOURCES = {
     'hmm_scan': 'hmm_scan.cu',
     'hmm_sample_posterior': 'hmm_sample.cu',
     'imm_filter': 'imm.cu',
+    'kalman_filter_scan': 'kalman.cu',
 }
 _HEADERS = ('igemm.cuh', 'hmm.cuh', 'hmm_backtrace.cuh')
 
 # launchers counted under a name of their own: variant -> (kernel, symbols);
 # K14 and K16 share a source with K13 and K15, K18 (the RTS smoother) with
-# K17 (the IMM filter), and K9's forward pass that writes the filtered
-# alphas for K15 is counted apart from its other launchers
+# K17 (the IMM filter), K20-K22 (the associative smoother, the sequential
+# filter and smoother) with K19 (the associative filter); K9's forward pass
+# that writes the filtered alphas for K15 and K11's pivoting solve are
+# counted apart from their kernels' other launchers
 VARIANTS = {
     'arhmm_log_likes_robust': ('arhmm_log_likes', ('bn_arhmm_log_likes_robust',)),
     'hmm_forward_backward_tv': ('hmm_forward_backward',
@@ -65,6 +68,10 @@ VARIANTS = {
     'hmm_sample_posterior_tv': ('hmm_sample_posterior', ('bn_hmm_sample_posterior_tv',)),
     'hmm_sample_states': ('hmm_sample_posterior', ('bn_hmm_sample_states',)),
     'rts_smoother': ('imm_filter', ('bn_rts_smoother',)),
+    'solve_small_pivot': ('solve_small', ('bn_solve_small_pivot',)),
+    'kalman_smoother_scan': ('kalman_filter_scan', ('bn_kalman_smoother_scan',)),
+    'kalman_filter': ('kalman_filter_scan', ('bn_kalman_filter',)),
+    'kalman_smoother': ('kalman_filter_scan', ('bn_kalman_smoother',)),
 }
 _COUNTED_AS = {sym: variant for variant, (_, syms) in VARIANTS.items() for sym in syms}
 
@@ -103,7 +110,8 @@ _SIGNATURES = {
         'bn_hmm_forward_alpha_tv': [_P] * 4 + [_I] * 3 + [_P] * 3},
     'hmm_viterbi': {'bn_hmm_viterbi': [_P] * 4 + [_I] * 3 + [_P] * 3,
                     'bn_hmm_viterbi_tv': [_P] * 4 + [_I] * 3 + [_P] * 3},
-    'solve_small': {'bn_solve_small': [_P] * 3 + [_I] * 3 + [_P]},
+    'solve_small': {'bn_solve_small': [_P] * 3 + [_I] * 3 + [_P],
+                    'bn_solve_small_pivot': [_P] * 3 + [_I] * 3 + [_P]},
     'gaussian_nll': {
         'bn_gaussian_nll_fwd': [_P] * 6 + [_I] * 2 + [_P],
         'bn_gaussian_nll_bwd': [_P] * 8 + [_I] * 2 + [_P]},
@@ -121,6 +129,11 @@ _SIGNATURES = {
     'imm_filter': {
         'bn_imm_filter': [_P] * 9 + [_I] * 4 + [_P] * 5,
         'bn_rts_smoother': [_P] * 6 + [_I] * 3 + [_P] * 3},
+    'kalman_filter_scan': {
+        'bn_kalman_filter_scan': [_P] * 9 + [_I] * 4 + [_P] * 4,
+        'bn_kalman_smoother_scan': [_P] * 5 + [_I] * 3 + [_P] * 4,
+        'bn_kalman_filter': [_P] * 9 + [_I] * 3 + [_P] * 5,
+        'bn_kalman_smoother': [_P] * 5 + [_I] * 2 + [_P] * 3},
 }
 
 _lock = threading.Lock()

@@ -1,12 +1,18 @@
 // K11 solve_small: batched solve A X = Y of small systems, A (B, n, n),
 // Y and X (B, n, k), float32, n <= 16 and n + k <= 64, by Gauss-Jordan
-// elimination without pivoting, in the JAX package's operation order:
+// elimination in the JAX package's operation order:
 //   for i in 0..n-1:  piv = M[i, :] / M[i, i];  M -= M[:, i] * piv;  M[i, :] = piv
 // on the augmented M = [A | Y]; X is M's last k columns.
 //
-// Replaces behavenet_tpu/ops/smallmat.py:17 solve_small (the ARHMM M-step's
-// equilibrated, ridged normal equations, behavenet_tpu/models/arhmm.py:533:
-// B = K states, n = D * lags + 1, k = D).
+// Replaces behavenet_tpu/ops/smallmat.py:17 solve_small: bn_solve_small
+// without pivoting (the ARHMM M-step's equilibrated, ridged normal
+// equations, behavenet_tpu/models/arhmm.py:533: B = K states, n = D * lags
+// + 1, k = D), and bn_solve_small_pivot, counted as solve_small_pivot, with
+// JAX's partial row pivoting (smallmat.py:45-51): before step i, row i
+// swaps with the first row r >= i of largest |M[r, i]| (a NaN counts as
+// the largest, as jnp.argmax has it). Gauss-Jordan reduces A to the
+// identity, so X needs no unpermuting. The associative Kalman filter's
+// combine solves I + C1 J2 so (behavenet_tpu/ops/kalman.py:117-121).
 //
 // One warp per system. Lane c holds column c (and c + 32) of [A | Y], all n
 // rows in registers: the rows' loops are unrolled to 16 and guarded by n, so
@@ -23,6 +29,7 @@ namespace {
 constexpr int kMaxN = 16;
 constexpr int kWarps = 4;
 
+template <bool kPivot>
 __global__ void __launch_bounds__(kWarps * 32) solve_small_kernel(
     const float* __restrict__ A, const float* __restrict__ Y, float* __restrict__ X,
     int B, int n, int k) {
@@ -49,6 +56,34 @@ __global__ void __launch_bounds__(kWarps * 32) solve_small_kernel(
 #pragma unroll
   for (int i = 0; i < kMaxN; ++i) {
     if (i < n) {
+      if (kPivot) {
+        // lane i holds column i: the first row p >= i of largest |M[p, i]|,
+        // found by every lane from lane i's registers, then rows i and p
+        // swap in every column
+        int p = i;
+        float best = fabsf(__shfl_sync(0xffffffffu, m[0][i], i));
+#pragma unroll
+        for (int r = i + 1; r < kMaxN; ++r) {
+          if (r < n) {
+            const float v = fabsf(__shfl_sync(0xffffffffu, m[0][r], i));
+            if (v > best || (isnan(v) && !isnan(best))) {
+              best = v;
+              p = r;
+            }
+          }
+        }
+#pragma unroll
+        for (int r = i + 1; r < kMaxN; ++r) {
+          if (r == p) {
+#pragma unroll
+            for (int s = 0; s < 2; ++s) {
+              const float t = m[s][r];
+              m[s][r] = m[s][i];
+              m[s][i] = t;
+            }
+          }
+        }
+      }
       // the pivot row divided by the pivot (lane i holds column i in slot 0)
       const float pivot = __shfl_sync(0xffffffffu, m[0][i], i);
       float piv[2];
@@ -79,14 +114,24 @@ __global__ void __launch_bounds__(kWarps * 32) solve_small_kernel(
   }
 }
 
+template <bool kPivot>
+int launch(const float* A, const float* Y, float* X, int B, int n, int k, void* stream) {
+  if (B < 1 || n < 1 || n > kMaxN || k < 1 || n + k > 64)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int blocks = (B + kWarps - 1) / kWarps;
+  solve_small_kernel<kPivot><<<blocks, kWarps * 32, 0, static_cast<cudaStream_t>(stream)>>>(
+      A, Y, X, B, n, k);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" int bn_solve_small(const float* A, const float* Y, float* X, int B, int n,
                               int k, void* stream) {
-  if (B < 1 || n < 1 || n > kMaxN || k < 1 || n + k > 64)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int blocks = (B + kWarps - 1) / kWarps;
-  solve_small_kernel<<<blocks, kWarps * 32, 0, static_cast<cudaStream_t>(stream)>>>(
-      A, Y, X, B, n, k);
-  return static_cast<int>(cudaGetLastError());
+  return launch<false>(A, Y, X, B, n, k, stream);
+}
+
+extern "C" int bn_solve_small_pivot(const float* A, const float* Y, float* X, int B, int n,
+                                    int k, void* stream) {
+  return launch<true>(A, Y, X, B, n, k, stream);
 }

@@ -12,19 +12,20 @@ state s_t = [x_t, x_{t-1}, ..., x_{t-L+1}] with block-shift dynamics,
 observed through H = [I 0 ... 0].
 
 ``decode`` takes the discrete posterior gamma and the Viterbi path from the
-port's HMM ops (K9 and K10 on the card; K13 and K14 when the ARHMM has
-``parallel_scan``), then the IMM-collapsed filter (K17) and the RTS
-smoother (K18) of ``ops.imm`` on the companion state. Everything runs on
-the ARHMM's device. ``decode(parallel=True)``, the associative Kalman
-filter and smoother of the JAX package's ``ops/kalman.py``, and the
-sequence-parallel ``mesh=`` are not ported yet and raise.
+port's HMM ops (K9 and K10 on the card; K13 and K14 when the decode or the
+ARHMM asks for ``parallel``), then the IMM-collapsed filter (K17) and the
+RTS smoother (K18) of ``ops.imm`` on the companion state, or with
+``parallel=True`` the associative Kalman filter and smoother of
+``ops.kalman`` (K19, K20) over the gamma-weighted dynamics. Everything runs
+on the ARHMM's device. The sequence-parallel ``mesh=`` is not ported yet
+and raises.
 """
 
 import numpy as np
 import torch
 
 from behavenet_tpu_torch.ops import hmm as hmm_ops
-from behavenet_tpu_torch.ops import imm
+from behavenet_tpu_torch.ops import imm, kalman
 
 __all__ = ['BayesianDecoder']
 
@@ -160,10 +161,14 @@ class BayesianDecoder:
         arhmm_predictions : (T, K), optional
             neural->state decoder probabilities
         smooth : bool
-            run the RTS backward pass (K18)
+            run the backward pass (K18, or with ``parallel`` K20)
         parallel : bool
-            the associative Kalman filter and smoother of the JAX package
-            (``ops/kalman.py``); not ported yet, raises
+            the associative Kalman filter and smoother (``ops.kalman``, K19
+            and K20) over the gamma-weighted soft dynamics instead of the
+            sequential IMM filter, and the parallel-prefix discrete pass
+            (K13, K14); preferred for very long trials. It omits the IMM
+            mixture-spread covariance term (negligible when the state
+            posterior is concentrated)
         mesh : optional
             sequence-parallel decoding across devices; not ported yet,
             raises
@@ -179,10 +184,6 @@ class BayesianDecoder:
         if mesh is not None:
             raise NotImplementedError('sequence-parallel decoding (mesh=) is not ported yet '
                                       '(ROADMAP item A8, kernel row 19)')
-        if parallel:
-            raise NotImplementedError('decode(parallel=True), the associative Kalman filter '
-                                      'and smoother, is not ported yet (ROADMAP item A2b, '
-                                      'kernel row 17)')
         if self.R is None:
             raise RuntimeError('call estimate_obs_noise() or pass obs_noise first')
         y = np.asarray(ae_predictions, dtype=np.float32)
@@ -197,13 +198,16 @@ class BayesianDecoder:
         q = None if arhmm_predictions is None else self._tensor(arhmm_predictions)
         ll = self._discrete_loglik(torch.where(m[:, None] > 0, y, 0.0), q) * m[:, None]
         log_P = torch.log_softmax(p['log_Ps'], dim=1)
-        par_scan = bool(self.arhmm.parallel_scan)
+        par_scan = bool(parallel or self.arhmm.parallel_scan)
         gamma = hmm_ops.forward_backward(p['log_pi0'], log_P, ll[None], parallel=par_scan)[0][0]
         states = hmm_ops.viterbi(p['log_pi0'], log_P, ll[None], parallel=par_scan)[0]
 
-        mus_s, Sigmas_s, mus_p, Sigmas_p = self._kalman_filter(y, m, gamma)
-        if smooth:
-            mus_s, Sigmas_s = self._rts_smoother(mus_s, Sigmas_s, mus_p, Sigmas_p, gamma)
+        if parallel:
+            mus_s, Sigmas_s = self._soft_kalman_parallel(y, m, gamma, smooth)
+        else:
+            mus_s, Sigmas_s, mus_p, Sigmas_p = self._kalman_filter(y, m, gamma)
+            if smooth:
+                mus_s, Sigmas_s = self._rts_smoother(mus_s, Sigmas_s, mus_p, Sigmas_p, gamma)
 
         D = self.D
         out = {
@@ -236,3 +240,33 @@ class BayesianDecoder:
         Sigmas_s), K18 on the card."""
         As = self._aug_dynamics()[0]
         return imm.rts_smoother(mus_f, Sigmas_f, mus_p, Sigmas_p, gamma, As)
+
+    def _soft_dynamics(self, y, gamma):
+        """The gamma-weighted time-varying LDS of :meth:`_soft_kalman_parallel`:
+        (F (T, n, n), c (T, n), Q (T, n, n), mu0, Sigma0), element 0 carrying
+        the prior straight through (F0 = I, c0 = 0, Q0 = 1e-6 I)."""
+        As, bs, Qs = self._aug_dynamics()
+        F = torch.einsum('tk,kde->tde', gamma, As)
+        c = torch.einsum('tk,kd->td', gamma, bs)
+        Q = torch.einsum('tk,kde->tde', gamma, Qs)
+        mu0, Sigma0 = self._init_moments(y, gamma)
+        eye = torch.eye(self.n, device=self.device)
+        F[0] = eye
+        c[0] = 0.0
+        Q[0] = 1e-6 * eye
+        return F, c, Q, mu0, Sigma0
+
+    def _soft_kalman_parallel(self, y, obs_mask, gamma, smooth):
+        """The gamma-weighted time-varying LDS solved with associative scans
+        (JAX: models/bayesian.py:365): (mus, Sigmas), K19 and K20 on the
+        card."""
+        F, c, Q, mu0, Sigma0 = self._soft_dynamics(y, gamma)
+        # the plain version's two-level scan above 8192 frames, as JAX's
+        # (which chunks to bound its compile time); the kernels chunk by
+        # their own length
+        chunk = 8192 if y.shape[0] > 8192 else None
+        ms, Ps = kalman.filter_parallel(F, c, Q, self._H, self.R, y, obs_mask, mu0, Sigma0,
+                                        chunk=chunk)
+        if smooth:
+            ms, Ps = kalman.smooth_parallel(F, c, Q, ms, Ps, chunk=chunk)
+        return ms, Ps

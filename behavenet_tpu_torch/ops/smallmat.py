@@ -3,8 +3,11 @@
 
 :func:`solve_small` runs K11 (``kernels/solve_small.cu``) on a ``cuda``
 tensor and the plain PyTorch version beside it on a ``cpu`` tensor, picked
-from the input's device and from nothing else. The ARHMM's M-step solves its
-K equilibrated, ridged (P, P) normal equations with it.
+from the input's device and from nothing else; ``pivot=True`` runs K11's
+pivoting launcher (``bn_solve_small_pivot``, counted as
+``solve_small_pivot``). The ARHMM's M-step solves its K equilibrated,
+ridged (P, P) normal equations with it; the associative Kalman filter's
+combine (``ops.kalman``) needs the pivoted form.
 
 :func:`cholesky_small` and :func:`solve_tril_small` are the plain versions of
 the unrolled Cholesky and forward substitution, in the JAX package's
@@ -63,9 +66,10 @@ def solve_small_plain(A, Y, pivot=False):
     return X[..., 0] if vec else X
 
 
-def solve_small_cuda(A, Y):
+def solve_small_cuda(A, Y, pivot=False):
     """K11 on the card: the solution of every (n, n) system of the batch,
-    n <= 16 and n + k <= 64, float32, without pivoting."""
+    n <= 16 and n + k <= 64, float32; with ``pivot`` JAX's partial row
+    pivoting (the ``bn_solve_small_pivot`` launcher)."""
     for t in (A, Y):
         if t.device.type != 'cuda' or t.device != A.device:
             raise ValueError('solve_small_cuda: A and Y must lie on one CUDA device, '
@@ -86,24 +90,20 @@ def solve_small_cuda(A, Y):
     x = torch.empty_like(y)
     if a.shape[0]:
         launch('solve_small', a.data_ptr(), y.data_ptr(), x.data_ptr(),
-               a.shape[0], n, k)
+               a.shape[0], n, k, symbol='bn_solve_small_pivot' if pivot else None)
     x = x.reshape(batch + (n, k))
     return x[..., 0] if vec else x
 
 
 def solve_small(A, Y, pivot=False):
     """Batched solve A @ X = Y for small (n, n) systems (JAX:
-    ops/smallmat.py:17): K11 on a ``cuda`` tensor, the plain version on a
-    ``cpu`` one. ``pivot=True`` exists in the plain version only; on the
-    card it raises."""
+    ops/smallmat.py:17), with partial row pivoting when ``pivot``: K11 on a
+    ``cuda`` tensor, the plain version on a ``cpu`` one."""
     if A.device.type == 'cpu':
         return solve_small_plain(A, Y, pivot=pivot)
     if A.device.type != 'cuda':
         raise ValueError('solve_small: no implementation for device %s' % A.device)
-    if pivot:
-        raise NotImplementedError('solve_small(pivot=True) has no kernel yet; the '
-                                  'ARHMM M-step never pivots')
-    return solve_small_cuda(A, Y)
+    return solve_small_cuda(A, Y, pivot=pivot)
 
 
 def cholesky_small(A):

@@ -6,7 +6,7 @@
 On one CUDA GPU (an H100: the kernels are built for sm_90a) it
 
 1. prints the card's name and power limit (nvidia-smi);
-2. builds the port's fifteen CUDA kernel sources from this checkout;
+2. builds the port's sixteen CUDA kernel sources from this checkout;
 3. holds each kernel against its plain PyTorch version at the shapes the
    two main paths give it, and times the kernel, the plain version and the
    one PyTorch call that computes the same function (TF32 off for every
@@ -117,6 +117,22 @@ On one CUDA GPU (an H100: the kernels are built for sm_90a) it
    the loaded K = 4 models of the stationary and the ``parallel_scan`` CLIs
    (K13, K14) against their plain twins, timed with and without smoothing
    and profiled.
+10. the associative Kalman path (main paths 13b-15): K19 and K20 (the
+   associative filter and smoother, kernels/kalman.cu) and K21 and K22
+   (the sequential ones of ops.kalman) against their plain versions and
+   the float64 sequential versions at the CLI's soft LDS (192 frames, 189
+   observed, n = 9), at lags 2 (n = 18) and with a general H (the JAX
+   package's Kalman tests' system at n = 9, d = 5), K19 / K20 against K21
+   / K22, and K19 / K20 on one 10,000-frame trial at three chunk lengths
+   against float64; K11's pivoting launcher at the combine's matrices and
+   with a zero leading pivot; the Bayesian CLI with ``"parallel_scan":
+   true`` (K13, K14, K19 and K20 must launch; decoded test MSE below the
+   raw predictions'); ``decode(parallel=True)`` of one trial against its
+   plain twin, timed and profiled; the public ``ops.kalman`` passes and
+   ``solve_small(pivot=True)`` on a general LDS (K19-K22 and the pivot
+   launcher); and a 100,000-frame trial drawn from the fitted EM model,
+   ``decode(parallel=True)`` timed beside the sequential ``decode`` under
+   JAX's MSE gates.
 
 Each phase prints one JSON line; the line before the last lists the kernels
 with their numbers, and the last line is ``{"ok": true, "device": ...}``.
@@ -247,6 +263,17 @@ KERNELS = {
     'imm_filter': ('behavenet_tpu_torch/kernels/imm.cu', 'behavenet_tpu/models/bayesian.py:299'),
     'rts_smoother': ('behavenet_tpu_torch/kernels/imm.cu',
                      'behavenet_tpu/models/bayesian.py:340'),
+    # the associative Kalman filter and smoother (K19, K20), the sequential
+    # ones (K21, K22) and K11's pivoting launcher
+    'kalman_filter_scan': ('behavenet_tpu_torch/kernels/kalman.cu',
+                           'behavenet_tpu/ops/kalman.py:132'),
+    'kalman_smoother_scan': ('behavenet_tpu_torch/kernels/kalman.cu',
+                             'behavenet_tpu/ops/kalman.py:214'),
+    'kalman_filter': ('behavenet_tpu_torch/kernels/kalman.cu', 'behavenet_tpu/ops/kalman.py:38'),
+    'kalman_smoother': ('behavenet_tpu_torch/kernels/kalman.cu',
+                        'behavenet_tpu/ops/kalman.py:152'),
+    'solve_small_pivot': ('behavenet_tpu_torch/kernels/solve_small.cu',
+                          'behavenet_tpu/ops/smallmat.py:17'),
 }
 
 # the kernels a served request runs (an AE train step runs K1-K6, a
@@ -363,6 +390,39 @@ IMM_REL_TOL, BAYES_ABS_TOL = 1e-4, 1e-4
 BAYES_KERNELS = ('hmm_forward_backward', 'hmm_viterbi', 'imm_filter', 'rts_smoother')
 BAYES_PARALLEL_KERNELS = ('hmm_scan', 'hmm_viterbi_scan', 'imm_filter', 'rts_smoother')
 
+# decode(parallel=True): the associative Kalman filter and smoother (K19,
+# K20; row 17) over the gamma-weighted soft dynamics, with K13 and K14. The
+# kernels, and the sequential K21 and K22 of ops.kalman, are held to their
+# plain versions on the card at KALMAN_CASES: the CLI's soft LDS (the
+# 192-frame bucket, 189 frames with NaN borders, K = 4, 9 latents, H = [I
+# 0]), lags 2 (n = 18) and a general H (the JAX package's Kalman tests'
+# make_system at n = 9, d = 5, a quarter of the steps unobserved), and K19 /
+# K20 to K21 / K22. The float64 sequential versions on the host are the
+# yardstick: each kernel within max(KALMAN_REL_TOL, twice the float32 plain
+# version's distance from them) of them, and within max(KALMAN_REL_TOL,
+# three times that distance) of its plain version (both distances add up;
+# relative to each output's max(1, max|plain|)). On one IMM_LONG-frame trial
+# (above 8192 frames: the plain parallel version's chunked branch) K19 and
+# K20 at each of KALMAN_CHUNKS (None: the kernels' own, scan_chunk(T)) are
+# within twice the float32 plain parallel version's distance from float64.
+# K11's pivoting launcher against solve_small_plain(pivot=True) within
+# SOLVE_REL_TOL at the combine's matrices I + C1 J2 (the CLI case's
+# elements, n = 9, and a general LDS's at n = 16, K11's widest), and on the
+# same with a zero leading pivot, where the unpivoted elimination is not
+# finite. The long session: one LONG_FRAMES-frame trial drawn from the
+# fitted EM workload's ARHMM; JAX's gates (tests/test_models/
+# test_bayesian.py:124-145): the parallel decode's MSE below
+# LONG_RAW_SHARE x the raw predictions' and below LONG_SEQ_SHARE x the
+# sequential decode's.
+KALMAN_CASES = ('cli', 'lags2', 'general')
+KALMAN_CHUNKS = (None, 32, 1024)
+KALMAN_REL_TOL = 1e-4
+LONG_RAW_SHARE, LONG_SEQ_SHARE = 0.2, 1.5
+BAYES_ASSOC_KERNELS = ('hmm_scan', 'hmm_viterbi_scan', 'kalman_filter_scan',
+                       'kalman_smoother_scan')
+KALMAN_OPS_KERNELS = ('kalman_filter', 'kalman_smoother', 'kalman_filter_scan',
+                      'kalman_smoother_scan', 'solve_small_pivot')
+
 
 def emit(obj):
     print(json.dumps(obj), flush=True)
@@ -402,14 +462,14 @@ def import_port():
     from behavenet_tpu_torch.kernels import build
     from behavenet_tpu_torch.models import aes, arch, arhmm, base, bayesian, decoders, vaes
     from behavenet_tpu_torch.ops import conv as ops
-    from behavenet_tpu_torch.ops import hmm, imm, losses, optim, smallmat
+    from behavenet_tpu_torch.ops import hmm, imm, kalman, losses, optim, smallmat
     from behavenet_tpu_torch.utils import pickles, weights
     return types.SimpleNamespace(
         serving=serving, build=build, arch=arch, base=base, ops=ops, aes=aes,
         vaes=vaes, losses=losses, optim=optim, training=training,
         experiment=experiment, weights=weights, arhmm=arhmm, hmm=hmm, smallmat=smallmat,
         pickles=pickles, arhmm_grid_search=arhmm_grid_search, hyperparams=hyperparams,
-        decoders=decoders, imm=imm, bayesian=bayesian,
+        decoders=decoders, imm=imm, kalman=kalman, bayesian=bayesian,
         bayesian_decoder_grid_search=bayesian_decoder_grid_search)
 
 
@@ -1123,7 +1183,14 @@ KERNEL_OF = tuple(
              ('chunk_paths_kernel', 'K14/K15 backtrace'),
              ('draw_maps_kernel', 'K15 hmm_sample_posterior'),
              ('sample_states_kernel', 'K16 hmm_sample_states'),
-             ('imm_filter_kernel', 'K17 imm_filter'), ('rts_smoother_kernel', 'K18 rts_smoother'))
+             ('imm_filter_kernel', 'K17 imm_filter'), ('rts_smoother_kernel', 'K18 rts_smoother'),
+             ('filter_compose_kernel', 'K19 kalman_filter_scan'),
+             ('filter_carry_kernel', 'K19 kalman_filter_scan'),
+             ('filter_run_kernel', 'K19/K21 kalman_filter(_scan)'),
+             ('smoother_compose_kernel', 'K20 kalman_smoother_scan'),
+             ('smoother_carry_kernel', 'K20 kalman_smoother_scan'),
+             ('smoother_run_kernel', 'K20 kalman_smoother_scan'),
+             ('smoother_sequential_kernel', 'K22 kalman_smoother'))
 
 
 def profile_steps(fn, steps=5, warmup=2, phase='train_profile', **labels):
@@ -2737,14 +2804,15 @@ def arhmm_sample_serve(port, vdir, latents, kernels):
 # ------------------------------------------------------ the Bayesian decoder
 
 
-def imm_inputs(port, K, lags, frames, seed, bucket=None):
-    """The inputs of K17 and K18 as ``decode`` forms them for one trial: a
-    seeded stationary ARHMM with K states over the published 9 latents (AR
-    weights ``0.9 / lags`` times random rotations, offsets of scale 0.3,
-    noise covariances ~0.01), its decoder with R = 0.25 I, and a trial from
-    ``sample_arhmm`` observed through predictions with noise 0.5 and NaN in
-    the decoders' ``n_max_lags`` frames at each end, NaN-padded to
-    ``bucket`` frames; gamma from the discrete pass (K9)."""
+def decoder_trial(port, K, lags, frames, seed, bucket=None):
+    """A decoder and one trial as ``decode`` sees them: a seeded stationary
+    ARHMM with K states over the published 9 latents (AR weights ``0.9 /
+    lags`` times random rotations, offsets of scale 0.3, noise covariances
+    ~0.01), its decoder with R = 0.25 I, and a trial from ``sample_arhmm``
+    observed through predictions with noise 0.5 and NaN in the decoders'
+    ``n_max_lags`` frames at each end, NaN-padded to ``bucket`` frames.
+    Returns (decoder, y with NaN rows set to 0, the observed mask, gamma
+    from the discrete pass (K9)) on the card."""
     D = DEC_LATENTS
     rs = np.random.RandomState(seed)
     model = port.arhmm.ARHMM(K, D, lags=lags, rng_seed=seed, device=DEVICE)
@@ -2767,6 +2835,13 @@ def imm_inputs(port, K, lags, frames, seed, bucket=None):
     gamma = dec.decode(y, q, as_numpy=False)['states_posterior']
     m = torch.from_numpy((~np.isnan(y).any(axis=1)).astype(np.float32)).to(DEVICE)
     y0 = torch.from_numpy(np.nan_to_num(y)).to(DEVICE)
+    return dec, y0, m, gamma
+
+
+def imm_inputs(port, K, lags, frames, seed, bucket=None):
+    """The inputs of K17 and K18 as ``decode`` forms them for one trial of
+    :func:`decoder_trial`."""
+    dec, y0, m, gamma = decoder_trial(port, K, lags, frames, seed, bucket)
     As, bs, Qs = dec._aug_dynamics()
     mu0, Sigma0 = dec._init_moments(y0, gamma)
     return (y0, m, gamma, As, bs, Qs, dec.R, mu0, Sigma0)
@@ -2868,18 +2943,309 @@ def check_imm(port):
     return out
 
 
+def general_lds(T, n, d, seed):
+    """(F, c, Q, H, R, y, mask, m0, P0) on the card: the JAX package's
+    Kalman tests' ``make_system`` (tests/test_ops/test_kalman.py:10; a
+    time-varying F, a general H) at n states and d observations, a quarter
+    of the steps and the first and last three unobserved."""
+    rs = np.random.RandomState(seed)
+    F = np.stack([np.eye(n) * 0.8 + 0.05 * rs.randn(n, n) for _ in range(T)])
+    c = 0.1 * rs.randn(T, n)
+    Q = np.tile(0.05 * np.eye(n), (T, 1, 1))
+    H = rs.randn(d, n)
+    R = 0.1 * np.eye(d)
+    m0 = rs.randn(n)
+    x = np.zeros((T, n))
+    prev = m0
+    for t in range(T):
+        x[t] = F[t] @ prev + c[t] + rs.multivariate_normal(np.zeros(n), Q[t])
+        prev = x[t]
+    y = x @ H.T + rs.multivariate_normal(np.zeros(d), R, size=T)
+    mask = (rs.rand(T) >= 0.25).astype(np.float32)
+    mask[:3] = mask[T - 3:] = 0.0
+    return tuple(torch.tensor(a, dtype=torch.float32, device=DEVICE)
+                 for a in (F, c, Q, H, R, y, mask, m0, np.eye(n)))
+
+
+def soft_lds(port, K, lags, frames, seed, bucket=None):
+    """(F, c, Q, H, R, y, mask, m0, P0) as ``decode(parallel=True)`` hands
+    them to K19 for a :func:`decoder_trial`: the gamma-weighted dynamics."""
+    dec, y0, m, gamma = decoder_trial(port, K, lags, frames, seed, bucket)
+    F, c, Q, mu0, Sigma0 = dec._soft_dynamics(y0, gamma)
+    return F, c, Q, dec._H, dec.R, y0, m, mu0, Sigma0
+
+
+def kalman_bounds(T, d, n, observed):
+    """(operations, bytes) of the sequential filter and of the sequential
+    smoother (JAX's filter_sequential and smooth_sequential) on one trial:
+    multiply-adds as two operations, a Gauss-Jordan pivot as imm_bounds
+    counts it (d(2d+1)(d+n) a solve of S, n(2n+1)2n of P_pred + 1e-8 I), the
+    update only on the ``observed`` steps, each input read once and each
+    output written once. K19 and K20 are held to the same work (their own
+    inputs and outputs); K21 also writes the predictions."""
+    predict = 2 * n * n + n + 4 * n ** 3 + n * n + 2 * n * n   # F m + c; sym(F P F^T + Q)
+    update = (2 * d * n * n + 2 * d * d * n + d * d             # H P, S = (H P) H^T + R
+              + d * (2 * d + 1) * (d + n)                       # K^T = S^-1 H P
+              + 2 * d * n + d + 2 * n * d + n                   # m + K (y - H m)
+              + 2 * n * n * d + n * n + 2 * n * n)              # sym(P - K (H P))
+    smooth = (2 * n ** 3 + n * n                                # F P_f, P_pred + 1e-8 I
+              + n * (2 * n + 1) * (2 * n)                       # G^T = solve(., F P_f)
+              + n + 2 * n * n + n                               # m_f + G (m_next - m_pred)
+              + n * n + 4 * n ** 3 + n * n + 2 * n * n)         # sym(P_f + G D G^T)
+    filt_ops = T * predict + observed * update
+    smooth_ops = (T - 1) * smooth
+    inputs = T * (2 * n * n + n + d + 1) + d * n + d * d + n + n * n
+    moments = T * (n + n * n)
+    return dict(filter_scan=(filt_ops, 4 * (inputs + moments)),
+                filter=(filt_ops, 4 * (inputs + 2 * moments)),
+                smoother_scan=(smooth_ops, 4 * (T * (2 * n * n + n) + 2 * moments)),
+                smoother=(smooth_ops, 4 * (T * n * n + 3 * moments)))
+
+
+def check_kalman(port):
+    """K19-K22 against their plain versions on the card at KALMAN_CASES (the
+    smoothers on their plain filters' moments), K19 / K20 against K21 /
+    K22 (each filter, then its smoother), and every one against the
+    float64 sequential versions on the host; then one IMM_LONG-frame
+    trial, K19 and K20 at KALMAN_CHUNKS against the float64 sequential
+    versions within twice the float32 plain parallel version's distance;
+    then K11's pivoting launcher (check_solve_pivot)."""
+    kal = port.kalman
+    rows = {k: {} for k in ('kalman_filter_scan', 'kalman_smoother_scan', 'kalman_filter',
+                            'kalman_smoother')}
+    cross = {}
+    for case in KALMAN_CASES:
+        if case == 'general':
+            ins = general_lds(BUCKET, DEC_LATENTS, 5, SEED + 23)
+        else:
+            ins = soft_lds(port, BAYES_STATES, 2 if case == 'lags2' else 1, TRIAL, SEED + 20,
+                           bucket=BUCKET)
+        F, c, Q = ins[:3]
+        host = [t.cpu() for t in ins]
+        seq64 = kal.filter_sequential_plain(*host, dtype=torch.float64)
+        sseq64 = kal.smooth_sequential_plain(*host[:3], *seq64, dtype=torch.float64)
+        seq_p, par_p = kal.filter_sequential_plain(*ins), kal.filter_parallel_plain(*ins)
+        sseq_p = kal.smooth_sequential_plain(F, c, Q, *seq_p)
+        spar_p = kal.smooth_parallel_plain(F, c, Q, *par_p)
+        k19, k21 = kal.filter_parallel_cuda(*ins), kal.filter_sequential_cuda(*ins)
+        k20 = kal.smooth_parallel_cuda(F, c, Q, *par_p)
+        k22 = kal.smooth_sequential_cuda(F, c, Q, *seq_p)
+        cross[case] = dict(
+            filter=imm_errors(k19, k21[:2]),
+            smoother=imm_errors(kal.smooth_parallel_cuda(F, c, Q, *k19),
+                                kal.smooth_sequential_cuda(F, c, Q, *k21)))
+        torch.cuda.synchronize()
+        n, d = F.shape[-1], ins[5].shape[-1]
+        observed = int(ins[6].sum().item())
+        bounds = kalman_bounds(BUCKET, d, n, observed)
+
+        def host_err(got, want):
+            return imm_errors([t.cpu() for t in got], want)
+        for kernel, got, plain, f64, fn, plain_fn, work in (
+                ('kalman_filter_scan', k19, par_p, seq64[:2],
+                 lambda: kal.filter_parallel_cuda(*ins), lambda: kal.filter_parallel_plain(*ins),
+                 bounds['filter_scan']),
+                ('kalman_smoother_scan', k20, spar_p, sseq64,
+                 lambda: kal.smooth_parallel_cuda(F, c, Q, *par_p),
+                 lambda: kal.smooth_parallel_plain(F, c, Q, *par_p), bounds['smoother_scan']),
+                ('kalman_filter', k21, seq_p, seq64, lambda: kal.filter_sequential_cuda(*ins),
+                 lambda: kal.filter_sequential_plain(*ins), bounds['filter']),
+                ('kalman_smoother', k22, sseq_p, sseq64,
+                 lambda: kal.smooth_sequential_cuda(F, c, Q, *seq_p),
+                 lambda: kal.smooth_sequential_plain(F, c, Q, *seq_p), bounds['smoother'])):
+            plain_f64 = host_err(plain, f64)
+            ms = median_ms(fn)
+            rows[kernel][case] = dict(
+                frames=BUCKET, observed=observed, n=n, d=d,
+                max_abs_err=imm_errors(got, plain), vs_float64=host_err(got, f64),
+                plain_vs_float64=plain_f64,
+                tol_plain=max(KALMAN_REL_TOL, 3 * plain_f64),
+                tol_float64=max(KALMAN_REL_TOL, 2 * plain_f64),
+                finite=all(bool(torch.isfinite(t).all().item()) for t in got),
+                ms=ms, us_per_step=ms * 1e3 / BUCKET,
+                plain_ms=median_ms(plain_fn, samples=3, inner=1, warmup=1),
+                gflop=work[0] / 1e9, mbytes=work[1] / 1e6, **bound(*work))
+
+    ins = soft_lds(port, BAYES_STATES, 1, IMM_LONG, SEED + 21)
+    F, c, Q = ins[:3]
+    host = [t.cpu() for t in ins]
+    chunk = 8192 if IMM_LONG > 8192 else None   # decode's, JAX's chunked branch
+    seq64 = kal.filter_sequential_plain(*host, dtype=torch.float64)
+    sseq64 = kal.smooth_sequential_plain(*host[:3], *seq64, dtype=torch.float64)
+    par_p = kal.filter_parallel_plain(*ins, chunk=chunk)
+    spar_p = kal.smooth_parallel_plain(F, c, Q, *par_p, chunk=chunk)
+    long = {'kalman_filter_scan': dict(plain32_vs_float64=imm_errors([t.cpu() for t in par_p],
+                                                                     seq64[:2])),
+            'kalman_smoother_scan': dict(plain32_vs_float64=imm_errors(
+                [t.cpu() for t in spar_p], sseq64))}
+    for kernel in long:
+        long[kernel].update(frames=IMM_LONG, tol=2 * long[kernel]['plain32_vs_float64'],
+                            plain_chunk=chunk, chunks={}, finite=True)
+    for L in KALMAN_CHUNKS:
+        k19 = kal.filter_parallel_cuda(*ins, chunk=L)
+        k20 = kal.smooth_parallel_cuda(F, c, Q, *k19, chunk=L)
+        key = str(L) if L else 'scan_chunk=%d' % port.hmm.scan_chunk(IMM_LONG)
+        for kernel, got, want, fn in (
+                ('kalman_filter_scan', k19, seq64[:2],
+                 lambda: kal.filter_parallel_cuda(*ins, chunk=L)),
+                ('kalman_smoother_scan', k20, sseq64,
+                 lambda: kal.smooth_parallel_cuda(F, c, Q, *k19, chunk=L))):
+            long[kernel]['chunks'][key] = dict(
+                vs_float64=imm_errors([t.cpu() for t in got], want),
+                ms=median_ms(fn, samples=3, inner=3))
+            long[kernel]['finite'] &= all(bool(torch.isfinite(t).all().item()) for t in got)
+
+    out = []
+    for kernel, cases in rows.items():
+        first = cases['cli']
+        rec = dict(phase='kalman_kernel_check', kernel=kernel, layer='cli', library_ms=None,
+                   rel_tol=KALMAN_REL_TOL, cases=cases,
+                   kernel_vs_sequential_kernel=cross if kernel.endswith('_scan') else None,
+                   long_trial=long.get(kernel),
+                   bound_note='the dependence chains, not these',
+                   **{k: first[k] for k in ('frames', 'max_abs_err', 'ms', 'plain_ms',
+                                            'bound_ms', 't_ops_ms', 't_bytes_ms', 'bound_by')})
+        emit(rec)
+        bad = [c for c, v in cases.items() if not v['finite'] or
+               v['max_abs_err'] > v['tol_plain'] or v['vs_float64'] > v['tol_float64']]
+        if kernel.endswith('_scan'):
+            which = 'filter' if kernel == 'kalman_filter_scan' else 'smoother'
+            bad += ['%s vs sequential kernel' % c for c, v in cross.items()
+                    if v[which] > max(rows[kernel][c]['tol_plain'], 2 * rows[kernel][c]
+                                      ['tol_float64'])]
+            lg = long[kernel]
+            bad += ['long chunk %s' % L for L, v in lg['chunks'].items()
+                    if v['vs_float64'] > lg['tol']]
+            if not lg['finite']:
+                bad.append('long not finite')
+        if bad:
+            raise AssertionError('%s disagrees (%s): %s' % (kernel, bad, rec))
+        out.append(rec)
+    out.append(check_solve_pivot(port))
+    return out
+
+
+def check_solve_pivot(port):
+    """K11's pivoting launcher against ``solve_small_plain(pivot=True)`` at
+    the associative filter's combine matrices I + C1 J2 with the identity on
+    the right (adjacent elements of the CLI case, n = 9; of a general LDS
+    at n = 16, K11's widest), within SOLVE_REL_TOL of max(1, max|plain|),
+    and on the same with rows 0 and 1 swapped and a zero leading pivot,
+    where the unpivoted elimination (K11's other launcher) gives non-finite
+    output; the time beside ``torch.linalg.solve``'s."""
+    sm, kal = port.smallmat, port.kalman
+    cases = {}
+    for name, ins in (('cli', soft_lds(port, BAYES_STATES, 1, TRIAL, SEED + 20, bucket=BUCKET)),
+                      ('n16', general_lds(BUCKET, 16, 5, SEED + 26))):
+        _, _, C, _, J = kal._filter_elements(*ins)
+        n = C.shape[-1]
+        eye = torch.eye(n, device=DEVICE)
+        lhs = eye + C[:-1] @ J[1:]
+        rhs = eye.expand(lhs.shape).contiguous()
+        # rows 0 and 1 swapped, the new leading entry set to 0: still
+        # nonsingular (the swapped identity of an unobserved step's I + C1 J2
+        # already has it), but without a pivot at (0, 0)
+        order = torch.arange(n, device=DEVICE)
+        order[:2] = torch.tensor([1, 0], device=DEVICE)
+        zero = lhs[:, order].clone()
+        zero[:, 0, 0] = 0.0
+        got, want = sm.solve_small_cuda(lhs, rhs, pivot=True), sm.solve_small_plain(lhs, rhs,
+                                                                                   pivot=True)
+        got0, want0 = sm.solve_small_cuda(zero, rhs, pivot=True), sm.solve_small_plain(
+            zero, rhs, pivot=True)
+        unpivoted = sm.solve_small_cuda(zero, rhs)
+        torch.cuda.synchronize()
+        B = lhs.shape[0]
+        n_ops = B * n * (2 * n + 1) * (2 * n)
+        n_bytes = 4 * B * 3 * n * n
+        with tf32_off():
+            lib = median_ms(lambda: torch.linalg.solve(lhs, rhs))
+        cases[name] = dict(
+            systems=B, n=n, max_abs_err=imm_errors([got], [want]),
+            zero_pivot_err=imm_errors([got0], [want0]),
+            zero_pivot_finite=bool(torch.isfinite(got0).all().item()),
+            unpivoted_finite=bool(torch.isfinite(unpivoted).all().item()),
+            ms=median_ms(lambda: sm.solve_small_cuda(lhs, rhs, pivot=True)),
+            plain_ms=median_ms(lambda: sm.solve_small_plain(lhs, rhs, pivot=True), samples=3,
+                               inner=1, warmup=1),
+            library_ms=lib, **bound(n_ops, n_bytes))
+    first = cases['cli']
+    rec = dict(phase='solve_pivot_check', kernel='solve_small_pivot', layer='cli', frames=BUCKET,
+               rel_tol=SOLVE_REL_TOL, cases=cases,
+               **{k: first[k] for k in ('max_abs_err', 'ms', 'plain_ms', 'library_ms',
+                                        'bound_ms', 't_ops_ms', 't_bytes_ms', 'bound_by')})
+    emit(rec)
+    bad = [c for c, v in cases.items() if v['max_abs_err'] > SOLVE_REL_TOL or
+           v['zero_pivot_err'] > SOLVE_REL_TOL or not v['zero_pivot_finite'] or
+           v['unpivoted_finite']]
+    if bad:
+        raise AssertionError('solve_small_pivot disagrees (%s): %s' % (bad, rec))
+    return rec
+
+
+def kalman_ops(port):
+    """Main path 15: the public ``ops.kalman`` and ``ops.smallmat`` API on
+    the card, as a user filters and smooths a general LDS (general_lds at
+    n = 9, d = 5, the 192-frame bucket): ``filter_sequential`` then
+    ``smooth_sequential`` (K21, K22), ``filter_parallel`` then
+    ``smooth_parallel`` (K19, K20), the two within max(KALMAN_REL_TOL, twice
+    the plain parallel version's distance from the plain sequential one) of
+    each other, and ``solve_small(pivot=True)`` (K11's pivoting launcher) of
+    the combine's systems. Every output finite, every kernel launched."""
+    kal, sm = port.kalman, port.smallmat
+    ins = general_lds(BUCKET, DEC_LATENTS, 5, SEED + 23)
+    F, c, Q = ins[:3]
+    _, _, C, _, J = kal._filter_elements(*ins)
+    eye = torch.eye(C.shape[-1], device=DEVICE)
+    lhs = eye + C[:-1] @ J[1:]
+    rhs = eye.expand(lhs.shape).contiguous()
+    reset_launches(port.build)
+    seq = kal.filter_sequential(*ins)
+    sseq = kal.smooth_sequential(F, c, Q, *seq)
+    par = kal.filter_parallel(*ins)
+    spar = kal.smooth_parallel(F, c, Q, *par)
+    X = sm.solve_small(lhs, rhs, pivot=True)
+    torch.cuda.synchronize()
+    launches = dict(port.build.LAUNCHES)
+    seq_p = kal.filter_sequential_plain(*ins)
+    par_p = kal.filter_parallel_plain(*ins)
+    tol = max(KALMAN_REL_TOL, 2 * max(imm_errors(par_p, seq_p[:2]), imm_errors(
+        kal.smooth_parallel_plain(F, c, Q, *par_p),
+        kal.smooth_sequential_plain(F, c, Q, *seq_p))))
+    errs = dict(filter=imm_errors(par, seq[:2]), smoother=imm_errors(spar, sseq),
+                solve_residual=(lhs @ X - rhs).abs().max().item())
+    finite = all(bool(torch.isfinite(t).all().item()) for t in (*seq, *sseq, *par, *spar, X))
+    rec = dict(phase='kalman_ops', frames=BUCKET, n=F.shape[-1], d=ins[5].shape[-1],
+               parallel_vs_sequential=errs, tol=tol, finite=finite, launches=launches)
+    emit(rec)
+    missing = [k for k in KALMAN_OPS_KERNELS if launches[k] == 0]
+    if missing or not finite or errs['filter'] > tol or errs['smoother'] > tol or \
+            errs['solve_residual'] > 1e-3:
+        raise AssertionError('the public Kalman ops fail (missing %s): %s' % (missing, rec))
+    return launches
+
+
 @contextlib.contextmanager
 def plain_bayesian(port):
     """The Bayesian decoder's plain twin: the ARHMM's kernel entry points
-    (``plain_arhmm``) and K17 / K18 routed to their plain versions."""
-    imm = port.imm
-    saved = imm.imm_filter, imm.rts_smoother
-    imm.imm_filter, imm.rts_smoother = imm.imm_filter_plain, imm.rts_smoother_plain
+    (``plain_arhmm``), K17 / K18 and the public ``ops.kalman`` functions
+    (K19-K22) routed to their plain versions."""
+    imm, kal = port.imm, port.kalman
+    routes = ((imm, 'imm_filter', imm.imm_filter_plain),
+              (imm, 'rts_smoother', imm.rts_smoother_plain),
+              (kal, 'filter_parallel', kal.filter_parallel_plain),
+              (kal, 'smooth_parallel', kal.smooth_parallel_plain),
+              (kal, 'filter_sequential', kal.filter_sequential_plain),
+              (kal, 'smooth_sequential', kal.smooth_sequential_plain))
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in routes]
+    for mod, name, fn in routes:
+        setattr(mod, name, fn)
     try:
         with plain_arhmm(port):
             yield
     finally:
-        imm.imm_filter, imm.rts_smoother = saved
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
 
 
 def write_decoder_store(save_dir, ids, mc, parts, training_cfg, predictions):
@@ -2918,12 +3284,14 @@ def decoder_exports(latents, states, K, seed):
     return preds, logits
 
 
-def bayesian_cli(port, tmp, cli, kernels, name='bayesian_cli'):
+def bayesian_cli(port, tmp, cli, kernels, name='bayesian_cli', parallel=False):
     """Main path 13: the port's ``bayesian_decoder_grid_search`` on the card
     at the published config (configs/bayesian_jsons, the compute config's
     device dropped) over the ARHMM CLI's store ``cli``: its AE latents, its
     K = BAYES_STATES version's ``best_val_model.pt`` and states pickle, and
-    the two decoders' predictions written here. ``kernels`` launched inside
+    the two decoders' predictions written here (by the first call). With
+    ``parallel`` (main path 13b) the model config says ``"parallel_scan":
+    true`` and the experiment is named apart. ``kernels`` launched inside
     it, every exported trial finite and of its trial's length, the decoded
     test MSE below the raw predictions' on the same frames. Returns the
     launches and the predictions."""
@@ -2937,15 +3305,19 @@ def bayesian_cli(port, tmp, cli, kernels, name='bayesian_cli'):
     compute_cfg.pop('device')
     data_cfg.update(dict(zip(('lab', 'expt', 'animal', 'session'), ids)), save_dir=store,
                     data_dir=os.path.join(tmp, 'bayes_data'))
+    if parallel:
+        model_cfg.update(parallel_scan=True,
+                         experiment_name=model_cfg['experiment_name'] + '-parallel')
     with open(os.path.join(vdir, '%s_states.pkl' % '_'.join(ids)), 'rb') as f:
         states = pickle.load(f)['states']
     preds, logits = decoder_exports(latents, states, BAYES_STATES, SEED + 22)
     D = model_cfg['n_ae_latents']
-    write_decoder_store(store, ids, 'neural-ae', ['%02i_latents' % D, 'mlp'], training_cfg,
-                        preds)
-    write_decoder_store(store, ids, 'neural-arhmm',
-                        ['%02i_latents' % D, '%02i_states' % BAYES_STATES,
-                         model_cfg['transitions'], 'mlp'], training_cfg, logits)
+    if not os.path.isdir(os.path.join(store, *ids, 'neural-ae')):
+        write_decoder_store(store, ids, 'neural-ae', ['%02i_latents' % D, 'mlp'], training_cfg,
+                            preds)
+        write_decoder_store(store, ids, 'neural-arhmm',
+                            ['%02i_latents' % D, '%02i_states' % BAYES_STATES,
+                             model_cfg['transitions'], 'mlp'], training_cfg, logits)
     args = []
     for cfg_name, cfg in (('data', data_cfg), ('model', model_cfg), ('training', training_cfg),
                           ('compute', compute_cfg)):
@@ -2993,7 +3365,7 @@ def bayesian_cli(port, tmp, cli, kernels, name='bayesian_cli'):
     dec_mse = float(np.mean(np.concatenate(dec_se)))
     missing = [k for k in kernels if launches[k] == 0]
     rec = dict(phase=name, trials=len(latents), frames_per_trial=TRIAL, states=BAYES_STATES,
-               dim=D, seconds_per_session=seconds, completed=completed, exports_ok=ok_shapes,
+               dim=D, parallel_scan=parallel, seconds_per_session=seconds, completed=completed, exports_ok=ok_shapes,
                test_trials=test, raw_test_mse=raw_mse, decoded_test_mse=dec_mse,
                logged={k: v for k, v in logged.items() if len(v)}, launches=launches)
     emit(rec)
@@ -3004,14 +3376,17 @@ def bayesian_cli(port, tmp, cli, kernels, name='bayesian_cli'):
     return launches, preds, logits
 
 
-def bayesian_serve(port, vdir, latents, preds, logits, kernels, name='bayesian_serve'):
+def bayesian_serve(port, vdir, latents, preds, logits, kernels, name='bayesian_serve',
+                   parallel=False):
     """Main path 14: a fitted ``best_val_model.pt`` loads through
     ``load_arhmm`` on the card into a ``BayesianDecoder`` (R from the first
-    40 trials' residuals), which decodes one 189-frame trial: ``kernels``
-    launched, latents and covariances within BAYES_ABS_TOL of the plain
-    twin's on the card (K9-K10 or K13-K14 and K17-K18 routed to their plain
-    versions), states equal; latency with ``smooth`` on and off beside the
-    plain twin's, and a profile with the device's idle share."""
+    40 trials' residuals), which decodes one 189-frame trial, with
+    ``parallel`` (main path 14b) through ``decode(parallel=True)``:
+    ``kernels`` launched, latents and covariances within BAYES_ABS_TOL of
+    the plain twin's on the card (K9-K10 or K13-K14 and K17-K18 or K19-K20
+    routed to their plain versions), states equal; latency with ``smooth``
+    on and off beside the plain twin's, and a profile with the device's
+    idle share."""
     model = port.pickles.load_arhmm(os.path.join(vdir, 'best_val_model.pt'))
     dec = port.bayesian.BayesianDecoder(model)
     dec.estimate_obs_noise(latents[:40], preds[:40])
@@ -3019,32 +3394,106 @@ def bayesian_serve(port, vdir, latents, preds, logits, kernels, name='bayesian_s
     i = len(latents) - 1
     y, q = preds[i], softmax(logits[i])
     reset_launches(port.build)
-    out = dec.decode(y, q)
+    out = dec.decode(y, q, parallel=parallel)
     torch.cuda.synchronize()
     launches = dict(port.build.LAUNCHES)
     with plain_bayesian(port):
-        out_p = dec.decode(y, q)
-        plain_lat = {smooth: request_ms(lambda: dec.decode(y, q, smooth=smooth), reps=3,
+        out_p = dec.decode(y, q, parallel=parallel)
+        plain_lat = {smooth: request_ms(lambda: dec.decode(y, q, smooth=smooth,
+                                                           parallel=parallel), reps=3,
                                         warmup=1) for smooth in (True, False)}
     errs = {k: float(np.abs(out[k] - out_p[k]).max() / max(1.0, np.abs(out_p[k]).max()))
             for k in ('latents', 'latents_cov', 'states_posterior')}
     equal = bool(np.array_equal(out['states'], out_p['states']))
     rec = dict(phase=name, states=model.K, frames=len(y), parallel_scan=model.parallel_scan,
-               device=str(dec.device), rel_errs=errs, states_equal=equal,
+               parallel=parallel, device=str(dec.device), rel_errs=errs, states_equal=equal,
                abs_tol=BAYES_ABS_TOL, launches=launches,
-               decode_ms={smooth: request_ms(lambda: dec.decode(y, q, smooth=smooth))
+               decode_ms={smooth: request_ms(lambda: dec.decode(y, q, smooth=smooth,
+                                                                parallel=parallel))
                           for smooth in (True, False)},
                plain_decode_ms=plain_lat,
                raw_mse=float(np.nanmean((y - latents[i]) ** 2)),
                decoded_mse=float(np.mean((out['latents'] - latents[i]) ** 2)))
     emit(rec)
-    emit(profile_steps(lambda: dec.decode(y, q), phase=name + '_profile', frames=len(y),
-                       bucket=len(y), states=model.K, parallel_scan=model.parallel_scan))
+    emit(profile_steps(lambda: dec.decode(y, q, parallel=parallel), phase=name + '_profile',
+                       frames=len(y), bucket=len(y), states=model.K,
+                       parallel_scan=model.parallel_scan, parallel=parallel))
     missing = [k for k in kernels if launches[k] == 0]
     if missing or not equal or max(errs.values()) > BAYES_ABS_TOL or \
             not np.isfinite(out['latents']).all():
         raise AssertionError('the Bayesian decoder does not serve (missing %s): %s'
                              % (missing, rec))
+    return launches
+
+
+def bayesian_long_session(port, model):
+    """Main path 14c: one LONG_FRAMES-frame trial drawn from the fitted EM
+    workload's ARHMM (K = 16, D = 9; its state chain, then ``sample_x``),
+    observed through predictions = latents + 0.5 noise (R from their
+    residuals) and, as in JAX's test of these gates, state evidence (logits
+    2 on the drawn state plus unit noise, as decoder_exports makes them).
+    ``decode(parallel=True)`` (K13, K14,
+    K19, K20 launched) timed beside the sequential ``decode`` (K9, K10, K17,
+    K18) of the same trial, and the Kalman kernels alone on its inputs;
+    JAX's gates: the parallel MSE below LONG_RAW_SHARE x the raw and
+    LONG_SEQ_SHARE x the sequential decode's, every latent finite."""
+    kal, imm, build = port.kalman, port.imm, port.build
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(SEED + 24)
+    t0 = time.perf_counter()
+    z, x = model.sample(LONG_FRAMES, generator=gen)
+    rs = np.random.RandomState(SEED + 25)
+    y = (x + 0.5 * rs.randn(*x.shape)).astype(np.float32)
+    q = port.bayesian_decoder_grid_search._softmax_rows(
+        2.0 * np.eye(model.K)[z] + rs.randn(LONG_FRAMES, model.K))
+    sample_s = time.perf_counter() - t0
+    dec = port.bayesian.BayesianDecoder(model)
+    dec.estimate_obs_noise([x], [y])
+    reset_launches(build)
+    out_par = dec.decode(y, q, parallel=True)
+    torch.cuda.synchronize()
+    launches = dict(build.LAUNCHES)
+    out_seq = dec.decode(y, q)
+    mse = dict(raw=float(np.mean((y - x) ** 2)),
+               parallel=float(np.mean((out_par['latents'] - x) ** 2)),
+               sequential=float(np.mean((out_seq['latents'] - x) ** 2)))
+    # the kernels alone on this trial's inputs
+    y0 = torch.from_numpy(y).to(DEVICE)
+    m = torch.ones(LONG_FRAMES, device=DEVICE)
+    gamma = torch.from_numpy(out_par['states_posterior']).to(DEVICE)
+    F, c, Q, mu0, Sigma0 = dec._soft_dynamics(y0, gamma)
+    ins = (F, c, Q, dec._H, dec.R, y0, m, mu0, Sigma0)
+    filt = kal.filter_parallel_cuda(*ins)
+    As, bs, Qs = dec._aug_dynamics()
+    imm_ins = (y0, m, gamma, As, bs, Qs, dec.R, *dec._init_moments(y0, gamma))
+    imm_f = imm.imm_filter_cuda(*imm_ins)
+    n, D = dec.n, dec.D
+    work = kalman_bounds(LONG_FRAMES, D, n, LONG_FRAMES)
+    rec = dict(phase='bayesian_long_session', frames=LONG_FRAMES, states=model.K, dim=D,
+               sample_seconds=sample_s, mse=mse, launches=launches,
+               raw_share_tol=LONG_RAW_SHARE, sequential_share_tol=LONG_SEQ_SHARE,
+               chunk=port.hmm.scan_chunk(LONG_FRAMES),
+               decode_ms=dict(
+                   parallel=request_ms(lambda: dec.decode(y, q, parallel=True), reps=5),
+                   parallel_filter_only=request_ms(
+                       lambda: dec.decode(y, q, smooth=False, parallel=True), reps=5),
+                   sequential=request_ms(lambda: dec.decode(y, q), reps=5, warmup=1)),
+               kernel_ms=dict(
+                   k19=median_ms(lambda: kal.filter_parallel_cuda(*ins), samples=3, inner=3),
+                   k20=median_ms(lambda: kal.smooth_parallel_cuda(F, c, Q, *filt), samples=3,
+                                 inner=3),
+                   k17=median_ms(lambda: imm.imm_filter_cuda(*imm_ins), samples=3, inner=1,
+                                 warmup=1),
+                   k18=median_ms(lambda: imm.rts_smoother_cuda(*imm_f, gamma, As), samples=3,
+                                 inner=1, warmup=1)),
+               k19_bound_ms=bound(*work['filter_scan'])['bound_ms'],
+               k20_bound_ms=bound(*work['smoother_scan'])['bound_ms'])
+    emit(rec)
+    missing = [k for k in BAYES_ASSOC_KERNELS if launches[k] == 0]
+    finite = bool(np.isfinite(out_par['latents']).all())
+    if missing or not finite or not mse['parallel'] < LONG_RAW_SHARE * mse['raw'] or \
+            not mse['parallel'] < LONG_SEQ_SHARE * mse['sequential']:
+        raise AssertionError('the long parallel decode fails (missing %s): %s' % (missing, rec))
     return launches
 
 
@@ -3429,6 +3878,7 @@ def main():
         checks.append(check_sample_states(port, em_model, gen))
         check_posterior_marginals(port, em_model, em_trials, gen)
         checks += check_imm(port)
+        checks += check_kalman(port)
     checks += [check_gaussian_nll(port.losses, gen, d) for d in NLL_DIMS]
     checks.append(check_mse(port.losses, gen, decoder=True))
 
@@ -3456,6 +3906,7 @@ def main():
                                       parallel_scan=True),
                 em_trials, PARALLEL_REC_EM_KERNELS, REC_EM_ITERS)
             launches['arhmm_long_session'] = long_session(port, em_model)
+            launches['bayesian_long_session'] = bayesian_long_session(port, em_model)
             del em_model, em_trials, rec_models, par_model, init_params
             stat_cli = arhmm_cli(port, tmp)
             launches['arhmm_cli'] = stat_cli.launches
@@ -3489,6 +3940,13 @@ def main():
             launches['bayesian_serve_parallel'] = bayesian_serve(
                 port, par_cli.vdirs[BAYES_STATES], par_cli.latents, preds, logits,
                 BAYES_PARALLEL_KERNELS, name='bayesian_serve_parallel')
+            launches['bayesian_cli_parallel'] = bayesian_cli(
+                port, tmp, stat_cli, BAYES_ASSOC_KERNELS, name='bayesian_cli_parallel',
+                parallel=True)[0]
+            launches['bayesian_decode_parallel'] = bayesian_serve(
+                port, stat_cli.vdirs[BAYES_STATES], stat_cli.latents, preds, logits,
+                BAYES_ASSOC_KERNELS, name='bayesian_decode_parallel', parallel=True)
+            launches['kalman_ops'] = kalman_ops(port)
         if tf32_flags() != default_flags:
             raise AssertionError('the TF32 flags were left changed: %s' % tf32_flags())
         fitted = {}

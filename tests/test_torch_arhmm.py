@@ -26,6 +26,7 @@ from behavenet_tpu_torch.models import arhmm
 from behavenet_tpu_torch.models.arhmm import ARHMM
 from behavenet_tpu_torch.utils import pickles
 from behavenet_tpu_torch.utils.weights import arhmm_params_from_jax
+from tests.jax_low import compile_low, jit_low
 
 _ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), '..')
 K, D = 3, 3
@@ -73,7 +74,14 @@ def _jax_decode():
         lp = m._log_P(params, xi, mi)
         gamma, log_z, _ = jhmm.forward_backward(params['log_pi0'], lp, ll, mi)
         return jhmm.viterbi(params['log_pi0'], lp, ll, mi), gamma, log_z
-    return jax.jit(jax.vmap(one, in_axes=(None, 0, 0)))
+    fn, compiled = jax.vmap(one, in_axes=(None, 0, 0)), {}
+
+    def run(params, x, mask):
+        key = tuple(np.shape(a) for a in jax.tree_util.tree_leaves((params, x, mask)))
+        if key not in compiled:
+            compiled[key] = compile_low(fn, params, x, mask)
+        return compiled[key](params, x, mask)
+    return run
 
 
 def _decode_jax(j, datas):
@@ -104,8 +112,8 @@ def test_log_likes_match_jax(datas, obs):
     t.params = arhmm_params_from_jax(_np_params(j), device='cpu')
     x, mask = t.pad(datas)
     got = t._log_likes(t.params, x, mask).numpy()
-    want = jax.jit(jax.vmap(j._log_likes, in_axes=(None, 0, 0)))(
-        j.params, x.numpy(), mask.numpy())
+    want = jit_low(jax.vmap(j._log_likes, in_axes=(None, 0, 0)), j.params, x.numpy(),
+                   mask.numpy())
     np.testing.assert_allclose(got, np.asarray(want), atol=1e-5, rtol=1e-6)
     assert np.all(got[2, 24:] == 0)   # padded frames
 

@@ -27,6 +27,7 @@ from behavenet_tpu_torch.models.arhmm import ARHMM
 from behavenet_tpu_torch.ops import hmm
 from behavenet_tpu_torch.utils import pickles
 from behavenet_tpu_torch.utils.weights import arhmm_params_from_jax
+from tests.jax_low import jit_low
 
 K, D = 3, 3
 LENGTHS = (52, 40, 60)          # the last is the padded length: its lag wraps
@@ -97,7 +98,7 @@ def jax_chain(chain):
                     fb=jhmm.forward_backward(pi0, lp, ll, m),
                     xi=jhmm.expected_transitions(pi0, lp, ll, m),
                     path=jhmm.viterbi(pi0, lp, ll, m))
-    out = jax.jit(jax.vmap(one, in_axes=(None, 0, 0, 0)))(*chain)
+    out = jit_low(jax.vmap(one, in_axes=(None, 0, 0, 0)), *chain)
     return jax.tree_util.tree_map(np.asarray, out)
 
 
@@ -184,7 +185,7 @@ def test_robust_log_likes_and_tau_match_jax(datas, obs, lags):
     def jax_fn(params, xs, ms):
         return (jax.vmap(j._log_likes, in_axes=(None, 0, 0))(params, xs, ms),
                 j._tau_weights(params, xs, ms))
-    want_ll, want_tau = jax.jit(jax_fn)(j.params, x.numpy(), mask.numpy())
+    want_ll, want_tau = jit_low(jax_fn, j.params, x.numpy(), mask.numpy())
     ll, tau = t._log_likes(t.params, x, mask, with_tau=True)
     np.testing.assert_allclose(ll.numpy(), np.asarray(want_ll), rtol=1e-5, atol=1e-5)
     np.testing.assert_allclose(tau.numpy(), np.asarray(want_tau), rtol=1e-5)
@@ -250,8 +251,8 @@ def test_recurrent_model_decodes_as_jax(em_pair, datas):
         lp = j._log_P(params, xi, mi)
         gamma, log_z, _ = jhmm.forward_backward(params['log_pi0'], lp, ll, mi)
         return jhmm.viterbi(params['log_pi0'], lp, ll, mi), gamma, log_z
-    paths, gammas, log_z = jax.jit(jax.vmap(one, in_axes=(None, 0, 0)))(
-        j.params, x.numpy(), mask.numpy())
+    paths, gammas, log_z = jit_low(jax.vmap(one, in_axes=(None, 0, 0)), j.params, x.numpy(),
+                                   mask.numpy())
     np.testing.assert_allclose(t.log_likelihood(datas), np.sum(log_z), rtol=1e-5)
     got_paths = t.most_likely_states_batch(datas)
     for i, d in enumerate(datas):
@@ -316,7 +317,6 @@ def test_recurrent_m_step_is_adam_on_the_expected_transitions(em_pair, datas):
                                                           jax.numpy.asarray(mask.numpy()))
         return -jax.numpy.sum(xis_j * lp)
 
-    @jax.jit
     def run(trans):
         tx = optax.adam(1e-2)
         state = tx.init(trans)
@@ -326,7 +326,7 @@ def test_recurrent_m_step_is_adam_on_the_expected_transitions(em_pair, datas):
             updates, state = tx.update(jax.grad(objective)(trans), state, trans)
             return (optax.apply_updates(trans, updates), state), None
         return jax.lax.scan(body, (trans, state), None, length=25)[0][0]
-    want = run({k: jparams[k] for k in ('log_Ps', 'Rs', 'r')})
+    want = jit_low(run, {k: jparams[k] for k in ('log_Ps', 'Rs', 'r')})
     for key in ('log_Ps', 'Rs', 'r'):
         np.testing.assert_allclose(got[key].numpy(), np.asarray(want[key]), atol=1e-5,
                                    err_msg=key)

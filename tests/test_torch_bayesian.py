@@ -1,5 +1,7 @@
 """The port's Bayesian decoder against the JAX package's, on the CPU (the
-plain versions of K17, the IMM filter, and K18, the RTS smoother).
+plain versions of K17, the IMM filter, and K18, the RTS smoother; with
+``parallel=True`` those of K19 and K20, the associative Kalman filter and
+smoother of ``ops.kalman``).
 
 The ARHMMs are JAX ``ARHMM``s with seeded numpy params (no fit), pickled and
 loaded into the port through ``utils.pickles.load_arhmm``. Trials carry NaN
@@ -9,10 +11,11 @@ LLVM optimization level 0 (the same XLA programs, built in less time),
 each decoder's programs shared across the cases of its module fixture.
 
 Tolerances (float32 on both sides, the same operations in another order
-over chains of 48-64 steps): latents and covariances within rtol 1e-4,
-atol 1e-5 (measured: ~2e-6), the discrete posteriors within 1e-5, the
-Viterbi states equal. The CLI's exports and metrics against the JAX CLI's
-on a copy of the same store likewise.
+over chains of 48-64 steps, or scans whose trees differ): latents and
+covariances within rtol 1e-4, atol 1e-5 (measured: ~2e-6), the discrete
+posteriors within 1e-5, the Viterbi states equal. The CLI's exports and
+metrics against the JAX CLI's on a copy of the same store likewise, with
+and without ``parallel_scan``.
 """
 
 import csv
@@ -75,10 +78,19 @@ def _jax_states_posterior(jdec, ae_predictions, arhmm_predictions):
 
 
 def _low_opt_decoder(dec):
-    """A JAX decoder whose per-instance jit cache compiles at level 0."""
+    """A JAX decoder whose per-instance jit cache compiles at level 0. The
+    associative Kalman pass (``decode(parallel=True)``) compiles once for
+    both ``smooth`` settings: one program returns the smoothed and the
+    filtered moments, and each setting reads its own."""
     cache = {}
 
     def jitted(key, fn):
+        if key[0] == 'soft-parallel':
+            both_key = ('soft-parallel-both',) + key[2:]
+            if both_key not in cache:
+                cache[both_key] = _compile_low(lambda y, m, g: tuple(
+                    dec._soft_kalman_parallel(y, m, g, smooth) for smooth in (True, False)))
+            return lambda *args: cache[both_key](*args)[0 if key[1] else 1]
         if key not in cache:
             cache[key] = _compile_low(fn)
         return cache[key]
@@ -214,6 +226,28 @@ def test_decode_matches_jax(pairs, name, evidence, smooth):
     assert np.isfinite(got['latents']).all() and got['latents'].shape == (len(y), tdec.D)
 
 
+@pytest.mark.parametrize('name,smooth', [('parallel_scan', True), ('parallel_scan', False),
+                                         ('lags2', True), ('lags2', False)],
+                         ids=['lags1-smooth', 'lags1-filter', 'lags2-smooth', 'lags2-filter'])
+def test_decode_parallel_matches_jax(pairs, name, smooth):
+    """``decode(parallel=True)``: the associative filter and smoother over
+    the gamma-weighted dynamics and the parallel-prefix discrete pass,
+    against JAX's on trials with NaN borders and a NaN tail pad. At lags 1
+    the ARHMM has ``parallel_scan`` (the discrete programs are the
+    ``parallel_scan`` case's); at lags 2 it has not, and the decode asks for
+    the parallel pass itself."""
+    jdec, tdec, _, y, q = pairs(name)
+    want = jdec.decode(y, arhmm_predictions=q, smooth=smooth, parallel=True)
+    got = tdec.decode(y, arhmm_predictions=q, smooth=smooth, parallel=True)
+    assert tdec.arhmm.parallel_scan == (name == 'parallel_scan') and set(got) == set(want)
+    _close(got['latents'], want['latents'])
+    _close(got['latents_cov'], want['latents_cov'])
+    np.testing.assert_array_equal(got['states'], want['states'])
+    np.testing.assert_allclose(got['states_posterior'], want['states_posterior'],
+                               rtol=0, atol=GAMMA_TOL)
+    assert np.isfinite(got['latents']).all() and got['latents'].shape == (len(y), tdec.D)
+
+
 def test_states_posterior_and_obs_noise_match_jax(pairs):
     jdec, tdec, x, y, q = pairs('lags1')
     real = len(x)
@@ -228,12 +262,9 @@ def test_states_posterior_and_obs_noise_match_jax(pairs):
 
 
 def test_unported_paths_raise(pairs):
-    """``parallel=True`` and ``mesh=`` name their ROADMAP items; the CUDA
-    wrappers refuse CPU tensors and shapes past their limits, launching
-    nothing."""
+    """``mesh=`` names its ROADMAP item; the CUDA wrappers refuse CPU tensors
+    and shapes past their limits, launching nothing."""
     _, tdec, _, y, q = pairs('lags1')
-    with pytest.raises(NotImplementedError, match='A2b'):
-        tdec.decode(y, q, parallel=True)
     with pytest.raises(NotImplementedError, match='A8'):
         tdec.decode(y, q, mesh=object())
     before = dict(build.LAUNCHES)
@@ -317,7 +348,7 @@ def _write_store(save_dir, tmp):
     return lats
 
 
-def _cli_args(tmp, save_dir, device):
+def _cli_args(tmp, save_dir, device, parallel=False):
     cfgs = {
         'data': dict(IDS, save_dir=save_dir, data_dir=os.path.join(tmp, 'data'),
                      all_source='save'),
@@ -332,7 +363,7 @@ def _cli_args(tmp, save_dir, device):
                   'neural_ae_version': 'best', 'neural_arhmm_experiment_name': 'dec-expt',
                   'neural_arhmm_model_type': 'mlp', 'neural_arhmm_version': 'best',
                   'state_evidence_weight': 1.0, 'use_state_evidence': True, 'smooth': True,
-                  'parallel_scan': False},
+                  'parallel_scan': parallel},
         'training': {'export_latents': True, 'export_states': True, 'batch_load': True,
                      'rng_seed_data': 0, 'train_frac': 1.0, 'trial_splits': '8;1;1;0'},
         'compute': {'device': device, 'tt_n_cpu_workers': 1},
@@ -358,11 +389,24 @@ def cli_runs(tmp_path_factory, monkeypatch_module):
     port_dir, jax_dir = os.path.join(tmp, 'port'), os.path.join(tmp, 'jax')
     lats = _write_store(port_dir, tmp)
     shutil.copytree(port_dir, jax_dir)
+    shutil.copytree(port_dir, os.path.join(tmp, 'store'))
     monkeypatch_module.setattr(JaxDecoder, '_jitted', lambda self, key, fn: self._jit_cache
                                .setdefault(key, _compile_low(fn)))
     _run(tcli, thyper, _cli_args(tmp, port_dir, 'cpu'))
     _run(jcli, jhyper, _cli_args(tmp, jax_dir, 'cpu'))
     return tmp, port_dir, jax_dir, lats
+
+
+@pytest.fixture(scope='module')
+def cli_runs_parallel(cli_runs):
+    """Both CLIs with ``parallel_scan: true`` on fresh copies of the store."""
+    tmp, _, _, lats = cli_runs
+    port_dir, jax_dir = os.path.join(tmp, 'port_par'), os.path.join(tmp, 'jax_par')
+    for d in (port_dir, jax_dir):
+        shutil.copytree(os.path.join(tmp, 'store'), d)
+    _run(tcli, thyper, _cli_args(tmp, port_dir, 'cpu', parallel=True))
+    _run(jcli, jhyper, _cli_args(tmp, jax_dir, 'cpu', parallel=True))
+    return port_dir, jax_dir, lats
 
 
 @pytest.fixture(scope='module')
@@ -387,10 +431,10 @@ def _outputs(save_dir):
     return vdir, out
 
 
-def test_cli_exports_match_jax(cli_runs):
+def _exports_match(port_dir, jax_dir, lats):
     """The port's exports equal the JAX CLI's within the tolerance (states
-    equal), its metrics.csv logs the same losses, and a second run dedups."""
-    tmp, port_dir, jax_dir, lats = cli_runs
+    equal) and its metrics.csv logs the same losses. Returns the port's
+    version directory."""
     vdir, got = _outputs(port_dir)
     _, want = _outputs(jax_dir)
     assert got['meta']['training_completed']
@@ -408,18 +452,32 @@ def test_cli_exports_match_jax(cli_runs):
         for k in a:
             if a[k] not in ('', b[k]):
                 np.testing.assert_allclose(float(a[k]), float(b[k]), rtol=1e-4)
+    return vdir
+
+
+def test_cli_exports_match_jax(cli_runs):
+    """The port's exports and metrics equal the JAX CLI's, and a second run
+    dedups."""
+    tmp, port_dir, jax_dir, lats = cli_runs
+    vdir = _exports_match(port_dir, jax_dir, lats)
     _run(tcli, thyper, _cli_args(tmp, port_dir, 'cpu'))
     assert sorted(os.listdir(os.path.dirname(vdir))) == ['version_0']
 
 
+def test_cli_parallel_scan_matches_jax(cli_runs_parallel):
+    """``"parallel_scan": true``: the port's exports and metrics equal the
+    JAX CLI's (both decode with ``parallel=True``)."""
+    _exports_match(*cli_runs_parallel)
+    with open(os.path.join(_outputs(cli_runs_parallel[0])[0], 'meta_tags.pkl'), 'rb') as f:
+        assert pickle.load(f)['parallel_scan']
+
+
 def test_cli_refuses_what_is_not_ported(cli_runs):
-    """``parallel_scan: true`` names ROADMAP A2b; the GPU is the default
-    device (no GPU here) and ``"tpu"`` is refused, before any work."""
+    """The GPU is the default device (no GPU here) and ``"tpu"`` is refused,
+    before any work."""
     tmp = cli_runs[0]
     hp = next(thyper.get_all_params('grid_search', _cli_args(
         tmp, os.path.join(tmp, 'none'), 'cpu')).trials())
-    with pytest.raises(NotImplementedError, match='A2b'):
-        tcli.main(dict(hp, parallel_scan=True))
     hp.pop('device')
     with pytest.raises(RuntimeError, match='CUDA'):
         tcli.main(hp)

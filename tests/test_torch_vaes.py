@@ -43,6 +43,7 @@ from behavenet_tpu_torch.fitting.training import fit
 from behavenet_tpu_torch.models import base
 from behavenet_tpu_torch.models import vaes
 from behavenet_tpu_torch.utils.weights import params_to_state_dict, state_dict_to_params
+from tests.jax_low import jit_low
 
 IDS = {'lab': 'l', 'expt': 'e', 'animal': 'a', 'session': 's'}
 N_LATENTS, N_LABELS = 4, 2
@@ -83,8 +84,8 @@ def _fan_in(shape):
 def _fixed_maps(jmodel, key):
     """The PS-VAE init's A and B (numpy-made orthogonal maps): compiled
     alone, every random draw of the init is dead code."""
-    return jax.tree_util.tree_map(np.asarray, jax.jit(
-        lambda k: {n: jmodel.init(k)['encoder'][n] for n in ('A', 'B')})(key))
+    return jax.tree_util.tree_map(np.asarray, jit_low(
+        lambda k: {n: jmodel.init(k)['encoder'][n] for n in ('A', 'B')}, key))
 
 
 def _numpy_init(jmodel, seed=0):
@@ -147,9 +148,9 @@ def test_loss_metrics_and_grads_match_jax(mc, fixed_eps):
     epoch = 2   # inside every anneal
     jkw, kw = jmodel.loss_kwargs(epoch), model.loss_kwargs(epoch)
     assert {k: float(v) for k, v in jkw.items()} == kw
-    (_, jmetrics), jgrads = jax.jit(jax.value_and_grad(
+    (_, jmetrics), jgrads = jit_low(jax.value_and_grad(
         lambda p: jmodel.loss_fn(p, jbatch, jax.random.PRNGKey(0), **jkw),
-        has_aux=True))(params)
+        has_aux=True), params)
 
     loss, metrics = model.loss_fn({k: torch.from_numpy(v) for k, v in batch.items()}, **kw)
     loss.backward()
@@ -363,8 +364,8 @@ def test_grid_search_version_serves_and_loads_in_jax(mc, store, tmp_path):
     frames = np.random.RandomState(1).randint(0, 256, (4, 16, 12, 1)).astype(np.uint8)
     params, extra = jbase.load_params(os.path.join(vdir, 'best_val_model.pt'))
     assert extra == {'model_class': mc}
-    out = jax.jit(lambda p, x, key: JAX_MODELS[mc](hp).forward(p, x, rng=key, use_mean=True))(
-        params, frames.astype(np.float32) / 255.0, jax.random.PRNGKey(0))
+    out = jit_low(lambda p, x, key: JAX_MODELS[mc](hp).forward(p, x, rng=key, use_mean=True),
+                  params, frames.astype(np.float32) / 255.0, jax.random.PRNGKey(0))
     bundle = serving.load_version(vdir, device='cpu')
     np.testing.assert_allclose(bundle.encode(frames).numpy(), np.asarray(out[2]), atol=1e-5)
     np.testing.assert_allclose(bundle.reconstruct(frames).numpy(), np.asarray(out[0]),
