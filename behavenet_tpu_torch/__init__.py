@@ -12,10 +12,14 @@ So far it fits a conv autoencoder, VAE, beta-TC-VAE or PS-VAE
 (``serving.load_version``): ``encode`` and ``reconstruct`` on raw uint8
 frames. It segments AE latents into discrete states with the ARHMM
 (``fitting.arhmm_grid_search``, ``models.arhmm.ARHMM``, a fitted model of
-either package through ``utils.pickles.load_arhmm``). On a GPU the
+either package through ``utils.pickles.load_arhmm``), fits and serves the
+MLP and LSTM neural decoders (``fitting.decoder_grid_search``,
+``models.decoders.Decoder``) and fuses them with an ARHMM in the Bayesian
+decoder (``fitting.bayesian_decoder_grid_search``). On a GPU the
 convolutions, their gradients, the losses (the masked MSE and the
 minibatch KL decomposition), the optimizer step and the ARHMM's
-log-likelihoods, message passing, Viterbi and small solves run in
+log-likelihoods, message passing, Viterbi and small solves, the Kalman
+passes and the LSTM's recurrence and its gradient run in
 hand-written CUDA kernels (``kernels/``). Entry points run on ``'cuda'``
 unless the caller asks for ``'cpu'``.
 

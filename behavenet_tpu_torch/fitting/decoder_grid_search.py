@@ -4,9 +4,9 @@ hyperparameter grid, in PyTorch.
 The port of ``behavenet_tpu/fitting/decoder_grid_search.py`` (reference
 behavenet/fitting/decoder_grid_search.py), for the MLP decoders
 (``model_type`` ``'mlp'``, or ``'mlp-mv'`` for a full-covariance Gaussian)
-of ``model_class`` ``'neural-ae'``, ``'neural-ae-me'``, ``'ae-neural'``,
-``'neural-labels'``, ``'labels-neural'``, ``'neural-arhmm'`` and
-``'arhmm-neural'``::
+and the LSTM decoder (``'lstm'``) of ``model_class`` ``'neural-ae'``,
+``'neural-ae-me'``, ``'ae-neural'``, ``'neural-labels'``,
+``'labels-neural'``, ``'neural-arhmm'`` and ``'arhmm-neural'``::
 
     python -m behavenet_tpu_torch.fitting.decoder_grid_search \
         --data_config d.json --model_config m.json \
@@ -19,8 +19,7 @@ version the JAX CLI writes (``meta_tags.pkl`` with the upstream artifact
 paths, ``metrics.csv``, ``best_val_model.pt`` in the JAX package's layout
 and, with ``export_predictions``, the predictions pickle), which both
 packages load. Use a ``save_dir`` of its own: the two CLIs would otherwise
-dedup each other's versions. The LSTM decoder raises
-``NotImplementedError``.
+dedup each other's versions.
 """
 
 import os
@@ -47,8 +46,6 @@ def main(hparams, *args):
     mc = hparams['model_class']
     if mc not in DECODER_CLASSES:
         raise ValueError('%s is an invalid model class' % mc)
-    if hparams['model_type'] == 'lstm':
-        raise NotImplementedError('the LSTM decoder is not ported yet')
     resolve_device(hparams.get('device'))  # fail before any work
 
     print_hparams(hparams)

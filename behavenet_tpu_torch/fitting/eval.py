@@ -69,7 +69,9 @@ def _save_per_session(data_generator, per_trial, key, expt_dir, version, filenam
 def export_predictions(data_generator, model, filename=None, version=None, expt_dir=None):
     """Pickle a decoder's predictions of every train/val/test trial per
     session, NaN in the lag borders (JAX: eval.py:142; reference
-    eval.py:191-283); each trial in one forward pass on the model's device."""
+    eval.py:191-283); each trial in one forward pass on the model's device,
+    unpadded as JAX runs it (an LSTM's reversed chain starts at its last
+    frame)."""
     device = next(model.parameters()).device
     hp = model.hparams
     max_lags = int(hp['n_max_lags'])

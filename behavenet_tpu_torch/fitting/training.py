@@ -17,7 +17,8 @@ The port of ``behavenet_tpu/fitting/training.py`` (single-device branch,
 
 As in the JAX package, trials are padded up to a multiple of
 ``shape_bucket`` (32) frames with a ``frame_mask`` that keeps the loss the
-unpadded one, ``last_checkpoint.pkl`` holds the full training state every
+unpadded one (except a bidirectional LSTM decoder's: its reversed chain
+starts on the padding rows, as in JAX), ``last_checkpoint.pkl`` holds the full training state every
 epoch for an exact resume (``resume_version``; the file is the port's own),
 and ``warm_start`` maps the initial parameters (a numpy pytree in the JAX
 package's layout) to warm-started ones. uint8 frames go to the device as
@@ -149,7 +150,8 @@ def _bucket_batch(batch, bucket):
     integer states too); add frame_mask.
 
     Few distinct batch shapes for variable-length trials; the masked loss
-    is the exact unpadded value.
+    is the exact unpadded value, but for a bidirectional LSTM decoder, whose
+    reversed chain starts on the zero rows (JAX's padding too).
     """
     n = next(iter(batch.values())).shape[0]
     T = -(-n // bucket) * bucket

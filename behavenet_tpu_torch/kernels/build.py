@@ -46,13 +46,15 @@ SOURCES = {
     'hmm_sample_posterior': 'hmm_sample.cu',
     'imm_filter': 'imm.cu',
     'kalman_filter_scan': 'kalman.cu',
+    'lstm_forward': 'lstm.cu',
 }
 _HEADERS = ('igemm.cuh', 'hmm.cuh', 'hmm_backtrace.cuh')
 
 # launchers counted under a name of their own: variant -> (kernel, symbols);
 # K14 and K16 share a source with K13 and K15, K18 (the RTS smoother) with
 # K17 (the IMM filter), K20-K22 (the associative smoother, the sequential
-# filter and smoother) with K19 (the associative filter); K9's forward pass
+# filter and smoother) with K19 (the associative filter), K24 (the LSTM's
+# backward) with K23 (its forward); K9's forward pass
 # that writes the filtered alphas for K15 and K11's pivoting solve are
 # counted apart from their kernels' other launchers
 VARIANTS = {
@@ -72,6 +74,7 @@ VARIANTS = {
     'kalman_smoother_scan': ('kalman_filter_scan', ('bn_kalman_smoother_scan',)),
     'kalman_filter': ('kalman_filter_scan', ('bn_kalman_filter',)),
     'kalman_smoother': ('kalman_filter_scan', ('bn_kalman_smoother',)),
+    'lstm_backward': ('lstm_forward', ('bn_lstm_backward',)),
 }
 _COUNTED_AS = {sym: variant for variant, (_, syms) in VARIANTS.items() for sym in syms}
 
@@ -134,6 +137,9 @@ _SIGNATURES = {
         'bn_kalman_smoother_scan': [_P] * 5 + [_I] * 3 + [_P] * 4,
         'bn_kalman_filter': [_P] * 9 + [_I] * 3 + [_P] * 5,
         'bn_kalman_smoother': [_P] * 5 + [_I] * 2 + [_P] * 3},
+    'lstm_forward': {
+        'bn_lstm_forward': [_P] * 5 + [_I] * 5 + [_P] * 5,
+        'bn_lstm_backward': [_P] * 7 + [_I] * 5 + [_P] * 4},
 }
 
 _lock = threading.Lock()

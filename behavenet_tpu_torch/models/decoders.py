@@ -2,9 +2,13 @@
 (the port of ``behavenet_tpu/models/decoders.py``; reference
 behavenet/models/decoders.py).
 
-``Decoder`` wraps an ``MLP`` whose first layer is a temporal convolution
-over the whole trial, kernel ``2 n_lags + 1`` with 'same' padding (the
-+-n_lags window of neural activity), then dense layers. Four noise
+``Decoder`` wraps an ``MLP`` (``model_type`` ``'mlp'``, ``'mlp-mv'``) whose
+first layer is a temporal convolution over the whole trial, kernel
+``2 n_lags + 1`` with 'same' padding (the +-n_lags window of neural
+activity), then dense layers; or an ``LSTM`` (``'lstm'``): a recurrence over
+the trial, forward and (``bidirectional``, the default) reversed, then a
+dense output layer. The LSTM follows the JAX package's (JAX :130), not the
+reference's, which is a stub (behavenet/models/decoders.py:329-353). Four noise
 distributions: ``'gaussian'`` (masked MSE, K5 on the card), ``'gaussian-full'``
 (a data-dependent precision head ``L L^T`` that the loss takes as a
 covariance, as the reference does; K12 on the card), ``'poisson'`` (softplus
@@ -14,10 +18,11 @@ window and is rescaled as the reference's chunked accumulation
 
 Parameters carry the reference's module names: ``decoder.conv1d_layer_00``
 (weight (out, in, K)), ``decoder.dense_layer_%02i`` (weight (out, in)) and
-``precision_sqrt``; ``utils/weights.py`` maps them to the JAX pytree
-(``conv``, ``dense_%d``, ``precision_sqrt``) and back. The LSTM decoder
-(JAX :130) and the labels-to-images ``ConvDecoder`` (JAX :292) are not
-ported yet and raise.
+``precision_sqrt``; the LSTM's are ``fwd`` and ``bwd`` (weight (in + h,
+4h) and bias (4h,) in the JAX layout), ``out`` and ``precision_sqrt``
+(weight (out, in)). ``utils/weights.py`` maps them to the JAX pytree
+(``conv``, ``dense_%d``, ``fwd``, ``bwd``, ``out``, ``precision_sqrt``) and
+back. The labels-to-images ``ConvDecoder`` (JAX :292) is not ported yet.
 """
 
 import contextlib
@@ -29,8 +34,9 @@ import torch.nn.functional as F
 from behavenet_tpu_torch.models import base
 from behavenet_tpu_torch.models.aes import r2_score_vw
 from behavenet_tpu_torch.ops import losses
+from behavenet_tpu_torch.ops.lstm import lstm_scan
 
-__all__ = ['MLP', 'Decoder', 'DECODER_CLASSES', 'NOISE_DISTS']
+__all__ = ['MLP', 'LSTM', 'Decoder', 'DECODER_CLASSES', 'NOISE_DISTS']
 
 DECODER_CLASSES = ('neural-ae', 'neural-ae-me', 'ae-neural', 'neural-labels',
                    'labels-neural', 'neural-arhmm', 'arhmm-neural')
@@ -111,6 +117,12 @@ class _Linear(nn.Module):
         return F.linear(x, self.weight, self.bias)
 
 
+def _precision(head, h, d):
+    """The precision ``L L^T`` (T, d, d) of the head's L (T, d * d)."""
+    L = head(h).reshape(-1, d, d)
+    return torch.einsum('tij,tkj->tik', L, L)
+
+
 class MLP(nn.Module):
     """Temporal conv + dense stack (JAX: models/decoders.py:44 MLP)."""
 
@@ -148,10 +160,6 @@ class MLP(nn.Module):
         if hasattr(self, 'precision_sqrt'):
             base.init_linear(self.precision_sqrt.weight, self.precision_sqrt.bias, generator)
 
-    def _precision(self, h):
-        L = self.precision_sqrt(h).reshape(-1, self.output_size, self.output_size)
-        return torch.einsum('tij,tkj->tik', L, L)
-
     def forward(self, x):
         """x: (T, input_size) -> (predictions (T, output_size), precision
         (T, output_size, output_size) or None)."""
@@ -160,7 +168,7 @@ class MLP(nn.Module):
         precision = None
         layers = list(self.decoder.values())
         if hasattr(self, 'precision_sqrt') and self.n_hid_layers == 0:
-            precision = self._precision(x)
+            precision = _precision(self.precision_sqrt, x, self.output_size)
         h = layers[0](x)
         if self.n_hid_layers == 0:
             return (h if act_final is None else act_final(h)), precision
@@ -169,7 +177,7 @@ class MLP(nn.Module):
         for i, layer in enumerate(layers[1:]):
             last = i == self.n_hid_layers - 1
             if last and hasattr(self, 'precision_sqrt'):
-                precision = self._precision(h)
+                precision = _precision(self.precision_sqrt, h, self.output_size)
             h = layer(h)
             act = act_final if last else act_mid
             if act is not None:
@@ -177,9 +185,68 @@ class MLP(nn.Module):
         return h, precision
 
 
+class _Cell(nn.Module):
+    """One LSTM direction's weights in the JAX layout: weight (in + h, 4h),
+    rows the input then the hidden units, columns the gate blocks i, f, g,
+    o; bias (4h,)."""
+
+    def __init__(self, d_in, h):
+        super().__init__()
+        self.weight = _param(d_in + h, 4 * h)
+        self.bias = _param(4 * h)
+
+
+class LSTM(nn.Module):
+    """The LSTM decoder (JAX: models/decoders.py:130 LSTM): hidden states of
+    a forward and, with ``bidirectional`` (default True), a reversed
+    recurrence (``ops.lstm.lstm_scan``: K23 / K24 on the card), then a dense
+    output layer; (T, input_size) -> (T, output_size)."""
+
+    def __init__(self, hparams):
+        super().__init__()
+        self.input_size = int(hparams['input_size'])
+        self.output_size = int(hparams['output_size'])
+        self.n_hid_units = int(hparams.get('n_hid_units', 64))
+        self.noise_dist = hparams['noise_dist']
+        h = self.n_hid_units
+        self.fwd = _Cell(self.input_size, h)
+        if bool(hparams.get('bidirectional', True)):
+            self.bwd = _Cell(self.input_size, h)
+        out_in = 2 * h if hasattr(self, 'bwd') else h
+        self.out = _Linear(out_in, self.output_size)
+        if self.noise_dist == 'gaussian-full':
+            self.precision_sqrt = _Linear(out_in, self.output_size ** 2)
+
+    def cells(self):
+        return [self.fwd] + ([self.bwd] if hasattr(self, 'bwd') else [])
+
+    def init_params(self, generator):
+        """torch's default init (JAX: LSTM.init), drawn from ``generator``:
+        fan-in in + h for each cell's weight and bias (JAX :149-158)."""
+        fan_in = self.input_size + self.n_hid_units
+        for cell in self.cells():
+            base.uniform_fan_in_(cell.weight, fan_in, generator)
+            base.uniform_fan_in_(cell.bias, fan_in, generator)
+        base.init_linear(self.out.weight, self.out.bias, generator)
+        if hasattr(self, 'precision_sqrt'):
+            base.init_linear(self.precision_sqrt.weight, self.precision_sqrt.bias, generator)
+
+    def forward(self, x):
+        """x: (T, input_size) -> (predictions (T, output_size), precision
+        (T, output_size, output_size) or None) (JAX :182-197)."""
+        h = lstm_scan(x, *(t for cell in self.cells() for t in (cell.weight, cell.bias)))
+        precision = None
+        if hasattr(self, 'precision_sqrt'):
+            precision = _precision(self.precision_sqrt, h, self.output_size)
+        out = self.out(h)
+        if self.noise_dist == 'poisson':
+            out = F.softplus(out)
+        return out, precision
+
+
 class Decoder(base.BaseModel):
-    """Noise-distribution dispatch around the MLP (JAX: models/decoders.py:200
-    Decoder; reference decoders.py:14-152)."""
+    """Noise-distribution dispatch around the MLP or the LSTM (JAX:
+    models/decoders.py:200 Decoder; reference decoders.py:14-152)."""
 
     model_class = 'neural-decoder'
     metrics_keys = ['loss', 'r2', 'fc']
@@ -188,13 +255,11 @@ class Decoder(base.BaseModel):
         super().__init__()
         self.hparams = dict(hparams)
         mt = hparams['model_type']
-        if mt == 'lstm':
-            raise NotImplementedError('the LSTM decoder is not ported yet')
-        if mt not in ('mlp', 'mlp-mv'):
+        if mt not in ('mlp', 'mlp-mv', 'lstm'):
             raise ValueError('"%s" is not a valid model type' % mt)
         if hparams['noise_dist'] not in NOISE_DISTS:
             raise ValueError('"%s" is not a valid noise dist' % hparams['noise_dist'])
-        self.model = MLP(self.hparams)
+        self.model = (LSTM if mt == 'lstm' else MLP)(self.hparams)
         self.model.init_params(torch.Generator().manual_seed(
             int(self.hparams.get('rng_seed_model', 0))))
 

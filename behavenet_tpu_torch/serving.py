@@ -3,8 +3,8 @@ experiment-store version.
 
 The port's counterpart of the autoencoder and decoder heads of
 ``behavenet_tpu/serving.py`` for ``model_class`` ``'ae'``, ``'vae'``,
-``'beta-tcvae'`` and ``'ps-vae'``, and the seven MLP decoder classes
-(``'neural-ae'``, ... , ``'arhmm-neural'``).
+``'beta-tcvae'`` and ``'ps-vae'``, and the seven decoder classes
+(``'neural-ae'``, ... , ``'arhmm-neural'``; MLP or LSTM).
 Where the JAX package exports StableHLO artifacts, the port loads the
 version the JAX CLI wrote (``meta_tags.pkl`` and ``best_val_model.pt``) and
 runs the model on the GPU, its convolutions in the hand-written kernels::

@@ -20,13 +20,17 @@ the reference's torch modules want them:
   ``model.decoder.conv1d_layer_00.weight`` (out, in, K), its dense layers
   ``dense_%d`` (in, out) are ``model.decoder.dense_layer_%02i`` (out, in),
   counted from 1 as the reference counts its layers, and ``precision_sqrt``
-  (in, d^2) is ``model.precision_sqrt`` (d^2, in).
+  (in, d^2) is ``model.precision_sqrt`` (d^2, in);
+- an LSTM decoder's cells ``fwd`` and ``bwd`` keep the JAX layout, ``w``
+  (in + h, 4h) as ``model.fwd.weight`` and ``b`` as ``model.fwd.bias``; its
+  output layer ``out`` (2h, out) is ``model.out.weight`` (out, 2h), and
+  ``precision_sqrt`` as the MLP's.
 """
 
 import numpy as np
 import torch
 
-from behavenet_tpu_torch.models.decoders import Decoder
+from behavenet_tpu_torch.models.decoders import LSTM, Decoder
 
 __all__ = ['params_to_state_dict', 'state_dict_to_params', 'arhmm_params_from_jax']
 
@@ -48,13 +52,18 @@ def _f32(a):
 def _decoder_layers(model):
     """(JAX layer name, port module name, transpose of the JAX weight) of
     each layer of a port ``Decoder``."""
-    out = []
-    for name in model.model.decoder:
-        if name.startswith('conv1d'):
-            out.append(('conv', 'model.decoder.' + name, (2, 1, 0)))
-        else:
-            out.append(('dense_%d' % (int(name.split('_')[-1]) - 1),
-                        'model.decoder.' + name, (1, 0)))
+    if isinstance(model.model, LSTM):
+        out = [(name, 'model.' + name, (0, 1)) for name in ('fwd', 'bwd')
+               if hasattr(model.model, name)]
+        out.append(('out', 'model.out', (1, 0)))
+    else:
+        out = []
+        for name in model.model.decoder:
+            if name.startswith('conv1d'):
+                out.append(('conv', 'model.decoder.' + name, (2, 1, 0)))
+            else:
+                out.append(('dense_%d' % (int(name.split('_')[-1]) - 1),
+                            'model.decoder.' + name, (1, 0)))
     if hasattr(model.model, 'precision_sqrt'):
         out.append(('precision_sqrt', 'model.precision_sqrt', (1, 0)))
     return out

@@ -6,7 +6,7 @@
 On one CUDA GPU (an H100: the kernels are built for sm_90a) it
 
 1. prints the card's name and power limit (nvidia-smi);
-2. builds the port's sixteen CUDA kernel sources from this checkout;
+2. builds the port's seventeen CUDA kernel sources from this checkout;
 3. holds each kernel against its plain PyTorch version at the shapes the
    two main paths give it, and times the kernel, the plain version and the
    one PyTorch call that computes the same function (TF32 off for every
@@ -133,6 +133,19 @@ On one CUDA GPU (an H100: the kernels are built for sm_90a) it
    launcher); and a 100,000-frame trial drawn from the fitted EM model,
    ``decode(parallel=True)`` timed beside the sequential ``decode`` under
    JAX's MSE gates.
+11. the LSTM decoder (main paths 16-19; row 20, kernels/lstm.cu): K23 (the
+   forward: the input projection, then one block a direction walks the
+   192-step chain) against ``lstm_scan_plain`` and ``torch.nn.LSTM`` (the
+   yardstick, TF32 off) at the decoding config's width (h = 32 hidden units
+   over 256 neural channels, both directions, the 192-frame bucket) and at
+   h = 64 and 128 (W_hh partly through L2 there), and on one 1000-frame
+   trial against the plain version in float64; K24 (BPTT) against autograd
+   through the plain version (dW, db; dx at h = 32); ``fit`` of a
+   ``neural-ae`` and a ``neural-arhmm`` bidirectional LSTM (K23, K24 and the
+   loss's kernel must launch); the fitted ``neural-ae`` LSTM's gradients
+   against the plain path's, its step timed and profiled; and its
+   ``predict`` through ``serving.load_version`` on 189 and 1000 frames (K23
+   alone) against a float64 forward.
 
 Each phase prints one JSON line; the line before the last lists the kernels
 with their numbers, and the last line is ``{"ok": true, "device": ...}``.
@@ -274,6 +287,11 @@ KERNELS = {
                         'behavenet_tpu/ops/kalman.py:152'),
     'solve_small_pivot': ('behavenet_tpu_torch/kernels/solve_small.cu',
                           'behavenet_tpu/ops/smallmat.py:17'),
+    # the LSTM decoder's recurrence (K23) and its backward (K24)
+    'lstm_forward': ('behavenet_tpu_torch/kernels/lstm.cu',
+                     'behavenet_tpu/models/decoders.py:169'),
+    'lstm_backward': ('behavenet_tpu_torch/kernels/lstm.cu',
+                      'behavenet_tpu/models/decoders.py:169'),
 }
 
 # the kernels a served request runs (an AE train step runs K1-K6, a
@@ -360,6 +378,10 @@ DECODERS = {
                       ('masked_mse', 'amsgrad_step')),
     'neural-arhmm-mlp': ('neural-arhmm', 'mlp', 'arhmm_states', DEC_STATES, 'categorical',
                          ('amsgrad_step',)),
+    'neural-ae-lstm': ('neural-ae', 'lstm', 'ae_latents', DEC_LATENTS, 'gaussian',
+                       ('lstm_forward', 'lstm_backward', 'masked_mse', 'amsgrad_step')),
+    'neural-arhmm-lstm': ('neural-arhmm', 'lstm', 'arhmm_states', DEC_STATES, 'categorical',
+                          ('lstm_forward', 'lstm_backward', 'amsgrad_step')),
 }
 NLL_DIMS = (DEC_LATENTS, 16)   # the published latents; the widest K12 takes
 PREDICT_FRAMES = (TRIAL, 1000)
@@ -369,6 +391,19 @@ PREDICT_FRAMES = (TRIAL, 1000)
 NLL_GRAD_REL_TOL = 1e-4
 # A served prediction vs the float64 forward of the same weights.
 PREDICT_ABS_TOL = 1e-4
+# The LSTM decoder (DECODERS' 'lstm' entries: n_hid_units 32 of the
+# published config, bidirectional as JAX's default) and K23 / K24 at
+# LSTM_HIDDEN units: the config's, JAX's default when a config gives none
+# (models/decoders.py:141) and 128 (above the 119 units whose W_hh fits a
+# block's shared memory). Kernel vs plain version, float32 on the card:
+# hidden states (in (-1, 1)) within LSTM_ABS_TOL (192-step chains, sums in
+# another order); gradients within LSTM_GRAD_REL_TOL of max|plain| (sums
+# over 192 frames); on one LSTM_LONG-frame trial within max(LSTM_ABS_TOL,
+# twice the float32 plain version's distance) of the plain version in
+# float64.
+LSTM_HIDDEN = (DEC_HP['n_hid_units'], 64, 128)
+LSTM_LONG = 1000
+LSTM_ABS_TOL, LSTM_GRAD_REL_TOL = 1e-4, 1e-4
 
 # The Bayesian decoder at the published config (configs/bayesian_jsons: the
 # ARHMM CLI's K = 4 version over the 9 latents, lags 1, Gaussian noise,
@@ -462,14 +497,14 @@ def import_port():
     from behavenet_tpu_torch.kernels import build
     from behavenet_tpu_torch.models import aes, arch, arhmm, base, bayesian, decoders, vaes
     from behavenet_tpu_torch.ops import conv as ops
-    from behavenet_tpu_torch.ops import hmm, imm, kalman, losses, optim, smallmat
+    from behavenet_tpu_torch.ops import hmm, imm, kalman, losses, lstm, optim, smallmat
     from behavenet_tpu_torch.utils import pickles, weights
     return types.SimpleNamespace(
         serving=serving, build=build, arch=arch, base=base, ops=ops, aes=aes,
         vaes=vaes, losses=losses, optim=optim, training=training,
         experiment=experiment, weights=weights, arhmm=arhmm, hmm=hmm, smallmat=smallmat,
         pickles=pickles, arhmm_grid_search=arhmm_grid_search, hyperparams=hyperparams,
-        decoders=decoders, imm=imm, kalman=kalman, bayesian=bayesian,
+        decoders=decoders, imm=imm, kalman=kalman, lstm=lstm, bayesian=bayesian,
         bayesian_decoder_grid_search=bayesian_decoder_grid_search)
 
 
@@ -1190,7 +1225,11 @@ KERNEL_OF = tuple(
              ('smoother_compose_kernel', 'K20 kalman_smoother_scan'),
              ('smoother_carry_kernel', 'K20 kalman_smoother_scan'),
              ('smoother_run_kernel', 'K20 kalman_smoother_scan'),
-             ('smoother_sequential_kernel', 'K22 kalman_smoother'))
+             ('smoother_sequential_kernel', 'K22 kalman_smoother'),
+             ('lstm_project_kernel', 'K23 lstm_forward'),
+             ('lstm_chain_kernel', 'K23 lstm_forward'),
+             ('lstm_bptt_kernel', 'K24 lstm_backward'), ('lstm_dw_kernel', 'K24 lstm_backward'),
+             ('lstm_dx_kernel', 'K24 lstm_backward'))
 
 
 def profile_steps(fn, steps=5, warmup=2, phase='train_profile', **labels):
@@ -3584,6 +3623,169 @@ def check_gaussian_nll(losses, gen, d):
     return rec
 
 
+def lstm_cell(h, gen):
+    """One direction's (w (in + h, 4h), b (4h,)) over N_NEURAL inputs from
+    torch's default bound 1 / sqrt(in + h), as ``LSTM.init_params`` draws
+    them."""
+    bound = 1.0 / np.sqrt(N_NEURAL + h)
+    w = (torch.rand((N_NEURAL + h, 4 * h), device=DEVICE, generator=gen) * 2 - 1) * bound
+    b = (torch.rand(4 * h, device=DEVICE, generator=gen) * 2 - 1) * bound
+    return w, b
+
+
+def lstm_library(flat, d_in, h):
+    """``torch.nn.LSTM`` (cuDNN) with the cells' weights: weight_ih = W[:in]^T,
+    weight_hh = W[in:]^T, bias_ih = b, bias_hh = 0; its gate order is JAX's.
+    The yardstick only: the port never runs it."""
+    lib = torch.nn.LSTM(d_in, h, batch_first=True, bidirectional=True).to(DEVICE)
+    with torch.no_grad():
+        for suffix, w, b in (('', flat[0], flat[1]), ('_reverse', flat[2], flat[3])):
+            getattr(lib, 'weight_ih_l0' + suffix).copy_(w[:d_in].t())
+            getattr(lib, 'weight_hh_l0' + suffix).copy_(w[d_in:].t())
+            getattr(lib, 'bias_ih_l0' + suffix).copy_(b)
+            getattr(lib, 'bias_hh_l0' + suffix).zero_()
+    return lib
+
+
+def lstm_bounds(T, d_in, h, with_dx, dirs=2):
+    """(operations, bytes) of K23 and of K24 on one trial: multiply-adds as
+    two operations, each activation, product and sum of the cell update as
+    one (the four gates and tanh(c), c = f c + i g, h = o tanh(c): 8 an
+    hidden unit a step forward, the chain rule through them ~16 backward);
+    each input read once, each output written once. K23 reads x, w, b and
+    writes hs; K24 reads x, W_hh (all of w with dx), the saved hs, cs and
+    gate activations and the gradient of hs, and writes dw, db (and dx)."""
+    g4 = 4 * h
+    fwd_ops = dirs * T * ((d_in + h) * g4 * 2 + g4 + 8 * h)
+    fwd_bytes = 4 * (T * d_in + dirs * ((d_in + h) * g4 + g4) + T * dirs * h)
+    bwd_ops = dirs * T * ((d_in + h + 1) * g4 * 2 + h * g4 * 2 + 16 * h)
+    bwd_bytes = 4 * (T * d_in + dirs * h * g4 + T * dirs * (3 * h + g4)
+                     + dirs * (d_in + h + 1) * g4)
+    if with_dx:
+        bwd_ops += T * d_in * dirs * g4 * 2
+        bwd_bytes += 4 * (dirs * d_in * g4 + T * d_in)
+    return (fwd_ops, fwd_bytes), (bwd_ops, bwd_bytes)
+
+
+def check_lstm(port):
+    """K23 and K24 against the plain version on the card at each of
+    LSTM_HIDDEN, both directions over a (1, 192, 256) trial: hidden states
+    (the inference and the training launcher, which must agree bit for
+    bit, and ``torch.nn.LSTM`` with TF32 off, one more check), dW and db
+    (and dx at the config's width) against autograd through the plain
+    version; then one LSTM_LONG-frame trial against the plain version in
+    float64 on the card. Times K23, K24, the plain version (forward, and
+    autograd's backward through it) and ``nn.LSTM`` (forward, and its
+    backward from the same graph)."""
+    lstm = port.lstm
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(SEED + 30)
+    cases = {'lstm_forward': {}, 'lstm_backward': {}}
+    bad = []
+    for h in LSTM_HIDDEN:
+        flat = [t for _ in range(2) for t in lstm_cell(h, gen)]
+        x = torch.randn((1, BUCKET, N_NEURAL), device=DEVICE, generator=gen)
+        grad = torch.randn((1, BUCKET, 2 * h), device=DEVICE, generator=gen)
+        with_dx = h == LSTM_HIDDEN[0]
+        hs_k = lstm.lstm_forward_cuda(x, *flat)[0]
+        hs_t, cs, acts = lstm.lstm_forward_cuda(x, *flat, train=True)
+        grads_k = lstm.lstm_backward_cuda(x, flat[0], flat[2], hs_t, cs, acts, grad,
+                                          with_dx=with_dx)
+        leaves = [t.clone().requires_grad_(True) for t in [x] + flat]
+        hs_p = lstm.lstm_scan_plain(*leaves)
+        grads_p = torch.autograd.grad(hs_p, leaves, grad, retain_graph=True)
+        lib = lstm_library(flat, N_NEURAL, h)
+        with tf32_off():
+            hs_lib = lib(x)[0]
+        torch.cuda.synchronize()
+        grad_errs = {name: ((gk - gp).abs().max() / gp.abs().max()).item()
+                     for name, gk, gp in zip(('dx', 'dw_f', 'db_f', 'dw_b', 'db_b'),
+                                             grads_k, grads_p) if gk is not None}
+        fwd_err = (hs_k - hs_p).abs().max().item()
+        finite = all(bool(torch.isfinite(t).all().item())
+                     for t in [hs_k, hs_t] + [g for g in grads_k if g is not None])
+
+        def backward():
+            return lstm.lstm_backward_cuda(x, flat[0], flat[2], hs_t, cs, acts, grad)
+
+        def plain_forward():
+            with torch.no_grad():
+                return lstm.lstm_scan_plain(x, *flat)
+
+        def plain_backward():
+            return torch.autograd.grad(hs_p, leaves[1:], grad, retain_graph=True)
+
+        def library_forward():
+            with torch.no_grad():
+                return lib(x)[0]
+        lib_params = list(lib.parameters())
+
+        def library_backward():
+            return torch.autograd.grad(hs_lib, lib_params, grad, retain_graph=True)
+        with tf32_off():
+            lib_fwd_ms = median_ms(library_forward)
+            lib_bwd_ms = median_ms(library_backward)
+        plain_slow = dict(samples=3, inner=1, warmup=1)
+        (f_ops, f_bytes), (b_ops, b_bytes) = lstm_bounds(BUCKET, N_NEURAL, h, with_dx=False)
+        fwd_ms = median_ms(lambda: lstm.lstm_forward_cuda(x, *flat))
+        cases['lstm_forward'][h] = dict(
+            max_abs_err=fwd_err, train_launcher_equal=torch.equal(hs_k, hs_t),
+            library_max_abs_err=(hs_k - hs_lib).abs().max().item(), finite=finite,
+            ms=fwd_ms, us_per_step=fwd_ms * 1e3 / BUCKET,
+            train_ms=median_ms(lambda: lstm.lstm_forward_cuda(x, *flat, train=True)),
+            plain_ms=median_ms(plain_forward, **plain_slow), library_ms=lib_fwd_ms,
+            mflop=f_ops / 1e6, mbytes=f_bytes / 1e6, **bound(f_ops, f_bytes))
+        cases['lstm_backward'][h] = dict(
+            max_abs_err=max((gk - gp).abs().max().item()
+                            for gk, gp in zip(grads_k, grads_p) if gk is not None),
+            rel_err=grad_errs, max_rel_err=max(grad_errs.values()), with_dx=with_dx,
+            finite=finite, ms=median_ms(backward),
+            dx_ms=median_ms(lambda: lstm.lstm_backward_cuda(
+                x, flat[0], flat[2], hs_t, cs, acts, grad, with_dx=True)),
+            plain_ms=median_ms(plain_backward, **plain_slow), library_ms=lib_bwd_ms,
+            mflop=b_ops / 1e6, mbytes=b_bytes / 1e6, **bound(b_ops, b_bytes))
+        fwd, bwd = cases['lstm_forward'][h], cases['lstm_backward'][h]
+        if not finite or fwd_err > LSTM_ABS_TOL or not fwd['train_launcher_equal'] or \
+                fwd['library_max_abs_err'] > LSTM_ABS_TOL or \
+                bwd['max_rel_err'] > LSTM_GRAD_REL_TOL:
+            bad.append(h)
+        del lib, hs_p, hs_lib, leaves, grads_p
+
+    long = {}
+    for h in LSTM_HIDDEN:
+        flat = [t for _ in range(2) for t in lstm_cell(h, gen)]
+        x = torch.randn((1, LSTM_LONG, N_NEURAL), device=DEVICE, generator=gen)
+        hs_k = lstm.lstm_forward_cuda(x, *flat)[0].double()
+        with torch.no_grad():
+            p32 = lstm.lstm_scan_plain(x, *flat).double()
+            p64 = lstm.lstm_scan_plain(x, *flat, dtype=torch.float64)
+        k_err = (hs_k - p64).abs().max().item()
+        p_err = (p32 - p64).abs().max().item()
+        long[h] = dict(frames=LSTM_LONG, kernel_vs_float64=k_err, plain32_vs_float64=p_err,
+                       tol=max(LSTM_ABS_TOL, 2 * p_err),
+                       finite=bool(torch.isfinite(hs_k).all().item()))
+        if not long[h]['finite'] or k_err > long[h]['tol']:
+            bad.append('long h=%d' % h)
+    out = []
+    for kernel, by_h in cases.items():
+        first = by_h[LSTM_HIDDEN[0]]
+        rec = dict(phase='lstm_check', kernel=kernel, layer='h=%d' % LSTM_HIDDEN[0],
+                   frames=BUCKET, channels=N_NEURAL, directions=2, abs_tol=LSTM_ABS_TOL,
+                   grad_rel_tol=LSTM_GRAD_REL_TOL, cases=by_h, tf32=tf32_flags(),
+                   bound_note='the T-step dependence chain, not these',
+                   **{k: first[k] for k in ('max_abs_err', 'ms', 'plain_ms', 'library_ms',
+                                            'bound_ms', 't_ops_ms', 't_bytes_ms',
+                                            'bound_by')})
+        if kernel == 'lstm_forward':
+            rec['long_trial'] = long
+        emit(rec)
+        out.append(rec)
+    if bad:
+        raise AssertionError('K23 / K24 disagree with the plain version at %s: %s'
+                             % (bad, out))
+    return out
+
+
 class DecoderSource:
     """In-memory trial store with the generator interface ``fit`` uses:
     ``n`` trials of ``frames`` frames of ``channels`` z-scored neural
@@ -3660,21 +3862,23 @@ def fit_decoder(port, tmp, name, seed):
 
 @contextlib.contextmanager
 def plain_decoder_losses(port):
-    """Route the decoder's losses to their plain versions (autograd through
-    ``gaussian_neg_log_prob_plain`` and ``mse_plain``), for the plain twin
-    of a step on the card."""
+    """Route the decoder's losses and the LSTM's recurrence to their plain
+    versions (autograd through ``gaussian_neg_log_prob_plain``,
+    ``mse_plain`` and ``lstm_scan_plain``), for the plain twin of a step on
+    the card."""
     losses = port.losses
-    routes = (('gaussian_neg_log_prob',
+    routes = ((losses, 'gaussian_neg_log_prob',
                lambda *a, **k: losses.gaussian_neg_log_prob_plain(*a, **k)[0]),
-              ('mse', lambda *a, **k: losses.mse_plain(*a, **k)[0]))
-    saved = [(name, getattr(losses, name)) for name, _ in routes]
-    for name, fn in routes:
-        setattr(losses, name, fn)
+              (losses, 'mse', lambda *a, **k: losses.mse_plain(*a, **k)[0]),
+              (port.decoders, 'lstm_scan', port.lstm.lstm_scan_plain))
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in routes]
+    for mod, name, fn in routes:
+        setattr(mod, name, fn)
     try:
         yield
     finally:
-        for name, fn in saved:
-            setattr(losses, name, fn)
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
 
 
 def decoder_batch(hp, source):
@@ -3693,15 +3897,18 @@ def decoder_batch(hp, source):
 
 def decoder_grads(port, hp, model, batch):
     """A fitted decoder's loss and gradients on the card (K12 for ``mlp-mv``,
-    K5 for ``mlp``, under the lag-trimmed window) against the plain path's:
-    the same forward, the plain loss differentiated by autograd."""
+    K5 for ``mlp``, under the lag-trimmed window; with K23 / K24 for
+    ``lstm``) against the plain path's: the plain loss (and recurrence)
+    differentiated by autograd."""
     loss_kernel = 'gaussian_nll' if hp['noise_dist'] == 'gaussian-full' else 'masked_mse'
+    need = (loss_kernel,) + (('lstm_forward', 'lstm_backward')
+                             if hp['model_type'] == 'lstm' else ())
     reset_launches(port.build)
     model.zero_grad(set_to_none=True)
     loss_k = model.loss_fn(batch)[0]
     loss_k.backward()
     grads_k = {k: p.grad.clone() for k, p in model.named_parameters()}
-    launched = port.build.LAUNCHES[loss_kernel]
+    launched = min(port.build.LAUNCHES[k] for k in need)
     model.zero_grad(set_to_none=True)
     with plain_decoder_losses(port):
         loss_p = model.loss_fn(batch)[0]
@@ -3713,19 +3920,21 @@ def decoder_grads(port, hp, model, batch):
     loss_err = abs(loss_k.item() - loss_p.item()) / abs(loss_p.item())
     emit(dict(phase='decoder_grads', model=hp['experiment_name'], frames=BUCKET, tf32=tf32_flags(),
               loss=loss_k.item(), plain_loss=loss_p.item(), loss_rel_err=loss_err,
-              rel_tol=GRAD_REL_TOL, loss_kernel=loss_kernel, loss_kernel_launches=launched,
-              max_rel_err=grad_errs[worst], worst=worst, rel_err=grad_errs))
+              rel_tol=GRAD_REL_TOL, loss_kernel=loss_kernel, kernels=list(need),
+              fewest_launches=launched, max_rel_err=grad_errs[worst], worst=worst,
+              rel_err=grad_errs))
     if not launched or grad_errs[worst] > GRAD_REL_TOL or loss_err > GRAD_REL_TOL:
-        raise AssertionError('%s gradients on the card (%s launched %d times) disagree with '
-                             'the plain path: %s=%.3g, loss %.3g'
-                             % (hp['experiment_name'], loss_kernel, launched, worst,
+        raise AssertionError('%s gradients on the card (%s launched at least %d times) '
+                             'disagree with the plain path: %s=%.3g, loss %.3g'
+                             % (hp['experiment_name'], need, launched, worst,
                                 grad_errs[worst], loss_err))
 
 
 def decoder_step(port, hp, model, source):
-    """An ``mlp-mv`` train step on the card: its gradients against the plain
-    path's, its time beside the plain step's (plain losses, torch's fused
-    AMSGrad), and its profile."""
+    """A decoder's train step on the card (``mlp-mv``, ``lstm``): its
+    gradients against the plain path's, its time beside the plain step's
+    (plain losses and recurrence, torch's fused AMSGrad), and its
+    profile."""
     host_batch, batch = decoder_batch(hp, source)
     decoder_grads(port, hp, model, batch)
     opt = port.optim.AMSGrad(model.parameters(), lr=hp['learning_rate'],
@@ -3757,14 +3966,20 @@ def decoder_step(port, hp, model, source):
                launches_per_step=per_step)
     emit(rec)
     emit(profile_steps(lambda: step_from_host(step, host_batch, batch),
-                       phase='decoder_profile'))
+                       phase='decoder_profile', model=hp['experiment_name']))
     return per_step, rec
 
 
-def reference_predict(model, x):
+def reference_predict(port, model, x):
     """The decoder's forward in float64 on the card, written out: the
-    temporal conv as one matmul over the unfolded +-n_lags window."""
+    temporal conv as one matmul over the unfolded +-n_lags window; an LSTM's
+    recurrence through ``lstm_scan_plain`` in float64."""
     sd = {k: v.double() for k, v in model.state_dict().items()}
+    if model.hparams['model_type'] == 'lstm':
+        h = port.lstm.lstm_scan_plain(x.double(), *(sd['model.%s.%s' % (cell, leaf)]
+                                          for cell in ('fwd', 'bwd')
+                                          for leaf in ('weight', 'bias')))
+        return h @ sd['model.out.weight'].t() + sd['model.out.bias']
     lags = int(model.hparams['n_lags'])
     w = sd['model.decoder.conv1d_layer_00.weight']                     # (out, in, K)
     xp = F.pad(x.double().t(), (lags, lags)).t()                        # (T + 2 lags, in)
@@ -3777,9 +3992,11 @@ def reference_predict(model, x):
 
 
 def serve_decoder(port, hp, vdir, best, source):
-    """Main path 12: the fitted ``mlp-mv`` decoder's ``best_val_model.pt``
-    serves ``predict`` through ``load_version`` on the card, for a 189-frame
-    and a 1000-frame trial, within 1e-4 of the float64 forward."""
+    """Main paths 12 and 19: a fitted decoder's (``mlp-mv``, ``lstm``)
+    ``best_val_model.pt`` serves ``predict`` through ``load_version`` on the
+    card, for a 189-frame and a 1000-frame trial, within 1e-4 of the
+    float64 forward; an LSTM's requests must launch K23 and never K24.
+    Returns the requests' launches."""
     with open(os.path.join(vdir, 'meta_tags.pkl'), 'wb') as f:
         pickle.dump(dict(hp, training_completed=True), f)
     rs = np.random.RandomState(SEED + 7)
@@ -3789,26 +4006,33 @@ def serve_decoder(port, hp, vdir, best, source):
     served = dict(bundle.model.state_dict())
     same = all(torch.equal(served[k].cpu(), v) for k, v in
                port.weights.params_to_state_dict(bundle.model, best).items())
+    reset_launches(port.build)
+    outs = {frames: bundle.predict(x) for frames, x in trials.items()}
+    torch.cuda.synchronize()
+    launches = dict(port.build.LAUNCHES)
+    lstm = hp['model_type'] == 'lstm'
+    kernels_ok = not lstm or (launches['lstm_forward'] == len(trials) and
+                              launches['lstm_backward'] == 0)
     rows = {}
     for frames, x in trials.items():
-        out = bundle.predict(x)
+        out = outs[frames]
         with torch.inference_mode():
-            ref = reference_predict(bundle.model, torch.from_numpy(x).to(DEVICE))
+            ref = reference_predict(port, bundle.model, torch.from_numpy(x).to(DEVICE))
         err = (out.double() - ref).abs().max().item()
         tol = PREDICT_ABS_TOL * max(1.0, ref.abs().max().item())
         rows[frames] = dict(shape=list(out.shape), max_abs_err=err, tol=tol,
                             finite=bool(torch.isfinite(out).all().item()),
                             ms=request_ms(lambda: bundle.predict(x)))
-    ok = same and bundle.names() == ['predict'] and all(
+    ok = same and kernels_ok and bundle.names() == ['predict'] and all(
         r['finite'] and r['max_abs_err'] <= r['tol'] and r['shape'] == [f, DEC_LATENTS]
         for f, r in rows.items())
     rec = dict(phase='decoder_serve', model=hp['experiment_name'], device=str(bundle.device),
-               tf32=tf32_flags(),
+               tf32=tf32_flags(), launches={k: v for k, v in launches.items() if v},
                weights_equal=same, requests=rows, ok=ok)
     emit(rec)
     if not ok:
         raise AssertionError('the fitted decoder does not serve: %s' % rec)
-    return rec
+    return launches
 
 
 def kernel_row(name, rows, launches):
@@ -3881,6 +4105,7 @@ def main():
         checks += check_kalman(port)
     checks += [check_gaussian_nll(port.losses, gen, d) for d in NLL_DIMS]
     checks.append(check_mse(port.losses, gen, decoder=True))
+    checks += check_lstm(port)
 
     launches = {}
     with tempfile.TemporaryDirectory() as tmp:
@@ -3958,6 +4183,10 @@ def main():
         dec_hp, dec_model, dec_dir, dec_best, dec_source, _ = fitted['neural-ae-mlp-mv']
         decoder_step(port, dec_hp, dec_model, dec_source)
         serve_decoder(port, dec_hp, dec_dir, dec_best, dec_source)
+        lstm_hp, lstm_model, lstm_dir, lstm_best, lstm_source, _ = fitted['neural-ae-lstm']
+        launches['decoder_step_lstm'] = decoder_step(port, lstm_hp, lstm_model, lstm_source)[0]
+        launches['decoder_serve_lstm'] = serve_decoder(port, lstm_hp, lstm_dir, lstm_best,
+                                                       lstm_source)
 
     rows = [kernel_row(name, [r for r in checks if r['kernel'] == name], launches)
             for name in KERNELS]

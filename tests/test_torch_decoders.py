@@ -1,9 +1,11 @@
 """The port's neural decoders (``models.decoders``, the decoder data path,
 ``fit(method='nll')``, ``export_predictions``, the ``decoder_grid_search``
 CLI and ``predict`` serving) against the JAX package's, on the CPU (the
-plain versions of K5, K6 and K12), at tiny widths: 8 neural channels, 3
-latents / labels / states, 40-frame trials, weights carried across by
-``utils.weights``.
+plain versions of K5, K6, K12 and, for the LSTM cases, K23 / K24), at tiny
+widths: 8 neural channels, 3 latents / labels / states, 40-frame trials,
+weights carried across by ``utils.weights``. The JAX ``fit`` and
+``export_predictions`` run their programs compiled at level 0
+(``tests/jax_low.py``).
 
 Where the precision head runs, its bias is set to the identity and its
 weights scaled by 0.1, so that the covariance the loss factors is well
@@ -28,6 +30,7 @@ import torch
 from behavenet_tpu.data.generator import ConcatSessionsGenerator as JaxGenerator
 from behavenet_tpu.data.utils import build_data_generator as jax_build_data_generator
 from behavenet_tpu.fitting import eval as jeval
+from behavenet_tpu.fitting import training as jax_training
 from behavenet_tpu.fitting.experiment import Experiment as JaxExperiment
 from behavenet_tpu.fitting.training import fit as jax_fit
 from behavenet_tpu.models import Decoder as JaxDecoder
@@ -37,9 +40,9 @@ from behavenet_tpu_torch.data.generator import ConcatSessionsGenerator
 from behavenet_tpu_torch.fitting import decoder_grid_search, hyperparams
 from behavenet_tpu_torch.fitting.experiment import Experiment
 from behavenet_tpu_torch.fitting.training import fit
-from behavenet_tpu_torch.models.decoders import Decoder
+from behavenet_tpu_torch.models.decoders import LSTM, Decoder
 from behavenet_tpu_torch.utils.weights import params_to_state_dict, state_dict_to_params
-from tests.jax_low import jit_low
+from tests.jax_low import LowOptJax, jit_low, low_opt_jit
 
 IDS = {'lab': 'l', 'expt': 'e', 'animal': 'a', 'session': 's'}
 N, OUT, T, N_TRIALS = 8, 3, 40, 10
@@ -158,8 +161,11 @@ def test_temporal_conv_runs_without_tf32(monkeypatch):
 
 
 def test_unported_decoders_raise():
-    with pytest.raises(NotImplementedError, match='LSTM'):
-        Decoder(dict(_hp('gaussian'), model_type='lstm'))
+    lstm = Decoder(dict(_hp('gaussian'), model_type='lstm'))
+    assert isinstance(lstm.model, LSTM)
+    assert sorted(state_dict_to_params(lstm)) == ['bwd', 'fwd', 'out']
+    with pytest.raises(ValueError, match='model type'):
+        Decoder(dict(_hp('gaussian'), model_type='gru'))
     with pytest.raises(ValueError, match='noise'):
         Decoder(_hp('bogus'))
 
@@ -215,9 +221,10 @@ def store(tmp_path_factory):
     return data_dir, save_dir, h5, pkl
 
 
-def _fit_hp(expt_dir):
-    return dict(_hp('gaussian-full'), learning_rate=1e-3, l2_reg=1e-4, rng_seed_train=0,
-                max_n_epochs=2, min_n_epochs=1, val_check_interval=1,
+def _fit_hp(expt_dir, model_type='mlp-mv'):
+    noise = 'gaussian-full' if model_type == 'mlp-mv' else 'gaussian'
+    return dict(_hp(noise), model_type=model_type, learning_rate=1e-3, l2_reg=1e-4,
+                rng_seed_train=0, max_n_epochs=2, min_n_epochs=1, val_check_interval=1,
                 enable_early_stop=False, early_stop_history=10, export_predictions=False,
                 expt_dir=expt_dir, rng_seed_data=0, device='cpu', input_signal='neural',
                 output_signal='ae_latents')
@@ -236,17 +243,19 @@ def _rows(expt_dir):
         return list(csv.DictReader(f))
 
 
-def test_fit_matches_jax_fit(store, tmp_path):
-    """A two-epoch ``mlp-mv`` fit (eval epoch, then AMSGrad) from one init:
-    the port's per-epoch losses and r2 are the JAX ``fit``'s."""
-    hp = _fit_hp(str(tmp_path / 'jax' / 'x'))
+def _fit_matches_jax_fit(store, tmp_path, model_type, monkeypatch):
+    """A two-epoch fit (eval epoch, then AMSGrad) from one init: the port's
+    per-epoch losses and r2 are the JAX ``fit``'s (its steps compiled at
+    level 0)."""
+    monkeypatch.setattr(jax_training, 'jax', LowOptJax())
+    hp = _fit_hp(str(tmp_path / 'jax' / 'x'), model_type)
     init = _jax_params(hp)
     jmodel = JaxDecoder(hp)
     jmodel.init = lambda key: init   # warm_start replaces the JAX init anyway
     jax_fit(hp, jmodel, _generator(JaxGenerator, store),
             JaxExperiment('x', str(tmp_path / 'jax')), method='nll',
             warm_start=lambda params: init)
-    port_hp = _fit_hp(str(tmp_path / 'port' / 'x'))
+    port_hp = _fit_hp(str(tmp_path / 'port' / 'x'), model_type)
     best = fit(port_hp, Decoder(port_hp), _generator(ConcatSessionsGenerator, store),
                Experiment('x', str(tmp_path / 'port')), method='nll',
                warm_start=lambda params: init)
@@ -267,8 +276,20 @@ def test_fit_matches_jax_fit(store, tmp_path):
                                        atol=1e-5, err_msg='%s/%s' % (layer, leaf))
 
 
+def test_fit_matches_jax_fit(store, tmp_path, monkeypatch):
+    """An ``mlp-mv`` fit (the full-covariance loss)."""
+    _fit_matches_jax_fit(store, tmp_path, 'mlp-mv', monkeypatch)
+
+
+def test_lstm_fit_matches_jax_fit(store, tmp_path, monkeypatch):
+    """A bidirectional ``lstm`` fit (the masked MSE) on 40-frame trials
+    padded to the 64-frame bucket: the reversed chain starts on 24 zero
+    rows in both packages."""
+    _fit_matches_jax_fit(store, tmp_path, 'lstm', monkeypatch)
+
+
 CLI_CASES = {'neural-ae-mlp': ('neural-ae', 'mlp'), 'neural-ae-mlp-mv': ('neural-ae', 'mlp-mv'),
-             'neural-arhmm': ('neural-arhmm', 'mlp')}
+             'neural-arhmm': ('neural-arhmm', 'mlp'), 'neural-ae-lstm': ('neural-ae', 'lstm')}
 
 
 def _configs(tmp, store, model_class, model_type, device='cpu'):
@@ -338,7 +359,7 @@ def test_decoder_grid_search_writes_a_version_both_packages_load(cli_versions, s
     mc, mt = CLI_CASES[case]
     upstream = 'ae_model_latents_file' if mc == 'neural-ae' else 'arhmm_model_states_file'
     assert os.path.exists(hp[upstream])
-    assert hp['noise_dist'] == {'mlp': 'gaussian', 'mlp-mv': 'gaussian-full'}[mt] \
+    assert hp['noise_dist'] == ('gaussian-full' if mt == 'mlp-mv' else 'gaussian') \
         if mc == 'neural-ae' else hp['noise_dist'] == 'categorical'
     with open(os.path.join(vdir, 'metrics.csv')) as f:
         rows = list(csv.DictReader(f))
@@ -359,7 +380,7 @@ def test_decoder_grid_search_writes_a_version_both_packages_load(cli_versions, s
         bundle.predict(x[:, :-1])
 
 
-@pytest.mark.parametrize('case', ['neural-ae-mlp-mv', 'neural-arhmm'])
+@pytest.mark.parametrize('case', ['neural-ae-mlp-mv', 'neural-arhmm', 'neural-ae-lstm'])
 def test_export_predictions_matches_jax(cli_versions, case, tmp_path):
     """The predictions pickle the port's CLI wrote is what the JAX
     ``export_predictions`` writes from the same version: NaN lag borders,
@@ -370,7 +391,9 @@ def test_export_predictions_matches_jax(cli_versions, case, tmp_path):
     params, _ = jbase.load_params(os.path.join(vdir, 'best_val_model.pt'))
     gen = jax_build_data_generator(dict(hp), [IDS], export_csv=False)
     path = str(tmp_path / 'jax_predictions.pkl')
-    jeval.export_predictions(gen, JaxDecoder(hp), params, filename=path, version=0)
+    jmodel = JaxDecoder(hp)
+    jmodel.forward = low_opt_jit(jmodel.forward)   # the eager forward, compiled at level 0
+    jeval.export_predictions(gen, jmodel, params, filename=path, version=0)
     with open(path, 'rb') as f:
         want = pickle.load(f)
     with open(os.path.join(vdir, 'l_e_a_s_predictions.pkl'), 'rb') as f:
@@ -392,7 +415,15 @@ def test_decoder_entry_points_need_a_gpu_unless_asked(cli_versions, store, tmp_p
     trial.pop('device')
     with pytest.raises(RuntimeError, match='CUDA'):
         decoder_grid_search.main(trial)
-    with pytest.raises(NotImplementedError, match='LSTM'):
-        decoder_grid_search.main(dict(trial, model_type='lstm', device='cpu'))
+    lstm = dict(trial, model_type='lstm', experiment_name='lstm-cpu', max_n_epochs=1,
+                export_predictions=False)
+    with pytest.raises(RuntimeError, match='CUDA'):
+        decoder_grid_search.main(lstm)
+    decoder_grid_search.main(dict(lstm, device='cpu'))
+    vdir = os.path.join(store[1], 'l', 'e', 'a', 's', 'neural-ae', '03_latents', 'lstm', 'all',
+                        'lstm-cpu', 'version_0')
+    with open(os.path.join(vdir, 'meta_tags.pkl'), 'rb') as f:
+        assert pickle.load(f)['training_completed'] is True
+    assert os.path.exists(os.path.join(vdir, 'best_val_model.pt'))
     with pytest.raises(RuntimeError, match='CUDA'):
         serving.load_version(cli_versions['neural-ae-mlp'])

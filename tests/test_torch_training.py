@@ -22,6 +22,7 @@ import pytest
 import torch
 
 from behavenet_tpu.data.generator import ConcatSessionsGenerator as JaxGenerator
+from behavenet_tpu.fitting import training as jax_training
 from behavenet_tpu.fitting.experiment import Experiment as JaxExperiment
 from behavenet_tpu.fitting.training import fit as jax_fit
 from behavenet_tpu.models import AE as JaxAE
@@ -34,7 +35,7 @@ from behavenet_tpu_torch.fitting.experiment import Experiment
 from behavenet_tpu_torch.fitting.training import fit
 from behavenet_tpu_torch.models.aes import AE
 from behavenet_tpu_torch.models.base import load_params
-from tests.jax_low import jit_low
+from tests.jax_low import LowOptJax, jit_low
 
 IDS = {'lab': 'l', 'expt': 'e', 'animal': 'a', 'session': 's'}
 
@@ -106,7 +107,9 @@ def jax_run(store, tmp_path_factory):
         lambda a: rs.uniform(-1, 1, a.shape).astype(np.float32) / _fan_in(a.shape) ** 0.5,
         jax.eval_shape(model.init, jax.random.PRNGKey(0)))
     model.init = lambda key: jax.tree_util.tree_map(jax.numpy.asarray, init)
-    jax_fit(hp, model, _generator(JaxGenerator, data_dir, path), exp, method='ae')
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jax_training, 'jax', LowOptJax())   # its steps compiled at level 0
+        jax_fit(hp, model, _generator(JaxGenerator, data_dir, path), exp, method='ae')
     return hp['expt_dir'], init
 
 

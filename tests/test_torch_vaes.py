@@ -29,6 +29,7 @@ import pytest
 import torch
 
 from behavenet_tpu.data.generator import ConcatSessionsGenerator as JaxGenerator
+from behavenet_tpu.fitting import training as jax_training
 from behavenet_tpu.fitting.experiment import Experiment as JaxExperiment
 from behavenet_tpu.fitting.training import fit as jax_fit
 from behavenet_tpu.models import arch as jarch
@@ -43,7 +44,7 @@ from behavenet_tpu_torch.fitting.training import fit
 from behavenet_tpu_torch.models import base
 from behavenet_tpu_torch.models import vaes
 from behavenet_tpu_torch.utils.weights import params_to_state_dict, state_dict_to_params
-from tests.jax_low import jit_low
+from tests.jax_low import LowOptJax, jit_low
 
 IDS = {'lab': 'l', 'expt': 'e', 'animal': 'a', 'session': 's'}
 N_LATENTS, N_LABELS = 4, 2
@@ -266,6 +267,7 @@ def jax_psvae_run(store, tmp_path_factory):
     model.init = lambda key: jax.tree_util.tree_map(jnp.asarray, init)
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(jvaes, 'reparameterize', _jax_reparameterize)
+        mp.setattr(jax_training, 'jax', LowOptJax())   # its steps compiled at level 0
         jax_fit(hp, model, _generator(JaxGenerator, data_dir, path),
                 JaxExperiment('x', expt), method='ae')
     return hp['expt_dir'], init
