@@ -28,7 +28,8 @@ from collections import OrderedDict
 
 import numpy as np
 
-__all__ = ['split_trials', 'SingleSessionDataset', 'ConcatSessionsGenerator']
+__all__ = ['split_trials', 'SingleSessionDataset', 'ConcatSessionsGenerator',
+           'ConcatSessionsGeneratorMulti']
 
 
 def split_trials(n_trials, rng_seed=0, train_tr=8, val_tr=1, test_tr=1, gap_tr=0):
@@ -311,3 +312,53 @@ class ConcatSessionsGenerator(object):
             except StopIteration:
                 continue
         return sample, dataset
+
+
+class ConcatSessionsGeneratorMulti(ConcatSessionsGenerator):
+    """Serves ``n_sessions_per_batch`` trials from distinct sessions per
+    train batch, for the MSPS-VAE's cross-session triplet loss (JAX:
+    data/generator.py:365; reference :636-810). Val and test batches are
+    single trials, as ``ConcatSessionsGenerator`` serves them."""
+
+    def __init__(self, data_dir, ids_list, signals_list=None, transforms_list=None,
+                 paths_list=None, batch_load=True, rng_seed=0, trial_splits=None,
+                 train_frac=1.0, n_sessions_per_batch=2):
+        if n_sessions_per_batch > 4:
+            raise NotImplementedError
+        self.n_sessions_per_batch = n_sessions_per_batch
+        super().__init__(
+            data_dir, ids_list, signals_list=signals_list, transforms_list=transforms_list,
+            paths_list=paths_list, batch_load=batch_load, rng_seed=rng_seed,
+            trial_splits=trial_splits, train_frac=train_frac)
+        self.n_tot_batches['train'] = int(self.n_tot_batches['train'] / n_sessions_per_batch)
+
+    def next_batch(self, dtype, return_multiple=True):
+        """Train: (list of samples, list of dataset idxs) from distinct
+        sessions, drawn by the batch ratios renormalized after each draw, or
+        (None, None) when too few sessions have trials left."""
+
+        def renormalize(array):
+            s = np.sum(array)
+            return array if s == 0 else array / s
+
+        if dtype == 'train' and return_multiple:
+            rng = self._choice_rng.get(dtype, np.random)
+            samples, datasets = [], []
+            curr_batch_ratios = np.copy(self.batch_ratios)
+            for sess in range(self.n_sessions_per_batch):
+                while True:
+                    if np.sum(curr_batch_ratios > 0) < (self.n_sessions_per_batch - sess):
+                        return None, None
+                    dataset = int(rng.choice(
+                        np.arange(self.n_datasets), p=curr_batch_ratios))
+                    curr_batch_ratios[dataset] = 0
+                    curr_batch_ratios = renormalize(curr_batch_ratios)
+                    try:
+                        sample = self._next_from(dataset, dtype)
+                        break
+                    except StopIteration:
+                        continue
+                samples.append(sample)
+                datasets.append(dataset)
+            return samples, datasets
+        return super().next_batch(dtype)

@@ -2,10 +2,10 @@
 
 The port's copy of the parts of ``behavenet_tpu/data/utils.py`` (reference
 behavenet/data/utils.py) for the model classes the port fits: the
-autoencoders ``'ae'``, ``'vae'``, ``'beta-tcvae'`` and ``'ps-vae'`` (video
-frames, labels), the segmentation models ``'arhmm'`` / ``'hmm'`` (AE
-latents from an experiment-store latents pickle) and ``'arhmm-labels'`` /
-``'hmm-labels'`` (labels), the neural decoders (neural activity from the
+autoencoders ``'ae'``, ``'vae'``, ``'beta-tcvae'``, ``'ps-vae'`` and
+``'msps-vae'`` (video frames, labels), the segmentation models ``'arhmm'``
+/ ``'hmm'`` (AE latents from an experiment-store latents pickle) and
+``'arhmm-labels'`` / ``'hmm-labels'`` (labels), the neural decoders (neural activity from the
 HDF5 store against AE latents, labels or ARHMM states) and the Bayesian
 decoder ``'bayesian-decoding'`` (AE latents, the neural decoders'
 predictions and ARHMM states, all from export pickles). Other model
@@ -20,7 +20,7 @@ __all__ = ['get_data_generator_inputs', 'build_data_generator', 'check_same_trai
            'get_neural_transform', 'SIGNAL_WIDTHS']
 
 _IMAGES_ONLY = ('ae', 'vae', 'beta-tcvae')
-_WITH_LABELS = ('ps-vae',)
+_WITH_LABELS = ('ps-vae', 'msps-vae')
 _ON_LATENTS = ('arhmm', 'hmm')
 _ON_LABELS = ('arhmm-labels', 'hmm-labels')
 _BAYESIAN = 'bayesian-decoding'
@@ -158,11 +158,12 @@ def _bayesian_inputs(hparams, sess_id):
 
 
 def build_data_generator(hparams, sess_ids, export_csv=True):
-    """Build a multi-session data generator from hparams (JAX: data/utils.py:229)."""
-    from behavenet_tpu_torch.data.generator import ConcatSessionsGenerator
+    """Build a multi-session data generator from hparams (JAX: data/utils.py:229):
+    with ``n_sessions_per_batch`` > 1 (the MSPS-VAE) one whose train batches
+    hold trials of distinct sessions."""
+    from behavenet_tpu_torch.data.generator import (
+        ConcatSessionsGenerator, ConcatSessionsGeneratorMulti)
     from behavenet_tpu_torch.fitting.experiment import export_session_info_to_csv
-    if hparams.get('n_sessions_per_batch', 1) != 1:
-        raise NotImplementedError('n_sessions_per_batch > 1 (MSPS-VAE) is not ported yet')
     hparams, signals, transforms, paths = get_data_generator_inputs(hparams, sess_ids)
     if hparams.get('trial_splits', None) is not None:
         trs = [int(tr) for tr in hparams['trial_splits'].split(';')]
@@ -170,11 +171,16 @@ def build_data_generator(hparams, sess_ids, export_csv=True):
                         'gap_tr': trs[3]}
     else:
         trial_splits = None
-    data_generator = ConcatSessionsGenerator(
-        hparams['data_dir'], sess_ids,
-        signals_list=signals, transforms_list=transforms, paths_list=paths,
-        batch_load=hparams.get('batch_load', True), rng_seed=hparams['rng_seed_data'],
-        trial_splits=trial_splits, train_frac=hparams.get('train_frac', 1.0))
+    kwargs = dict(signals_list=signals, transforms_list=transforms, paths_list=paths,
+                  batch_load=hparams.get('batch_load', True),
+                  rng_seed=hparams['rng_seed_data'], trial_splits=trial_splits,
+                  train_frac=hparams.get('train_frac', 1.0))
+    if hparams.get('n_sessions_per_batch', 1) == 1:
+        data_generator = ConcatSessionsGenerator(hparams['data_dir'], sess_ids, **kwargs)
+    else:
+        data_generator = ConcatSessionsGeneratorMulti(
+            hparams['data_dir'], sess_ids,
+            n_sessions_per_batch=hparams['n_sessions_per_batch'], **kwargs)
     if export_csv:
         export_session_info_to_csv(os.path.join(
             hparams['expt_dir'], 'version_%i' % hparams['version']), sess_ids)

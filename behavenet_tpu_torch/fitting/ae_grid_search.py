@@ -2,7 +2,8 @@
 
 The port of ``behavenet_tpu/fitting/ae_grid_search.py`` (reference
 behavenet/fitting/ae_grid_search.py), for ``model_class`` ``'ae'``,
-``'vae'``, ``'beta-tcvae'`` and ``'ps-vae'``::
+``'vae'``, ``'beta-tcvae'``, ``'ps-vae'`` and ``'msps-vae'`` (with
+``n_sessions_per_batch`` of 2-4 and a session list that many sessions long)::
 
     python -m behavenet_tpu_torch.fitting.ae_grid_search \
         --data_config d.json --model_config m.json \
@@ -32,6 +33,8 @@ __all__ = ['main', 'cli']
 def _set_n_labels(data_generator, hparams):
     """The labels' width from one val batch (JAX: ae_grid_search.py:42)."""
     data, _ = data_generator.next_batch('val')
+    if isinstance(data, list):
+        data = data[0]
     hparams['n_labels'] = int(data['labels'].shape[1])
     data_generator.reset_iterators('val')
 
@@ -66,7 +69,7 @@ def main(hparams, *args):
 
     print('constructing model...', end='')
     hparams['n_datasets'] = len(sess_ids)
-    if hparams['model_class'] == 'ps-vae':
+    if hparams['model_class'] in ('ps-vae', 'msps-vae'):
         _set_n_labels(data_generator, hparams)
     model = AE_MODELS[hparams['model_class']](hparams)
     model.version = exp.version

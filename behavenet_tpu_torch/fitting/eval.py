@@ -5,8 +5,9 @@ behavenet/fitting/eval.py).
 ``{lab}_{expt}_{animal}_{session}_latents.pkl`` holds ``'latents'`` (one
 (T, n_latents) array per trial, empty for gap trials) and ``'trials'`` (the
 train/val/test split), as the JAX package writes it: the AE's latents, the
-posterior means of the VAE and beta-TC-VAE, and ``[y, w]`` of the PS-VAE
-(JAX: eval.py:32-52), each model's ``latents``.
+posterior means of the VAE and beta-TC-VAE, ``[y, w]`` of the PS-VAE and
+``[z_s, z_b, z_u]`` of the MSPS-VAE (JAX: eval.py:32-52), each model's
+``latents``; the MSPS-VAE's over one train split of every trial.
 ``{lab}_{expt}_{animal}_{session}_states.pkl`` holds ``'states'`` (one
 (T,) int32 Viterbi path per trial, empty for gap trials) and ``'trials'``.
 ``{lab}_{expt}_{animal}_{session}_predictions.pkl`` holds ``'predictions'``
@@ -31,6 +32,14 @@ def export_latents(data_generator, model, filename=None, version=None, expt_dir=
     if model.hparams['model_class'] not in AE_MODELS:
         raise NotImplementedError('exporting latents of model_class "%s" is not '
                                   'ported yet' % model.hparams['model_class'])
+    if model.hparams['model_class'] == 'msps-vae':
+        # a single-session generator over every trial (JAX: eval.py:62-70;
+        # reference vaes.py:1200-1273)
+        from behavenet_tpu_torch.data.utils import build_data_generator
+        hp_new = dict(model.hparams, n_sessions_per_batch=1, train_frac=1,
+                      trial_splits='1;0;0;0')
+        data_generator = build_data_generator(hp_new, data_generator.datasets_info,
+                                              export_csv=False)
     device = next(model.parameters()).device
     latents = [[np.array([]) for _ in range(dataset.n_trials)]
                for dataset in data_generator.datasets]

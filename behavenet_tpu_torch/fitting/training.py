@@ -31,9 +31,16 @@ seeded with ``rng_train``, in every step: train, val and test, since the JAX
 ``eval_step`` samples z too (:569, :596); its state goes into
 ``last_checkpoint.pkl``, so a resume draws the same eps.
 
+A multi-session generator (the MSPS-VAE's) serves its train batches as
+lists of trials from distinct sessions; each trial is bucketed on its own,
+and the padded lengths (``seg_lens``) reach the loss in train steps and in
+the epoch-0 eval of train batches, while val and test batches are single
+trials without them (JAX :542-600). Within a step the generator draws the
+eps first, then one triplet permutation per session.
+
 Not ported yet, and raising ``NotImplementedError``: ``tp_devices``,
 ``dp_sharding``, ``steps_per_dispatch > 1``, ``prefetch_workers > 1``,
-``profile_dir``, optimizers other than AMSGrad, multi-session batches.
+``profile_dir``, optimizers other than AMSGrad.
 """
 
 import os
@@ -171,15 +178,29 @@ def _bucket_batch(batch, bucket):
 
 
 def _collate(data, dataset, hparams):
-    """Generator output -> (batch, dataset_idx, trial_idx); deterministic and
-    free of shared state (JAX: training.py:308)."""
-    if isinstance(data, list):
-        raise NotImplementedError('multi-session batches (MSPS-VAE) are not ported yet')
-    batch = _prepare_batch(data, hparams)
+    """Generator output -> (batch, dataset_idx, seg_lens, trial_idx);
+    deterministic and free of shared state (JAX: training.py:308).
+
+    A multi-session batch (a list of samples, the MSPS-VAE's) is the
+    dataset-major concatenation of its segments, each bucketed on its own;
+    ``seg_lens`` are the padded lengths, and the frame mask drops the pad
+    rows out of every loss term, the triplets included. A single-session
+    batch has ``seg_lens`` None.
+    """
     bucket = hparams.get('shape_bucket', 32)
+    if isinstance(data, list):
+        parts = []
+        for d in data:
+            part = {k: np.asarray(d[k]) for k in ('images', 'labels', 'masks', 'labels_masks')
+                    if k in d}
+            parts.append(_bucket_batch(part, int(bucket)) if bucket else part)
+        seg_lens = tuple(int(next(iter(p.values())).shape[0]) for p in parts)
+        batch = {k: np.concatenate([p[k] for p in parts], axis=0) for k in parts[0]}
+        return batch, dataset, seg_lens, int(data[0]['batch_idx'])
+    batch = _prepare_batch(data, hparams)
     if bucket:
         batch = _bucket_batch(batch, int(bucket))
-    return batch, dataset, int(data['batch_idx'])
+    return batch, dataset, None, int(data['batch_idx'])
 
 
 def _to_device(batch, device):
@@ -330,17 +351,20 @@ def fit(hparams, model, data_generator, exp, method='ae', warm_start=None):
             will_log = (i_train + 1) % n_train == 0
             will_val = np.any((i_train + 1) + i_epoch * n_train == val_check_batch)
             if data is not None:
-                batch, ds, _ = _collate(data, dataset, hparams)
+                batch, ds, seg_lens, _ = _collate(data, dataset, hparams)
                 batch = _to_device(batch, device)
+                kw = loss_kwargs if seg_lens is None else dict(loss_kwargs, seg_lens=seg_lens)
                 step = train_step if i_epoch > 0 else eval_step
-                logger.update_metrics('train', step(batch, loss_kwargs), dataset=ds)
+                logger.update_metrics('train', step(batch, kw),
+                                      dataset=0 if isinstance(ds, list) else ds)
                 n_frames_epoch += int(next(iter(batch.values())).shape[0])
 
+            # per-session rows follow single-session batches only (JAX :579-581)
             if will_log:
                 exp.log(logger.create_metric_row(
                     'train', i_epoch, i_train, -1, trial=-1,
                     by_dataset=False, best_epoch=best_val_epoch))
-                if data_generator.n_datasets > 1 and dataset is not None:
+                if data_generator.n_datasets > 1 and isinstance(dataset, int):
                     for d in range(data_generator.n_datasets):
                         exp.log(logger.create_metric_row(
                             'train', i_epoch, i_train, d, trial=-1,
@@ -352,7 +376,7 @@ def fit(hparams, model, data_generator, exp, method='ae', warm_start=None):
                 data_generator.reset_iterators('val')
                 for _ in range(data_generator.n_tot_batches['val']):
                     data_v, d_val = data_generator.next_batch('val')
-                    batch, ds, _ = _collate(data_v, d_val, hparams)
+                    batch, ds, _, _ = _collate(data_v, d_val, hparams)
                     logger.update_metrics(
                         'val', eval_step(_to_device(batch, device), loss_kwargs), dataset=ds)
 
@@ -366,7 +390,7 @@ def fit(hparams, model, data_generator, exp, method='ae', warm_start=None):
                 exp.log(logger.create_metric_row(
                     'val', i_epoch, i_train, -1, trial=-1,
                     by_dataset=False, best_epoch=best_val_epoch))
-                if data_generator.n_datasets > 1 and dataset is not None:
+                if data_generator.n_datasets > 1 and isinstance(dataset, int):
                     for d in range(data_generator.n_datasets):
                         exp.log(logger.create_metric_row(
                             'val', i_epoch, i_train, d, trial=-1,
@@ -411,7 +435,7 @@ def fit(hparams, model, data_generator, exp, method='ae', warm_start=None):
     loss_kwargs = step_kwargs(i_epoch)
     for i_test in range(data_generator.n_tot_batches['test']):
         data, dataset = data_generator.next_batch('test')
-        batch, ds, trial = _collate(data, dataset, hparams)
+        batch, ds, _, trial = _collate(data, dataset, hparams)
         logger.reset_metrics('test')
         logger.update_metrics('test', eval_step(_to_device(batch, device), loss_kwargs),
                               dataset=ds)

@@ -47,6 +47,7 @@ SOURCES = {
     'imm_filter': 'imm.cu',
     'kalman_filter_scan': 'kalman.cu',
     'lstm_forward': 'lstm.cu',
+    'triplet_loss': 'triplet.cu',
 }
 _HEADERS = ('igemm.cuh', 'hmm.cuh', 'hmm_backtrace.cuh')
 
@@ -54,7 +55,8 @@ _HEADERS = ('igemm.cuh', 'hmm.cuh', 'hmm_backtrace.cuh')
 # K14 and K16 share a source with K13 and K15, K18 (the RTS smoother) with
 # K17 (the IMM filter), K20-K22 (the associative smoother, the sequential
 # filter and smoother) with K19 (the associative filter), K24 (the LSTM's
-# backward) with K23 (its forward); K9's forward pass
+# backward) with K23 (its forward), K26 (the triplet loss's backward) with
+# K25 (its forward); K9's forward pass
 # that writes the filtered alphas for K15 and K11's pivoting solve are
 # counted apart from their kernels' other launchers
 VARIANTS = {
@@ -75,6 +77,7 @@ VARIANTS = {
     'kalman_filter': ('kalman_filter_scan', ('bn_kalman_filter',)),
     'kalman_smoother': ('kalman_filter_scan', ('bn_kalman_smoother',)),
     'lstm_backward': ('lstm_forward', ('bn_lstm_backward',)),
+    'triplet_loss_grad': ('triplet_loss', ('bn_triplet_loss_grad',)),
 }
 _COUNTED_AS = {sym: variant for variant, (_, syms) in VARIANTS.items() for sym in syms}
 
@@ -140,6 +143,10 @@ _SIGNATURES = {
     'lstm_forward': {
         'bn_lstm_forward': [_P] * 5 + [_I] * 5 + [_P] * 5,
         'bn_lstm_backward': [_P] * 7 + [_I] * 5 + [_P] * 4},
+    'triplet_loss': {
+        'bn_triplet_loss': [_P, _I, _I, _P, _P, _P] + [_I] * 9 + [_F, _F] + [_P] * 4,
+        'bn_triplet_loss_grad': [_P, _I, _I, _P, _P, _P] + [_I] * 9 + [_F, _F] + [_P] * 3
+        + [_I, _P]},
 }
 
 _lock = threading.Lock()

@@ -15,9 +15,18 @@ The PS-VAE splits the encoder's mean through the fixed orthogonal maps A
 no gradient, no L2 and no update. The trainable diagonal map D
 (``encoding.D``) predicts the labels from the supervised latents.
 
-On the card the image and label log-likelihoods run in K5 and the KL
-decomposition of the beta-TC-VAE and the PS-VAE in K7 (``ops/losses.py``).
-``ConditionalVAE`` and ``MSPSVAE`` are not ported yet.
+The MSPS-VAE, the multi-session PS-VAE, adds a third fixed map C (to the
+background latents, reference names ``encoding.C.weight`` and the trainable
+``encoding.C.bias``) and a cross-session triplet loss on the background
+latents' means, weighted by ``ps_vae.delta``; its batches are
+dataset-major concatenations of segments from distinct sessions
+(``seg_lens``). Its eps and then its permutations come from the caller's
+generator, in that order.
+
+On the card the image and label log-likelihoods run in K5, the KL
+decomposition of the beta-TC-VAE, the PS-VAE and the MSPS-VAE in K7, and
+the triplet loss in K25 / K26 (``ops/losses.py``). ``ConditionalVAE`` is
+not ported yet.
 """
 
 import numpy as np
@@ -29,7 +38,7 @@ from behavenet_tpu_torch.models.aes import AE, r2_score_vw
 from behavenet_tpu_torch.ops import conv as ops
 from behavenet_tpu_torch.ops import losses
 
-__all__ = ['reparameterize', 'VAE', 'BetaTCVAE', 'PSVAE']
+__all__ = ['reparameterize', 'VAE', 'BetaTCVAE', 'PSVAE', 'MSPSVAE']
 
 
 def reparameterize(mu, logvar, generator=None):
@@ -68,14 +77,16 @@ def _detached(metrics):
 
 
 class FixedLinear(nn.Module):
-    """A fixed linear map without bias, weight (out, in) kept as a buffer."""
+    """A fixed linear map, weight (out, in) kept as a buffer; with ``bias``
+    a trainable bias (out,) (the MSPS-VAE's C)."""
 
-    def __init__(self, weight):
+    def __init__(self, weight, bias=False):
         super().__init__()
         self.register_buffer('weight', torch.as_tensor(weight, dtype=torch.float32))
+        self.bias = nn.Parameter(torch.empty(self.weight.shape[0])) if bias else None
 
     def forward(self, x):
-        return ops.linear(x, self.weight.t())
+        return ops.linear(x, self.weight.t(), self.bias)
 
 
 class DiagLinear(nn.Module):
@@ -253,3 +264,151 @@ class PSVAE(AE):
             'loss_zu_dwkl': dwkl, 'loss_data_mse': _data_mse(loss_data_ll, x),
             'alpha': _f32(alpha), 'beta': beta,
             'label_r2': r2_score_vw(labels, y_hat.detach(), weights=weights)})
+
+    def _inputs(self, inputs):
+        return torch.as_tensor(inputs, device=self.encoding.D.weight.device)
+
+    def get_predicted_labels(self, x, use_mean=True, generator=None):
+        """Labels predicted from frames ``x`` (JAX: vaes.py:336): D of the
+        supervised means, or of a sample drawn with ``generator``."""
+        y, _, logvar = self.encode(self._inputs(x))
+        if not use_mean:
+            y = reparameterize(y, logvar[:, :self.n_labels], generator)
+        return self.encoding.D(y)
+
+    def get_transformed_latents(self, inputs):
+        """[D(y), w] from latents (N, n_latents) or frames (N, H, W, C) (JAX:
+        vaes.py:342; reference vaes.py:755)."""
+        inputs = self._inputs(inputs)
+        if inputs.dim() == 2:
+            y, w = inputs[:, :self.n_labels], inputs[:, self.n_labels:]
+        else:
+            y, w, _ = self.encode(inputs)
+        return torch.cat([self.encoding.D(y), w], dim=1)
+
+    def get_inverse_transformed_latents(self, inputs):
+        """Label space mapped back to the supervised latents: [(y - b) / d, w]
+        (JAX: vaes.py:353; reference vaes.py:801)."""
+        inputs = self._inputs(inputs)
+        y, w = inputs[:, :self.n_labels], inputs[:, self.n_labels:]
+        D = self.encoding.D
+        return torch.cat([(y - D.bias) / D.weight, w], dim=1)
+
+
+class MSPSVAE(PSVAE):
+    """Multi-session PS-VAE with a background subspace (JAX: vaes.py:363;
+    reference vaes.py:849-1273)."""
+
+    model_class = 'msps-vae'
+    metrics_keys = ['loss', 'loss_data_ll', 'loss_label_ll', 'loss_zs_kl', 'loss_zu_mi',
+                    'loss_zu_tc', 'loss_zu_dwkl', 'loss_triplet', 'loss_data_mse',
+                    'alpha', 'beta', 'delta', 'label_r2']
+
+    def __init__(self, hparams):
+        if hparams.get('n_sessions_per_batch', 1) == 1:
+            raise ValueError('must choose "n_sessions_per_batch" > 1 in hparams')
+        super().__init__(dict(hparams, n_background=int(hparams.get('n_background', 4))))
+        self.n_background = int(self.hparams['n_background'])
+
+    def _build(self):
+        AE._build(self)
+        k, n_bg = int(self.hparams['n_labels']), int(self.hparams['n_background'])
+        m = base.orthogonal_matrix(int(self.hparams['n_ae_latents']),
+                                   self.hparams.get('rng_seed_model', 0))
+        # as the JAX init draws them: A = rows [:k], C = the next n_bg, B the rest
+        self.encoding.A = FixedLinear(m[:k])
+        self.encoding.B = FixedLinear(m[k + n_bg:])
+        self.encoding.C = FixedLinear(m[k:k + n_bg], bias=True)
+        self.encoding.D = DiagLinear(k)
+
+    def _init_params(self, gen):
+        super()._init_params(gen)
+        # C's bias: uniform with fan-in n_ae_latents (JAX :387)
+        base.uniform_fan_in_(self.encoding.C.bias, self.encoding.C.weight.shape[1], gen)
+
+    def loss_kwargs(self, epoch):
+        return dict(super().loss_kwargs(epoch), delta=_f32(self.hparams['ps_vae.delta']))
+
+    def encode(self, x):
+        """(z_s, z_b, z_u, logvar): the supervised, background and
+        unsupervised means, and the log-variances of all latents."""
+        mu_ff, logvar = self.encoding(x)
+        return (self.encoding.A(mu_ff), self.encoding.C(mu_ff), self.encoding.B(mu_ff),
+                logvar)
+
+    def forward(self, x, use_mean=False, generator=None, act_grad_in_loss=False):
+        """(reconstruction, z, mu = [z_s, z_b, z_u], logvar, predicted labels)."""
+        z_s, z_b, z_u, logvar = self.encode(x)
+        mu = torch.cat([z_s, z_b, z_u], dim=1)
+        z = mu if use_mean else reparameterize(mu, logvar, generator)
+        x_hat = self.decoding(z, act_grad_in_loss=act_grad_in_loss)
+        return x_hat, z, mu, logvar, self.encoding.D(z_s)
+
+    def latents(self, x):
+        z_s, z_b, z_u, _ = self.encode(x)
+        return torch.cat([z_s, z_b, z_u], dim=1)
+
+    def loss_fn(self, batch, generator=None, beta=1.0, kl=1.0, alpha=None, delta=None,
+                seg_lens=None):
+        """JAX: vaes.py:424 loss_fn. ``batch`` as for ``PSVAE.loss_fn``, a
+        dataset-major concatenation of per-session segments of ``seg_lens``
+        (padded) rows; without ``seg_lens`` the batch is one session and the
+        triplet term is 0 (reference vaes.py:1039-1042). ``generator`` draws
+        the eps, then one permutation per session for the triplet term."""
+        x, labels = batch['images'], batch['labels']
+        n, fm = batch.get('labels_masks'), batch.get('frame_mask')
+        k, k_bg = self.n_labels, self.n_labels + self.n_background
+        if alpha is None:
+            alpha = self.hparams['ps_vae.alpha']
+        if delta is None:
+            delta = self.hparams['ps_vae.delta']
+        x_hat, sample, mu, logvar, y_hat = self(x, generator=generator,
+                                                act_grad_in_loss=True)
+        loss_data_ll = losses.gaussian_ll(x_hat, x, batch.get('masks'), frame_mask=fm,
+                                          sigmoid_output=True)
+        loss_label_ll = losses.gaussian_ll(y_hat, labels, n, frame_mask=fm)
+        loss_zs_kl = losses.kl_div_to_std_normal(mu[:, :k], logvar[:, :k], frame_mask=fm)
+        mi, tc, dwkl = losses.decomposed_kl(sample[:, k_bg:], mu[:, k_bg:], logvar[:, k_bg:],
+                                            frame_mask=fm)
+        loss = -loss_data_ll - alpha * loss_label_ll + loss_zs_kl \
+            + kl * mi + beta * tc + kl * dwkl
+        if seg_lens is not None:
+            loss_triplet = losses.triplet_loss(mu[:, k:k_bg], seg_lens, seg_mask=fm,
+                                               generator=generator)
+            loss = loss + delta * loss_triplet
+        else:
+            loss_triplet = 0.0
+        if n is not None and fm is not None:
+            weights = n * fm[:, None]
+        else:
+            weights = n if n is not None else fm
+        return loss, _detached({
+            'loss': loss, 'loss_data_ll': loss_data_ll, 'loss_label_ll': loss_label_ll,
+            'loss_zs_kl': loss_zs_kl, 'loss_zu_mi': mi, 'loss_zu_tc': tc,
+            'loss_zu_dwkl': dwkl, 'loss_triplet': loss_triplet,
+            'loss_data_mse': _data_mse(loss_data_ll, x), 'alpha': _f32(alpha),
+            'beta': beta, 'delta': _f32(delta),
+            'label_r2': r2_score_vw(labels, y_hat.detach(), weights=weights)})
+
+    def get_predicted_labels(self, x, use_mean=True, generator=None):
+        """JAX: vaes.py:489 (the MSPS encoder's 4-tuple)."""
+        z_s, _, _, logvar = self.encode(self._inputs(x))
+        if not use_mean:
+            z_s = reparameterize(z_s, logvar[:, :self.n_labels], generator)
+        return self.encoding.D(z_s)
+
+    def _split(self, inputs):
+        k, k_bg = self.n_labels, self.n_labels + self.n_background
+        return inputs[:, :k], inputs[:, k:k_bg], inputs[:, k_bg:]
+
+    def get_transformed_latents(self, inputs):
+        """[D(z_s), z_b, z_u] from latents or frames (JAX: vaes.py:498)."""
+        inputs = self._inputs(inputs)
+        z_s, z_b, z_u = self._split(inputs) if inputs.dim() == 2 else self.encode(inputs)[:3]
+        return torch.cat([self.encoding.D(z_s), z_b, z_u], dim=1)
+
+    def get_inverse_transformed_latents(self, inputs):
+        """[(z_s - b) / d, z_b, z_u] (JAX: vaes.py:510)."""
+        z_s, z_b, z_u = self._split(self._inputs(inputs))
+        D = self.encoding.D
+        return torch.cat([(z_s - D.bias) / D.weight, z_b, z_u], dim=1)

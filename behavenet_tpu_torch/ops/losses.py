@@ -1,15 +1,19 @@
 """Losses of the port (``behavenet_tpu/ops/losses.py``): the masked MSE, the
 Gaussian log-likelihood built on it, the KL to a standard normal, the
-minibatch KL decomposition of the beta-TC-VAE and PS-VAE, and the decoders'
-full-covariance Gaussian negative log-likelihood.
+minibatch KL decomposition of the beta-TC-VAE and PS-VAE, the decoders'
+full-covariance Gaussian negative log-likelihood and the MSPS-VAE's
+cross-session triplet loss.
 
-:func:`mse`, :func:`decomposed_kl` and :func:`gaussian_neg_log_prob` (its
-per-frame branch) are ``torch.autograd.Function``s whose forward and
-backward run in kernels on a ``cuda`` tensor (K5 ``kernels/masked_mse.cu``,
-K7 ``kernels/decomposed_kl.cu``, K12 ``kernels/gaussian_nll.cu``) and in the
+:func:`mse`, :func:`decomposed_kl`, :func:`gaussian_neg_log_prob` (its
+per-frame branch) and :func:`triplet_loss` are ``torch.autograd.Function``s
+whose forward and backward run in kernels on a ``cuda`` tensor (K5
+``kernels/masked_mse.cu``, K7 ``kernels/decomposed_kl.cu``, K12
+``kernels/gaussian_nll.cu``, K25 / K26 ``kernels/triplet.cu``) and in the
 plain PyTorch versions beside them on a ``cpu`` tensor, picked from the
 input's device and from nothing else.
 """
+
+import ctypes
 
 import numpy as np
 import torch
@@ -22,7 +26,8 @@ __all__ = ['LN2PI', 'mse', 'mse_plain', 'mse_grad_plain', 'mse_cuda', 'mse_grad_
            'decomposed_kl_grad_plain', 'decomposed_kl_cuda', 'decomposed_kl_grad_cuda',
            'gaussian_neg_log_prob', 'gaussian_neg_log_prob_plain',
            'gaussian_neg_log_prob_grad_plain', 'gaussian_neg_log_prob_cuda',
-           'gaussian_neg_log_prob_grad_cuda']
+           'gaussian_neg_log_prob_grad_cuda', 'triplet_loss', 'triplet_loss_plain',
+           'triplet_loss_grad_plain', 'triplet_loss_cuda', 'triplet_loss_grad_cuda']
 
 LN2PI = float(np.log(2 * np.pi))
 _PER_BLOCK = 2048  # elements of one frame each block of K5 reduces
@@ -540,3 +545,282 @@ def gaussian_neg_log_prob(y_pred, y_true, cov, frame_mask=None):
     if cov.dim() == 3 and y_true.shape[1] <= _NLL_MAX_D:
         return _GaussianNLLFn.apply(y_pred, y_true, cov, frame_mask)
     return _gaussian_neg_log_prob_linalg(y_pred, y_true, cov, frame_mask)
+
+
+# ------------------------------------------------ cross-session triplet (K25, K26)
+
+# chunk-pairing patterns per session count (JAX :224, the reference's
+# hand-enumerated triplets, losses.py:402-511, as data):
+# triplets: (anchor_ds, anchor_chunk, positive_chunk, negative_ds, negative_chunk)
+# pulls:    (ds, chunk_i, chunk_j) within-session attraction terms
+_TRIPLET_PATTERNS = {
+    2: {'n_chunks': 3,
+        'triplets': [(0, 0, 1, 1, 2), (1, 0, 1, 0, 2)],
+        'pulls': [(0, 0, 1), (1, 0, 1)],
+        # the reference keeps this legacy normalization (losses.py:441)
+        'n_terms': 3},
+    3: {'n_chunks': 6,
+        'triplets': [(0, 0, 1, 1, 4), (0, 2, 3, 2, 4),
+                     (1, 0, 1, 0, 4), (1, 2, 3, 2, 5),
+                     (2, 0, 1, 0, 5), (2, 2, 3, 1, 5)],
+        'pulls': [(ds, 2 * i, 2 * i + 1) for ds in range(3) for i in range(2)],
+        'n_terms': 6},
+    4: {'n_chunks': 9,
+        'triplets': [(0, 0, 1, 1, 6), (0, 2, 3, 2, 6), (0, 4, 5, 3, 6),
+                     (1, 0, 1, 0, 6), (1, 2, 3, 2, 7), (1, 4, 5, 3, 7),
+                     (2, 0, 1, 0, 7), (2, 2, 3, 1, 7), (2, 4, 5, 3, 8),
+                     (3, 0, 1, 0, 8), (3, 2, 3, 1, 8), (3, 4, 5, 2, 8)],
+        'pulls': [(ds, 2 * i, 2 * i + 1) for ds in range(4) for i in range(3)],
+        'n_terms': 12},
+}
+_TRIPLET_EPS = 1e-6   # inside the distance, as torch's pairwise_distance (JAX :202)
+_TRIPLET_MAX_D = 64   # widest background space K25 / K26 take (the arch's max_latents)
+
+
+def _triplet_pattern(seg_lens):
+    """(pattern, chunks per session, chunk length m) of ``seg_lens``; m is
+    the shortest (padded) segment's length over the chunk count (JAX :272-278)."""
+    if len(seg_lens) not in _TRIPLET_PATTERNS:
+        raise NotImplementedError('triplet loss supports 2-4 datasets')
+    pat = _TRIPLET_PATTERNS[len(seg_lens)]
+    m = min(int(s) // pat['n_chunks'] for s in seg_lens)
+    if m == 0:
+        raise ValueError('segments %s too small for %d chunks'
+                         % (tuple(seg_lens), pat['n_chunks']))
+    return pat, pat['n_chunks'], m
+
+
+def _chunk_rows(seg_lens, perms, n_chunks, m):
+    """rows[ds][i]: the (m,) rows of z in chunk i of session ds: row
+    ``offset_ds + perm_ds[i + n_chunks * j]`` at position j."""
+    rows, offset = [], 0
+    for n, perm in zip(seg_lens, perms):
+        perm = torch.as_tensor(perm).to(torch.long)
+        if tuple(perm.shape) != (int(n),):
+            raise ValueError('a permutation of %d rows has shape %s' % (n, tuple(perm.shape)))
+        rows.append([perm[i::n_chunks][:m] + offset for i in range(n_chunks)])
+        offset += int(n)
+    return rows
+
+
+def _pdist(a, b):
+    """Row-wise euclidean distance with torch's eps (JAX :202 _pdist)."""
+    return torch.sqrt(torch.sum((a - b + _TRIPLET_EPS) ** 2, dim=1))
+
+
+def _triplet_terms(z, seg_lens, perms, seg_mask):
+    """Each term of the pattern, in the table's order: ('triplet', the
+    (session, chunk) keys and rows of its anchor, positive and negative,
+    weights) or ('pull', the keys and rows of its two ends, weights);
+    weights None without a mask, else the product of the rows' mask values."""
+    pat, n_chunks, m = _triplet_pattern(seg_lens)
+    rows = _chunk_rows(seg_lens, perms, n_chunks, m)
+    rows = [[r.to(z.device) for r in chunks] for chunks in rows]
+
+    def weights(*idx):
+        if seg_mask is None:
+            return None
+        out = seg_mask[idx[0]]
+        for i in idx[1:]:
+            out = out * seg_mask[i]
+        return out
+    terms = []
+    for a_ds, a_i, p_i, n_ds, n_i in pat['triplets']:
+        keys = ((a_ds, a_i), (a_ds, p_i), (n_ds, n_i))
+        idx = tuple(rows[ds][i] for ds, i in keys)
+        terms.append(('triplet', keys, idx, weights(*idx)))
+    for ds, i, j in pat['pulls']:
+        keys = ((ds, i), (ds, j))
+        idx = tuple(rows[d][c] for d, c in keys)
+        terms.append(('pull', keys, idx, weights(*idx)))
+    return pat, m, terms
+
+
+def triplet_loss_plain(z, seg_lens, perms, margin=1.0, seg_mask=None):
+    """The cross-session triplet loss (JAX: ops/losses.py:246 triplet_loss)
+    in plain PyTorch, from given per-session permutations.
+
+    ``z`` (sum(seg_lens), d) is a dataset-major concatenation of segments;
+    ``perms[ds]`` permutes segment ds's rows (local indices). Each permuted
+    segment splits into 3 / 6 / 9 interleaved chunks of m rows; the loss
+    sums the pattern's triplet margins (p = 2, hinge at ``margin``) and
+    within-session pulls, each a mean over its m rows (weighted by
+    ``seg_mask`` when given: a row of a term drops out when any of its rows
+    is padding; denominator ``max(sum w, 1)``), and divides by the pattern's
+    ``n_terms``. Differentiable by autograd; the hinge's gradient is 0.5
+    where it sits exactly at its kink (``torch.maximum``'s and JAX's rule).
+    """
+    pat, m, terms = _triplet_terms(z, seg_lens, perms, seg_mask)
+
+    def mean(vals, w):
+        if w is None:
+            return vals.mean()
+        return torch.sum(vals * w) / torch.clamp(w.sum(), min=1.0)
+    loss = z.new_zeros(())
+    for kind, _, idx, w in terms:
+        if kind == 'triplet':
+            anc, pos, neg = (z[i] for i in idx)
+            x = _pdist(anc, pos) - _pdist(anc, neg) + margin
+            loss = loss + mean(torch.maximum(x, torch.zeros_like(x)), w)
+        else:
+            loss = loss + mean(_pdist(z[idx[0]], z[idx[1]]), w)
+    return loss / pat['n_terms']
+
+
+def triplet_loss_grad_plain(z, seg_lens, perms, margin, seg_mask, grad):
+    """dL/dz of :func:`triplet_loss_plain` at upstream gradient ``grad``,
+    written out as K26 computes it: with u = (a - b + eps) / |a - b + eps|
+    and, per term and row, c = grad w slope / (den n_terms) (w the row's
+    weight, 1 without a mask; den = max(sum w, 1), m without a mask; slope
+    of the hinge 1, 0.5 at the kink, 0 below it, and 1 for a pull), a
+    triplet adds c (u_ap - u_an) to its anchor, -c u_ap to its positive and
+    c u_an to its negative, a pull c u to its first row and -c u to its
+    second, summed in the table's order; rows in no chunk get 0."""
+    pat, m, terms = _triplet_terms(z, seg_lens, perms, seg_mask)
+    scale = grad / pat['n_terms']
+    rows, grads = {}, {}
+
+    def add(key, idx, g):
+        rows[key] = idx
+        grads[key] = grads[key] + g if key in grads else g
+    for kind, keys, idx, w in terms:
+        den = float(m) if w is None else torch.clamp(w.sum(), min=1.0)
+        w = torch.ones(m, dtype=z.dtype, device=z.device) if w is None else w
+        if kind == 'triplet':
+            anc, pos, neg = (z[i] for i in idx)
+            d_ap, d_an = _pdist(anc, pos), _pdist(anc, neg)
+            u_ap = (anc - pos + _TRIPLET_EPS) / d_ap[:, None]
+            u_an = (anc - neg + _TRIPLET_EPS) / d_an[:, None]
+            x = d_ap - d_an + margin
+            slope = (x > 0).to(z.dtype) + 0.5 * (x == 0).to(z.dtype)
+            c = (scale * w * slope / den)[:, None]
+            add(keys[0], idx[0], c * (u_ap - u_an))
+            add(keys[1], idx[1], -c * u_ap)
+            add(keys[2], idx[2], c * u_an)
+        else:
+            a, b = z[idx[0]], z[idx[1]]
+            u = (a - b + _TRIPLET_EPS) / _pdist(a, b)[:, None]
+            c = (scale * w / den)[:, None]
+            add(keys[0], idx[0], c * u)
+            add(keys[1], idx[1], -c * u)
+    dz = torch.zeros_like(z)
+    for key, g in grads.items():
+        dz[rows[key]] = g      # the chunks' rows are distinct: nothing sums across them
+    return dz
+
+
+def _check_triplet(name, z, seg_lens, perm, seg_mask):
+    tensors = [t for t in (z, perm, seg_mask) if t is not None]
+    for t in tensors:
+        if t.device != z.device or t.device.type != 'cuda':
+            raise ValueError('%s: every tensor must lie on one CUDA device, got %s'
+                             % (name, [str(t.device) for t in tensors]))
+    n = sum(seg_lens)
+    if z.dtype != torch.float32 or z.dim() != 2 or z.shape[0] != n or \
+            not 1 <= z.shape[1] <= _TRIPLET_MAX_D:
+        raise ValueError('%s: z must be float32 (sum(seg_lens) = %d, d <= %d), got %s %s'
+                         % (name, n, _TRIPLET_MAX_D, z.dtype, tuple(z.shape)))
+    if perm.dtype != torch.int32 or tuple(perm.shape) != (n,):
+        raise ValueError('%s: perm must be int32 (%d,), got %s %s'
+                         % (name, n, perm.dtype, tuple(perm.shape)))
+    if seg_mask is not None and (seg_mask.dtype != torch.float32 or
+                                 tuple(seg_mask.shape) != (n,)):
+        raise ValueError('%s: seg_mask must be float32 (%d,)' % (name, n))
+    pat, n_chunks, m = _triplet_pattern(seg_lens)
+    lens = list(seg_lens) + [0] * (4 - len(seg_lens))
+    # the pattern as the launchers read it, from host memory: the triplets'
+    # 5-tuples, then the pulls' 3-tuples
+    flat = [v for t in pat['triplets'] + pat['pulls'] for v in t]
+    table = (ctypes.c_int * len(flat))(*flat)
+    # the launch reads these: the caller keeps them alive until it is queued
+    z = z if z.stride(1) == 1 else z.contiguous()   # rows may be strided (mu's columns)
+    perm, seg_mask = perm.contiguous(), _c(seg_mask)
+    keep = (z, perm, seg_mask, table)
+    args = (z.data_ptr(), z.stride(0), z.shape[1], perm.data_ptr(), _ptr(seg_mask),
+            ctypes.addressof(table), len(seg_lens), *lens, n_chunks, m,
+            len(pat['triplets']), len(pat['pulls']))
+    return pat, m, args, keep
+
+
+def triplet_loss_cuda(z, seg_lens, perm, margin=1.0, seg_mask=None):
+    """K25, the triplet loss's forward on the card: (loss, each term's
+    denominator max(sum w, 1)). ``perm`` is the sessions' permutations
+    (local indices) concatenated, int32 (sum(seg_lens),); ``z`` may have a
+    row stride (the background columns of mu)."""
+    name = 'triplet_loss'
+    pat, m, args, _keep = _check_triplet(name, z, seg_lens, perm, seg_mask)
+    n_terms = len(pat['triplets']) + len(pat['pulls'])
+    work = torch.empty(2 * n_terms * m, device=z.device, dtype=torch.float32)
+    den = torch.empty(n_terms, device=z.device, dtype=torch.float32)
+    out = torch.empty(1, device=z.device, dtype=torch.float32)
+    launch(name, *args, float(margin), float(pat['n_terms']), work.data_ptr(),
+           den.data_ptr(), out.data_ptr(), symbol='bn_triplet_loss')
+    return out[0], den
+
+
+def triplet_loss_grad_cuda(z, seg_lens, perm, margin, seg_mask, den, grad):
+    """K26, the triplet loss's backward on the card: dL/dz (N, d)
+    contiguous, from the forward's ``den`` and the upstream (1,) ``grad``."""
+    name = 'triplet_loss'
+    pat, m, args, _keep = _check_triplet(name, z, seg_lens, perm, seg_mask)
+    den, grad = _c(den), _c(grad.reshape(1))
+    if tuple(den.shape) != (len(pat['triplets']) + len(pat['pulls']),):
+        raise ValueError('%s: backward takes the forward\'s denominators' % name)
+    dz = torch.empty(z.shape, device=z.device, dtype=torch.float32)
+    launch(name, *args, float(margin), float(pat['n_terms']), den.data_ptr(),
+           grad.data_ptr(), dz.data_ptr(), z.shape[0], symbol='bn_triplet_loss_grad')
+    return dz
+
+
+class _TripletFn(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, z, seg_mask, perm, seg_lens, margin):
+        ctx.seg_lens, ctx.margin = seg_lens, margin
+        if _on_cpu(z):
+            perms = torch.split(perm, list(seg_lens))
+            ctx.save_for_backward(z, seg_mask, perm)
+            return triplet_loss_plain(z, seg_lens, perms, margin, seg_mask)
+        loss, den = triplet_loss_cuda(z, seg_lens, perm, margin, seg_mask)
+        ctx.save_for_backward(z, seg_mask, perm, den)
+        return loss
+
+    @staticmethod
+    def backward(ctx, grad):
+        if _on_cpu(grad):
+            z, seg_mask, perm = ctx.saved_tensors
+            dz = triplet_loss_grad_plain(z, ctx.seg_lens, torch.split(perm, list(ctx.seg_lens)),
+                                         ctx.margin, seg_mask, grad)
+        else:
+            z, seg_mask, perm, den = ctx.saved_tensors
+            dz = triplet_loss_grad_cuda(z, ctx.seg_lens, perm, ctx.margin, seg_mask, den, grad)
+        return dz, None, None, None, None
+
+
+def triplet_loss(z, seg_lens, margin=1.0, seg_mask=None, generator=None, perms=None):
+    """Triplet loss separating per-session embedding clusters (JAX:
+    ops/losses.py:246; the reference's hand-enumerated chunk triplets,
+    losses.py:402-511), as :func:`triplet_loss_plain` computes it.
+
+    ``z`` (sum(seg_lens), d): the sessions' segments, dataset-major, padded
+    rows included (``seg_lens`` are the padded lengths, and ``seg_mask``
+    (N,) marks the real rows). Each segment's permutation is drawn with
+    ``torch.randperm(seg_len, generator=generator)`` on z's device, one per
+    session in order (the port's own random stream; JAX draws its own), or
+    taken from ``perms`` (one per session, local indices). On a ``cuda``
+    tensor the forward runs K25 and the backward K26; on a ``cpu`` one the
+    plain versions. ``z`` gets the gradient; the mask is data.
+    """
+    if z.device.type not in ('cpu', 'cuda'):
+        raise ValueError('triplet_loss: no implementation for device %s' % z.device)
+    if seg_mask is not None and seg_mask.requires_grad:
+        raise ValueError('triplet_loss: seg_mask is data; it gets no gradient')
+    seg_lens = tuple(int(s) for s in seg_lens)
+    _triplet_pattern(seg_lens)
+    if z.dim() != 2 or z.shape[0] != sum(seg_lens):
+        raise ValueError('triplet_loss: z must be (sum(seg_lens) = %d, d), got %s'
+                         % (sum(seg_lens), tuple(z.shape)))
+    if perms is None:
+        perms = [torch.randperm(n, generator=generator, device=z.device) for n in seg_lens]
+    perm = torch.cat([torch.as_tensor(p, device=z.device) for p in perms]).to(torch.int32)
+    return _TripletFn.apply(z, seg_mask, perm, seg_lens, float(margin))

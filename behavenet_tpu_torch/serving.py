@@ -3,7 +3,7 @@ experiment-store version.
 
 The port's counterpart of the autoencoder and decoder heads of
 ``behavenet_tpu/serving.py`` for ``model_class`` ``'ae'``, ``'vae'``,
-``'beta-tcvae'`` and ``'ps-vae'``, and the seven decoder classes
+``'beta-tcvae'``, ``'ps-vae'`` and ``'msps-vae'``, and the seven decoder classes
 (``'neural-ae'``, ... , ``'arhmm-neural'``; MLP or LSTM).
 Where the JAX package exports StableHLO artifacts, the port loads the
 version the JAX CLI wrote (``meta_tags.pkl`` and ``best_val_model.pt``) and
@@ -17,7 +17,8 @@ runs the model on the GPU, its convolutions in the hand-written kernels::
 Both heads take raw uint8 frames (numpy or torch, NHWC) and return float32
 tensors on the bundle's device, as the JAX heads do (serving.py:80-114). A
 VAE-family model serves at its posterior mean (``use_mean=True``): ``encode``
-returns mu (``[y, w]`` for the PS-VAE) and ``reconstruct`` decodes it. A
+returns mu (``[y, w]`` for the PS-VAE, ``[z_s, z_b, z_u]`` for the
+MSPS-VAE) and ``reconstruct`` decodes it. A
 decoder's bundle has one head, ``predict``: a (T, input_size) float32 trial
 (neural activity, or latents, labels or one-hot states) to its (T,
 output_size) predictions (JAX serving.py:177-186)::

@@ -13,8 +13,9 @@ the reference's torch modules want them:
   (C, H, W); the input dims of the encoder's FF (and ``logvar``) heads and
   the decoder FF's output dims are permuted accordingly;
 - the PS-VAE's fixed maps are stored input-major in JAX and as the
-  reference's ``encoding.A.weight`` = A.T (likewise B); its diagonal label
-  map ``D`` {'d', 'b'} is ``encoding.D.weight`` / ``.bias``
+  reference's ``encoding.A.weight`` = A.T (likewise B, and the MSPS-VAE's
+  C, whose trainable bias ``C_b`` is ``encoding.C.bias``); its diagonal
+  label map ``D`` {'d', 'b'} is ``encoding.D.weight`` / ``.bias``
   (``torch_import.py:144-157``, ``:284-292``);
 - a neural decoder's temporal conv ``conv`` (K, in, out) is the reference's
   ``model.decoder.conv1d_layer_00.weight`` (out, in, K), its dense layers
@@ -71,7 +72,7 @@ def _decoder_layers(model):
 
 def params_to_state_dict(model, params):
     """State dict (str -> float32 CPU tensor) of ``model`` (a port ``AE``,
-    ``VAE``, ``BetaTCVAE``, ``PSVAE`` or ``Decoder``) from the JAX package's
+    ``VAE``, ``BetaTCVAE``, ``PSVAE``, ``MSPSVAE`` or ``Decoder``) from the JAX package's
     numpy params pytree of the same hparams."""
     if isinstance(model, Decoder):
         sd = {}
@@ -96,9 +97,11 @@ def params_to_state_dict(model, params):
             wt[:, perm_in] = _f32(enc[pname]['w']).T
             sd['encoding.%s.weight' % tname] = wt
             sd['encoding.%s.bias' % tname] = _f32(enc[pname]['b'])
-    for name in ('A', 'B'):
+    for name in ('A', 'B', 'C'):
         if hasattr(model.encoding, name):
             sd['encoding.%s.weight' % name] = _f32(enc[name]).T
+    if hasattr(model.encoding, 'C'):
+        sd['encoding.C.bias'] = _f32(enc['C_b'])
     if hasattr(model.encoding, 'D'):
         sd['encoding.D.weight'] = _f32(enc['D']['d'])
         sd['encoding.D.bias'] = _f32(enc['D']['b'])
@@ -149,9 +152,11 @@ def state_dict_to_params(model, tensors=None):
             enc[pname] = {
                 'w': np.ascontiguousarray(sd['encoding.%s.weight' % tname][:, perm_in].T),
                 'b': sd['encoding.%s.bias' % tname]}
-    for name in ('A', 'B'):
+    for name in ('A', 'B', 'C'):
         if hasattr(model.encoding, name):
             enc[name] = np.ascontiguousarray(sd['encoding.%s.weight' % name].T)
+    if hasattr(model.encoding, 'C'):
+        enc['C_b'] = sd['encoding.C.bias']
     if hasattr(model.encoding, 'D'):
         enc['D'] = {'d': sd['encoding.D.weight'], 'b': sd['encoding.D.bias']}
 

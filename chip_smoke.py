@@ -6,7 +6,7 @@
 On one CUDA GPU (an H100: the kernels are built for sm_90a) it
 
 1. prints the card's name and power limit (nvidia-smi);
-2. builds the port's seventeen CUDA kernel sources from this checkout;
+2. builds the port's eighteen CUDA kernel sources from this checkout;
 3. holds each kernel against its plain PyTorch version at the shapes the
    two main paths give it, and times the kernel, the plain version and the
    one PyTorch call that computes the same function (TF32 off for every
@@ -146,6 +146,23 @@ On one CUDA GPU (an H100: the kernels are built for sm_90a) it
    against the plain path's, its step timed and profiled; and its
    ``predict`` through ``serving.load_version`` on 189 and 1000 frames (K23
    alone) against a float64 forward.
+12. the MSPS-VAE (main paths 20-21; row 10, kernels/triplet.cu) at the user
+   guide's config (docs/user_guide.mspsvae.md: 14 latents, 4 labels, 3
+   background, alpha 1000, beta 5, delta 50, 100 anneal epochs, two sessions
+   a batch): K25 (the cross-session triplet loss) and K26 (its backward)
+   against their plain versions and the plain versions in float64 on the
+   strided background columns of the means, at the step's two 192-row
+   segments and at 3 and 4 sessions, unmasked and with 3 padded rows a
+   segment, timed beside a composition of ``F.triplet_margin_loss`` and
+   ``F.pairwise_distance`` (no PyTorch call computes the loss); ``fit`` on
+   two in-memory sessions of 20 trials that differ in brightness (an eval
+   epoch, then two train epochs: K1-K7, K25 and K26 must launch; every
+   logged number finite; the triplet term above 0 in the train rows and 0
+   in the val and test rows); a 384-frame step's gradients against the
+   plain path's with the same eps and permutations, its time and profile;
+   and the fitted model served through ``serving.load_version`` at 1, 189
+   and 1024 frames (``encode`` = [z_s, z_b, z_u]) against the plain path,
+   with no triplet launch.
 
 Each phase prints one JSON line; the line before the last lists the kernels
 with their numbers, and the last line is ``{"ok": true, "device": ...}``.
@@ -218,6 +235,24 @@ VAE_CLASSES = {
 }
 KL_DIMS = (N_LATENTS - N_LABELS, N_LATENTS)
 VAE_FIT_EPOCHS = 2           # an eval epoch, then two train epochs
+# The MSPS-VAE of docs/user_guide.mspsvae.md:36-46 (14 latents: 4 supervised,
+# 3 background, 7 unsupervised for K7; the triplet term weighted by delta 50
+# over two sessions a step) at the same width: a step is two 189-frame trials
+# of two sessions, each in the 192-frame bucket, so the triplet kernels (K25,
+# K26) see seg_lens (192, 192), d = 3 and chunks of m = 64 rows. K25 / K26 are
+# held to their plain versions at 2, 3 and 4 sessions (TRIPLET_SESSIONS),
+# with an all-ones mask and with TRIPLET_PAD padded rows per segment: the
+# loss within LOSS_REL_TOL, dz within TRIPLET_GRAD_REL_TOL of max|plain|
+# (float32 sums of 64 terms in another order), both also against the plain
+# version in float64. The two in-memory sessions differ in brightness by
+# MSPS_BRIGHTNESS, so the background latents have something to separate.
+N_MSPS_LATENTS, N_BACKGROUND = 14, 3
+MSPS_CLASS = {'n_labels': N_LABELS, 'n_background': N_BACKGROUND, 'ps_vae.alpha': 1000,
+              'ps_vae.beta': 5, 'ps_vae.delta': 50, 'ps_vae.anneal_epochs': 100,
+              'n_sessions_per_batch': 2}
+MSPS_BRIGHTNESS = 60
+TRIPLET_SESSIONS, TRIPLET_PAD = (2, 3, 4), BUCKET - TRIAL
+TRIPLET_GRAD_REL_TOL = 1e-4
 
 KERNELS = {
     'conv2d_nhwc': ('behavenet_tpu_torch/kernels/conv2d_nhwc.cu',
@@ -292,14 +327,20 @@ KERNELS = {
                      'behavenet_tpu/models/decoders.py:169'),
     'lstm_backward': ('behavenet_tpu_torch/kernels/lstm.cu',
                       'behavenet_tpu/models/decoders.py:169'),
+    # the MSPS-VAE's cross-session triplet loss (K25) and its backward (K26)
+    'triplet_loss': ('behavenet_tpu_torch/kernels/triplet.cu',
+                     'behavenet_tpu/ops/losses.py:246'),
+    'triplet_loss_grad': ('behavenet_tpu_torch/kernels/triplet.cu',
+                          'behavenet_tpu/ops/losses.py:213'),
 }
 
 # the kernels a served request runs (an AE train step runs K1-K6, a
-# beta-TC-VAE or PS-VAE step K1-K7; ARHMM EM runs K8, K9 and K11, the
-# ARHMM CLI and serving K10 too)
+# beta-TC-VAE or PS-VAE step K1-K7, an MSPS-VAE step K25 and K26 too; ARHMM
+# EM runs K8, K9 and K11, the ARHMM CLI and serving K10 too)
 SERVE_KERNELS = ('conv2d_nhwc', 'conv_transpose2d_nhwc', 'conv_transpose2d_smallcout_sigmoid')
 AE_KERNELS = SERVE_KERNELS + ('conv2d_grad_w_nhwc', 'masked_mse', 'amsgrad_step')
 VAE_KERNELS = AE_KERNELS + ('decomposed_kl',)
+MSPS_KERNELS = VAE_KERNELS + ('triplet_loss', 'triplet_loss_grad')
 EM_KERNELS = ('arhmm_log_likes', 'hmm_forward_backward', 'solve_small')
 ARHMM_KERNELS = EM_KERNELS + ('hmm_viterbi',)
 # a recurrent + robust ARHMM's EM, CLI and serving run the launchers for
@@ -1039,9 +1080,9 @@ class TrialSource:
 
     n_datasets = 1
 
-    def __init__(self, n, seed, n_labels=0):
+    def __init__(self, n, seed, n_labels=0, brightness=0):
         rs = np.random.RandomState(seed)
-        tiles = rs.randint(0, 100, (n, TRIAL, 8, 8, IMG[0])).astype(np.uint8)
+        tiles = (rs.randint(0, 100, (n, TRIAL, 8, 8, IMG[0])) + brightness).astype(np.uint8)
         self.trials = np.repeat(np.repeat(tiles, IMG[1] // 8, axis=2), IMG[2] // 8, axis=3)
         # labels a model can read off the frames: the mean brightness of
         # n_labels bands of rows of view 0, z-scored
@@ -1229,7 +1270,9 @@ KERNEL_OF = tuple(
              ('lstm_project_kernel', 'K23 lstm_forward'),
              ('lstm_chain_kernel', 'K23 lstm_forward'),
              ('lstm_bptt_kernel', 'K24 lstm_backward'), ('lstm_dw_kernel', 'K24 lstm_backward'),
-             ('lstm_dx_kernel', 'K24 lstm_backward'))
+             ('lstm_dx_kernel', 'K24 lstm_backward'),
+             ('triplet_fwd_kernel', 'K25 triplet_loss'),
+             ('triplet_bwd_kernel', 'K26 triplet_loss_grad'))
 
 
 def profile_steps(fn, steps=5, warmup=2, phase='train_profile', **labels):
@@ -1506,6 +1549,353 @@ def serve_psvae(port, hp, vdir, best, source):
     if missing or not ok:
         raise AssertionError('the fitted PS-VAE does not serve: missing %s, %s'
                              % (missing, rec))
+    return launches
+
+
+# --------------------------------------------------------------- MSPS-VAE
+
+
+def triplet_ops(n_rows, n_sessions, m, d, backward):
+    """Operations of one triplet-loss call at these shapes (sqrt and divide
+    as one): a triplet slot forms two distances (3d + 1 each) and its hinge,
+    a pull slot one distance; the backward recomputes them and adds 2d a
+    row's term (the sums of the forward's reduction are counted too)."""
+    pat = {2: (2, 2), 3: (6, 6), 4: (12, 12)}[n_sessions]
+    fwd = m * (pat[0] * (2 * (3 * d + 1) + 4) + pat[1] * (3 * d + 3)) + 2 * m * sum(pat)
+    if not backward:
+        return fwd
+    return fwd + m * (3 * pat[0] * 4 * d + 2 * pat[1] * 2 * d) + n_rows * d
+
+
+def check_triplet(port):
+    """K25 / K26 at the MSPS-VAE step's shape (two sessions of 192 rows, the
+    3 background columns of (384, 14) means: a row stride of 14) and at 3 and
+    4 sessions, with an all-ones mask and with TRIPLET_PAD padded rows per
+    segment, against the plain versions on the same permutations (float32
+    and float64). No PyTorch call computes the loss: the yardstick is a
+    composition of ``F.triplet_margin_loss`` and ``F.pairwise_distance`` on
+    pre-gathered chunks (unmasked), timed forward and backward. Its inputs
+    come from a generator of its own, so the other checks keep theirs."""
+    losses = port.losses
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(SEED + 11)
+    rows = []
+    for n in TRIPLET_SESSIONS:
+        seg_lens = (BUCKET,) * n
+        N = BUCKET * n
+        pat, n_chunks, m = losses._triplet_pattern(seg_lens)
+        mu = torch.randn((N, N_MSPS_LATENTS), device=DEVICE, generator=gen)
+        z = mu[:, N_LABELS:N_LABELS + N_BACKGROUND]
+        perms = [torch.randperm(BUCKET, generator=gen, device=DEVICE) for _ in seg_lens]
+        perm = torch.cat(perms).to(torch.int32)
+        up = torch.tensor([1.7], device=DEVICE)
+        pad = torch.ones(N, device=DEVICE)
+        pad.view(n, BUCKET)[:, TRIAL:] = 0.0
+        for mask_name, mask in (('ones', torch.ones(N, device=DEVICE)), ('pad', pad)):
+            def fwd():
+                return losses.triplet_loss_cuda(z, seg_lens, perm, 1.0, mask)
+            loss_k, den = fwd()
+
+            def bwd():
+                return losses.triplet_loss_grad_cuda(z, seg_lens, perm, 1.0, mask, den, up)
+            dz_k = bwd()
+
+            def plain_fwd(dtype=torch.float32):
+                return losses.triplet_loss_plain(z.to(dtype), seg_lens, perms, 1.0,
+                                                 mask.to(dtype))
+
+            def plain_bwd(dtype=torch.float32):
+                return losses.triplet_loss_grad_plain(z.to(dtype), seg_lens, perms, 1.0,
+                                                      mask.to(dtype), up.to(dtype))
+            loss_p, dz_p = plain_fwd(), plain_bwd()
+            loss_64, dz_64 = plain_fwd(torch.float64), plain_bwd(torch.float64)
+            torch.cuda.synchronize()
+            scale = dz_p.abs().max().item()
+            err = dict(
+                loss=abs(loss_k.item() - loss_p.item()) / abs(loss_p.item()),
+                loss_f64=abs(loss_k.item() - loss_64.item()) / abs(loss_64.item()),
+                plain_loss_f64=abs(loss_p.item() - loss_64.item()) / abs(loss_64.item()),
+                dz=(dz_k - dz_p).abs().max().item() / scale,
+                dz_f64=(dz_k.double() - dz_64).abs().max().item() / scale,
+                plain_dz_f64=(dz_p.double() - dz_64).abs().max().item() / scale)
+            finite = bool(torch.isfinite(loss_k).item() and torch.isfinite(dz_k).all().item())
+            ok = finite and max(err['loss'], err['loss_f64']) <= LOSS_REL_TOL and \
+                max(err['dz'], err['dz_f64']) <= TRIPLET_GRAD_REL_TOL
+
+            # the composed yardstick on the same chunks, unmasked
+            chunk = [[z.detach()[off + p[i::n_chunks][:m]] for i in range(n_chunks)]
+                     for off, p in zip(range(0, N, BUCKET), perms)]
+            leaves = [[c.clone().requires_grad_(True) for c in ch] for ch in chunk]
+
+            def composed():
+                loss = sum(F.triplet_margin_loss(leaves[a][i], leaves[a][j], leaves[b][k],
+                                                 margin=1.0)
+                           for a, i, j, b, k in pat['triplets'])
+                loss = loss + sum(F.pairwise_distance(leaves[s][i], leaves[s][j]).mean()
+                                  for s, i, j in pat['pulls'])
+                (loss / pat['n_terms']).backward()
+            plain_ms = [median_ms(f, samples=3, inner=2, warmup=1)
+                        for f in (plain_fwd, plain_bwd)]
+            composed_ms = median_ms(composed)
+            nbytes_in = 4 * (N * N_BACKGROUND + 2 * N) + 4 * (5 * len(pat['triplets']) +
+                                                            3 * len(pat['pulls']))
+            n_terms = len(pat['triplets']) + len(pat['pulls'])
+            layer = '%d-sessions-%s' % (n, mask_name)
+            common = dict(phase='triplet_check', layer=layer, frames=N, seg_lens=list(seg_lens),
+                          latents=N_BACKGROUND, m=m, row_stride=z.stride(0), errors=err,
+                          loss=loss_k.item(), plain_loss=loss_p.item(),
+                          loss_rel_tol=LOSS_REL_TOL, grad_rel_tol=TRIPLET_GRAD_REL_TOL,
+                          finite=finite, library_ms=None, composed_ms=composed_ms,
+                          composed='F.triplet_margin_loss + F.pairwise_distance on '
+                                   'pre-gathered chunks, unmasked, fwd + bwd')
+            fwd_rec = dict(common, kernel='triplet_loss',
+                           max_abs_err=abs(loss_k.item() - loss_p.item()),
+                           ms=median_ms(fwd), plain_ms=plain_ms[0],
+                           **bound(triplet_ops(N, n, m, N_BACKGROUND, False),
+                                   nbytes_in + 4 * (1 + n_terms)))
+            bwd_rec = dict(common, kernel='triplet_loss_grad',
+                           max_abs_err=(dz_k - dz_p).abs().max().item(),
+                           ms=median_ms(bwd), plain_ms=plain_ms[1],
+                           **bound(triplet_ops(N, n, m, N_BACKGROUND, True),
+                                   nbytes_in + 4 * (n_terms + 1) + 4 * N * N_BACKGROUND))
+            emit(fwd_rec)
+            emit(bwd_rec)
+            rows += [fwd_rec, bwd_rec]
+            if not ok:
+                raise AssertionError('K25 / K26 disagree with their plain versions at %s: %s'
+                                     % (layer, err))
+    return rows
+
+
+class MultiSessionSource:
+    """Two in-memory sessions (``TrialSource``s of ``n`` trials each, the
+    second MSPS_BRIGHTNESS brighter) with the multi-session generator's
+    interface: a train batch is a list of one trial from each session (both
+    sessions have as many train trials); val and test batches are single
+    trials, the sessions in a shuffled order."""
+
+    n_datasets = 2
+    n_sessions_per_batch = 2
+
+    def __init__(self, n, seed, n_labels):
+        self.sessions = [TrialSource(n, seed + i, n_labels, brightness=MSPS_BRIGHTNESS * i)
+                         for i in range(2)]
+        tot = {k: sum(s.n_tot_batches[k] for s in self.sessions) for k in ('val', 'test')}
+        self.n_tot_batches = dict(tot, train=self.sessions[0].n_tot_batches['train'])
+        self.trials = self.sessions[0].trials
+        self.reset_iterators('all')
+
+    def reset_iterators(self, dtype):
+        for s in self.sessions:
+            s.reset_iterators(dtype)
+        for dt in (('val', 'test') if dtype == 'all' else [dtype]):
+            if dt != 'train':
+                order = [i for i, s in enumerate(self.sessions)
+                         for _ in range(s.n_tot_batches[dt])]
+                setattr(self, '_sessions_' + dt, list(np.random.permutation(order)))
+
+    def next_batch(self, dtype):
+        if dtype == 'train':
+            return [s.next_batch(dtype)[0] for s in self.sessions], [0, 1]
+        i = int(getattr(self, '_sessions_' + dtype).pop(0))
+        return self.sessions[i].next_batch(dtype)[0], i
+
+
+def fit_msps(port, hp, tmp, source):
+    """Main path: ``fit`` of the MSPS-VAE on two sessions on the card (an
+    eval epoch, then two train epochs); every logged number finite, the
+    triplet term above 0 in the train rows and 0 in the val and test rows
+    (single-session batches), and K1-K7, K25 and K26 launched inside it."""
+    ops = port.ops
+    hp = dict(hp, model_class='msps-vae', n_ae_latents=N_MSPS_LATENTS,
+              learning_rate=LEARNING_RATE, l2_reg=L2_REG, rng_seed_train=SEED,
+              max_n_epochs=VAE_FIT_EPOCHS, min_n_epochs=1, val_check_interval=1,
+              enable_early_stop=False, early_stop_history=10, export_latents=False,
+              rng_seed_data=SEED, device=DEVICE, experiment_name='msps-vae', **MSPS_CLASS)
+    exp = port.experiment.Experiment('msps-vae', tmp)
+    hp['expt_dir'] = os.path.join(tmp, 'msps-vae')
+    vdir = os.path.join(hp['expt_dir'], 'version_%d' % exp.version)
+    model = port.vaes.MSPSVAE(hp)
+
+    # the main path: every launch from here to the read below is counted
+    for name in ops.LAUNCHES:
+        ops.LAUNCHES[name] = 0
+    t0 = time.perf_counter()
+    best = port.training.fit(hp, model, source, exp)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    logged = read_metrics(vdir)
+    finite = all(len(v) and np.isfinite(v).all() for v in logged.values())
+    triplet_ok = min(logged['tr_loss_triplet']) > 0 and \
+        max(logged['val_loss_triplet'] + logged['test_loss_triplet']) == 0
+    steps = VAE_FIT_EPOCHS * source.n_tot_batches['train']
+    emit(dict(phase='fit', model_class='msps-vae', epochs=list(range(VAE_FIT_EPOCHS + 1)),
+              sessions=2, train_steps=steps, frames_per_step=2 * BUCKET, seconds=fit_s,
+              launches=launches, finite=finite, triplet_ok=triplet_ok,
+              losses={k: v for k, v in logged.items()
+                      if 'loss' in k or 'r2' in k or 'delta' in k}))
+    missing = [k for k in MSPS_KERNELS if launches[k] == 0]
+    if missing or not finite or not triplet_ok:
+        raise AssertionError('the MSPS-VAE fit never launched %s, logged non-finite numbers '
+                             'or a wrong triplet term' % missing)
+    return dict(hp, version=exp.version), model, vdir, best, launches
+
+
+def msps_batch(source):
+    """The step's batch: trial 0 of each session in the 192-frame bucket,
+    concatenated (host arrays)."""
+    parts = []
+    for s in source.sessions:
+        part = {'images': np.zeros((BUCKET,) + s.trials[0].shape[1:], np.uint8),
+                'labels': np.zeros((BUCKET, N_LABELS), np.float32),
+                'frame_mask': np.zeros(BUCKET, np.float32)}
+        part['images'][:TRIAL], part['labels'][:TRIAL] = s.trials[0], s.labels[0]
+        part['frame_mask'][:TRIAL] = 1.0
+        parts.append(part)
+    return {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
+
+
+def plain_msps_loss(model, ops, losses, batch, eps, perms, kw, seg_lens):
+    """The MSPS-VAE's loss (JAX: vaes.py:424) through the plain versions
+    only, from given eps and permutations."""
+    k, k_bg = model.n_labels, model.n_labels + model.n_background
+    flat = plain_features(model, ops, batch['images'])
+    mu_ff, logvar = model.encoding.FF(flat), model.encoding.logvar(flat)
+    z_s = model.encoding.A(mu_ff)
+    mu = torch.cat([z_s, model.encoding.C(mu_ff), model.encoding.B(mu_ff)], dim=1)
+    z = eps * torch.exp(logvar) + mu
+    fm = batch['frame_mask']
+
+    def ll(pred, target):
+        n = pred[0].numel()
+        return -0.5 * losses.LN2PI * n - 0.5 * n * losses.mse_plain(pred, target, None, fm)[0]
+    mi, tc, dwkl = losses.decomposed_kl_plain(z[:, k_bg:], mu[:, k_bg:], logvar[:, k_bg:], fm)
+    return -ll(plain_decode(model, ops, z), batch['images']) \
+        - kw['alpha'] * ll(model.encoding.D(z_s), batch['labels']) \
+        + losses.kl_div_to_std_normal(mu[:, :k], logvar[:, :k], fm) \
+        + kw['kl'] * mi + kw['beta'] * tc + kw['kl'] * dwkl \
+        + kw['delta'] * losses.triplet_loss_plain(mu[:, k:k_bg], seg_lens, perms, 1.0, fm)
+
+
+def msps_step(port, hp, model, source):
+    """An MSPS-VAE train step on the card (384 frames: two sessions' trials
+    in their buckets) at the annealed loss weights: its gradients against the
+    plain path's with the same eps and permutations (the generator draws the
+    eps, then one permutation a session), its time beside the plain step's
+    (cuDNN autograd, torch's fused AMSGrad), and its profile."""
+    ops, losses = port.ops, port.losses
+    host_batch = msps_batch(source)
+    batch = {k: torch.from_numpy(v).to(DEVICE) for k, v in host_batch.items()}
+    seg_lens = (BUCKET, BUCKET)
+    kw = model.loss_kwargs(len(model.beta_vals) - 1)   # alpha 1000, beta 5, kl 1, delta 50
+
+    def generator():
+        gen = torch.Generator(device=DEVICE)
+        gen.manual_seed(SEED)
+        return gen
+
+    def draws(gen):
+        eps = torch.randn((2 * BUCKET, N_MSPS_LATENTS), generator=gen, device=DEVICE)
+        return eps, [torch.randperm(n, generator=gen, device=DEVICE) for n in seg_lens]
+    model.zero_grad(set_to_none=True)
+    loss_k = model.loss_fn(batch, generator=generator(), seg_lens=seg_lens, **kw)[0]
+    loss_k.backward()
+    grads_k = {k: p.grad.clone() for k, p in model.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    loss_p = plain_msps_loss(model, ops, losses, batch, *draws(generator()), kw, seg_lens)
+    loss_p.backward()
+    grad_errs = {k: (grads_k[k] - p.grad).abs().max().item()
+                 / max(p.grad.abs().max().item(), 1e-30)
+                 for k, p in model.named_parameters()}
+    worst = max(grad_errs, key=grad_errs.get)
+    loss_err = abs(loss_k.item() - loss_p.item()) / abs(loss_p.item())
+    emit(dict(phase='msps_grads', frames=2 * BUCKET, seg_lens=list(seg_lens), loss_weights=kw,
+              loss=loss_k.item(), plain_loss=loss_p.item(), loss_rel_err=loss_err,
+              rel_tol=GRAD_REL_TOL, max_rel_err=grad_errs[worst], worst=worst,
+              rel_err=grad_errs))
+    if grad_errs[worst] > GRAD_REL_TOL or loss_err > GRAD_REL_TOL:
+        raise AssertionError('MSPS-VAE gradients on the card disagree with the plain '
+                             'path: %s=%.3g, loss %.3g' % (worst, grad_errs[worst], loss_err))
+
+    opt = port.optim.AMSGrad(model.parameters(), lr=LEARNING_RATE, weight_decay=L2_REG)
+    twin = port.vaes.MSPSVAE(hp).to(DEVICE)
+    twin.load_state_dict(model.state_dict())
+    adam = torch.optim.Adam(twin.parameters(), lr=LEARNING_RATE, weight_decay=L2_REG,
+                            amsgrad=True, fused=True)
+    gen = generator()
+
+    def step():
+        opt.zero_grad(set_to_none=True)
+        model.loss_fn(batch, generator=gen, seg_lens=seg_lens, **kw)[0].backward()
+        opt.step()
+
+    def plain_step():
+        adam.zero_grad(set_to_none=True)
+        plain_msps_loss(twin, ops, losses, batch, *draws(gen), kw, seg_lens).backward()
+        adam.step()
+    for name in ops.LAUNCHES:
+        ops.LAUNCHES[name] = 0
+    step()
+    torch.cuda.synchronize()
+    per_step = dict(ops.LAUNCHES)
+    ms, plain_ms = request_ms(step), request_ms(plain_step)
+    rec = dict(phase='msps_step', frames=2 * TRIAL, bucket=2 * BUCKET, ms=ms,
+               frames_per_s=2 * TRIAL / ms * 1e3, plain_ms=plain_ms,
+               plain_frames_per_s=2 * TRIAL / plain_ms * 1e3, launches_per_step=per_step)
+    emit(rec)
+    if per_step['triplet_loss'] != 1 or per_step['triplet_loss_grad'] != 1:
+        raise AssertionError('an MSPS-VAE step ran K25 / K26 %d / %d times'
+                             % (per_step['triplet_loss'], per_step['triplet_loss_grad']))
+    emit(profile_steps(lambda: step_from_host(step, host_batch, batch), phase='msps_profile',
+                       frames=2 * TRIAL, bucket=2 * BUCKET))
+    return per_step, rec
+
+
+def serve_msps(port, hp, vdir, best, source):
+    """Main path: the fitted MSPS-VAE's ``best_val_model.pt`` serves through
+    ``load_version``: ``encode`` gives [z_s, z_b, z_u] and ``reconstruct``
+    decodes it, at 1, 189 and 1024 frames, within SERVE_ABS_TOL of the plain
+    path on the card; serving launches no triplet kernel."""
+    ops = port.ops
+    with open(os.path.join(vdir, 'meta_tags.pkl'), 'wb') as f:
+        pickle.dump(dict(hp, training_completed=True), f)
+    frames = np.concatenate(list(source.trials[:6]))[:max(REQUEST_SIZES)]
+    for name in ops.LAUNCHES:
+        ops.LAUNCHES[name] = 0
+    bundle = port.serving.load_version(vdir)
+    answers = {(head, n): getattr(bundle, head)(frames[:n])
+               for n in REQUEST_SIZES for head in ('encode', 'reconstruct')}
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    served = dict(bundle.model.state_dict())
+    same = all(torch.equal(served[k].cpu(), v) for k, v in
+               port.weights.params_to_state_dict(bundle.model, best).items())
+    model = bundle.model
+    recs = []
+    for n in REQUEST_SIZES:
+        with torch.inference_mode():
+            mu_ff = model.encoding.FF(plain_features(model, ops, bundle._frames(frames[:n])))
+            ref_z = torch.cat([model.encoding.A(mu_ff), model.encoding.C(mu_ff),
+                               model.encoding.B(mu_ff)], dim=1)
+            ref_y = plain_decode(model, ops, ref_z)
+        for head, ref in (('encode', ref_z), ('reconstruct', ref_y)):
+            out = answers[(head, n)]
+            want = (n, N_MSPS_LATENTS) if head == 'encode' else (n, IMG[1], IMG[2], IMG[0])
+            err = (out - ref).abs().max().item()
+            tol = SERVE_ABS_TOL * max(1.0, ref.abs().max().item())
+            ok = tuple(out.shape) == want and bool(torch.isfinite(out).all().item()) and \
+                err <= tol
+            rec = dict(phase='serve_msps', head=head, frames=n, max_abs_err=err, tol=tol,
+                       ok=ok, ms=request_ms(lambda: getattr(bundle, head)(frames[:n])))
+            emit(rec)
+            recs.append(rec)
+    emit(dict(phase='serve_msps_launches', weights_equal=same, launches=launches))
+    missing = [k for k in SERVE_KERNELS if launches[k] == 0]
+    triplet = launches['triplet_loss'] + launches['triplet_loss_grad']
+    if missing or triplet or not same or not all(r['ok'] for r in recs):
+        raise AssertionError('the fitted MSPS-VAE does not serve: missing %s, %d triplet '
+                             'launches, weights equal %s' % (missing, triplet, same))
     return launches
 
 
@@ -4103,6 +4493,7 @@ def main():
         check_posterior_marginals(port, em_model, em_trials, gen)
         checks += check_imm(port)
         checks += check_kalman(port)
+        checks += check_triplet(port)
     checks += [check_gaussian_nll(port.losses, gen, d) for d in NLL_DIMS]
     checks.append(check_mse(port.losses, gen, decoder=True))
     checks += check_lstm(port)
@@ -4118,6 +4509,11 @@ def main():
             psvae_step(port, ps_hp, ps_model, source)
             launches['serve_ps-vae'] = serve_psvae(port, ps_hp, ps_dir, ps_best, source)
             launches['fit_beta-tcvae'] = fit_vae(port, hp, tmp, 'beta-tcvae', source)[-1]
+            msps_source = MultiSessionSource(TRAIN_TRIALS, SEED + 4, N_LABELS)
+            ms_hp, ms_model, ms_dir, ms_best, launches['fit_msps-vae'] = fit_msps(
+                port, hp, tmp, msps_source)
+            msps_step(port, ms_hp, ms_model, msps_source)
+            launches['serve_msps-vae'] = serve_msps(port, ms_hp, ms_dir, ms_best, msps_source)
             launches['arhmm_em'] = arhmm_em(port, em_model, em_trials, init_s)
             par_model = port.arhmm.ARHMM(EM_STATES, EM_DIM, lags=1, rng_seed=SEED,
                                          parallel_scan=True, device=DEVICE)

@@ -54,15 +54,32 @@ def _pair(hp, seed=0):
 
 
 
-@pytest.mark.parametrize('hp_kw', [
-    {}, {'img': (1, 32, 24)}, {'subpixel_decoder': False}, {'padding': 'valid'}],
-    ids=['2view', '1view', 'no_subpixel', 'valid'])
-def test_forward_matches_jax(hp_kw):
-    hp = _hparams(**hp_kw)
+FORWARD_CASES = {'2view': {}, '1view': {'img': (1, 32, 24)},
+                 'no_subpixel': {'subpixel_decoder': False}, 'valid': {'padding': 'valid'}}
+
+
+def _forward_case(name):
+    hp = _hparams(**FORWARD_CASES[name])
     jmodel, params, model = _pair(hp)
     x = np.random.RandomState(0).rand(2, hp['y_pixels'], hp['x_pixels'],
                                       hp['n_input_channels']).astype(np.float32)
-    jy, jz = jit_low(jmodel.forward, params, x)
+    return jmodel, params, model, x
+
+
+@pytest.fixture(scope='module')
+def jax_forwards():
+    """case -> (the port model, its input, the JAX model's forward
+    (reconstruction, latents)), every JAX forward from one program."""
+    cases = {name: _forward_case(name) for name in FORWARD_CASES}
+    refs = jit_low(lambda args: {name: cases[name][0].forward(*args[name]) for name in args},
+                   {name: (c[1], c[3]) for name, c in cases.items()})
+    return {name: (c[2], c[3], refs[name]) for name, c in cases.items()}
+
+
+@pytest.mark.parametrize('hp_kw', list(FORWARD_CASES.values()), ids=list(FORWARD_CASES))
+def test_forward_matches_jax(hp_kw, jax_forwards):
+    name = next(k for k, v in FORWARD_CASES.items() if v == hp_kw)
+    model, x, (jy, jz) = jax_forwards[name]
     with torch.no_grad():
         y, z = model(torch.from_numpy(x))
     np.testing.assert_allclose(z.numpy(), np.asarray(jz), atol=1e-5, rtol=1e-5)

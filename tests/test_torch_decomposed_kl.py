@@ -46,17 +46,34 @@ def _assert_grads(got, want):
         np.testing.assert_allclose(g, w, rtol=0, atol=1e-5 * max(np.abs(w).max(), 1e-30))
 
 
+UP = np.array([0.7, -1.3, 2.1], np.float32)   # upstream dMI, dTC, dDWKL
+CASES = [(b, d, masked) for b in (8, 40) for d in (1, 3, 8) for masked in (False, True)]
+
+
+@pytest.fixture(scope='module')
+def jax_refs():
+    """(b, d, masked) -> JAX's terms and their gradients in z, mu and
+    logvar at upstream UP, every case from one program."""
+    def all_cases(inputs):
+        out = {}
+        for case in CASES:
+            z, mu, lv, fm = inputs[case]
+
+            def jf(z_, mu_, lv_, fm=fm):
+                terms = jlosses.decomposed_kl(z_, mu_, lv_, frame_mask=_j(fm))
+                return sum(float(u) * t for u, t in zip(UP, terms)), terms
+            out[case] = jax.value_and_grad(jf, argnums=(0, 1, 2), has_aux=True)(z, mu, lv)
+        return out
+    return jit_low(all_cases, {case: _inputs(*case) for case in CASES})
+
+
 @pytest.mark.parametrize('masked', [False, True], ids=['nomask', 'mask'])
 @pytest.mark.parametrize('d', [1, 3, 8])
 @pytest.mark.parametrize('b', [8, 40])
-def test_decomposed_kl_and_grads_match_jax(b, d, masked):
+def test_decomposed_kl_and_grads_match_jax(b, d, masked, jax_refs):
     z, mu, lv, fm = _inputs(b, d, masked)
-    up = np.array([0.7, -1.3, 2.1], np.float32)   # upstream dMI, dTC, dDWKL
-
-    def jf(z_, mu_, lv_):
-        terms = jlosses.decomposed_kl(z_, mu_, lv_, frame_mask=_j(fm))
-        return sum(float(u) * t for u, t in zip(up, terms)), terms
-    (_, ref), ref_g = jit_low(jax.value_and_grad(jf, argnums=(0, 1, 2), has_aux=True), z, mu, lv)
+    up = UP
+    (_, ref), ref_g = jax_refs[b, d, masked]
 
     zt, mut, lvt = _t(z, True), _t(mu, True), _t(lv, True)
     terms = tlosses.decomposed_kl(zt, mut, lvt, _t(fm))

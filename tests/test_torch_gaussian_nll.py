@@ -4,9 +4,9 @@ JAX package's ``gaussian_neg_log_prob``.
 ``behavenet_tpu_torch.ops.losses.gaussian_neg_log_prob`` runs its plain
 pieces on the CPU (the arithmetic K12 holds on the card for a per-frame
 covariance with d <= 16; ``torch.linalg`` for a shared one and for d > 16)
-and is held against ``jax.value_and_grad`` of the JAX function, compiled
-once per case (at LLVM optimization level 0: the same XLA program, built in
-a third of the time for the unrolled d = 16 factor). Covariances are
+and is held against ``jax.value_and_grad`` of the JAX function, every case
+compiled in one program (at LLVM optimization level 0: the same XLA
+program, built in a third of the time for the unrolled d = 16 factor). Covariances are
 ``M M^T / d + I / 2`` (condition number below ~10), so float32 in two
 operation orders agrees to ~1e-7: values
 within rtol 1e-5, gradients within 1e-5 of max|JAX|. For d <= 16 JAX's
@@ -39,11 +39,30 @@ def _inputs(d, shared, seed=0):
     return y_pred, y_true, cov, fm
 
 
-def _jax(y_pred, y_true, cov, fm):
-    def f(a, c):
-        return jlosses.gaussian_neg_log_prob(a, y_true, c, frame_mask=fm)
-    value, (g_y, g_cov) = jit_low(jax.value_and_grad(f, argnums=(0, 1)), y_pred, cov)
-    return float(value), np.asarray(g_y), np.asarray(g_cov)
+CASES = {'d3': (3, False, False), 'd3-mask': (3, False, True), 'd9-mask': (9, False, True),
+         'd16-mask': (16, False, True), 'd17-mask': (17, False, True),
+         'shared-d3': (3, True, False), 'shared-d9-mask': (9, True, True)}
+
+
+def _case_inputs(d, shared, masked):
+    y_pred, y_true, cov, fm = _inputs(d, shared)
+    return y_pred, y_true, cov, fm if masked else None
+
+
+@pytest.fixture(scope='module')
+def jax_refs():
+    """case -> JAX's value and gradients in y_pred and cov, every case from
+    one program."""
+    def all_cases(inputs):
+        out = {}
+        for name, (y_pred, y_true, cov, fm) in inputs.items():
+            def f(a, c, y_true=y_true, fm=fm):
+                return jlosses.gaussian_neg_log_prob(a, y_true, c, frame_mask=fm)
+            out[name] = jax.value_and_grad(f, argnums=(0, 1))(y_pred, cov)
+        return out
+    refs = jit_low(all_cases, {name: _case_inputs(*case) for name, case in CASES.items()})
+    return {name: (float(v), np.asarray(g_y), np.asarray(g_cov))
+            for name, (v, (g_y, g_cov)) in refs.items()}
 
 
 def _port(y_pred, y_true, cov, fm):
@@ -55,15 +74,11 @@ def _port(y_pred, y_true, cov, fm):
     return loss.item(), a.grad.numpy(), c.grad.numpy()
 
 
-@pytest.mark.parametrize('d,shared,masked', [
-    (3, False, False), (3, False, True), (9, False, True), (16, False, True),
-    (17, False, True), (3, True, False), (9, True, True)],
-    ids=['d3', 'd3-mask', 'd9-mask', 'd16-mask', 'd17-mask', 'shared-d3',
-         'shared-d9-mask'])
-def test_value_and_grads_match_jax(d, shared, masked):
-    y_pred, y_true, cov, fm = _inputs(d, shared)
-    fm = fm if masked else None
-    want, want_gy, want_gc = _jax(y_pred, y_true, cov, fm)
+@pytest.mark.parametrize('d,shared,masked', list(CASES.values()), ids=list(CASES))
+def test_value_and_grads_match_jax(d, shared, masked, jax_refs):
+    y_pred, y_true, cov, fm = _case_inputs(d, shared, masked)
+    want, want_gy, want_gc = jax_refs[next(k for k, v in CASES.items()
+                                           if v == (d, shared, masked))]
     got, got_gy, got_gc = _port(y_pred, y_true, cov, fm)
     np.testing.assert_allclose(got, want, rtol=1e-5)
     np.testing.assert_allclose(got_gy, want_gy, rtol=0, atol=1e-5 * np.abs(want_gy).max())
