@@ -27,8 +27,9 @@ __all__ = ['export_latents', 'export_states', 'export_predictions']
 
 
 def export_latents(data_generator, model, filename=None, version=None, expt_dir=None):
-    """Encode every train/val/test trial with ``model`` (on its device) and
-    pickle the latents per session (JAX: eval.py:55; reference eval.py:6-118)."""
+    """Encode every train/val/test trial with ``model`` (on its device, in
+    eval mode: batch norm's running statistics) and pickle the latents per
+    session (JAX: eval.py:55; reference eval.py:6-118)."""
     if model.hparams['model_class'] not in AE_MODELS:
         raise NotImplementedError('exporting latents of model_class "%s" is not '
                                   'ported yet' % model.hparams['model_class'])
@@ -41,6 +42,7 @@ def export_latents(data_generator, model, filename=None, version=None, expt_dir=
         data_generator = build_data_generator(hp_new, data_generator.datasets_info,
                                               export_csv=False)
     device = next(model.parameters()).device
+    model.eval()
     latents = [[np.array([]) for _ in range(dataset.n_trials)]
                for dataset in data_generator.datasets]
 

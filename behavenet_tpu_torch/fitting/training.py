@@ -31,6 +31,16 @@ seeded with ``rng_train``, in every step: train, val and test, since the JAX
 ``eval_step`` samples z too (:569, :596); its state goes into
 ``last_checkpoint.pkl``, so a resume draws the same eps.
 
+A model with batch norm (``ae_batch_norm``) runs its train steps in train
+mode (``model.train()``: batch statistics, the running statistics updated
+in the same kernel launch) and every other step in eval mode
+(``model.eval()``: the running statistics): val, test and the epoch-0
+evals of train batches, as JAX passes ``train=True`` to train steps alone
+(:158-235). The running statistics are buffers of the model, so the
+best-val snapshot, ``best_val_model.pt`` and ``last_checkpoint.pkl`` carry
+them. As in JAX, a padded trial's zero frames enter the batch statistics:
+batch norm takes no frame mask.
+
 A multi-session generator (the MSPS-VAE's) serves its train batches as
 lists of trials from distinct sessions; each trial is bucketed on its own,
 and the padded lengths (``seg_lens``) reach the loss in train steps and in
@@ -258,6 +268,7 @@ def fit(hparams, model, data_generator, exp, method='ae', warm_start=None):
                         weight_decay=hparams.get('l2_reg', 0) or 0)
 
     def train_step(batch, loss_kwargs):
+        model.train()
         optimizer.zero_grad(set_to_none=True)
         loss, metrics = model.loss_fn(batch, **loss_kwargs)
         loss.backward()
@@ -265,6 +276,7 @@ def fit(hparams, model, data_generator, exp, method='ae', warm_start=None):
         return metrics
 
     def eval_step(batch, loss_kwargs):
+        model.eval()
         with torch.no_grad():
             return model.loss_fn(batch, **loss_kwargs)[1]
 

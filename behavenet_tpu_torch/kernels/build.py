@@ -48,6 +48,8 @@ SOURCES = {
     'kalman_filter_scan': 'kalman.cu',
     'lstm_forward': 'lstm.cu',
     'triplet_loss': 'triplet.cu',
+    'max_pool2d': 'pool.cu',
+    'batch_norm': 'batch_norm.cu',
 }
 _HEADERS = ('igemm.cuh', 'hmm.cuh', 'hmm_backtrace.cuh')
 
@@ -56,7 +58,9 @@ _HEADERS = ('igemm.cuh', 'hmm.cuh', 'hmm_backtrace.cuh')
 # K17 (the IMM filter), K20-K22 (the associative smoother, the sequential
 # filter and smoother) with K19 (the associative filter), K24 (the LSTM's
 # backward) with K23 (its forward), K26 (the triplet loss's backward) with
-# K25 (its forward); K9's forward pass
+# K25 (its forward), K27's backward and K28 (the unpool, forward and
+# backward) with K27 (the max pool), K30 (batch norm's backward) with K29
+# (batch norm); K9's forward pass
 # that writes the filtered alphas for K15 and K11's pivoting solve are
 # counted apart from their kernels' other launchers
 VARIANTS = {
@@ -78,6 +82,10 @@ VARIANTS = {
     'kalman_smoother': ('kalman_filter_scan', ('bn_kalman_smoother',)),
     'lstm_backward': ('lstm_forward', ('bn_lstm_backward',)),
     'triplet_loss_grad': ('triplet_loss', ('bn_triplet_loss_grad',)),
+    'max_pool2d_grad': ('max_pool2d', ('bn_max_pool2d_grad',)),
+    'max_unpool2d': ('max_pool2d', ('bn_max_unpool2d',)),
+    'max_unpool2d_grad': ('max_pool2d', ('bn_max_unpool2d_grad',)),
+    'batch_norm_backward': ('batch_norm', ('bn_batch_norm_backward',)),
 }
 _COUNTED_AS = {sym: variant for variant, (_, syms) in VARIANTS.items() for sym in syms}
 
@@ -147,6 +155,14 @@ _SIGNATURES = {
         'bn_triplet_loss': [_P, _I, _I, _P, _P, _P] + [_I] * 9 + [_F, _F] + [_P] * 4,
         'bn_triplet_loss_grad': [_P, _I, _I, _P, _P, _P] + [_I] * 9 + [_F, _F] + [_P] * 3
         + [_I, _P]},
+    'max_pool2d': {
+        'bn_max_pool2d': [_P] * 3 + [_I] * 7 + [_P],
+        'bn_max_pool2d_grad': [_P] * 3 + [_I] * 6 + [_P],
+        'bn_max_unpool2d': [_P] * 3 + [_I] * 6 + [_P],
+        'bn_max_unpool2d_grad': [_P] * 3 + [_I] * 6 + [_P]},
+    'batch_norm': {
+        'bn_batch_norm': [_P] * 12 + [_L, _I, _I, _L, _F, _F, _F, _I, _P],
+        'bn_batch_norm_backward': [_P] * 9 + [_L, _I, _I, _L, _F, _I, _P]},
 }
 
 _lock = threading.Lock()

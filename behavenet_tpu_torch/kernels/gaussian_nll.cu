@@ -26,6 +26,14 @@
 // the denominator are read from device memory, so nothing waits on the host.
 // Bound: latency. At the decoders' 192-frame bucket and d = 9 the inputs are
 // ~70 KB and a frame's backward ~2 d^3 operations in one thread's chain.
+//
+// Numerics: the covariances reach condition numbers of ~5e3, where a float32
+// factor and solve drift up to ~1.2e-4 of max|gradient| from the float64 ones
+// (measured on the H100: the plain float32 version as much as this kernel
+// in float32). So the factor, the solves and the inverse's columns run in
+// float64 registers, from the float32 inputs, and the results are rounded to
+// float32 once: the kernel then lies nearer the float64 computation than any
+// float32 one. The loss's fixed-order sum stays float32.
 #include <cuda_runtime.h>
 
 namespace {
@@ -34,8 +42,8 @@ constexpr int kMaxD = 16;
 constexpr int kThreads = 32;     // frames per block: small blocks spread the
                                  // serial per-frame chains over the SMs
 constexpr int kFinishThreads = 256;
-constexpr float kLn2Pi = 1.8378770664093453f;
-constexpr float kJitter = 1e-3f;
+constexpr double kLn2Pi = 1.8378770664093453;
+constexpr double kJitter = 1e-3;
 
 // Fixed-order block sum of v (tree over warps, then over the warp sums).
 __device__ float block_sum(float v) {
@@ -56,33 +64,34 @@ __device__ float block_sum(float v) {
 }
 
 // L (row stride kMaxD, lower triangle) = chol(1e-3 I + c), or I when masked.
-__device__ void factor(const float* __restrict__ c, int d, bool masked, float* L) {
+__device__ void factor(const float* __restrict__ c, int d, bool masked, double* L) {
   for (int j = 0; j < d; ++j) {
-    float q = 0.f;
+    double q = 0.0;
     for (int k = 0; k < j; ++k) q += L[j * kMaxD + k] * L[j * kMaxD + k];
-    const float ljj = sqrtf((masked ? 1.f : kJitter + __ldg(c + j * d + j)) - q);
+    const double ljj =
+        sqrt((masked ? 1.0 : kJitter + (double)__ldg(c + j * d + j)) - q);
     L[j * kMaxD + j] = ljj;
     for (int i = j + 1; i < d; ++i) {
-      float p = 0.f;
+      double p = 0.0;
       for (int k = 0; k < j; ++k) p += L[i * kMaxD + k] * L[j * kMaxD + k];
-      L[i * kMaxD + j] = ((masked ? 0.f : __ldg(c + i * d + j)) - p) / ljj;
+      L[i * kMaxD + j] = ((masked ? 0.0 : (double)__ldg(c + i * d + j)) - p) / ljj;
     }
   }
 }
 
 // x = L^-1 b (forward substitution, JAX's solve_tril_small order).
-__device__ void solve_lower(const float* L, const float* b, int d, float* x) {
+__device__ void solve_lower(const double* L, const double* b, int d, double* x) {
   for (int i = 0; i < d; ++i) {
-    float acc = b[i];
+    double acc = b[i];
     for (int j = 0; j < i; ++j) acc -= L[i * kMaxD + j] * x[j];
     x[i] = acc / L[i * kMaxD + i];
   }
 }
 
 // x = L^-T b (back substitution with the transpose).
-__device__ void solve_upper_t(const float* L, const float* b, int d, float* x) {
+__device__ void solve_upper_t(const double* L, const double* b, int d, double* x) {
   for (int i = d - 1; i >= 0; --i) {
-    float acc = b[i];
+    double acc = b[i];
     for (int k = i + 1; k < d; ++k) acc -= L[k * kMaxD + i] * x[k];
     x[i] = acc / L[i * kMaxD + i];
   }
@@ -94,9 +103,10 @@ __device__ __forceinline__ float weight(const float* fm, int b) {
 
 // r = y_true - y_pred of frame b.
 __device__ void residual(const float* __restrict__ y_pred, const float* __restrict__ y_true,
-                         int b, int d, float* r) {
+                         int b, int d, double* r) {
   for (int i = 0; i < d; ++i)
-    r[i] = __ldg(y_true + (long long)b * d + i) - __ldg(y_pred + (long long)b * d + i);
+    r[i] = (double)__ldg(y_true + (long long)b * d + i) -
+           (double)__ldg(y_pred + (long long)b * d + i);
 }
 
 // Pass 1: wnll[b] = w_b nll_b.
@@ -107,16 +117,16 @@ __global__ void __launch_bounds__(kThreads) nll_frames_kernel(
   const int b = blockIdx.x * kThreads + threadIdx.x;
   if (b >= B) return;
   const float w = weight(fm, b);
-  float L[kMaxD * kMaxD], r[kMaxD], x[kMaxD];
+  double L[kMaxD * kMaxD], r[kMaxD], x[kMaxD];
   factor(cov + (long long)b * d * d, d, !(w > 0.f), L);
   residual(y_pred, y_true, b, d, r);
   solve_lower(L, r, d, x);
-  float logdet = 0.f, maha = 0.f;
+  double logdet = 0.0, maha = 0.0;
   for (int i = 0; i < d; ++i) {
-    logdet += logf(L[i * kMaxD + i]);
+    logdet += log(L[i * kMaxD + i]);
     maha += x[i] * x[i];
   }
-  wnll[b] = 0.5f * ((float)d * kLn2Pi + 2.f * logdet + maha) * w;
+  wnll[b] = (float)(0.5 * ((double)d * kLn2Pi + 2.0 * logdet + maha) * (double)w);
 }
 
 // Pass 2 (one block): out[0] = the loss, out[1] = max(sum w, 1).
@@ -146,14 +156,14 @@ __global__ void __launch_bounds__(kThreads) nll_grad_kernel(
   if (b >= B) return;
   const float w = weight(fm, b);
   const bool masked = !(w > 0.f);
-  const float scale = __ldg(grad_loss) * w / __ldg(den);
-  float L[kMaxD * kMaxD], r[kMaxD], x[kMaxD], a[kMaxD], u[kMaxD], z[kMaxD];
+  const double scale = (double)__ldg(grad_loss) * (double)w / (double)__ldg(den);
+  double L[kMaxD * kMaxD], r[kMaxD], x[kMaxD], a[kMaxD], u[kMaxD], z[kMaxD];
   factor(cov + (long long)b * d * d, d, masked, L);
   residual(y_pred, y_true, b, d, r);
   solve_lower(L, r, d, x);
   solve_upper_t(L, x, d, a);     // a = S^-1 r
   float* gy = grad_y + (long long)b * d;
-  for (int i = 0; i < d; ++i) gy[i] = -scale * a[i];
+  for (int i = 0; i < d; ++i) gy[i] = (float)(-scale * a[i]);
 
   float* gc = grad_cov + (long long)b * d * d;
   for (int j = 0; j < d; ++j) {
@@ -162,12 +172,12 @@ __global__ void __launch_bounds__(kThreads) nll_grad_kernel(
       continue;
     }
     // z = column j of S^-1 = L^-T L^-1 e_j
-    for (int i = 0; i < d; ++i) u[i] = i == j ? 1.f : 0.f;
+    for (int i = 0; i < d; ++i) u[i] = i == j ? 1.0 : 0.0;
     solve_lower(L, u, d, x);
     solve_upper_t(L, x, d, z);
     for (int i = 0; i < d; ++i) {
-      const float s = z[i] - a[i] * a[j];
-      gc[i * d + j] = i > j ? scale * s : (i == j ? 0.5f * scale * s : 0.f);
+      const double s = z[i] - a[i] * a[j];
+      gc[i * d + j] = i > j ? (float)(scale * s) : (i == j ? (float)(0.5 * scale * s) : 0.f);
     }
   }
 }

@@ -21,6 +21,7 @@ import torch
 import torch.nn as nn
 
 __all__ = ['uniform_fan_in_', 'init_conv', 'init_conv_transpose', 'init_linear',
+           'init_batch_norm',
            'init_diag_linear', 'diag_linear', 'orthogonal_matrix', 'params_finite',
            'save_params', 'load_params', 'BaseModel']
 
@@ -51,6 +52,20 @@ def init_linear(weight, bias, generator):
     fan_in = in."""
     uniform_fan_in_(weight, weight.shape[1], generator)
     uniform_fan_in_(bias, weight.shape[1], generator)
+
+
+def init_batch_norm(layer):
+    """A batch-norm layer's init (JAX: models/aes.py:51 _init_bn): gamma 1,
+    beta 0 and, when it tracks running statistics, mean 0, variance 1 and a
+    batch count of 0. It draws nothing, so the other layers' draws keep
+    their order."""
+    with torch.no_grad():
+        layer.weight.fill_(1.0)
+        layer.bias.zero_()
+        if layer.track:
+            layer.running_mean.zero_()
+            layer.running_var.fill_(1.0)
+            layer.num_batches_tracked.zero_()
 
 
 def init_diag_linear(weight, bias, generator):

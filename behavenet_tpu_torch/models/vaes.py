@@ -125,9 +125,13 @@ class VAE(AE):
     def forward(self, x, use_mean=False, generator=None, act_grad_in_loss=False):
         """(reconstruction, z, mu, logvar); z is mu with ``use_mean``, else a
         sample drawn with ``generator``."""
-        mu, logvar = self.encoding(x)
+        mu, logvar, pool_idx = self.encoding(x)
         z = mu if use_mean else reparameterize(mu, logvar, generator)
-        return self.decoding(z, act_grad_in_loss=act_grad_in_loss), z, mu, logvar
+        return self.decoding(z, pool_idx, act_grad_in_loss=act_grad_in_loss), z, mu, logvar
+
+    def encode(self, x):
+        """(mu, logvar) of the variational encoder."""
+        return self.encoding(x)[:2]
 
     def latents(self, x):
         return self.encoding(x)[0]
@@ -216,22 +220,21 @@ class PSVAE(AE):
                 'alpha': _f32(self.hparams['ps_vae.alpha'])}
 
     def encode(self, x):
-        """(y, w, logvar): the supervised and unsupervised means, and the
-        log-variances of all latents."""
-        mu_ff, logvar = self.encoding(x)
-        return self.encoding.A(mu_ff), self.encoding.B(mu_ff), logvar
+        """(y, w, logvar, pool_idx): the supervised and unsupervised means,
+        the log-variances of all latents and the encoder's pool indices."""
+        mu_ff, logvar, pool_idx = self.encoding(x)
+        return self.encoding.A(mu_ff), self.encoding.B(mu_ff), logvar, pool_idx
 
     def forward(self, x, use_mean=False, generator=None, act_grad_in_loss=False):
         """(reconstruction, z, mu = [y, w], logvar, predicted labels)."""
-        y, w, logvar = self.encode(x)
+        y, w, logvar, pool_idx = self.encode(x)
         mu = torch.cat([y, w], dim=1)
         z = mu if use_mean else reparameterize(mu, logvar, generator)
-        x_hat = self.decoding(z, act_grad_in_loss=act_grad_in_loss)
+        x_hat = self.decoding(z, pool_idx, act_grad_in_loss=act_grad_in_loss)
         return x_hat, z, mu, logvar, self.encoding.D(y)
 
     def latents(self, x):
-        y, w, _ = self.encode(x)
-        return torch.cat([y, w], dim=1)
+        return torch.cat(self.encode(x)[:2], dim=1)
 
     def reconstruct(self, x):
         return self(x, use_mean=True)[0]
@@ -271,7 +274,7 @@ class PSVAE(AE):
     def get_predicted_labels(self, x, use_mean=True, generator=None):
         """Labels predicted from frames ``x`` (JAX: vaes.py:336): D of the
         supervised means, or of a sample drawn with ``generator``."""
-        y, _, logvar = self.encode(self._inputs(x))
+        y, _, logvar, _ = self.encode(self._inputs(x))
         if not use_mean:
             y = reparameterize(y, logvar[:, :self.n_labels], generator)
         return self.encoding.D(y)
@@ -283,7 +286,7 @@ class PSVAE(AE):
         if inputs.dim() == 2:
             y, w = inputs[:, :self.n_labels], inputs[:, self.n_labels:]
         else:
-            y, w, _ = self.encode(inputs)
+            y, w = self.encode(inputs)[:2]
         return torch.cat([self.encoding.D(y), w], dim=1)
 
     def get_inverse_transformed_latents(self, inputs):
@@ -330,23 +333,23 @@ class MSPSVAE(PSVAE):
         return dict(super().loss_kwargs(epoch), delta=_f32(self.hparams['ps_vae.delta']))
 
     def encode(self, x):
-        """(z_s, z_b, z_u, logvar): the supervised, background and
-        unsupervised means, and the log-variances of all latents."""
-        mu_ff, logvar = self.encoding(x)
+        """(z_s, z_b, z_u, logvar, pool_idx): the supervised, background and
+        unsupervised means, the log-variances of all latents and the
+        encoder's pool indices."""
+        mu_ff, logvar, pool_idx = self.encoding(x)
         return (self.encoding.A(mu_ff), self.encoding.C(mu_ff), self.encoding.B(mu_ff),
-                logvar)
+                logvar, pool_idx)
 
     def forward(self, x, use_mean=False, generator=None, act_grad_in_loss=False):
         """(reconstruction, z, mu = [z_s, z_b, z_u], logvar, predicted labels)."""
-        z_s, z_b, z_u, logvar = self.encode(x)
+        z_s, z_b, z_u, logvar, pool_idx = self.encode(x)
         mu = torch.cat([z_s, z_b, z_u], dim=1)
         z = mu if use_mean else reparameterize(mu, logvar, generator)
-        x_hat = self.decoding(z, act_grad_in_loss=act_grad_in_loss)
+        x_hat = self.decoding(z, pool_idx, act_grad_in_loss=act_grad_in_loss)
         return x_hat, z, mu, logvar, self.encoding.D(z_s)
 
     def latents(self, x):
-        z_s, z_b, z_u, _ = self.encode(x)
-        return torch.cat([z_s, z_b, z_u], dim=1)
+        return torch.cat(self.encode(x)[:3], dim=1)
 
     def loss_fn(self, batch, generator=None, beta=1.0, kl=1.0, alpha=None, delta=None,
                 seg_lens=None):
@@ -392,7 +395,7 @@ class MSPSVAE(PSVAE):
 
     def get_predicted_labels(self, x, use_mean=True, generator=None):
         """JAX: vaes.py:489 (the MSPS encoder's 4-tuple)."""
-        z_s, _, _, logvar = self.encode(self._inputs(x))
+        z_s, _, _, logvar, _ = self.encode(self._inputs(x))
         if not use_mean:
             z_s = reparameterize(z_s, logvar[:, :self.n_labels], generator)
         return self.encoding.D(z_s)

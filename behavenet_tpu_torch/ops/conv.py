@@ -25,6 +25,17 @@ Activations (``None``, ``'leaky_relu'`` with the reference's slope 0.05,
 ``'sigmoid'``) are fused into the kernels' epilogues. A uint8 input to
 :func:`conv2d` means raw video frames, normalized as ``x / 255``; it gets no
 gradient.
+
+The pooling and batch-norm archs' layers (JAX ops/conv.py:367-462) follow
+the same pattern: :func:`max_pool2d_with_indices` (K27, its backward
+``max_pool2d_grad``), :func:`max_unpool2d` (K28, ``max_unpool2d_grad``) and
+:func:`batch_norm` (K29, with the running update of
+:func:`batch_norm_update` in the same launch; its backward K30), each a
+``torch.autograd.Function`` over a plain version and a CUDA wrapper. The
+layout is JAX's: NHWC, and int32 flat indices ``row * W + col`` into each
+(n, c) input plane. The backwards are JAX's autodiff written out: the pool's
+cotangent is split evenly among tied maxima (``jnp.max``'s), not sent to
+one index as ``torch.nn.functional.max_pool2d``'s is.
 """
 
 import torch
@@ -37,11 +48,19 @@ __all__ = ['conv2d', 'conv2d_plain', 'conv2d_cuda', 'conv_transpose2d',
            'conv2d_grad_x_plain', 'conv_transpose2d_grad_x',
            'conv_transpose2d_grad_x_plain', 'conv2d_grad_w', 'conv2d_grad_w_plain',
            'conv2d_grad_w_cuda', 'leaky_relu', 'linear', 'space_to_depth',
-           'depth_to_space', 'conv_out_hw', 'conv_transpose_out_hw', 'LAUNCHES']
+           'depth_to_space', 'conv_out_hw', 'conv_transpose_out_hw', 'pool_out_hw',
+           'pool_windows',
+           'max_pool2d_with_indices', 'max_pool2d_plain', 'max_pool2d_cuda',
+           'max_pool2d_grad', 'max_pool2d_grad_plain', 'max_pool2d_grad_cuda', 'max_unpool2d',
+           'max_unpool2d_plain', 'max_unpool2d_cuda', 'max_unpool2d_grad',
+           'max_unpool2d_grad_plain', 'max_unpool2d_grad_cuda', 'batch_norm',
+           'batch_norm_plain', 'batch_norm_stats_plain', 'batch_norm_cuda', 'batch_norm_update',
+           'batch_norm_backward_plain', 'batch_norm_backward_cuda', 'LAUNCHES']
 
 _ACT_CODE = {None: 0, 'leaky_relu': 1, 'sigmoid': 2}
 _SMALL_COUT = 4  # widest output the final-layer kernel keeps in registers
 _LEAKY_SLOPE = 0.05
+_BN_EPS = 1e-5
 
 
 def leaky_relu(x, negative_slope=_LEAKY_SLOPE):
@@ -449,3 +468,441 @@ def depth_to_space(x, block):
     co = c // (block * block)
     x = x.reshape(n, h, w, block, block, co).permute(0, 1, 3, 2, 4, 5)
     return x.reshape(n, h * block, w * block, co)
+
+
+# ------------------------------------------- pooling and batch norm: plain
+
+
+def pool_out_hw(h, w, ceil_mode=True):
+    """Output (H, W) of the 2x2 / stride-2 pool (JAX ops/conv.py:385-386)."""
+    if ceil_mode:
+        return -(-(h - 2) // 2) + 1, -(-(w - 2) // 2) + 1
+    return (h - 2) // 2 + 1, (w - 2) // 2 + 1
+
+
+def pool_windows(x, ceil_mode):
+    """(N, Ho, Wo, C, 4) pooling windows in (dy, dx) order: ceil mode pads
+    the input with the lowest float to an even extent, floor mode crops the
+    remainder (JAX :387-394)."""
+    n, h, w, c = x.shape
+    ho, wo = pool_out_hw(h, w, ceil_mode)
+    xp = x[:, :min(h, 2 * ho), :min(w, 2 * wo), :]
+    if 2 * ho > h or 2 * wo > w:
+        xp = F.pad(xp, [0, 0, 0, max(0, 2 * wo - w), 0, max(0, 2 * ho - h)],
+                   value=torch.finfo(x.dtype).min)
+    return xp.reshape(n, ho, 2, wo, 2, c).permute(0, 1, 3, 5, 2, 4).reshape(n, ho, wo, c, 4)
+
+
+def max_pool2d_plain(x, ceil_mode=True, activation=None):
+    """Plain 2x2 / stride-2 max pool: (pooled, int32 indices of the first
+    maximum, ``row * W + col``). ``amax``'s autograd splits a window's
+    cotangent evenly among its tied maxima, as JAX's does."""
+    n, h, w, c = x.shape
+    xw = pool_windows(x, ceil_mode)
+    arg = torch.argmax(xw, dim=-1)
+    ho, wo = xw.shape[1], xw.shape[2]
+    oy = torch.arange(ho, device=x.device).reshape(1, ho, 1, 1)
+    ox = torch.arange(wo, device=x.device).reshape(1, 1, wo, 1)
+    idx = (oy * 2 + arg // 2) * w + ox * 2 + arg % 2
+    return _activate(xw.amax(dim=-1), activation), idx.to(torch.int32)
+
+
+def max_pool2d_grad_plain(x, g, ceil_mode=True):
+    """Input gradient of :func:`max_pool2d_plain` at cotangent ``g`` of its
+    pre-activation output, written out: each window's cotangent split evenly
+    among the positions equal to its maximum, 0 elsewhere and on the rows
+    and columns floor mode cut off."""
+    n, h, w, c = x.shape
+    xw = pool_windows(x, ceil_mode)
+    ho, wo = xw.shape[1], xw.shape[2]
+    eq = xw == xw.amax(dim=-1, keepdim=True)
+    share = g[..., None] / eq.sum(dim=-1, keepdim=True)
+    gw = torch.where(eq, share, torch.zeros((), dtype=g.dtype, device=g.device))
+    gx = gw.reshape(n, ho, wo, c, 2, 2).permute(0, 1, 4, 2, 5, 3).reshape(n, 2 * ho, 2 * wo, c)
+    gx = gx[:, :h, :w, :]
+    return F.pad(gx, [0, 0, 0, w - gx.shape[2], 0, h - gx.shape[1]]).contiguous()
+
+
+def _flat_indices(indices, size):
+    """(N, h*w, C) int64 indices, those outside [0, size) moved to ``size``
+    (a slot the callers drop: JAX's mode='drop')."""
+    n, h, w, c = indices.shape
+    idx = indices.reshape(n, h * w, c).long()
+    return torch.where((idx >= 0) & (idx < size), idx, torch.full_like(idx, size))
+
+
+def max_unpool2d_plain(x, indices, out_hw):
+    """Plain unpool: each value of ``x`` scattered to its flat index in an
+    (N, out_h, out_w, C) output of zeros (JAX :402)."""
+    n, h, w, c = x.shape
+    size = int(out_hw[0]) * int(out_hw[1])
+    out = x.new_zeros((n, size + 1, c)).scatter(1, _flat_indices(indices, size),
+                                                 x.reshape(n, h * w, c))
+    return out[:, :size].reshape(n, int(out_hw[0]), int(out_hw[1]), c)
+
+
+def max_unpool2d_grad_plain(g, indices):
+    """Input gradient of :func:`max_unpool2d_plain`: the gather
+    ``g[n, idx, c]`` (0 for a dropped index)."""
+    n, oh, ow, c = g.shape
+    size = oh * ow
+    gp = F.pad(g.reshape(n, size, c), [0, 0, 0, 1])
+    return gp.gather(1, _flat_indices(indices, size)).reshape(indices.shape)
+
+
+def batch_norm_stats_plain(x):
+    """Per-channel mean and biased variance over all but the last axis."""
+    dims = tuple(range(x.dim() - 1))
+    return x.mean(dim=dims), x.var(dim=dims, unbiased=False)
+
+
+def batch_norm_plain(x, gamma, beta, mean=None, var=None, eps=_BN_EPS, activation=None):
+    """Plain batch norm ``gamma * (x - mean) * rsqrt(var + eps) + beta``
+    (JAX :419), with the batch's statistics when ``mean`` is None."""
+    if mean is None:
+        mean, var = batch_norm_stats_plain(x)
+    return _activate(gamma * (x - mean) * torch.rsqrt(var + eps) + beta, activation)
+
+
+def _running_update(running_mean, running_var, count, mean, var, n, momentum):
+    """New running statistics (JAX :439-462): the momentum's, or with
+    ``momentum`` None the cumulative average 1 / (count + 1); the
+    variance unbiased by n / (n - 1)."""
+    m = 1.0 / (count + 1) if momentum is None else momentum
+    return ((1.0 - m) * running_mean + m * mean,
+            (1.0 - m) * running_var + m * (var * (n / max(n - 1, 1))))
+
+
+def batch_norm_update(x, stats, momentum=0.1):
+    """The running statistics after batch ``x`` (JAX :439 batch_norm_update):
+    a new dict of ``running_mean``, ``running_var`` and ``num_batches`` (the
+    count + 1) from ``stats`` of the same keys; no gradient."""
+    x = x.detach()
+    mean, var = batch_norm_stats_plain(x)
+    count = stats['num_batches']
+    rm, rv = _running_update(stats['running_mean'], stats['running_var'], count, mean, var,
+                             x.numel() // x.shape[-1], momentum)
+    return {'running_mean': rm, 'running_var': rv, 'num_batches': count + 1}
+
+
+def batch_norm_backward_plain(g, x, gamma, mean, var, batch_stats=True, eps=_BN_EPS):
+    """(dx, dgamma, dbeta) of :func:`batch_norm_plain` at cotangent ``g`` of
+    its pre-activation output, written out: with ``batch_stats`` through the
+    batch mean and variance, else at fixed ``mean`` and ``var``."""
+    dims = tuple(range(x.dim() - 1))
+    r = torch.rsqrt(var + eps)
+    xhat = (x - mean) * r
+    dbeta = g.sum(dim=dims)
+    dgamma = (g * xhat).sum(dim=dims)
+    if batch_stats:
+        p = x.numel() // x.shape[-1]
+        dx = gamma * r * (g - dbeta / p - xhat * (dgamma / p))
+    else:
+        dx = gamma * r * g
+    return dx, dgamma, dbeta
+
+
+# ------------------------------------------- pooling and batch norm: kernels
+
+
+def _check_nhwc(name, x, dtype=torch.float32):
+    if x.dtype != dtype or x.dim() != 4:
+        raise ValueError('%s: expected a 4-d %s tensor, got %s %s'
+                         % (name, dtype, x.dtype, tuple(x.shape)))
+
+
+def _act_code(name, activation):
+    if activation not in (None, 'leaky_relu'):
+        raise ValueError('%s: activation must be None or leaky_relu, got %r'
+                         % (name, activation))
+    return _ACT_CODE[activation]
+
+
+def max_pool2d_cuda(x, ceil_mode=True, activation=None):
+    """K27 ``bn_max_pool2d`` on the card (see :func:`max_pool2d_plain`)."""
+    name = 'max_pool2d'
+    x = x.contiguous()
+    _check_cuda(name, x)
+    _check_nhwc(name, x)
+    act = _act_code(name, activation)
+    n, h, w, c = x.shape
+    ho, wo = pool_out_hw(h, w, ceil_mode)
+    y = torch.empty((n, max(ho, 0), max(wo, 0), c), device=x.device, dtype=torch.float32)
+    idx = torch.empty(y.shape, device=x.device, dtype=torch.int32)
+    if y.numel():
+        launch(name, x.data_ptr(), y.data_ptr(), idx.data_ptr(), n, h, w, c, ho, wo, act)
+    return y, idx
+
+
+def max_pool2d_grad_cuda(x, g, ceil_mode=True):
+    """K27's backward ``bn_max_pool2d_grad`` (counted as ``max_pool2d_grad``)."""
+    name = 'max_pool2d_grad'
+    x, g = x.contiguous(), g.contiguous()
+    _check_cuda(name, x, g)
+    _check_nhwc(name, x)
+    _check_nhwc(name, g)
+    n, h, w, c = x.shape
+    ho, wo = pool_out_hw(h, w, ceil_mode)
+    if tuple(g.shape) != (n, ho, wo, c):
+        raise ValueError('%s: g must be %s, got %s' % (name, (n, ho, wo, c), tuple(g.shape)))
+    if g.numel() == 0:
+        return torch.zeros_like(x)
+    gx = torch.empty_like(x)
+    launch('max_pool2d', x.data_ptr(), g.data_ptr(), gx.data_ptr(), n, h, w, c, ho, wo,
+           symbol='bn_max_pool2d_grad')
+    return gx
+
+
+def _check_indices(name, x, indices):
+    _check_nhwc(name, indices, torch.int32)
+    if indices.shape != x.shape:
+        raise ValueError('%s: indices must be %s, got %s'
+                         % (name, tuple(x.shape), tuple(indices.shape)))
+
+
+def max_unpool2d_cuda(x, indices, out_hw):
+    """K28 ``bn_max_unpool2d`` (counted as ``max_unpool2d``) on the card."""
+    name = 'max_unpool2d'
+    x, indices = x.contiguous(), indices.contiguous()
+    _check_cuda(name, x, indices)
+    _check_nhwc(name, x)
+    _check_indices(name, x, indices)
+    n, h, w, c = x.shape
+    oh, ow = int(out_hw[0]), int(out_hw[1])
+    out = torch.empty((n, oh, ow, c), device=x.device, dtype=torch.float32)
+    if out.numel():
+        launch('max_pool2d', x.data_ptr(), indices.data_ptr(), out.data_ptr(), n, h, w, c,
+               oh, ow, symbol='bn_max_unpool2d')
+    return out
+
+
+def max_unpool2d_grad_cuda(g, indices):
+    """K28's backward ``bn_max_unpool2d_grad`` (counted as
+    ``max_unpool2d_grad``): the gather ``g[n, idx, c]``."""
+    name = 'max_unpool2d_grad'
+    g, indices = g.contiguous(), indices.contiguous()
+    _check_cuda(name, g, indices)
+    _check_nhwc(name, g)
+    _check_nhwc(name, indices, torch.int32)
+    n, oh, ow, c = g.shape
+    if indices.shape[0] != n or indices.shape[3] != c:
+        raise ValueError('%s: indices %s do not match g %s'
+                         % (name, tuple(indices.shape), tuple(g.shape)))
+    h, w = indices.shape[1], indices.shape[2]
+    gx = torch.empty(indices.shape, device=g.device, dtype=torch.float32)
+    if gx.numel():
+        launch('max_pool2d', g.data_ptr(), indices.data_ptr(), gx.data_ptr(), n, h, w, c,
+               oh, ow, symbol='bn_max_unpool2d_grad')
+    return gx
+
+
+def _bn_split(p, c, device):
+    """(splits, chunk) of K29's and K30's reductions over ``p`` rows: about
+    eight 256-thread blocks an SM over the ceil(c / 32) channel tiles, at
+    least 64 rows a split."""
+    if device not in _sm_count:
+        _sm_count[device] = torch.cuda.get_device_properties(device).multi_processor_count
+    tiles = -(-c // 32)
+    splits = max(1, min(-(-8 * _sm_count[device] // tiles), -(-p // 64)))
+    chunk = -(-p // splits)
+    return -(-p // chunk), chunk
+
+
+def _check_bn(name, x, *per_channel):
+    _check_cuda(name, x, *per_channel)
+    if x.dtype != torch.float32 or x.dim() < 2:
+        raise ValueError('%s: x must be float32 (..., C), got %s %s'
+                         % (name, x.dtype, tuple(x.shape)))
+    c = x.shape[-1]
+    for t in per_channel:
+        if t is not None and (t.dtype != torch.float32 or tuple(t.shape) != (c,)):
+            raise ValueError('%s: per-channel tensors must be float32 (%d,), got %s %s'
+                             % (name, c, t.dtype, tuple(t.shape)))
+
+
+def batch_norm_cuda(x, gamma, beta, mean=None, var=None, running=None, momentum=0.1,
+                    eps=_BN_EPS, activation=None):
+    """K29 ``bn_batch_norm`` on the card: (y, mean, var), the statistics it
+    used. With ``mean`` None the batch's, and with ``running`` =
+    (running_mean, running_var, num_batches_tracked int64) those are updated
+    in place in the same launch (:func:`batch_norm_update`)."""
+    name = 'batch_norm'
+    x = x.contiguous()
+    _check_bn(name, x, gamma, beta, mean, var)
+    act = _act_code(name, activation)
+    c = x.shape[-1]
+    p = x.numel() // c
+    y = torch.empty_like(x)
+    if p == 0:
+        return y, mean, var
+    null = [None] * 6
+    if mean is None:
+        splits, chunk = _bn_split(p, c, x.device)
+        part = torch.empty(splits * c * 2, device=x.device, dtype=torch.float32)
+        mean = torch.empty(c, device=x.device, dtype=torch.float32)
+        var = torch.empty(c, device=x.device, dtype=torch.float32)
+        if running is not None:
+            rm, rv, count = running
+            _check_bn(name, x, rm, rv)
+            if count.dtype != torch.int64 or count.numel() != 1 or count.device != x.device:
+                raise ValueError('%s: the batch count must be one int64 on %s'
+                                 % (name, x.device))
+            run = [rm.data_ptr(), rv.data_ptr(), count.data_ptr()]
+        else:
+            run = [None] * 3
+        ptrs = [None, None, part.data_ptr(), mean.data_ptr(), var.data_ptr()] + run
+    else:
+        splits, chunk = 1, p
+        ptrs = [mean.data_ptr(), var.data_ptr()] + null
+    launch(name, x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), *ptrs, y.data_ptr(), p, c,
+           splits, chunk, eps, -1.0 if momentum is None else momentum,
+           p / max(p - 1, 1), act)
+    return y, mean, var
+
+
+def batch_norm_backward_cuda(g, x, gamma, mean, var, batch_stats=True, eps=_BN_EPS):
+    """K30 ``bn_batch_norm_backward`` (counted as ``batch_norm_backward``):
+    (dx, dgamma, dbeta), see :func:`batch_norm_backward_plain`."""
+    name = 'batch_norm_backward'
+    g, x = g.contiguous(), x.contiguous()
+    _check_bn(name, x, gamma, mean, var)
+    _check_bn(name, g)
+    if g.shape != x.shape:
+        raise ValueError('%s: g must be %s, got %s' % (name, tuple(x.shape), tuple(g.shape)))
+    c = x.shape[-1]
+    p = x.numel() // c
+    dx = torch.empty_like(x)
+    dgamma = torch.empty(c, device=x.device, dtype=torch.float32)
+    dbeta = torch.empty(c, device=x.device, dtype=torch.float32)
+    if p == 0:
+        return dx, dgamma.zero_(), dbeta.zero_()
+    splits, chunk = _bn_split(p, c, x.device)
+    part = torch.empty(splits * c * 2, device=x.device, dtype=torch.float32)
+    launch('batch_norm', x.data_ptr(), g.data_ptr(), gamma.data_ptr(), mean.data_ptr(),
+           var.data_ptr(), part.data_ptr(), dgamma.data_ptr(), dbeta.data_ptr(),
+           dx.data_ptr(), p, c, splits, chunk, eps, int(batch_stats),
+           symbol='bn_batch_norm_backward')
+    return dx, dgamma, dbeta
+
+
+# ------------------------------------------- pooling and batch norm: dispatch
+
+
+def max_pool2d_grad(x, g, ceil_mode=True):
+    """Input gradient of the max pool (K27's backward on the card)."""
+    fn = max_pool2d_grad_plain if _on_cpu(x, 'max_pool2d_grad') else max_pool2d_grad_cuda
+    return fn(x, g, ceil_mode)
+
+
+def max_unpool2d_grad(g, indices):
+    """Input gradient of the unpool (K28's backward on the card)."""
+    fn = max_unpool2d_grad_plain if _on_cpu(g, 'max_unpool2d_grad') else max_unpool2d_grad_cuda
+    return fn(g, indices)
+
+
+class _MaxPool2dFn(torch.autograd.Function):
+    """Max pool + activation; backward in K27's gradient launcher."""
+
+    @staticmethod
+    def forward(ctx, x, ceil_mode, activation):
+        fn = max_pool2d_plain if _on_cpu(x, 'max_pool2d') else max_pool2d_cuda
+        y, idx = fn(x, ceil_mode, activation)
+        ctx.mark_non_differentiable(idx)
+        ctx.save_for_backward(x, y)
+        ctx.args = (ceil_mode, activation)
+        return y, idx
+
+    @staticmethod
+    def backward(ctx, gy, gidx):
+        x, y = ctx.saved_tensors
+        ceil_mode, activation = ctx.args
+        g = _activation_grad(gy.contiguous(), y, activation)
+        return max_pool2d_grad(x, g, ceil_mode), None, None
+
+
+class _MaxUnpool2dFn(torch.autograd.Function):
+    """Unpool; backward in K28's gather."""
+
+    @staticmethod
+    def forward(ctx, x, indices, out_hw):
+        fn = max_unpool2d_plain if _on_cpu(x, 'max_unpool2d') else max_unpool2d_cuda
+        ctx.save_for_backward(indices)
+        return fn(x, indices, out_hw)
+
+    @staticmethod
+    def backward(ctx, g):
+        indices, = ctx.saved_tensors
+        return max_unpool2d_grad(g.contiguous(), indices), None, None
+
+
+class _BatchNormFn(torch.autograd.Function):
+    """Batch norm (+ running update) + activation; backward in K30."""
+
+    @staticmethod
+    def forward(ctx, x, gamma, beta, mean, var, running, momentum, eps, activation):
+        batch_stats = mean is None
+        if _on_cpu(x, 'batch_norm'):
+            if batch_stats:
+                mean, var = batch_norm_stats_plain(x)
+                if running is not None:
+                    rm, rv, count = running
+                    new_rm, new_rv = _running_update(rm, rv, count, mean, var,
+                                                     x.numel() // x.shape[-1], momentum)
+                    rm.copy_(new_rm)
+                    rv.copy_(new_rv)
+                    count.add_(1)
+            y = batch_norm_plain(x, gamma, beta, mean, var, eps, activation)
+        else:
+            y, mean, var = batch_norm_cuda(x, gamma, beta, mean, var, running, momentum, eps,
+                                           activation)
+        ctx.save_for_backward(x, gamma, mean, var, y)
+        ctx.args = (batch_stats, eps, activation)
+        return y
+
+    @staticmethod
+    def backward(ctx, gy):
+        x, gamma, mean, var, y = ctx.saved_tensors
+        batch_stats, eps, activation = ctx.args
+        g = _activation_grad(gy.contiguous(), y, activation)
+        fn = batch_norm_backward_plain if _on_cpu(x, 'batch_norm_backward') \
+            else batch_norm_backward_cuda
+        dx, dgamma, dbeta = fn(g, x, gamma, mean, var, batch_stats, eps)
+        return dx, dgamma, dbeta, None, None, None, None, None, None
+
+
+def max_pool2d_with_indices(x, ceil_mode=True, activation=None):
+    """2x2 / stride-2 max pool returning values and flat indices (JAX:
+    ops/conv.py:367 max_pool2d_with_indices; ``ceil_mode`` for 'same'
+    archs, floor for 'valid').
+
+    x: (N, H, W, C) float32. Returns (pooled (N, Ho, Wo, C), indices int32
+    of the same shape: ``row * W + col`` of the first maximum of each window
+    in the input plane). ``activation`` (None or 'leaky_relu') is applied to
+    the pooled values after the pool, as the encoder applies it. The
+    gradient splits each window's cotangent evenly among its tied maxima.
+    """
+    return _MaxPool2dFn.apply(x, bool(ceil_mode), activation)
+
+
+def max_unpool2d(x, indices, out_hw):
+    """Scatter pooled values back to ``out_hw`` at their flat indices (JAX:
+    ops/conv.py:402 max_unpool2d); an index outside the output is dropped."""
+    return _MaxUnpool2dFn.apply(x, indices, (int(out_hw[0]), int(out_hw[1])))
+
+
+def batch_norm(x, gamma, beta, eps=_BN_EPS, mean=None, var=None, running=None, momentum=0.1,
+               activation=None):
+    """Batch normalization over all but the last axis (JAX: ops/conv.py:419
+    batch_norm).
+
+    With ``mean`` / ``var`` None the batch's statistics are used (train
+    mode, and eval mode without running statistics); ``running`` =
+    (running_mean, running_var, num_batches_tracked int64) are then updated
+    in place as :func:`batch_norm_update` computes them, in the same launch
+    on the card (``momentum`` None: the cumulative average). Given ``mean``
+    and ``var`` (eval mode with running statistics) are used as they are.
+    ``activation`` (None or 'leaky_relu') follows the affine map.
+    Differentiable in x, gamma and beta.
+    """
+    return _BatchNormFn.apply(x, gamma, beta, mean, var, running, momentum, float(eps),
+                              activation)

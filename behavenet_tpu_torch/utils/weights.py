@@ -8,6 +8,16 @@ the reference's torch modules want them:
 
 - conv kernels HWIO -> (O, I, kh, kw); transposed-conv kernels HWIO
   (forward orientation) -> (I, O, kh, kw);
+- a batch-norm layer's ``gamma``, ``beta`` and, when it tracks them,
+  ``running_mean``, ``running_var`` and ``num_batches`` (a float in JAX)
+  are ``batchnorm%i.weight``, ``.bias``, ``.running_mean``, ``.running_var``
+  and ``.num_batches_tracked`` (int64) (``torch_import.py:74-98``,
+  ``:221-243``);
+- the layers of a kind are numbered by their order among that kind
+  (``conv%i``, ``batchnorm%i``, ``convtranspose%i``), as the exporter's
+  code numbers them (``torch_import.py:60-70``, ``:127-132``,
+  ``:211-219``); in a pooling arch that is not the JAX layer index
+  (``conv_2`` is ``conv1``), so each port layer carries its JAX name;
 - dense layers (in, out) -> (out, in);
 - flattening: the JAX package flattens conv features (H, W, C), torch
   (C, H, W); the input dims of the encoder's FF (and ``logvar``) heads and
@@ -31,6 +41,7 @@ the reference's torch modules want them:
 import numpy as np
 import torch
 
+from behavenet_tpu_torch.models.aes import BatchNorm
 from behavenet_tpu_torch.models.decoders import LSTM, Decoder
 
 __all__ = ['params_to_state_dict', 'state_dict_to_params', 'arhmm_params_from_jax']
@@ -83,10 +94,7 @@ def params_to_state_dict(model, params):
     hp = model.hparams
     enc, dec = params['encoder'], params['decoder']
     sd = {}
-    for name in model.encoding.encoder:
-        p = enc['conv_%s' % name[len('conv'):]]
-        sd['encoding.encoder.%s.weight' % name] = np.transpose(_f32(p['w']), (3, 2, 0, 1))
-        sd['encoding.encoder.%s.bias' % name] = _f32(p['b'])
+    _layers_to_state_dict(sd, 'encoding.encoder', model.encoding.encoder, enc, (3, 2, 0, 1))
 
     perm_in = _chw_to_hwc_perm(hp['ae_encoding_n_channels'][-1],
                                hp['ae_encoding_y_dim'][-1],
@@ -114,11 +122,48 @@ def params_to_state_dict(model, params):
     sd['decoding.FF.weight'] = wt
     sd['decoding.FF.bias'] = bt
 
-    for name in model.decoding.decoder:
-        p = dec['convt_%s' % name[len('convtranspose'):]]
-        sd['decoding.decoder.%s.weight' % name] = np.transpose(_f32(p['w']), (2, 3, 0, 1))
-        sd['decoding.decoder.%s.bias' % name] = _f32(p['b'])
+    _layers_to_state_dict(sd, 'decoding.decoder', model.decoding.decoder, dec, (2, 3, 0, 1))
     return {k: torch.tensor(v) for k, v in sd.items()}
+
+
+def _layers_to_state_dict(sd, prefix, layers, params, conv_perm):
+    """The conv (HWIO weights permuted by ``conv_perm``) and batch-norm
+    layers of one half of an AE into ``sd``; pools have no parameters."""
+    for name, layer in layers.items():
+        if not hasattr(layer, 'jax_name'):
+            continue
+        p = params[layer.jax_name]
+        key = '%s.%s.' % (prefix, name)
+        if isinstance(layer, BatchNorm):
+            sd[key + 'weight'] = _f32(p['gamma'])
+            sd[key + 'bias'] = _f32(p['beta'])
+            if layer.track:
+                sd[key + 'running_mean'] = _f32(p['running_mean'])
+                sd[key + 'running_var'] = _f32(p['running_var'])
+                sd[key + 'num_batches_tracked'] = np.int64(np.asarray(p['num_batches']))
+        else:
+            sd[key + 'weight'] = np.transpose(_f32(p['w']), conv_perm)
+            sd[key + 'bias'] = _f32(p['b'])
+
+
+def _layers_to_params(sd, prefix, layers, conv_perm):
+    """The inverse of :func:`_layers_to_state_dict`: JAX name -> leaves."""
+    out = {}
+    for name, layer in layers.items():
+        if not hasattr(layer, 'jax_name'):
+            continue
+        key = '%s.%s.' % (prefix, name)
+        if isinstance(layer, BatchNorm):
+            p = {'gamma': sd[key + 'weight'], 'beta': sd[key + 'bias']}
+            if key + 'running_mean' in sd:   # absent from gradients
+                p['running_mean'] = sd[key + 'running_mean']
+                p['running_var'] = sd[key + 'running_var']
+                p['num_batches'] = np.asarray(sd[key + 'num_batches_tracked'], np.float32)
+        else:
+            p = {'w': np.ascontiguousarray(np.transpose(sd[key + 'weight'], conv_perm)),
+                 'b': sd[key + 'bias']}
+        out[layer.jax_name] = p
+    return out
 
 
 def state_dict_to_params(model, tensors=None):
@@ -137,12 +182,8 @@ def state_dict_to_params(model, tensors=None):
                             np.transpose(sd[tname + '.weight'], np.argsort(perm))),
                         'b': sd[tname + '.bias']}
                 for jname, tname, perm in _decoder_layers(model)}
-    enc, dec = {}, {}
-    for name in model.encoding.encoder:
-        enc['conv_%s' % name[len('conv'):]] = {
-            'w': np.ascontiguousarray(
-                np.transpose(sd['encoding.encoder.%s.weight' % name], (2, 3, 1, 0))),
-            'b': sd['encoding.encoder.%s.bias' % name]}
+    enc = _layers_to_params(sd, 'encoding.encoder', model.encoding.encoder, (2, 3, 1, 0))
+    dec = {}
 
     perm_in = _chw_to_hwc_perm(hp['ae_encoding_n_channels'][-1],
                                hp['ae_encoding_y_dim'][-1],
@@ -163,11 +204,8 @@ def state_dict_to_params(model, tensors=None):
     perm_out = _chw_to_hwc_perm(*hp['ae_decoding_starting_dim'])
     dec['fc'] = {'w': np.ascontiguousarray(sd['decoding.FF.weight'][perm_out, :].T),
                  'b': sd['decoding.FF.bias'][perm_out]}
-    for name in model.decoding.decoder:
-        dec['convt_%s' % name[len('convtranspose'):]] = {
-            'w': np.ascontiguousarray(
-                np.transpose(sd['decoding.decoder.%s.weight' % name], (2, 3, 0, 1))),
-            'b': sd['decoding.decoder.%s.bias' % name]}
+    dec.update(_layers_to_params(sd, 'decoding.decoder', model.decoding.decoder,
+                                 (2, 3, 0, 1)))
     return {'encoder': enc, 'decoder': dec}
 
 

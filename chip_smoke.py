@@ -6,7 +6,7 @@
 On one CUDA GPU (an H100: the kernels are built for sm_90a) it
 
 1. prints the card's name and power limit (nvidia-smi);
-2. builds the port's eighteen CUDA kernel sources from this checkout;
+2. builds the port's twenty CUDA kernel sources from this checkout;
 3. holds each kernel against its plain PyTorch version at the shapes the
    two main paths give it, and times the kernel, the plain version and the
    one PyTorch call that computes the same function (TF32 off for every
@@ -163,6 +163,29 @@ On one CUDA GPU (an H100: the kernels are built for sm_90a) it
    and the fitted model served through ``serving.load_version`` at 1, 189
    and 1024 frames (``encode`` = [z_s, z_b, z_u]) against the plain path,
    with no triplet launch.
+13. the max-pooling + batch-norm AE (main paths 22-24; row 6,
+   kernels/pool.cu and kernels/batch_norm.cu): the published default arch
+   recast as the reference generator's max_pooling type (POOL_ARCH: five
+   stride-1 k5 convs, each with batch norm and a 2x2 pool, the shipped
+   cumulative momentum) on the same frames; its convs (K1, K2, K4 at stride
+   1; the uint8 first layer; the 2-channel sigmoid last layer in K2)
+   against the plain versions as the default arch's; K27 (the pool with
+   its leaky ReLU, and its backward), K28 (the unpool, and its backward),
+   K29 (batch norm, train mode with the running update and eval mode) and
+   K30 (its backward) against their plain versions at every pool and
+   batch-norm layer at the 192-frame bucket, and K27 / K28 on a 13 x 17
+   plane in ceil and floor mode with planted ties, each timed beside
+   ``F.max_pool2d`` / ``F.max_unpool2d`` / ``F.batch_norm`` and their
+   autograd backwards (yardsticks the port never calls); ``fit`` (an eval
+   epoch, one train epoch over 8 trials; K27-K30 must launch; every running
+   statistic leaves its init) and ``export_latents`` in eval mode (no
+   backward, the statistics untouched, the latents the plain path's); one
+   train step's gradients and running statistics against the plain twin's,
+   its time and profile; and the fitted version served through
+   ``serving.load_version`` at 1, 189 and 1024 frames against the plain
+   path in eval mode, with no batch-statistics pass in a request's profile.
+   Also K12's gradients (row 9) on 5 further draws at d = 9 and 16 against
+   the plain version in float64, beside the plain float32 version's.
 
 Each phase prints one JSON line; the line before the last lists the kernels
 with their numbers, and the last line is ``{"ok": true, "device": ...}``.
@@ -253,6 +276,50 @@ MSPS_CLASS = {'n_labels': N_LABELS, 'n_background': N_BACKGROUND, 'ps_vae.alpha'
 MSPS_BRIGHTNESS = 60
 TRIPLET_SESSIONS, TRIPLET_PAD = (2, 3, 4), BUCKET - TRIAL
 TRIPLET_GRAD_REL_TOL = 1e-4
+# K12's gradients on NLL_DRAWS further draws at d = 9 and 16 from a
+# generator of their own, K12 (its factor in float64 registers) and its
+# plain float32 version each against the plain version in float64: K12
+# within NLL_GRAD_REL_TOL of max|float64| and no farther from it than the
+# plain float32 version, on every draw.
+NLL_DRAWS = 5
+
+# Row 6 (K27-K30): the published default arch (Whiteway et al 2021,
+# models/arch.py:load_default_arch: widths 32-512, kernel 5) recast as the
+# reference generator's max_pooling network type, with batch norm at the
+# shipped cumulative momentum (configs/ae_jsons/ae_arch_default.json:13:
+# null), on the same 2-view frames and 12 latents: five stride-1 'same'
+# convs, each followed by batch norm and a 2x2 pool (128 -> 4), and a
+# decoder of unpool, conv-transpose and batch norm whose last layer (2
+# channels, sigmoid) runs in K2. 8.92 M parameters. Its convs are held to
+# the plain versions as the default arch's (check_layer,
+# check_backward_layer), K27-K30 at each of its pool and batch-norm layers
+# at the 192-frame bucket and at POOL_ODD in ceil and floor mode with
+# planted ties; fit on BN_FIT_TRIALS in-memory trials.
+POOL_ARCH = {
+    'ae_network_type': 'max_pooling', 'ae_padding_type': 'same', 'ae_batch_norm': 1,
+    'ae_batch_norm_momentum': None, 'symmetric_arch': 1,
+    'ae_encoding_n_channels': [32, 32, 64, 64, 128, 128, 256, 256, 512, 512],
+    'ae_encoding_kernel_size': [5, 2] * 5, 'ae_encoding_stride_size': [1, 2] * 5,
+    'ae_encoding_layer_type': ['conv', 'maxpool'] * 5, 'ae_decoding_last_FF_layer': 0}
+POOL_ODD = (13, 17)
+# the stride-1 convs do ~5x the default arch's work (the plain grad-w ~0.3
+# s a call): fewer timed calls
+POOL_TIMING = dict(samples=2, inner=3, warmup=1)
+BN_FIT_TRIALS = 10           # 8 train, 1 val, 1 test
+# K27 / K28 vs plain: equal (comparisons, copies and one division by the tie
+# count). K29: the output as the convs' (ABS_TOL, REL_TOL); the batch and
+# running statistics within BN_STAT_REL_TOL of max(1, max|plain|) (float32
+# sums over up to 3.1 M rows in another order). K30: dx, dgamma and dbeta
+# within BN_GRAD_REL_TOL of max|plain|. A train step's running statistics
+# against the plain twin's within BN_RUNNING_REL_TOL of max(1, max|twin|)
+# (ten layers of kernels against cuDNN before them).
+BN_STAT_REL_TOL, BN_GRAD_REL_TOL, BN_RUNNING_REL_TOL = 1e-5, 1e-4, 1e-4
+ROW6_KERNELS = ('max_pool2d', 'max_pool2d_grad', 'max_unpool2d', 'max_unpool2d_grad',
+                'batch_norm', 'batch_norm_backward')
+BN_KERNELS = ('conv2d_nhwc', 'conv_transpose2d_nhwc', 'conv2d_grad_w_nhwc', 'masked_mse',
+              'amsgrad_step') + ROW6_KERNELS
+BN_SERVE_KERNELS = ('conv2d_nhwc', 'conv_transpose2d_nhwc', 'max_pool2d', 'max_unpool2d',
+                    'batch_norm')
 
 KERNELS = {
     'conv2d_nhwc': ('behavenet_tpu_torch/kernels/conv2d_nhwc.cu',
@@ -332,6 +399,18 @@ KERNELS = {
                      'behavenet_tpu/ops/losses.py:246'),
     'triplet_loss_grad': ('behavenet_tpu_torch/kernels/triplet.cu',
                           'behavenet_tpu/ops/losses.py:213'),
+    # the pooling and batch-norm archs' pool (K27), unpool (K28), batch norm
+    # with its running update (K29) and their backwards (JAX's autodiff)
+    'max_pool2d': ('behavenet_tpu_torch/kernels/pool.cu', 'behavenet_tpu/ops/conv.py:367'),
+    'max_pool2d_grad': ('behavenet_tpu_torch/kernels/pool.cu',
+                        'behavenet_tpu/ops/conv.py:367'),
+    'max_unpool2d': ('behavenet_tpu_torch/kernels/pool.cu', 'behavenet_tpu/ops/conv.py:402'),
+    'max_unpool2d_grad': ('behavenet_tpu_torch/kernels/pool.cu',
+                          'behavenet_tpu/ops/conv.py:402'),
+    'batch_norm': ('behavenet_tpu_torch/kernels/batch_norm.cu',
+                   'behavenet_tpu/ops/conv.py:419'),
+    'batch_norm_backward': ('behavenet_tpu_torch/kernels/batch_norm.cu',
+                            'behavenet_tpu/ops/conv.py:419'),
 }
 
 # the kernels a served request runs (an AE train step runs K1-K6, a
@@ -500,7 +579,13 @@ KALMAN_OPS_KERNELS = ('kalman_filter', 'kalman_smoother', 'kalman_filter_scan',
                       'kalman_smoother_scan', 'solve_small_pivot')
 
 
+_T0 = time.perf_counter()
+
+
 def emit(obj):
+    """One JSON line; phase lines carry the script's elapsed seconds."""
+    if 'phase' in obj:
+        obj = dict(obj, elapsed_s=round(time.perf_counter() - _T0, 1))
     print(json.dumps(obj), flush=True)
 
 
@@ -535,6 +620,7 @@ def import_port():
     from behavenet_tpu_torch import serving
     from behavenet_tpu_torch.fitting import (arhmm_grid_search, bayesian_decoder_grid_search,
                                              experiment, hyperparams, training)
+    from behavenet_tpu_torch.fitting import eval as fit_eval
     from behavenet_tpu_torch.kernels import build
     from behavenet_tpu_torch.models import aes, arch, arhmm, base, bayesian, decoders, vaes
     from behavenet_tpu_torch.ops import conv as ops
@@ -546,7 +632,7 @@ def import_port():
         experiment=experiment, weights=weights, arhmm=arhmm, hmm=hmm, smallmat=smallmat,
         pickles=pickles, arhmm_grid_search=arhmm_grid_search, hyperparams=hyperparams,
         decoders=decoders, imm=imm, kalman=kalman, lstm=lstm, bayesian=bayesian,
-        bayesian_decoder_grid_search=bayesian_decoder_grid_search)
+        bayesian_decoder_grid_search=bayesian_decoder_grid_search, fit_eval=fit_eval)
 
 
 def median_ms(fn, samples=5, inner=10, warmup=3):
@@ -615,35 +701,45 @@ def errors(out_k, out_p, scaled_floor=False):
             bool(torch.isfinite(out_k).all().item()))
 
 
-def layer_shapes(hp, n):
-    """One entry per conv layer of the default AE at batch ``n``."""
+def layer_shapes(hp, n, prefix=''):
+    """One entry per conv layer of a conv AE arch at batch ``n``: the
+    default AE's, or a pooling / batch-norm arch's, whose convs ahead of a
+    batch norm or a pool run without an activation and whose last layer
+    goes to K3 only when it upsamples (models/aes.py). ``prefix`` names the
+    arch in the layer labels."""
     layers = []
     h, w = IMG[1], IMG[2]
     c = IMG[0]
+    bn = bool(hp.get('ae_batch_norm'))
+    types = hp['ae_encoding_layer_type']
     for i, co in enumerate(hp['ae_encoding_n_channels']):
-        layers.append(dict(
-            layer='conv_%d' % i, kernel='conv2d_nhwc', n=n, h=h, w=w, ci=c, co=co,
-            k=hp['ae_encoding_kernel_size'][i], s=hp['ae_encoding_stride_size'][i],
-            pad_y=tuple(hp['ae_encoding_y_padding'][i]),
-            pad_x=tuple(hp['ae_encoding_x_padding'][i]), out_pad=(0, 0),
-            act='leaky_relu', uint8=i == 0))
+        if types[i] == 'conv':
+            pool = i + 1 < len(types) and types[i + 1] == 'maxpool'
+            layers.append(dict(
+                layer='%sconv_%d' % (prefix, i), kernel='conv2d_nhwc', n=n, h=h, w=w, ci=c,
+                co=co, k=hp['ae_encoding_kernel_size'][i], s=hp['ae_encoding_stride_size'][i],
+                pad_y=tuple(hp['ae_encoding_y_padding'][i]),
+                pad_x=tuple(hp['ae_encoding_x_padding'][i]), out_pad=(0, 0),
+                act=None if (bn or pool) else 'leaky_relu', uint8=i == 0))
         h, w, c = hp['ae_encoding_y_dim'][i], hp['ae_encoding_x_dim'][i], co
     c, h, w = hp['ae_decoding_starting_dim']
     last = len(hp['ae_decoding_n_channels']) - 1
     for i, co in enumerate(hp['ae_decoding_n_channels']):
-        layers.append(dict(
-            layer='convt_%d' % i,
-            kernel='conv_transpose2d_smallcout_sigmoid' if i == last
-            else 'conv_transpose2d_nhwc', n=n, h=h, w=w, ci=c, co=co,
-            k=hp['ae_decoding_kernel_size'][i], s=hp['ae_decoding_stride_size'][i],
-            pad_y=tuple(hp['ae_decoding_y_padding'][i]),
-            pad_x=tuple(hp['ae_decoding_x_padding'][i]), out_pad=(0, 0),
-            act='sigmoid' if i == last else 'leaky_relu', uint8=False))
+        if hp['ae_decoding_layer_type'][i] == 'convtranspose':
+            s = hp['ae_decoding_stride_size'][i]
+            layers.append(dict(
+                layer='%sconvt_%d' % (prefix, i),
+                kernel='conv_transpose2d_smallcout_sigmoid' if i == last and s > 1 and co <= 4
+                else 'conv_transpose2d_nhwc', n=n, h=h, w=w, ci=c, co=co,
+                k=hp['ae_decoding_kernel_size'][i], s=s,
+                pad_y=tuple(hp['ae_decoding_y_padding'][i]),
+                pad_x=tuple(hp['ae_decoding_x_padding'][i]), out_pad=(0, 0),
+                act='sigmoid' if i == last else (None if bn else 'leaky_relu'), uint8=False))
         h, w, c = hp['ae_decoding_y_dim'][i], hp['ae_decoding_x_dim'][i], co
     return layers
 
 
-def check_layer(L, ops, gen):
+def check_layer(L, ops, gen, timing=None):
     """Kernel vs plain version (and the cuDNN call) at one layer shape."""
     dev = DEVICE
     transposed = L['kernel'] != 'conv2d_nhwc'
@@ -710,7 +806,8 @@ def check_layer(L, ops, gen):
         output=[L['n'], oh, ow, L['co']], k=L['k'], stride=s, pad_y=py, pad_x=px,
         max_abs_err=max_abs, abs_tol=abs_tol, max_rel_err=max_rel, rel_tol=REL_TOL,
         gflop=2 * macs / 1e9, mbytes=nbytes / 1e6,
-        ms=median_ms(kernel), plain_ms=median_ms(plain), library_ms=median_ms(library),
+        ms=median_ms(kernel, **(timing or {})), plain_ms=median_ms(plain, **(timing or {})),
+        library_ms=median_ms(library, **(timing or {})),
         bound_ms=max(t_ops, t_bytes), t_ops_ms=t_ops, t_bytes_ms=t_bytes,
         bound_by='operations' if t_ops >= t_bytes else 'bytes')
     emit(rec)
@@ -747,32 +844,82 @@ def random_params(hp, rs):
     return {'encoder': enc, 'decoder': dec}
 
 
-def plain_features(model, ops, frames):
-    """The encoder's conv stack through the plain versions, flattened (C, H,
-    W) as its dense heads read it."""
+def plain_layer(layer, ops, x, train, pool_idx, replay=None):
+    """One encoder or decoder layer through the plain versions: a pool
+    pushes its indices onto ``pool_idx``, an unpool pops them; batch norm
+    in train mode (or untracked) uses the batch's statistics, and in train
+    mode also updates the layer's running statistics as K29 does. With
+    ``replay`` (``recorded_decisions`` of the kernel path, consumed in
+    order) a pool takes the kernel path's indices and window weights and a
+    fused leaky ReLU its signs; the arithmetic stays the plain versions'."""
+    kind = type(layer).__name__
+    if kind == 'Unpool':
+        return ops.max_unpool2d_plain(x, pool_idx.pop(), layer.out_hw)
+    if kind == 'MaxPool':
+        if replay is None:
+            y, idx = ops.max_pool2d_plain(x, layer.ceil_mode, layer.activation)
+            pool_idx.append(idx)
+            return y
+        idx, weights, sign = replay.pop(0)
+        pool_idx.append(idx)
+        y = (ops.pool_windows(x, layer.ceil_mode) * weights).sum(dim=-1)
+        return torch.where(sign, y, 0.05 * y) if layer.activation else y
+    act, sign = layer.activation, None
+    if replay is not None and act == 'leaky_relu':
+        act, sign = None, replay.pop(0)
+    if kind == 'ConvLayer':
+        y = ops.conv2d_plain(x, layer.weight.permute(2, 3, 1, 0), layer.bias, layer.stride,
+                             layer.pad_y, layer.pad_x, act)
+    elif kind == 'ConvTransposeLayer':
+        y = ops.conv_transpose2d_plain(x, layer.weight.permute(2, 3, 0, 1), layer.bias,
+                                       layer.stride, layer.pad_y, layer.pad_x, layer.out_pad,
+                                       act)
+    elif layer.track and not train:
+        y = ops.batch_norm_plain(x, layer.weight, layer.bias, layer.running_mean,
+                                 layer.running_var, activation=act)
+    else:
+        if layer.track:
+            with torch.no_grad():
+                new = ops.batch_norm_update(x, {'running_mean': layer.running_mean,
+                                                'running_var': layer.running_var,
+                                                'num_batches': layer.num_batches_tracked},
+                                            layer.momentum)
+                layer.running_mean.copy_(new['running_mean'])
+                layer.running_var.copy_(new['running_var'])
+                layer.num_batches_tracked.copy_(new['num_batches'])
+        y = ops.batch_norm_plain(x, layer.weight, layer.bias, activation=act)
+    return y if sign is None else torch.where(sign, y, 0.05 * y)
+
+
+def plain_features(model, ops, frames, train=False, pool_idx=None, replay=None):
+    """The encoder's layers through the plain versions, flattened (C, H, W)
+    as its dense heads read it; its pool indices appended to ``pool_idx``;
+    ``replay`` as for ``plain_layer``."""
     x = frames
+    pool_idx = [] if pool_idx is None else pool_idx
     for layer in model.encoding.encoder.values():
-        x = ops.conv2d_plain(x, layer.weight.permute(2, 3, 1, 0), layer.bias,
-                             layer.stride, layer.pad_y, layer.pad_x, layer.activation)
+        x = plain_layer(layer, ops, x, train, pool_idx, replay)
     return x.permute(0, 3, 1, 2).reshape(x.shape[0], -1)
 
 
-def plain_decode(model, ops, z):
-    """The decoder through the plain versions."""
+def plain_decode(model, ops, z, train=False, pool_idx=(), replay=None):
+    """The decoder through the plain versions, at the encoder's pool indices."""
     c, h, w = model.decoding.starting_dim
     y = model.decoding.FF(z).reshape(z.shape[0], c, h, w).permute(0, 2, 3, 1)
+    stack = list(pool_idx)
     for layer in model.decoding.decoder.values():
-        y = ops.conv_transpose2d_plain(
-            y, layer.weight.permute(2, 3, 0, 1), layer.bias, layer.stride,
-            layer.pad_y, layer.pad_x, layer.out_pad, layer.activation)
+        y = plain_layer(layer, ops, y, train, stack, replay)
     return y
 
 
-def plain_forward(model, ops, frames, decode=True):
+def plain_forward(model, ops, frames, decode=True, train=False, replay=None):
     """The AE's forward through the plain PyTorch versions only:
-    (reconstruction or None, latents)."""
-    z = model.encoding.FF(plain_features(model, ops, frames))
-    return (plain_decode(model, ops, z) if decode else None), z
+    (reconstruction or None, latents); batch norm in eval mode unless
+    ``train``; ``replay`` as for ``plain_layer``."""
+    pool_idx = []
+    replay = None if replay is None else list(replay)
+    z = model.encoding.FF(plain_features(model, ops, frames, train, pool_idx, replay))
+    return (plain_decode(model, ops, z, train, pool_idx, replay) if decode else None), z
 
 
 def plain_request(bundle, ops, frames, head):
@@ -851,11 +998,17 @@ def serve(serving, base, ops, hp, tmp):
     return launches, per_request, results
 
 
-def check_backward_layer(L, ops, gen):
+def check_backward_layer(L, ops, gen, timing=None):
     """The backward of one layer at the train step's shapes: grad-w (K4) and,
     unless the input is uint8 frames, grad-x (K2 for a conv, K1 for a
     transposed conv), each against its plain version and cuDNN's wgrad /
-    dgrad through ``torch.autograd.grad``."""
+    dgrad through ``torch.autograd.grad``. Grad-w sums over every output
+    pixel (786 k at the default arch's first layer, 3.1 M at the stride-1
+    archs'), where the plain version's float32 sum (cuDNN) itself drifts up
+    to ~1.2e-3 (relative, as ``errors`` measures it) from the exact one on
+    the H100, ten times K4's drift: so K4 is held to the plain version run
+    in float64, and its distance from the float32 plain version and that
+    version's own are reported beside it."""
     dev = DEVICE
     transposed = L['kernel'] != 'conv2d_nhwc'
     k, s, py, px, op = L['k'], L['s'], L['pad_y'], L['pad_x'], L['out_pad']
@@ -892,32 +1045,43 @@ def check_backward_layer(L, ops, gen):
     gl = F.pad(gl, [0, out_l.shape[3] - ow, 0, out_l.shape[2] - oh])
     gl = gl.contiguous(memory_format=torch.channels_last)
 
+    x64 = x.double() / 255.0 if L['uint8'] else x.double()
     passes = []
     if transposed:
         pw_y, pw_x = (py[0], py[1] - op[0]), (px[0], px[1] - op[1])
         passes.append(('grad_w', 'conv2d_grad_w_nhwc',
                        lambda: ops.conv2d_grad_w(g, x, k, s, pw_y, pw_x, True),
-                       lambda: ops.conv2d_grad_w_plain(g, x, k, s, pw_y, pw_x, True), wl))
+                       lambda: ops.conv2d_grad_w_plain(g, x, k, s, pw_y, pw_x, True), wl,
+                       lambda: ops.conv2d_grad_w_plain(g.double(), x64, k, s, pw_y, pw_x, True)))
         passes.append(('grad_x', 'conv2d_nhwc',
                        lambda: ops.conv_transpose2d_grad_x(g, w, s, py, px, op),
-                       lambda: ops.conv_transpose2d_grad_x_plain(g, w, s, py, px, op), xl))
+                       lambda: ops.conv_transpose2d_grad_x_plain(g, w, s, py, px, op), xl, None))
     else:
         passes.append(('grad_w', 'conv2d_grad_w_nhwc',
                        lambda: ops.conv2d_grad_w(x, g, k, s, py, px),
-                       lambda: ops.conv2d_grad_w_plain(x, g, k, s, py, px), wl))
+                       lambda: ops.conv2d_grad_w_plain(x, g, k, s, py, px), wl,
+                       lambda: ops.conv2d_grad_w_plain(x64, g.double(), k, s, py, px)))
         if not L['uint8']:
             hw = (L['h'], L['w'])
             passes.append(('grad_x', 'conv_transpose2d_nhwc',
                            lambda: ops.conv2d_grad_x(g, w, s, py, px, hw),
-                           lambda: ops.conv2d_grad_x_plain(g, w, s, py, px, hw), xl))
+                           lambda: ops.conv2d_grad_x_plain(g, w, s, py, px, hw), xl, None))
 
     rows = []
-    for name, kernel_name, kernel, plain, wrt in passes:
+    for name, kernel_name, kernel, plain, wrt, exact in passes:
         out_k, out_p = kernel(), plain()
         torch.cuda.synchronize()
         if out_k.shape != out_p.shape:
             raise AssertionError('%s %s: kernel shape %s, plain %s' % (
                 L['layer'], name, tuple(out_k.shape), tuple(out_p.shape)))
+        extra = {}
+        if exact is not None:
+            ref = exact().float()
+            extra = dict(reference='plain_float64',
+                         plain_f32_max_rel_err=errors(out_p, ref, scaled_floor=True)[2],
+                         kernel_vs_plain_f32_max_rel_err=errors(out_k, out_p,
+                                                                scaled_floor=True)[2])
+            out_p = ref
         max_abs, abs_tol, max_rel, finite = errors(out_k, out_p, scaled_floor=True)
         out_shape = list(out_k.shape)
         del out_k, out_p
@@ -935,8 +1099,9 @@ def check_backward_layer(L, ops, gen):
             phase='backward_check', layer=L['layer'], kernel=kernel_name, grad=name,
             frames=L['n'], cotangent=list(g.shape), output=out_shape,
             max_abs_err=max_abs, abs_tol=abs_tol, max_rel_err=max_rel, rel_tol=REL_TOL,
-            gflop=2 * macs / 1e9, mbytes=nbytes / 1e6,
-            ms=median_ms(kernel), plain_ms=median_ms(plain), library_ms=median_ms(library),
+            **extra, gflop=2 * macs / 1e9, mbytes=nbytes / 1e6,
+            ms=median_ms(kernel, **(timing or {})), plain_ms=median_ms(plain, **(timing or {})),
+            library_ms=median_ms(library, **(timing or {})),
             bound_ms=max(t_ops, t_bytes), t_ops_ms=t_ops, t_bytes_ms=t_bytes,
             bound_by='operations' if t_ops >= t_bytes else 'bytes')
         emit(rec)
@@ -1094,6 +1259,10 @@ class TrialSource:
         self.idxs = {'train': idx[idx % 10 < 8], 'val': idx[idx % 10 == 8],
                      'test': idx[idx % 10 == 9]}
         self.n_tot_batches = {k: len(v) for k, v in self.idxs.items()}
+        # the session ``export_latents`` names its pickle after
+        self.datasets = [types.SimpleNamespace(
+            lab='smoke', expt='chip', animal='mouse', session='session-0', n_trials=n,
+            batch_idxs=self.idxs)]
         self.reset_iterators('all')
 
     def reset_iterators(self, dtype):
@@ -1108,9 +1277,9 @@ class TrialSource:
         return sample, 0
 
 
-def plain_loss(model, ops, losses, batch):
+def plain_loss(model, ops, losses, batch, train=False, replay=None):
     """The AE's loss through the plain versions only (cuDNN autograd)."""
-    y, _ = plain_forward(model, ops, batch['images'])
+    y, _ = plain_forward(model, ops, batch['images'], train=train, replay=replay)
     return losses.mse_plain(y, batch['images'], None, batch['frame_mask'])[0]
 
 
@@ -1272,7 +1441,15 @@ KERNEL_OF = tuple(
              ('lstm_bptt_kernel', 'K24 lstm_backward'), ('lstm_dw_kernel', 'K24 lstm_backward'),
              ('lstm_dx_kernel', 'K24 lstm_backward'),
              ('triplet_fwd_kernel', 'K25 triplet_loss'),
-             ('triplet_bwd_kernel', 'K26 triplet_loss_grad'))
+             ('triplet_bwd_kernel', 'K26 triplet_loss_grad'),
+             ('maxpool_fwd_kernel', 'K27 max_pool2d'),
+             ('maxpool_grad_kernel', 'K27 max_pool2d_grad'),
+             ('unpool_scatter_kernel', 'K28 max_unpool2d'),
+             ('unpool_gather_kernel', 'K28 max_unpool2d_grad'),
+             ('bn_stats_', 'K29 batch_norm (statistics)'),
+             ('bn_count_kernel', 'K29 batch_norm (statistics)'),
+             ('bn_apply_kernel', 'K29 batch_norm (apply)'),
+             ('bn_grad_', 'K30 batch_norm_backward'))
 
 
 def profile_steps(fn, steps=5, warmup=2, phase='train_profile', **labels):
@@ -3937,6 +4114,57 @@ def decoder_window(frames=TRIAL, bucket=BUCKET, max_lags=DEC_HP['n_max_lags']):
     return w
 
 
+def nll_inputs(gen, d):
+    """K12's inputs at the decoder step's shapes (see check_gaussian_nll):
+    (y_pred, y_true, cov) drawn from ``gen``."""
+    dev = DEVICE
+    y_pred = torch.randn((BUCKET, d), device=dev, generator=gen)
+    y_true = torch.randn((BUCKET, d), device=dev, generator=gen)
+    hidden = torch.relu(torch.randn((BUCKET, DEC_HP['n_hid_units']), device=dev,
+                                    generator=gen))
+    w_head = torch.randn((DEC_HP['n_hid_units'], d * d), device=dev, generator=gen) * 0.05
+    L = (hidden @ w_head + torch.eye(d, device=dev).reshape(-1)).reshape(BUCKET, d, d)
+    return y_pred, y_true, L @ L.transpose(1, 2)
+
+
+def check_nll_draws(losses, d):
+    """K12's gradients on NLL_DRAWS further draws of its inputs (a generator
+    of their own), K12 and the plain float32 version each against the plain
+    version in float64 on the same inputs: on every draw K12 within
+    NLL_GRAD_REL_TOL of max|float64| and no farther from it than the plain
+    float32 version."""
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(SEED + 120 + d)
+    fm = decoder_window()
+    one = torch.ones((), device=DEVICE)
+    k_errs, p_errs, kp_errs = [], [], []
+    for _ in range(NLL_DRAWS):
+        y_pred, y_true, cov = nll_inputs(gen, d)
+        loss, den = losses.gaussian_neg_log_prob_cuda(y_pred, y_true, cov, fm)
+        got = losses.gaussian_neg_log_prob_grad_cuda(y_pred, y_true, cov, fm, den, one)
+        loss, den = losses.gaussian_neg_log_prob_plain(y_pred, y_true, cov, fm)
+        plain = losses.gaussian_neg_log_prob_grad_plain(y_pred, y_true, cov, fm, den, one)
+        y64, t64, c64, fm64 = (t.double() for t in (y_pred, y_true, cov, fm))
+        loss, den = losses.gaussian_neg_log_prob_plain(y64, t64, c64, fm64)
+        ref = losses.gaussian_neg_log_prob_grad_plain(y64, t64, c64, fm64, den, one.double())
+
+        def rel(a, b):
+            return max((x.double() - y.double()).abs().max().item() / y.abs().max().item()
+                       for x, y in zip(a, b))
+        k_errs.append(rel(got, ref))
+        p_errs.append(rel(plain, ref))
+        kp_errs.append(rel(got, plain))
+    rec = dict(phase='nll_draws', kernel='gaussian_nll', dim=d, draws=NLL_DRAWS,
+               k12_vs_float64=k_errs, plain_vs_float64=p_errs, k12_vs_plain=kp_errs,
+               k12_nearer=sum(k <= p for k, p in zip(k_errs, p_errs)),
+               rel_tol=NLL_GRAD_REL_TOL)
+    emit(rec)
+    if max(k_errs) > NLL_GRAD_REL_TOL or rec['k12_nearer'] < NLL_DRAWS:
+        raise AssertionError('K12 is not within %g of float64, or farther from it than '
+                             'the plain float32 version: %s' % (NLL_GRAD_REL_TOL, rec))
+    return rec
+
+
 def check_gaussian_nll(losses, gen, d):
     """K12 at the decoder step's shapes: (192, d) means and targets, (192,
     d, d) covariances L L^T from a seeded precision head (32 relu hidden
@@ -3949,13 +4177,7 @@ def check_gaussian_nll(losses, gen, d):
     1e-3 I + cov).log_prob(y_true)`` (the reference's own module), masked
     mean, with autograd."""
     dev = DEVICE
-    y_pred = torch.randn((BUCKET, d), device=dev, generator=gen)
-    y_true = torch.randn((BUCKET, d), device=dev, generator=gen)
-    hidden = torch.relu(torch.randn((BUCKET, DEC_HP['n_hid_units']), device=dev,
-                                    generator=gen))
-    w_head = torch.randn((DEC_HP['n_hid_units'], d * d), device=dev, generator=gen) * 0.05
-    L = (hidden @ w_head + torch.eye(d, device=dev).reshape(-1)).reshape(BUCKET, d, d)
-    cov = L @ L.transpose(1, 2)
+    y_pred, y_true, cov = nll_inputs(gen, d)
     fm = decoder_window()
     one = torch.ones((), device=dev)
 
@@ -4425,6 +4647,493 @@ def serve_decoder(port, hp, vdir, best, source):
     return launches
 
 
+# ------------------------------------------------------------ row 6: K27-K30
+
+
+def pool_hparams(arch):
+    """POOL_ARCH resolved at the 2-view frames (dims and paddings as the
+    reference generator computes them), 12 latents."""
+    hp = arch.get_handcrafted_dims(dict(POOL_ARCH, ae_input_dim=list(IMG),
+                                        n_ae_latents=N_LATENTS), symmetric=True)
+    return dict(hp, model_class='ae', model_type='conv', n_ae_latents=N_LATENTS,
+                n_input_channels=IMG[0], y_pixels=IMG[1], x_pixels=IMG[2],
+                rng_seed_model=SEED)
+
+
+def row6_shapes(hp, n):
+    """(pools, batch norms) of a pooling / batch-norm arch at batch ``n``:
+    each encoder pool (its mirrored unpool takes the pooled output back to
+    the pool's input plane) and each batch norm, with the activation fused
+    into its epilogue."""
+    pools, bns = [], []
+    h, w = IMG[1], IMG[2]
+    types = hp['ae_encoding_layer_type']
+    for i, t in enumerate(types):
+        c = hp['ae_encoding_n_channels'][i]
+        if t == 'maxpool':
+            pools.append(dict(layer='pool.maxpool_%d' % (i - 1), n=n, h=h, w=w, c=c,
+                              ceil=hp['ae_padding_type'] != 'valid', ties=False))
+        else:
+            pool = i + 1 < len(types) and types[i + 1] == 'maxpool'
+            bns.append(dict(layer='pool.encoder.bn_%d' % i, n=n, h=hp['ae_encoding_y_dim'][i],
+                            w=hp['ae_encoding_x_dim'][i], c=c,
+                            act=None if pool else 'leaky_relu'))
+        h, w = hp['ae_encoding_y_dim'][i], hp['ae_encoding_x_dim'][i]
+    last = len(hp['ae_decoding_layer_type']) - 1
+    for i, t in enumerate(hp['ae_decoding_layer_type']):
+        if t == 'convtranspose' and i < last:
+            bns.append(dict(layer='pool.decoder.bn_%d' % i, n=n, h=hp['ae_decoding_y_dim'][i],
+                            w=hp['ae_decoding_x_dim'][i], c=hp['ae_decoding_n_channels'][i],
+                            act='leaky_relu'))
+    return pools, bns
+
+
+def check_pool(L, ops, gen):
+    """K27 (``bn_max_pool2d`` with the encoder's leaky ReLU, and its
+    backward) and K28 (the mirrored unpool, and its backward) against their
+    plain versions at one pool's shape; values, indices and gradients must
+    be equal. With ``ties`` the input lies on a coarse grid, so that most
+    windows hold tied maxima and the backward's even split runs. The
+    yardsticks, never called by the port: ``F.max_pool2d(...,
+    return_indices=True)``, ``F.max_unpool2d`` and their autograd backwards
+    (which send a window's cotangent to one index)."""
+    dev, ceil, hw = DEVICE, L['ceil'], (L['h'], L['w'])
+    shape = (L['n'], L['h'], L['w'], L['c'])
+    if L['ties']:
+        x = torch.randint(-2, 3, shape, device=dev, generator=gen).float()
+    else:
+        x = torch.randn(shape, device=dev, generator=gen)
+    ho, wo = ops.pool_out_hw(L['h'], L['w'], ceil)
+    pooled = (L['n'], ho, wo, L['c'])
+    g = torch.randn(pooled, device=dev, generator=gen)
+    gu = torch.randn(shape, device=dev, generator=gen)
+    yp, ip = ops.max_pool2d_plain(x, ceil, 'leaky_relu')
+    passes = {
+        'max_pool2d': (lambda: ops.max_pool2d_cuda(x, ceil, 'leaky_relu'),
+                       lambda: ops.max_pool2d_plain(x, ceil, 'leaky_relu')),
+        'max_pool2d_grad': (lambda: (ops.max_pool2d_grad_cuda(x, g, ceil),),
+                            lambda: (ops.max_pool2d_grad_plain(x, g, ceil),)),
+        'max_unpool2d': (lambda: (ops.max_unpool2d_cuda(yp, ip, hw),),
+                         lambda: (ops.max_unpool2d_plain(yp, ip, hw),)),
+        'max_unpool2d_grad': (lambda: (ops.max_unpool2d_grad_cuda(gu, ip),),
+                              lambda: (ops.max_unpool2d_grad_plain(gu, ip),)),
+    }
+    xl = x.permute(0, 3, 1, 2).requires_grad_(True)
+    yl, il = F.max_pool2d(xl, 2, 2, ceil_mode=ceil, return_indices=True)
+    vl = yl.detach().requires_grad_(True)
+    ul = F.max_unpool2d(vl, il, 2, 2, output_size=hw)
+    library = {
+        'max_pool2d': lambda: F.max_pool2d(xl.detach(), 2, 2, ceil_mode=ceil,
+                                           return_indices=True),
+        'max_pool2d_grad': lambda: torch.autograd.grad(yl, xl, g.permute(0, 3, 1, 2),
+                                                       retain_graph=True),
+        'max_unpool2d': lambda: F.max_unpool2d(vl.detach(), il, 2, 2, output_size=hw),
+        'max_unpool2d_grad': lambda: torch.autograd.grad(ul, vl, gu.permute(0, 3, 1, 2),
+                                                         retain_graph=True),
+    }
+    n_in, n_out = x.numel(), g.numel()
+    # each input read once, each output written once (values and indices 4 B)
+    n_bytes = {'max_pool2d': 4 * (n_in + 2 * n_out), 'max_pool2d_grad': 4 * (2 * n_in + n_out),
+               'max_unpool2d': 4 * (2 * n_out + n_in), 'max_unpool2d_grad': 4 * (n_in + 2 * n_out)}
+    n_ops = {'max_pool2d': 4 * n_out, 'max_pool2d_grad': 8 * n_out, 'max_unpool2d': n_out,
+             'max_unpool2d_grad': n_out}
+    rows, bad = [], []
+    for name, (kernel, plain) in passes.items():
+        got, want = kernel(), plain()
+        torch.cuda.synchronize()
+        err = max((a.float() - b.float()).abs().max().item() for a, b in zip(got, want))
+        finite = all(bool(torch.isfinite(a.float()).all().item()) for a in got)
+        del got, want
+        rec = dict(phase='pool_check', kernel=name, layer=L['layer'], frames=L['n'],
+                   input=list(shape), pooled=list(pooled), ceil_mode=ceil, ties=L['ties'],
+                   max_abs_err=err, finite=finite, ms=median_ms(kernel),
+                   plain_ms=median_ms(plain), library_ms=median_ms(library[name]),
+                   **bound(n_ops[name], n_bytes[name]))
+        emit(rec)
+        rows.append(rec)
+        if err != 0 or not finite:
+            bad.append(name)
+    if bad:
+        raise AssertionError('%s: %s disagree with their plain versions: %s'
+                             % (L['layer'], bad, rows))
+    return rows
+
+
+def check_bn(L, ops, gen):
+    """K29 (train mode with the running update at the arch's cumulative
+    momentum, and eval mode with running statistics) and K30 (with batch
+    statistics) against their plain versions at one batch-norm layer's
+    shape, on per-channel offsets and scales like a conv's output. The
+    yardsticks, never called by the port: ``F.batch_norm`` in train mode
+    and its autograd backward."""
+    dev, c = DEVICE, L['c']
+    shape = (L['n'], L['h'], L['w'], c)
+    x = torch.randn(shape, device=dev, generator=gen) \
+        * (torch.rand(c, device=dev, generator=gen) * 1.5 + 0.5) \
+        + torch.randn(c, device=dev, generator=gen)
+    gamma = torch.rand(c, device=dev, generator=gen) + 0.5
+    beta = torch.randn(c, device=dev, generator=gen) * 0.1
+    rm = torch.randn(c, device=dev, generator=gen) * 0.1
+    rv = torch.rand(c, device=dev, generator=gen) + 0.5
+    g = torch.randn(shape, device=dev, generator=gen)
+    momentum, act = POOL_ARCH['ae_batch_norm_momentum'], L['act']
+    count = torch.full((), 3, dtype=torch.int64, device=dev)
+
+    run_k = (rm.clone(), rv.clone(), count.clone())
+    yk, mk, vk = ops.batch_norm_cuda(x, gamma, beta, running=run_k, momentum=momentum,
+                                     activation=act)
+    mp, vp = ops.batch_norm_stats_plain(x)
+    yp = ops.batch_norm_plain(x, gamma, beta, mp, vp, activation=act)
+    new = ops.batch_norm_update(x, {'running_mean': rm, 'running_var': rv,
+                                    'num_batches': count}, momentum)
+    ye = ops.batch_norm_cuda(x, gamma, beta, mean=rm, var=rv, activation=act)[0]
+    yep = ops.batch_norm_plain(x, gamma, beta, rm, rv, activation=act)
+    gk = ops.batch_norm_backward_cuda(g, x, gamma, mp, vp, True)
+    gp = ops.batch_norm_backward_plain(g, x, gamma, mp, vp, True)
+    torch.cuda.synchronize()
+
+    def stat_err(a, b):
+        return (a - b).abs().max().item() / max(1.0, b.abs().max().item())
+    max_abs, abs_tol, max_rel, finite = errors(yk, yp)
+    eval_abs, _, eval_rel, eval_finite = errors(ye, yep)
+    stat = max(stat_err(mk, mp), stat_err(vk, vp), stat_err(run_k[0], new['running_mean']),
+               stat_err(run_k[1], new['running_var']))
+    count_ok = int(run_k[2].item()) == int(new['num_batches'].item()) == 4
+    grad_err = max((a - b).abs().max().item() / b.abs().max().item() for a, b in zip(gk, gp))
+    grad_abs = max((a - b).abs().max().item() for a, b in zip(gk, gp))
+    grad_finite = all(bool(torch.isfinite(a).all().item()) for a in gk)
+    del yk, yp, ye, yep, gk, gp
+
+    run_t = (rm.clone(), rv.clone(), count.clone())
+    xl = x.permute(0, 3, 1, 2)
+    xg = xl.detach().requires_grad_(True)
+    wg, bg = gamma.clone().requires_grad_(True), beta.clone().requires_grad_(True)
+    out_l = F.batch_norm(xg, rm.clone(), rv.clone(), wg, bg, training=True, momentum=0.1)
+    gl = g.permute(0, 3, 1, 2)
+    n = x.numel()
+    rows = []
+    for name, kernel, plain, library, n_bytes, n_ops, extra in (
+            ('batch_norm',
+             lambda: ops.batch_norm_cuda(x, gamma, beta, running=run_t, momentum=momentum,
+                                         activation=act),
+             lambda: ops.batch_norm_plain(x, gamma, beta, activation=act),
+             lambda: F.batch_norm(xl, run_t[0], run_t[1], gamma, beta, training=True,
+                                  momentum=0.1),
+             8 * n, 10 * n,
+             dict(max_abs_err=max_abs, abs_tol=abs_tol, max_rel_err=max_rel, rel_tol=REL_TOL,
+                  eval_max_abs_err=eval_abs, eval_max_rel_err=eval_rel,
+                  stat_rel_err=stat, stat_rel_tol=BN_STAT_REL_TOL, count_ok=count_ok,
+                  eval_ms=median_ms(lambda: ops.batch_norm_cuda(
+                      x, gamma, beta, mean=rm, var=rv, activation=act)))),
+            ('batch_norm_backward',
+             lambda: ops.batch_norm_backward_cuda(g, x, gamma, mp, vp, True),
+             lambda: ops.batch_norm_backward_plain(g, x, gamma, mp, vp, True),
+             lambda: torch.autograd.grad(out_l, (xg, wg, bg), gl, retain_graph=True),
+             12 * n, 12 * n,
+             dict(max_abs_err=grad_abs, grad_rel_err=grad_err,
+                  grad_rel_tol=BN_GRAD_REL_TOL))):
+        rec = dict(phase='bn_check', kernel=name, layer=L['layer'], frames=L['n'],
+                   input=list(shape), activation=act, ms=median_ms(kernel),
+                   plain_ms=median_ms(plain), library_ms=median_ms(library),
+                   **extra, **bound(n_ops, n_bytes))
+        emit(rec)
+        rows.append(rec)
+    if not (finite and eval_finite and grad_finite and count_ok) or max_abs > abs_tol \
+            or max_rel > REL_TOL or eval_abs > abs_tol or eval_rel > REL_TOL \
+            or stat > BN_STAT_REL_TOL or grad_err > BN_GRAD_REL_TOL:
+        raise AssertionError('%s: K29 / K30 disagree with their plain versions: %s'
+                             % (L['layer'], rows))
+    return rows
+
+
+def check_row6(ops, hp, gen):
+    """K27-K30 at every pool and batch-norm layer of the pooling arch at the
+    192-frame bucket, then K27 / K28 at POOL_ODD in ceil and floor mode with
+    planted ties."""
+    pools, bns = row6_shapes(hp, BUCKET)
+    odd = [dict(layer='odd_%s' % ('ceil' if ceil else 'floor'), n=4, h=POOL_ODD[0],
+                w=POOL_ODD[1], c=8, ceil=ceil, ties=True) for ceil in (True, False)]
+    rows = []
+    for L in pools + odd:
+        rows += check_pool(L, ops, gen)
+    for L in bns:
+        rows += check_bn(L, ops, gen)
+    return rows
+
+
+@contextlib.contextmanager
+def recorded_decisions(model, ops):
+    """The discrete decisions of every layer ``model`` runs inside the
+    block, in order (forward hooks): a pool's indices, its window weights
+    (1 / count at each maximum: the even split of a tie) and its output's
+    signs, and a fused leaky ReLU's output signs. Max pooling and the leaky
+    ReLU's kink are discontinuous: where two float32 paths put a window's
+    two largest values, or a pre-activation and 0, within their rounding of
+    each other, they send the value and its gradient down different
+    branches, and batch norm centres the activations on the kink. One such
+    switch moves a small layer's weight gradient (a sum of ~1e4 terms) by
+    ~1% of its largest entry, so a plain twin is held to the kernel path
+    with these decisions replayed (K27's own are checked exactly)."""
+    decisions = []
+
+    def hook(mod, inp, out):
+        if type(mod).__name__ == 'MaxPool':
+            xw = ops.pool_windows(inp[0].detach(), mod.ceil_mode)
+            top = (xw == xw.amax(dim=-1, keepdim=True)).float()
+            decisions.append((out[1], top / top.sum(dim=-1, keepdim=True),
+                              out[0].detach() >= 0))
+        elif mod.activation == 'leaky_relu':
+            decisions.append(out.detach() >= 0)
+    hooks = [m.register_forward_hook(hook) for m in model.modules()
+             if type(m).__name__ in ('MaxPool', 'BatchNorm', 'ConvLayer', 'ConvTransposeLayer')]
+    try:
+        yield decisions
+    finally:
+        for h in hooks:
+            h.remove()
+
+
+def bn_parameters_close(model, twin):
+    """Each parameter's gradient against the plain twin's, relative to the
+    largest plain gradient of its layer (a conv bias ahead of batch norm has
+    an exact gradient of 0 and only rounding noise of its own); the running
+    statistics against the twin's."""
+    twin_grads = {k: p.grad for k, p in twin.named_parameters()}
+    scale = {}
+    for k, gr in twin_grads.items():
+        layer = k.rsplit('.', 1)[0]
+        scale[layer] = max(scale.get(layer, 0.0), gr.abs().max().item())
+    grad_errs = {k: (p.grad - twin_grads[k]).abs().max().item()
+                 / max(scale[k.rsplit('.', 1)[0]], 1e-30)
+                 for k, p in model.named_parameters()}
+    twin_buf = dict(twin.named_buffers())
+    run_errs = {k: (b.float() - twin_buf[k].float()).abs().max().item()
+                / max(1.0, twin_buf[k].float().abs().max().item())
+                for k, b in model.named_buffers() if 'running' in k or 'num_batches' in k}
+    return grad_errs, run_errs
+
+
+def fit_bn(port, hp, tmp, source):
+    """Main path 16: ``fit`` of the max-pooling + batch-norm AE on the card
+    (an eval epoch, then one train epoch), every logged loss finite, K27-K30
+    launched inside it, and in the trainer's resume checkpoint after the
+    train epoch every batch norm's count at the train steps and its running
+    statistics moved from their init (0, 1) (the best-val model may be the
+    epoch-0 one); then ``export_latents`` of the best-val model (main path
+    17) in eval mode: no K30 or pool backward, the running statistics
+    untouched, and the exported latents those of the plain path in eval
+    mode."""
+    ops = port.ops
+    hp = dict(hp, learning_rate=LEARNING_RATE, l2_reg=L2_REG, rng_seed_train=SEED,
+              max_n_epochs=1, min_n_epochs=1, val_check_interval=1, enable_early_stop=False,
+              early_stop_history=10, export_latents=False, rng_seed_data=SEED, device=DEVICE,
+              experiment_name='pool_bn')
+    exp = port.experiment.Experiment('pool_bn', tmp)
+    hp['expt_dir'] = os.path.join(tmp, 'pool_bn')
+    vdir = os.path.join(hp['expt_dir'], 'version_%d' % exp.version)
+    model = port.aes.AE(hp)
+
+    # the main path: every launch from here to the read below is counted
+    reset_launches(port.build)
+    t0 = time.perf_counter()
+    best = port.training.fit(hp, model, source, exp)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    logged = read_metrics(vdir)
+    finite = all(len(v) and np.isfinite(v).all() for v in logged.values())
+    bns = [k for k, m in model.named_modules() if type(m).__name__ == 'BatchNorm']
+    with open(os.path.join(vdir, 'last_checkpoint.pkl'), 'rb') as f:
+        trained = pickle.load(f)['model']
+    steps = source.n_tot_batches['train']
+    moved = {k: int(trained[k + '.num_batches_tracked']) == steps
+             and bool(np.abs(trained[k + '.running_mean']).max() > 0)
+             and bool(np.abs(trained[k + '.running_var'] - 1).max() > 0) for k in bns}
+    emit(dict(phase='fit_bn', epochs=[0, 1], train_trials=steps, frames_per_trial=TRIAL,
+              bucket=BUCKET, seconds=fit_s, launches=launches, finite=finite,
+              batch_norms=len(bns), trained_stats_moved=all(moved.values()),
+              best_num_batches_tracked=sorted({int(b.item()) for k, b in model.named_buffers()
+                                               if k.endswith('num_batches_tracked')}),
+              losses={k: v for k, v in logged.items() if 'loss' in k}))
+    missing = [k for k in BN_KERNELS if launches[k] == 0]
+    if missing or not finite or not all(moved.values()):
+        raise AssertionError('the pooling + batch-norm fit never launched %s, logged '
+                             'non-finite losses or left running statistics at their init: %s'
+                             % (missing, moved))
+
+    before = {k: b.clone() for k, b in model.named_buffers()}
+    reset_launches(port.build)
+    files = port.fit_eval.export_latents(source, model, version=exp.version,
+                                         expt_dir=hp['expt_dir'])
+    torch.cuda.synchronize()
+    export_launches = dict(ops.LAUNCHES)
+    untouched = all(torch.equal(b, before[k]) for k, b in model.named_buffers())
+    with open(files[0], 'rb') as f:
+        exported = pickle.load(f)['latents']
+    with torch.inference_mode():
+        _, ref = plain_forward(model, ops, torch.from_numpy(source.trials[0]).to(DEVICE),
+                               decode=False)
+    err = float(np.abs(exported[0] - ref.cpu().numpy()).max())
+    tol = SERVE_ABS_TOL * max(1.0, ref.abs().max().item())
+    rec = dict(phase='export_bn', trials=len(exported), launches=export_launches,
+               running_stats_untouched=untouched, max_abs_err=err, tol=tol)
+    emit(rec)
+    if not untouched or err > tol or export_launches['batch_norm'] == 0 \
+            or export_launches['max_pool2d'] == 0 or export_launches['batch_norm_backward'] \
+            or export_launches['max_pool2d_grad']:
+        raise AssertionError('export_latents did not run the fitted model in eval mode: %s'
+                             % rec)
+    return dict(hp, version=exp.version), model, vdir, best, launches, export_launches
+
+
+def bn_step(port, hp, model, source):
+    """One train step of the fitted max-pooling + batch-norm AE (train
+    mode) against its plain twin (the plain versions with autograd, the
+    kernel path's decisions replayed: ``recorded_decisions``; the twin's
+    convolutions with cuDNN off, PyTorch's native CUDA ones: at these
+    stride-1 k5 layers cuDNN's float32 algorithms drift from float64 by up
+    to ~1e-3, beyond the bounds, see ``check_backward_layer``):
+    gradients and running statistics (``bn_parameters_close``); the
+    step's time (median of 10 after 3 warm-ups) beside the twin's with
+    torch's fused AMSGrad, launches per step, and a profile of five steps
+    with K27-K30's device time and the idle share."""
+    ops, losses = port.ops, port.losses
+    images = np.zeros((BUCKET,) + source.trials[0].shape[1:], np.uint8)
+    images[:TRIAL] = source.trials[0]
+    frame_mask = np.zeros(BUCKET, np.float32)
+    frame_mask[:TRIAL] = 1.0
+    batch = {'images': torch.from_numpy(images).to(DEVICE),
+             'frame_mask': torch.from_numpy(frame_mask).to(DEVICE)}
+    twin = port.aes.AE(hp).to(DEVICE)
+    twin.load_state_dict(model.state_dict())
+    model.train()
+    twin.train()
+    model.zero_grad(set_to_none=True)
+    with recorded_decisions(model, ops) as decisions:
+        model.loss_fn(batch)[0].backward()
+    twin.zero_grad(set_to_none=True)
+    with torch.backends.cudnn.flags(enabled=False):
+        plain_loss(twin, ops, losses, batch, train=True, replay=decisions).backward()
+    del decisions
+    grad_errs, run_errs = bn_parameters_close(model, twin)
+    worst = max(grad_errs, key=grad_errs.get)
+    worst_run = max(run_errs, key=run_errs.get)
+    emit(dict(phase='bn_step_grads', frames=BUCKET, rel_tol=GRAD_REL_TOL,
+              max_rel_err=grad_errs[worst], worst=worst, running_rel_tol=BN_RUNNING_REL_TOL,
+              running_max_rel_err=run_errs[worst_run], running_worst=worst_run,
+              rel_err=grad_errs))
+    if grad_errs[worst] > GRAD_REL_TOL or run_errs[worst_run] > BN_RUNNING_REL_TOL:
+        raise AssertionError('the batch-norm step disagrees with the plain twin: %s=%.3g, '
+                             '%s=%.3g' % (worst, grad_errs[worst], worst_run,
+                                          run_errs[worst_run]))
+
+    opt = port.optim.AMSGrad(model.parameters(), lr=LEARNING_RATE, weight_decay=L2_REG)
+    adam = torch.optim.Adam(twin.parameters(), lr=LEARNING_RATE, weight_decay=L2_REG,
+                            amsgrad=True, fused=True)
+
+    def step():
+        opt.zero_grad(set_to_none=True)
+        model.loss_fn(batch)[0].backward()
+        opt.step()
+
+    def plain_step():
+        adam.zero_grad(set_to_none=True)
+        plain_loss(twin, ops, losses, batch, train=True).backward()
+        adam.step()
+    reset_launches(port.build)
+    step()
+    torch.cuda.synchronize()
+    per_step = dict(ops.LAUNCHES)
+    ms, plain_ms = request_ms(step), request_ms(plain_step)
+    emit(dict(phase='bn_step', frames=TRIAL, bucket=BUCKET, ms=ms,
+              frames_per_s=TRIAL / ms * 1e3, plain_ms=plain_ms,
+              plain_frames_per_s=TRIAL / plain_ms * 1e3, launches_per_step=per_step))
+    host_batch = {'images': images, 'frame_mask': frame_mask}
+    emit(profile_steps(lambda: step_from_host(step, host_batch, batch), phase='bn_step_profile',
+                       arch='pool_bn'))
+    model.eval()
+    return per_step
+
+
+def device_kernels(fn):
+    """The names of the device kernels that one call of ``fn`` ran
+    (``torch.profiler``)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.name for e in prof.events() if e.device_type == DeviceType.CUDA}
+
+
+def serve_bn(port, hp, vdir, best, source):
+    """Main path 18: the fitted max-pooling + batch-norm version served
+    through ``serving.load_version`` (eval mode): ``encode`` and
+    ``reconstruct`` of 1, 189 and 1024 frames within SERVE_ABS_TOL of the
+    plain path in eval mode (the request's pool decisions replayed:
+    ``recorded_decisions``), each answer the same bits when asked again,
+    the served weights the fitted ones, no
+    backward launched, the running statistics untouched, and no batch
+    statistics pass in a request's profile (K29 applies the running
+    statistics alone)."""
+    ops = port.ops
+    with open(os.path.join(vdir, 'meta_tags.pkl'), 'wb') as f:
+        pickle.dump(dict(hp, training_completed=True), f)
+    frames = source.trials.reshape((-1,) + source.trials.shape[2:])
+    reset_launches(port.build)
+    bundle = port.serving.load_version(vdir)
+    answers = {(head, n): getattr(bundle, head)(frames[:n])
+               for n in REQUEST_SIZES for head in ('encode', 'reconstruct')}
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    served = dict(bundle.model.state_dict())
+    same = all(torch.equal(served[k].cpu(), v) for k, v in
+               port.weights.params_to_state_dict(bundle.model, best).items())
+    untouched = all(torch.equal(served[k].cpu(), v) for k, v in
+                    port.weights.params_to_state_dict(bundle.model, best).items()
+                    if 'running' in k or 'num_batches' in k)
+    names = device_kernels(lambda: bundle.reconstruct(frames[:TRIAL]))
+    stats_pass = sorted(n for n in names if 'bn_stats_' in n)
+    apply_seen = any('bn_apply_kernel' in n for n in names)
+    emit(dict(phase='serve_bn_launches', device=str(bundle.device), launches=launches,
+              weights_equal=same, running_stats_untouched=untouched,
+              stats_kernels_in_request=stats_pass, apply_kernel_in_request=apply_seen))
+    missing = [k for k in BN_SERVE_KERNELS if launches[k] == 0]
+    backward = [k for k in ('max_pool2d_grad', 'max_unpool2d_grad', 'batch_norm_backward',
+                            'conv2d_grad_w_nhwc') if launches[k]]
+    if missing or backward or not same or not untouched or stats_pass or not apply_seen:
+        raise AssertionError('serving the batch-norm version: missing %s, backward %s, '
+                             'weights equal %s, statistics untouched %s, statistics pass %s'
+                             % (missing, backward, same, untouched, stats_pass))
+    for n in REQUEST_SIZES:
+        for head in ('encode', 'reconstruct'):
+            with torch.inference_mode(), recorded_decisions(bundle.model, ops) as decisions:
+                again = getattr(bundle, head)(frames[:n])
+                y, z = plain_forward(bundle.model, ops,
+                                     torch.from_numpy(frames[:n]).to(bundle.device),
+                                     decode=head == 'reconstruct', replay=decisions)
+            ref = z if head == 'encode' else y
+            del decisions, y, z
+            out = answers[(head, n)]
+            want = (n, N_LATENTS) if head == 'encode' else (n, IMG[1], IMG[2], IMG[0])
+            ok_shape = tuple(out.shape) == want and out.dtype == torch.float32
+            finite = bool(torch.isfinite(out).all().item())
+            same = torch.equal(out, again)
+            err = (out - ref).abs().max().item()
+            tol = SERVE_ABS_TOL * max(1.0, ref.abs().max().item())
+            rec = dict(phase='serve_bn', head=head, frames=n, shape=list(out.shape),
+                       finite=finite, repeatable=same, max_abs_err=err, tol=tol,
+                       ms=request_ms(lambda: getattr(bundle, head)(frames[:n]), reps=3,
+                                     warmup=1),
+                       plain_ms=request_ms(lambda: plain_request(bundle, ops, frames[:n], head),
+                                           reps=3, warmup=1))
+            rec['frames_per_s'] = n / rec['ms'] * 1e3
+            emit(rec)
+            if not (ok_shape and finite and same and err <= tol):
+                raise AssertionError('served %s of %d frames is wrong: %s' % (head, n, rec))
+    return launches
+
+
 def kernel_row(name, rows, launches):
     """The kernels-line entry of one kernel: sums over the rows it was
     checked at; launches from the main paths' runs."""
@@ -4466,6 +5175,7 @@ def main():
     emit(dict(phase='build', seconds=seconds, ptxas=port.build.ptxas_info()))
 
     hp = model_hparams(port.arch)
+    pool_hp = pool_hparams(port.arch)
     gen = torch.Generator(device=DEVICE)
     gen.manual_seed(SEED)
     with tf32_off():
@@ -4494,7 +5204,18 @@ def main():
         checks += check_imm(port)
         checks += check_kalman(port)
         checks += check_triplet(port)
+        # row 6's checks draw from a generator of their own: the earlier
+        # checks keep their inputs
+        pool_gen = torch.Generator(device=DEVICE)
+        pool_gen.manual_seed(SEED + 12)
+        checks += [check_layer(L, ops, pool_gen, POOL_TIMING)
+                   for L in layer_shapes(pool_hp, TRIAL, 'pool.')]
+        for L in layer_shapes(pool_hp, BUCKET, 'pool.'):
+            checks += check_backward_layer(L, ops, pool_gen, POOL_TIMING)
+        checks += check_row6(ops, pool_hp, pool_gen)
     checks += [check_gaussian_nll(port.losses, gen, d) for d in NLL_DIMS]
+    for d in NLL_DIMS:
+        check_nll_draws(port.losses, d)
     checks.append(check_mse(port.losses, gen, decoder=True))
     checks += check_lstm(port)
 
@@ -4514,6 +5235,13 @@ def main():
                 port, hp, tmp, msps_source)
             msps_step(port, ms_hp, ms_model, msps_source)
             launches['serve_msps-vae'] = serve_msps(port, ms_hp, ms_dir, ms_best, msps_source)
+            del ms_model
+            bn_source = TrialSource(BN_FIT_TRIALS, SEED + 5)
+            bn_hp, bn_model, bn_dir, bn_best, launches['fit_bn'], launches['export_bn'] = \
+                fit_bn(port, pool_hp, tmp, bn_source)
+            launches['bn_step'] = bn_step(port, bn_hp, bn_model, bn_source)
+            launches['serve_bn'] = serve_bn(port, bn_hp, bn_dir, bn_best, bn_source)
+            del bn_model
             launches['arhmm_em'] = arhmm_em(port, em_model, em_trials, init_s)
             par_model = port.arhmm.ARHMM(EM_STATES, EM_DIM, lags=1, rng_seed=SEED,
                                          parallel_scan=True, device=DEVICE)

@@ -110,8 +110,8 @@ def test_state_dict_matches_reference_export():
 
 
 @pytest.mark.parametrize('change', [
-    {'ae_batch_norm': True}, {'model_type': 'linear'},
-    {'ae_encoding_layer_type': ['conv', 'maxpool', 'conv', 'conv', 'conv']},
+    {'fit_sess_io_layers': True}, {'model_type': 'linear'},
+    {'ae_decoding_last_FF_layer': 1},
     {'compute_dtype': 'bfloat16'}, {'bf16_pipeline': True}])
 def test_unported_archs_raise(change):
     """Unported archs and dtypes raise; a float32 ``compute_dtype`` is the
