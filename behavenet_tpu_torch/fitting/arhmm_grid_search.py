@@ -23,9 +23,11 @@ Every ``noise_type`` (``gaussian``, ``studentst`` and their diagonal forms)
 and every ``transitions`` (``stationary``/``standard``, ``sticky``,
 ``recurrent``, ``recurrent_only``) is fitted, into the JAX CLI's
 ``<transitions>/<noise_type>`` directory. ``parallel_scan: true`` runs the
-message passes as parallel-prefix scans (K13, K14). Not ported, and raising
-``NotImplementedError``: ``em_dtype='float64'``, ``export_train_plots`` and
-the JAX CLI's multi-device mesh.
+message passes as parallel-prefix scans (K13, K14). ``em_dtype: float64``
+fits in float64: the latents are padded in float64, and the states and the
+float64 model are written as for float32. Not ported, and raising
+``NotImplementedError``: ``em_dtype: float64`` with ``parallel_scan: true``
+(ROADMAP A1c), ``export_train_plots`` and the JAX CLI's multi-device mesh.
 """
 
 import os
@@ -77,7 +79,8 @@ def main(hparams, *args):
         raise NotImplementedError('training plots are not ported yet; set '
                                   '"export_train_plots": false')
     device = resolve_device(hparams.get('device'))   # fail before any work
-    check_ported(obs_type, transitions, hparams.get('em_dtype', 'float32'))
+    em_dtype = hparams.get('em_dtype', 'float32')
+    check_ported(obs_type, transitions, em_dtype, bool(hparams.get('parallel_scan', False)))
 
     print_hparams(hparams)
 
@@ -119,7 +122,8 @@ def main(hparams, *args):
         hparams['n_arhmm_states'], obs_dim, lags=hparams['n_arhmm_lags'],
         observations=obs_type, transitions=transitions, kappa=hparams.get('kappa', 0),
         rng_seed=hparams['rng_seed_model'],
-        parallel_scan=bool(hparams.get('parallel_scan', False)), device=device)
+        parallel_scan=bool(hparams.get('parallel_scan', False)), dtype=em_dtype,
+        device=device)
     hmm.initialize(latents['train'], localize=hparams['n_arhmm_lags'] > 0)
     hparams['training_completed'] = False
     export_hparams(hparams, exp)

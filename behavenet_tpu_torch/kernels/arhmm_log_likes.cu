@@ -1,5 +1,8 @@
 // K8 arhmm_log_likes: the per-frame observation log-likelihoods (N, T, K)
-// of an AR(lags) HMM for all K states, float32. For frame t of trial n
+// of an AR(lags) HMM for all K states, float32, or float64 from the _f64
+// launchers (float64 EM: the same code with double registers and shared
+// memory; a frame and its lags then take twice the registers). For frame t
+// of trial n
 // (x (N, T, D), mask (N, T)) and state k:
 //   mu_k   = A_k [x_{t-1}, ..., x_{t-lags}] + b_k        (As (K, D, P), bs (K, D))
 //   maha_k = |L_k^-1 (x_t - mu_k)|^2   full covariance, or
@@ -41,25 +44,28 @@ namespace {
 
 constexpr int kThreads = 128;
 constexpr int kMaxD = 16;
-constexpr float kLn2Pi = 1.8378770664093453f;
+constexpr double kLn2Pi = 1.8378770664093453;
+
+__device__ __forceinline__ float log1p_(float v) { return log1pf(v); }
+__device__ __forceinline__ double log1p_(double v) { return log1p(v); }
 
 // ROBUST: `logdet` holds c_k, `nus` the clipped dof and `tau` (or null)
 // takes the scale-mixture weights.
-template <int PMAX, bool ROBUST>
+template <int PMAX, bool ROBUST, typename S>
 __global__ void __launch_bounds__(kThreads) arhmm_log_likes_kernel(
-    const float* __restrict__ x, const float* __restrict__ mask,
-    const float* __restrict__ As, const float* __restrict__ bs,
-    const float* __restrict__ prec, const float* __restrict__ logdet,
-    const float* __restrict__ nus, int N, int T, int D, int K, int P, int lags,
-    int diagonal, float* __restrict__ out, float* __restrict__ tau) {
-  extern __shared__ float sh[];
+    const S* __restrict__ x, const S* __restrict__ mask, const S* __restrict__ As,
+    const S* __restrict__ bs, const S* __restrict__ prec, const S* __restrict__ logdet,
+    const S* __restrict__ nus, int N, int T, int D, int K, int P, int lags, int diagonal,
+    S* __restrict__ out, S* __restrict__ tau) {
+  extern __shared__ __align__(16) unsigned char sh_raw[];
+  S* sh = reinterpret_cast<S*>(sh_raw);
   const int PL = D * lags;                       // used columns of As
   const int n_prec = diagonal ? K * D : K * D * D;
-  float* sA = sh;                                // (K, D, PL)
-  float* sb = sA + K * D * PL;                   // (K, D)
-  float* sp = sb + K * D;                        // (K, D, D) or (K, D)
-  float* sl = sp + n_prec;                       // (K,) logdet or c
-  float* sn = sl + K;                            // (K,) nu, when ROBUST
+  S* sA = sh;                                // (K, D, PL)
+  S* sb = sA + K * D * PL;                   // (K, D)
+  S* sp = sb + K * D;                        // (K, D, D) or (K, D)
+  S* sl = sp + n_prec;                       // (K,) logdet or c
+  S* sn = sl + K;                            // (K,) nu, when ROBUST
   for (int i = threadIdx.x; i < K * D * PL; i += kThreads) {
     const int p = i % PL, kd = i / PL;
     sA[i] = __ldg(As + (long long)kd * P + p);
@@ -75,25 +81,25 @@ __global__ void __launch_bounds__(kThreads) arhmm_log_likes_kernel(
   const long long f = (long long)blockIdx.x * kThreads + threadIdx.x;
   if (f >= (long long)N * T) return;
   const int t = (int)(f % T);
-  const float m = __ldg(mask + f);
-  const float* xt = x + f * D;
-  float* o = out + f * K;
+  const S m = __ldg(mask + f);
+  const S* xt = x + f * D;
+  S* o = out + f * K;
 
-  float cur[kMaxD];
-  float sq = 0.f;
+  S cur[kMaxD];
+  S sq = 0;
 #pragma unroll
   for (int d = 0; d < kMaxD; ++d) {
-    cur[d] = d < D ? __ldg(xt + d) : 0.f;
+    cur[d] = d < D ? __ldg(xt + d) : S(0);
     sq += cur[d] * cur[d];
   }
   const bool first = t < lags;  // fixed N(0, I) initial condition, all states
-  const float init = -0.5f * (D * kLn2Pi + sq);
+  const S init = S(-0.5) * (D * S(kLn2Pi) + sq);
   if (first && (!ROBUST || tau == nullptr)) {
     for (int k = 0; k < K; ++k) o[k] = init * m;
     return;
   }
-  float lag[PMAX];  // [x_{t-1}, ..., x_{t-lags}]; x[(t - l) mod T] where t < l
-  const float* x0 = xt - (long long)t * D;
+  S lag[PMAX];  // [x_{t-1}, ..., x_{t-lags}]; x[(t - l) mod T] where t < l
+  const S* x0 = xt - (long long)t * D;
 #pragma unroll
   for (int p = 0; p < PMAX; ++p) {
     if (p < PL) {
@@ -101,36 +107,36 @@ __global__ void __launch_bounds__(kThreads) arhmm_log_likes_kernel(
       if (src < 0) src = (src % T + T) % T;
       lag[p] = __ldg(x0 + (long long)src * D + p % D);
     } else {
-      lag[p] = 0.f;
+      lag[p] = S(0);
     }
   }
 
   for (int k = 0; k < K; ++k) {
-    const float* a = sA + k * D * PL;
-    float diff[kMaxD];
+    const S* a = sA + k * D * PL;
+    S diff[kMaxD];
 #pragma unroll
     for (int d = 0; d < kMaxD; ++d) {
       if (d < D) {
-        float mu = 0.f;
+        S mu = 0;
 #pragma unroll
         for (int p = 0; p < PMAX; ++p)
           if (p < PL) mu += a[d * PL + p] * lag[p];
         diff[d] = cur[d] - (mu + sb[k * D + d]);
       } else {
-        diff[d] = 0.f;
+        diff[d] = S(0);
       }
     }
-    float maha = 0.f;
+    S maha = 0;
     if (diagonal) {
 #pragma unroll
       for (int d = 0; d < kMaxD; ++d)
         if (d < D) maha += diff[d] * diff[d] / sp[k * D + d];
     } else {
-      const float* li = sp + k * D * D;
+      const S* li = sp + k * D * D;
 #pragma unroll
       for (int d = 0; d < kMaxD; ++d) {
         if (d < D) {
-          float s = 0.f;
+          S s = 0;
 #pragma unroll
           for (int e = 0; e < kMaxD; ++e)
             if (e <= d && e < D) s += li[d * D + e] * diff[e];  // L^-1 is lower
@@ -139,42 +145,41 @@ __global__ void __launch_bounds__(kThreads) arhmm_log_likes_kernel(
       }
     }
     if (ROBUST) {
-      const float nu = sn[k];
+      const S nu = sn[k];
       if (tau != nullptr) tau[f * K + k] = (nu + D) / (nu + maha);
-      o[k] = (first ? init : sl[k] - 0.5f * (nu + D) * log1pf(maha / nu)) * m;
+      o[k] = (first ? init : sl[k] - S(0.5) * (nu + D) * log1p_(maha / nu)) * m;
     } else {
-      o[k] = -0.5f * (D * kLn2Pi + sl[k] + maha) * m;
+      o[k] = S(-0.5) * (D * S(kLn2Pi) + sl[k] + maha) * m;
     }
   }
 }
 
-template <bool ROBUST>
-int launch_log_likes(const float* x, const float* mask, const float* As, const float* bs,
-                     const float* prec, const float* logdet, const float* nus, int N, int T,
-                     int D, int K, int P, int lags, int diagonal, float* out, float* tau,
-                     void* stream) {
+template <bool ROBUST, typename S>
+int launch_log_likes(const S* x, const S* mask, const S* As, const S* bs, const S* prec,
+                     const S* logdet, const S* nus, int N, int T, int D, int K, int P,
+                     int lags, int diagonal, S* out, S* tau, void* stream) {
   if (N < 1 || T < 1 || K < 1 || D < 1 || D > kMaxD || lags < 0 || D * lags > 64 ||
       P < D * lags)
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = sizeof(float) *
+  const size_t smem = sizeof(S) *
       ((size_t)K * D * D * lags + (size_t)K * D + (size_t)K * D * (diagonal ? 1 : D) +
        (size_t)K * (ROBUST ? 2 : 1));
   const long long frames = (long long)N * T;
   const int blocks = (int)((frames + kThreads - 1) / kThreads);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (D * lags <= 16) {
-    cudaError_t e = cudaFuncSetAttribute(arhmm_log_likes_kernel<16, ROBUST>,
+    cudaError_t e = cudaFuncSetAttribute(arhmm_log_likes_kernel<16, ROBUST, S>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
     if (e != cudaSuccess) return static_cast<int>(e);
-    arhmm_log_likes_kernel<16, ROBUST><<<blocks, kThreads, smem, st>>>(
+    arhmm_log_likes_kernel<16, ROBUST, S><<<blocks, kThreads, smem, st>>>(
         x, mask, As, bs, prec, logdet, nus, N, T, D, K, P, lags, diagonal, out, tau);
   } else {
-    cudaError_t e = cudaFuncSetAttribute(arhmm_log_likes_kernel<64, ROBUST>,
+    cudaError_t e = cudaFuncSetAttribute(arhmm_log_likes_kernel<64, ROBUST, S>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
     if (e != cudaSuccess) return static_cast<int>(e);
-    arhmm_log_likes_kernel<64, ROBUST><<<blocks, kThreads, smem, st>>>(
+    arhmm_log_likes_kernel<64, ROBUST, S><<<blocks, kThreads, smem, st>>>(
         x, mask, As, bs, prec, logdet, nus, N, T, D, K, P, lags, diagonal, out, tau);
   }
   return static_cast<int>(cudaGetLastError());
@@ -182,6 +187,9 @@ int launch_log_likes(const float* x, const float* mask, const float* As, const f
 
 }  // namespace
 
+// The build compiles the float launchers (BN_F64 = 0) and the double ones
+// (BN_F64 = 1) into two libraries side by side; undefined, both.
+#if !defined(BN_F64) || !BN_F64
 // x (N, T, D), mask (N, T), As (K, D, P) (P >= D * lags), bs (K, D), prec
 // (K, D, D) inverse Cholesky factors or, with diagonal, (K, D) variances,
 // logdet (K,); out (N, T, K). D <= 16, D * lags <= 64.
@@ -189,8 +197,8 @@ extern "C" int bn_arhmm_log_likes(const float* x, const float* mask, const float
                                   const float* bs, const float* prec, const float* logdet,
                                   int N, int T, int D, int K, int P, int lags, int diagonal,
                                   float* out, void* stream) {
-  return launch_log_likes<false>(x, mask, As, bs, prec, logdet, nullptr, N, T, D, K, P, lags,
-                                 diagonal, out, nullptr, stream);
+  return launch_log_likes<false>(x, mask, As, bs, prec, logdet, (const float*)nullptr, N, T, D,
+                                 K, P, lags, diagonal, out, (float*)nullptr, stream);
 }
 
 // Student's t: as bn_arhmm_log_likes with c (K,) in place of logdet and the
@@ -203,3 +211,26 @@ extern "C" int bn_arhmm_log_likes_robust(const float* x, const float* mask, cons
   return launch_log_likes<true>(x, mask, As, bs, prec, c, nus, N, T, D, K, P, lags, diagonal,
                                 out, tau, stream);
 }
+#endif
+
+#if !defined(BN_F64) || BN_F64
+// float64 forms (float64 EM): the same arguments as double pointers,
+// counted apart.
+extern "C" int bn_arhmm_log_likes_f64(const double* x, const double* mask, const double* As,
+                                      const double* bs, const double* prec,
+                                      const double* logdet, int N, int T, int D, int K, int P,
+                                      int lags, int diagonal, double* out, void* stream) {
+  return launch_log_likes<false>(x, mask, As, bs, prec, logdet, (const double*)nullptr, N, T,
+                                 D, K, P, lags, diagonal, out, (double*)nullptr, stream);
+}
+
+extern "C" int bn_arhmm_log_likes_robust_f64(const double* x, const double* mask,
+                                             const double* As, const double* bs,
+                                             const double* prec, const double* c,
+                                             const double* nus, int N, int T, int D, int K,
+                                             int P, int lags, int diagonal, double* out,
+                                             double* tau, void* stream) {
+  return launch_log_likes<true>(x, mask, As, bs, prec, c, nus, N, T, D, K, P, lags, diagonal,
+                                out, tau, stream);
+}
+#endif

@@ -2,12 +2,13 @@
 and launch them.
 
 Each ``.cu`` source in this directory compiles, at first use, into its own
-shared library with a plain C interface (``extern "C"`` launchers that take
+shared library (two for the sources in ``_SPLIT_F64``: their float and
+float64 launchers) with a plain C interface (``extern "C"`` launchers that take
 device pointers and a CUDA stream, and return the ``cudaError_t`` of the
 launch). The libraries go into ``behavenet_tpu_torch/_build/`` (git-ignored),
 named by a hash of every source and header and of the flags, so an edited
-source rebuilds and a stale library is never loaded. All sources compile in
-parallel, one ``nvcc`` process each.
+source rebuilds and a stale library is never loaded. All libraries compile
+in parallel, one ``nvcc`` process each.
 
 There is no fallback: a missing ``nvcc`` or a failed build raises, and so
 does a launch that returns an error. :func:`launch` counts each launch in
@@ -23,7 +24,8 @@ import shutil
 import subprocess
 import threading
 
-__all__ = ['SOURCES', 'VARIANTS', 'LAUNCHES', 'build_all', 'library', 'launch', 'ptxas_info']
+__all__ = ['SOURCES', 'VARIANTS', 'LAUNCHES', 'build_all', 'library', 'launch', 'dtype_suffix',
+           'ptxas_info', 'build_seconds']
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(os.path.dirname(_HERE), '_build')
@@ -50,6 +52,7 @@ SOURCES = {
     'triplet_loss': 'triplet.cu',
     'max_pool2d': 'pool.cu',
     'batch_norm': 'batch_norm.cu',
+    'arhmm_mstep_stats': 'arhmm_mstep.cu',
 }
 _HEADERS = ('igemm.cuh', 'hmm.cuh', 'hmm_backtrace.cuh')
 
@@ -60,9 +63,10 @@ _HEADERS = ('igemm.cuh', 'hmm.cuh', 'hmm_backtrace.cuh')
 # backward) with K23 (its forward), K26 (the triplet loss's backward) with
 # K25 (its forward), K27's backward and K28 (the unpool, forward and
 # backward) with K27 (the max pool), K30 (batch norm's backward) with K29
-# (batch norm); K9's forward pass
-# that writes the filtered alphas for K15 and K11's pivoting solve are
-# counted apart from their kernels' other launchers
+# (batch norm), K31's second pass (the residual covariance) with its first
+# (the statistics); K9's forward pass that writes the filtered alphas for
+# K15 and K11's pivoting solve are counted apart from their kernels' other
+# launchers, and so is every float64 launcher (``_f64``: float64 EM)
 VARIANTS = {
     'arhmm_log_likes_robust': ('arhmm_log_likes', ('bn_arhmm_log_likes_robust',)),
     'hmm_forward_backward_tv': ('hmm_forward_backward',
@@ -86,6 +90,19 @@ VARIANTS = {
     'max_unpool2d': ('max_pool2d', ('bn_max_unpool2d',)),
     'max_unpool2d_grad': ('max_pool2d', ('bn_max_unpool2d_grad',)),
     'batch_norm_backward': ('batch_norm', ('bn_batch_norm_backward',)),
+    'arhmm_mstep_cov': ('arhmm_mstep_stats', ('bn_arhmm_mstep_cov',)),
+    'arhmm_mstep_stats_f64': ('arhmm_mstep_stats', ('bn_arhmm_mstep_stats_f64',)),
+    'arhmm_mstep_cov_f64': ('arhmm_mstep_stats', ('bn_arhmm_mstep_cov_f64',)),
+    'arhmm_log_likes_f64': ('arhmm_log_likes', ('bn_arhmm_log_likes_f64',)),
+    'arhmm_log_likes_robust_f64': ('arhmm_log_likes', ('bn_arhmm_log_likes_robust_f64',)),
+    'hmm_forward_backward_f64': ('hmm_forward_backward', ('bn_hmm_forward_backward_f64',)),
+    'hmm_forward_backward_tv_f64': ('hmm_forward_backward',
+                                    ('bn_hmm_forward_backward_tv_f64',)),
+    'hmm_forward_f64': ('hmm_forward_backward', ('bn_hmm_forward_f64',)),
+    'hmm_forward_tv_f64': ('hmm_forward_backward', ('bn_hmm_forward_tv_f64',)),
+    'hmm_viterbi_f64': ('hmm_viterbi', ('bn_hmm_viterbi_f64',)),
+    'hmm_viterbi_tv_f64': ('hmm_viterbi', ('bn_hmm_viterbi_tv_f64',)),
+    'solve_small_f64': ('solve_small', ('bn_solve_small_f64',)),
 }
 _COUNTED_AS = {sym: variant for variant, (_, syms) in VARIANTS.items() for sym in syms}
 
@@ -114,18 +131,27 @@ _SIGNATURES = {
         'bn_decomposed_kl_bwd': [_P] * 4 + [_I] * 2 + [_P] * 8},
     'arhmm_log_likes': {
         'bn_arhmm_log_likes': [_P] * 6 + [_I] * 7 + [_P, _P],
-        'bn_arhmm_log_likes_robust': [_P] * 7 + [_I] * 7 + [_P] * 3},
+        'bn_arhmm_log_likes_robust': [_P] * 7 + [_I] * 7 + [_P] * 3,
+        'bn_arhmm_log_likes_f64': [_P] * 6 + [_I] * 7 + [_P, _P],
+        'bn_arhmm_log_likes_robust_f64': [_P] * 7 + [_I] * 7 + [_P] * 3},
     'hmm_forward_backward': {
         'bn_hmm_forward_backward': [_P] * 4 + [_I] * 3 + [_P] * 6,
         'bn_hmm_forward': [_P] * 4 + [_I] * 3 + [_P] * 2,
         'bn_hmm_forward_backward_tv': [_P] * 4 + [_I] * 3 + [_P] * 7,
         'bn_hmm_forward_tv': [_P] * 4 + [_I] * 3 + [_P] * 2,
         'bn_hmm_forward_alpha': [_P] * 4 + [_I] * 3 + [_P] * 3,
-        'bn_hmm_forward_alpha_tv': [_P] * 4 + [_I] * 3 + [_P] * 3},
+        'bn_hmm_forward_alpha_tv': [_P] * 4 + [_I] * 3 + [_P] * 3,
+        'bn_hmm_forward_backward_f64': [_P] * 4 + [_I] * 3 + [_P] * 6,
+        'bn_hmm_forward_backward_tv_f64': [_P] * 4 + [_I] * 3 + [_P] * 7,
+        'bn_hmm_forward_f64': [_P] * 4 + [_I] * 3 + [_P] * 2,
+        'bn_hmm_forward_tv_f64': [_P] * 4 + [_I] * 3 + [_P] * 2},
     'hmm_viterbi': {'bn_hmm_viterbi': [_P] * 4 + [_I] * 3 + [_P] * 3,
-                    'bn_hmm_viterbi_tv': [_P] * 4 + [_I] * 3 + [_P] * 3},
+                    'bn_hmm_viterbi_tv': [_P] * 4 + [_I] * 3 + [_P] * 3,
+                    'bn_hmm_viterbi_f64': [_P] * 4 + [_I] * 3 + [_P] * 3,
+                    'bn_hmm_viterbi_tv_f64': [_P] * 4 + [_I] * 3 + [_P] * 3},
     'solve_small': {'bn_solve_small': [_P] * 3 + [_I] * 3 + [_P],
-                    'bn_solve_small_pivot': [_P] * 3 + [_I] * 3 + [_P]},
+                    'bn_solve_small_pivot': [_P] * 3 + [_I] * 3 + [_P],
+                    'bn_solve_small_f64': [_P] * 3 + [_I] * 3 + [_P]},
     'gaussian_nll': {
         'bn_gaussian_nll_fwd': [_P] * 6 + [_I] * 2 + [_P],
         'bn_gaussian_nll_bwd': [_P] * 8 + [_I] * 2 + [_P]},
@@ -163,11 +189,29 @@ _SIGNATURES = {
     'batch_norm': {
         'bn_batch_norm': [_P] * 12 + [_L, _I, _I, _L, _F, _F, _F, _I, _P],
         'bn_batch_norm_backward': [_P] * 9 + [_L, _I, _I, _L, _F, _I, _P]},
+    'arhmm_mstep_stats': {
+        'bn_arhmm_mstep_stats': [_P] * 4 + [_I] * 6 + [_P] * 5,
+        'bn_arhmm_mstep_cov': [_P] * 5 + [_I] * 7 + [_P] * 3,
+        'bn_arhmm_mstep_stats_f64': [_P] * 4 + [_I] * 6 + [_P] * 5,
+        'bn_arhmm_mstep_cov_f64': [_P] * 5 + [_I] * 7 + [_P] * 3},
 }
+
+# sources built as two libraries side by side: the float launchers
+# (``-DBN_F64=0``) and the float64 ones (``-DBN_F64=1``, the ``_f64``
+# symbols), whose double instances alone take nvcc as long as the rest
+_SPLIT_F64 = ('arhmm_log_likes', 'hmm_forward_backward')
 
 _lock = threading.Lock()
 _launchers = {}
 _ptxas = {}
+_seconds = {}
+
+
+def _parts(name):
+    """(library suffix, nvcc flags) of each library kernel ``name`` builds."""
+    if name in _SPLIT_F64:
+        return (('', ['-DBN_F64=0']), ('_f64', ['-DBN_F64=1']))
+    return (('', []),)
 
 
 def _nvcc():
@@ -205,29 +249,41 @@ def build_all():
         tag = _tag()
         jobs = {}
         for name, src in SOURCES.items():
-            so = os.path.join(BUILD_DIR, 'lib%s_%s.so' % (name, tag))
-            if os.path.exists(so):
-                continue
-            tmp = '%s.tmp.%d' % (so, os.getpid())
-            cmd = [_nvcc()] + _FLAGS + ['-o', tmp, os.path.join(_HERE, src)]
-            jobs[name] = (so, tmp, subprocess.Popen(
-                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT))
+            for part, defines in _parts(name):
+                so = os.path.join(BUILD_DIR, 'lib%s%s_%s.so' % (name, part, tag))
+                if os.path.exists(so):
+                    continue
+                tmp = '%s.tmp.%d' % (so, os.getpid())
+                cmd = [_nvcc()] + _FLAGS + defines + ['-o', tmp, os.path.join(_HERE, src)]
+                log = open(tmp + '.log', 'w+b')
+                jobs[name + part] = (so, tmp, log, subprocess.Popen(
+                    cmd, stdout=log, stderr=subprocess.STDOUT))
         failed = []
-        for name, (so, tmp, proc) in jobs.items():
-            log = proc.communicate()[0].decode(errors='replace')
-            _ptxas[name] = [ln.strip() for ln in log.splitlines()
-                            if 'Used' in ln or 'spill' in ln]
-            if proc.returncode != 0:
-                failed.append('%s (nvcc rc %d):\n%s' % (name, proc.returncode, log))
-                continue
-            os.replace(tmp, so)  # atomic: concurrent builds converge
+        while jobs:  # as each finishes, so that its seconds are its own
+            for lib_name, (so, tmp, log, proc) in list(jobs.items()):
+                if proc.poll() is None:
+                    continue
+                del jobs[lib_name]
+                _seconds[lib_name] = time.perf_counter() - t0
+                log.seek(0)
+                out = log.read().decode(errors='replace')
+                log.close()
+                os.remove(tmp + '.log')
+                _ptxas[lib_name] = [ln.strip() for ln in out.splitlines() if 'Used' in ln or
+                                    'spill' in ln or 'Function properties' in ln]
+                if proc.returncode != 0:
+                    failed.append('%s (nvcc rc %d):\n%s' % (lib_name, proc.returncode, out))
+                    continue
+                os.replace(tmp, so)  # atomic: concurrent builds converge
+            time.sleep(0.05)
         if failed:
             raise RuntimeError('CUDA kernel build failed: ' + '\n'.join(failed))
         for name in SOURCES:
-            lib = ctypes.CDLL(os.path.join(BUILD_DIR, 'lib%s_%s.so' % (name, tag)))
+            libs = {part: ctypes.CDLL(os.path.join(BUILD_DIR, 'lib%s%s_%s.so' % (name, part, tag)))
+                    for part, _ in _parts(name)}
             fns = {}
             for sym, argtypes in _SIGNATURES[name].items():
-                fn = getattr(lib, sym)
+                fn = getattr(libs['_f64' if '_f64' in libs and sym.endswith('_f64') else ''], sym)
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
                 fns[sym] = fn
@@ -255,6 +311,31 @@ def launch(name, *args, symbol=None):
     LAUNCHES[_COUNTED_AS.get(symbol, name)] += 1
 
 
+def dtype_suffix(name, tensors, float64=True):
+    """Check a launch's ``tensors``: all float32, or (with ``float64``) all
+    float64, on one CUDA device. Returns the suffix of the launchers of
+    that dtype: '' or '_f64'."""
+    import torch
+    x = tensors[0]
+    dtypes = (torch.float32, torch.float64) if float64 else (torch.float32,)
+    if any(t.dtype not in dtypes or t.dtype != x.dtype for t in tensors):
+        raise ValueError('%s: tensors must be all float32%s, got %s'
+                         % (name, ' or all float64' if float64 else '',
+                            [t.dtype for t in tensors]))
+    if any(t.device.type != 'cuda' or t.device != x.device for t in tensors):
+        raise ValueError('%s: every tensor must lie on one CUDA device, got %s'
+                         % (name, [str(t.device) for t in tensors]))
+    return '_f64' if x.dtype == torch.float64 else ''
+
+
 def ptxas_info():
-    """Register and spill lines nvcc printed for each kernel built here."""
+    """Register and spill lines nvcc printed for each library built here
+    (a kernel's name, ``_f64`` appended for the float64 library of a split
+    source), each spill line after the (mangled) name of its function."""
     return dict(_ptxas)
+
+
+def build_seconds():
+    """Seconds from the start of the last build to the end of each
+    library's ``nvcc`` (named as in :func:`ptxas_info`)."""
+    return dict(_seconds)

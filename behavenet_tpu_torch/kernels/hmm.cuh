@@ -1,7 +1,9 @@
 // Warp helpers shared by the HMM recursions (hmm_forward_backward.cu K9,
 // hmm_viterbi.cu K10, hmm_scan.cu K13/K14, hmm_sample.cu K15): one trial
 // (or one stretch of a trial) per warp, state k in lane k (K <= 32). Also
-// the posterior pass that K9 and K13 share.
+// the posterior pass that K9 and K13 share. The scalar type S is float, or
+// double for K9's and K10's float64 launchers (float64 EM); the float
+// instances are the same code as before the type became a parameter.
 // A time-varying log_P is (N, T-1, K, K), the step t -> t+1 of trial n at
 // log_P + (n (T-1) + t) K K.
 #pragma once
@@ -14,13 +16,23 @@ constexpr unsigned kFull = 0xffffffffu;
 constexpr int kWarps = 4;  // trials (or a trial's passes) per block of a launch
 constexpr int kGroup = 8;  // frames of log_lik loaded ahead of a recursion
 
-__device__ __forceinline__ float warp_max(float v) {
+// exp, log and max in the scalar type: expf / logf / fmaxf for float
+__device__ __forceinline__ float ex(float v) { return expf(v); }
+__device__ __forceinline__ double ex(double v) { return exp(v); }
+__device__ __forceinline__ float lg(float v) { return logf(v); }
+__device__ __forceinline__ double lg(double v) { return log(v); }
+__device__ __forceinline__ float fmx(float a, float b) { return fmaxf(a, b); }
+__device__ __forceinline__ double fmx(double a, double b) { return fmax(a, b); }
+
+template <typename S>
+__device__ __forceinline__ S warp_max(S v) {
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(kFull, v, o));
+  for (int o = 16; o > 0; o >>= 1) v = fmx(v, __shfl_xor_sync(kFull, v, o));
   return v;
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
+template <typename S>
+__device__ __forceinline__ S warp_sum(S v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
   return v;
@@ -28,33 +40,35 @@ __device__ __forceinline__ float warp_sum(float v) {
 
 // log sum_l exp(v_l) over the warp's lanes (v_l = -inf on unused lanes),
 // max first, in every lane.
-__device__ __forceinline__ float warp_logsumexp(float v) {
-  const float mx = warp_max(v);
+template <typename S>
+__device__ __forceinline__ S warp_logsumexp(S v) {
+  const S mx = warp_max(v);
   if (mx == -INFINITY) return -INFINITY;
-  return mx + logf(warp_sum(expf(v - mx)));
+  return mx + lg(warp_sum(ex(v - mx)));
 }
 
 // The mask and lane j's log-likelihood of kGroup frames t0, t0 + dir, ...:
 // the recursions load a group ahead of the one they compute, so the loads'
 // latency leaves the dependence chain. Frames outside [0, T) read as 0.
-__device__ __forceinline__ void load_group(const float* __restrict__ ll,
-                                           const float* __restrict__ m, int t0, int dir,
+template <typename S>
+__device__ __forceinline__ void load_group(const S* __restrict__ ll,
+                                           const S* __restrict__ m, int t0, int dir,
                                            int T, int K, int j, bool on,
-                                           float (&mt)[kGroup], float (&obs)[kGroup]) {
+                                           S (&mt)[kGroup], S (&obs)[kGroup]) {
 #pragma unroll
   for (int u = 0; u < kGroup; ++u) {
     const int t = t0 + dir * u;
     const bool in = t >= 0 && t < T;
-    mt[u] = in ? __ldg(m + t) : 0.f;
-    obs[u] = (in && on) ? __ldg(ll + (long long)t * K + j) : 0.f;
+    mt[u] = in ? __ldg(m + t) : S(0);
+    obs[u] = (in && on) ? __ldg(ll + (long long)t * K + j) : S(0);
   }
 }
 
 // Column j (lane j) of a (K, K) tile into registers, -inf past K or when
 // `on` is false: at each i the warp reads K consecutive floats.
-template <int KMAX>
-__device__ __forceinline__ void load_col(const float* __restrict__ P, int K, int j, bool on,
-                                         float (&out)[KMAX]) {
+template <int KMAX, typename S>
+__device__ __forceinline__ void load_col(const S* __restrict__ P, int K, int j, bool on,
+                                         S (&out)[KMAX]) {
 #pragma unroll
   for (int i = 0; i < KMAX; ++i) out[i] = (on && i < K) ? __ldg(P + i * K + j) : -INFINITY;
 }
@@ -62,21 +76,22 @@ __device__ __forceinline__ void load_col(const float* __restrict__ P, int K, int
 // Row i (lane i) of a (K, K) tile into registers, -inf past K or when `on`
 // is false. The lanes read K floats apart; the tile's sectors stay in L1
 // over the K loads.
-template <int KMAX>
-__device__ __forceinline__ void load_row(const float* __restrict__ P, int K, int i, bool on,
-                                         float (&out)[KMAX]) {
+template <int KMAX, typename S>
+__device__ __forceinline__ void load_row(const S* __restrict__ P, int K, int i, bool on,
+                                         S (&out)[KMAX]) {
 #pragma unroll
   for (int j = 0; j < KMAX; ++j) out[j] = (on && j < K) ? __ldg(P + i * K + j) : -INFINITY;
 }
 
 // gamma_t of lane i's state: subtract the row max, then the logsumexp of
 // what is left.
-__device__ __forceinline__ void write_gamma(float a, const float* lb, long long tK, int i,
-                                            bool on, float mt, float* __restrict__ gamma) {
-  float lg = on ? a + lb[tK + i] : -INFINITY;
-  lg = lg - warp_max(lg);
-  const float lse = logf(warp_sum(on ? expf(lg) : 0.f));
-  if (on) gamma[tK + i] = expf(lg - lse) * mt;
+template <typename S>
+__device__ __forceinline__ void write_gamma(S a, const S* lb, long long tK, int i, bool on,
+                                            S mt, S* __restrict__ gamma) {
+  S lgam = on ? a + lb[tK + i] : -INFINITY;
+  lgam = lgam - warp_max(lgam);
+  const S lse = lg(warp_sum(on ? ex(lgam) : S(0)));
+  if (on) gamma[tK + i] = ex(lgam - lse) * mt;
 }
 
 // The posterior pass of one warp over frames [t0, t1) of one trial, from
@@ -87,56 +102,56 @@ __device__ __forceinline__ void write_gamma(float a, const float* lb, long long 
 // 32 KMAX floats (stationary: lane i row i at part[i KMAX + j]; TV: lane j
 // column j at part[i 32 + j]), for reduce_parts. lp is the trial's log_P:
 // (K, K), or (T-1, K, K) when TV.
-template <int KMAX, bool TV>
-__device__ void posterior_frames(const float* la, const float* lb,
-                                 const float* __restrict__ ll, const float* __restrict__ m,
-                                 const float* __restrict__ lp, int T, int K, int t0, int t1,
-                                 float* __restrict__ g, float* __restrict__ xo, float* part) {
+template <int KMAX, bool TV, typename S>
+__device__ void posterior_frames(const S* la, const S* lb, const S* __restrict__ ll,
+                                 const S* __restrict__ m, const S* __restrict__ lp, int T,
+                                 int K, int t0, int t1, S* __restrict__ g, S* __restrict__ xo,
+                                 S* part) {
   const int lane = threadIdx.x % 32;
   const bool on = lane < K;
   const long long KK = (long long)K * K;
-  float acc[KMAX];
+  S acc[KMAX];
 #pragma unroll
-  for (int k = 0; k < KMAX; ++k) acc[k] = 0.f;
+  for (int k = 0; k < KMAX; ++k) acc[k] = S(0);
   if (!TV) {
     // lane i: xi_t(i, j) = alpha_t(i) + log_P[i, j] + (log_lik[t+1, j] m[t+1]
     // + beta_{t+1}(j)), row i of log_P in registers; acc[j] sums xi(i, j)
     const int i = lane;
-    float lpr[KMAX];
+    S lpr[KMAX];
     load_row<KMAX>(lp, K, i, on, lpr);
     for (int t = t0; t < t1; ++t) {
-      const float mt = __ldg(m + t);
-      const float a = on ? la[(long long)t * K + i] : -INFINITY;
+      const S mt = __ldg(m + t);
+      const S a = on ? la[(long long)t * K + i] : -INFINITY;
       write_gamma(a, lb, (long long)t * K, i, on, mt, g);
       if (t + 1 >= T) continue;
-      const float mt1 = __ldg(m + t + 1);
-      const float w = on ? __ldg(ll + (long long)(t + 1) * K + i) * mt1 +
+      const S mt1 = __ldg(m + t + 1);
+      const S w = on ? __ldg(ll + (long long)(t + 1) * K + i) * mt1 +
                                lb[(long long)(t + 1) * K + i]
                          : -INFINITY;
-      float x[KMAX];
-      float rmax = -INFINITY;
+      S x[KMAX];
+      S rmax = -INFINITY;
 #pragma unroll
       for (int j = 0; j < KMAX; ++j) {
         if (j < K) {
           x[j] = a + lpr[j] + __shfl_sync(kFull, w, j);
-          rmax = fmaxf(rmax, x[j]);
+          rmax = fmx(rmax, x[j]);
         }
       }
-      const float mx = warp_max(on ? rmax : -INFINITY);
-      float rs = 0.f;
+      const S mx = warp_max(on ? rmax : -INFINITY);
+      S rs = 0;
 #pragma unroll
       for (int j = 0; j < KMAX; ++j) {
         if (j < K) {
           x[j] = x[j] - mx;
-          if (on) rs += expf(x[j]);
+          if (on) rs += ex(x[j]);
         }
       }
-      const float lz = logf(warp_sum(rs));
-      const float pm = mt * mt1;
-      if (pm != 0.f && on) {
+      const S lz = lg(warp_sum(rs));
+      const S pm = mt * mt1;
+      if (pm != S(0) && on) {
 #pragma unroll
         for (int j = 0; j < KMAX; ++j)
-          if (j < K) acc[j] += expf(x[j] - lz) * pm;
+          if (j < K) acc[j] += ex(x[j] - lz) * pm;
       }
     }
 #pragma unroll
@@ -146,42 +161,42 @@ __device__ void posterior_frames(const float* la, const float* lb,
     // xi(i, j), and xi[t][i][j] is stored by lane j (coalesced over j)
     const int j = lane;
     for (int t = t0; t < t1; ++t) {
-      const float mt = __ldg(m + t);
-      const float a = on ? la[(long long)t * K + j] : -INFINITY;
+      const S mt = __ldg(m + t);
+      const S a = on ? la[(long long)t * K + j] : -INFINITY;
       write_gamma(a, lb, (long long)t * K, j, on, mt, g);
       if (t + 1 >= T) continue;
-      float lpc[KMAX];
+      S lpc[KMAX];
       load_col<KMAX>(lp + t * KK, K, j, on, lpc);
-      const float mt1 = __ldg(m + t + 1);
-      const float w = on ? __ldg(ll + (long long)(t + 1) * K + j) * mt1 +
+      const S mt1 = __ldg(m + t + 1);
+      const S w = on ? __ldg(ll + (long long)(t + 1) * K + j) * mt1 +
                                lb[(long long)(t + 1) * K + j]
                          : -INFINITY;
-      float x[KMAX];
-      float cmax = -INFINITY;
+      S x[KMAX];
+      S cmax = -INFINITY;
 #pragma unroll
       for (int i = 0; i < KMAX; ++i) {
         if (i < K) {
           x[i] = __shfl_sync(kFull, a, i) + lpc[i] + w;
-          cmax = fmaxf(cmax, x[i]);
+          cmax = fmx(cmax, x[i]);
         }
       }
-      const float mx = warp_max(on ? cmax : -INFINITY);
-      float cs = 0.f;
+      const S mx = warp_max(on ? cmax : -INFINITY);
+      S cs = 0;
 #pragma unroll
       for (int i = 0; i < KMAX; ++i) {
         if (i < K) {
           x[i] = x[i] - mx;
-          if (on) cs += expf(x[i]);
+          if (on) cs += ex(x[i]);
         }
       }
-      const float lz = logf(warp_sum(cs));
-      const float pm = mt * mt1;
+      const S lz = lg(warp_sum(cs));
+      const S pm = mt * mt1;
       if (on) {
 #pragma unroll
         for (int i = 0; i < KMAX; ++i) {
           if (i < K) {
-            const float v = expf(x[i] - lz);
-            if (pm != 0.f) acc[i] += v * pm;
+            const S v = ex(x[i] - lz);
+            if (pm != S(0)) acc[i] += v * pm;
             if (xo != nullptr) xo[t * KK + i * K + j] = v * pm;
           }
         }
@@ -195,15 +210,15 @@ __device__ void posterior_frames(const float* la, const float* lb,
 // Sum of the kWarps warps' slots of posterior_frames into the (K, K) out,
 // in warp order (no atomics: a rerun gives the same bits); called by one
 // warp after a barrier.
-template <int KMAX, bool TV>
-__device__ void reduce_parts(const float* part, int K, float* __restrict__ out) {
+template <int KMAX, bool TV, typename S>
+__device__ void reduce_parts(const S* part, int K, S* __restrict__ out) {
   const int lane = threadIdx.x % 32;
   if (lane >= K) return;
   for (int k = 0; k < K; ++k) {
     // stationary: lane i writes row i; time-varying: lane j column j
     const int idx = TV ? (k * 32 + lane) : ((lane * KMAX) + k);
     const int stride = TV ? KMAX * 32 : 32 * KMAX;
-    float s = part[idx];
+    S s = part[idx];
 #pragma unroll
     for (int w = 1; w < kWarps; ++w) s += part[w * stride + idx];
     out[TV ? (long long)k * K + lane : (long long)lane * K + k] = s;

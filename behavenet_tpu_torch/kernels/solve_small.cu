@@ -1,6 +1,7 @@
 // K11 solve_small: batched solve A X = Y of small systems, A (B, n, n),
-// Y and X (B, n, k), float32, n <= 16 and n + k <= 64, by Gauss-Jordan
-// elimination in the JAX package's operation order:
+// Y and X (B, n, k), float32 (float64 from bn_solve_small_f64, for float64
+// EM: the same code with double registers), n <= 16 and n + k <= 64, by
+// Gauss-Jordan elimination in the JAX package's operation order:
 //   for i in 0..n-1:  piv = M[i, :] / M[i, i];  M -= M[:, i] * piv;  M[i, :] = piv
 // on the augmented M = [A | Y]; X is M's last k columns.
 //
@@ -29,25 +30,28 @@ namespace {
 constexpr int kMaxN = 16;
 constexpr int kWarps = 4;
 
-template <bool kPivot>
+__device__ __forceinline__ float ab(float v) { return fabsf(v); }
+__device__ __forceinline__ double ab(double v) { return fabs(v); }
+
+template <bool kPivot, typename S>
 __global__ void __launch_bounds__(kWarps * 32) solve_small_kernel(
-    const float* __restrict__ A, const float* __restrict__ Y, float* __restrict__ X,
-    int B, int n, int k) {
+    const S* __restrict__ A, const S* __restrict__ Y, S* __restrict__ X, int B, int n,
+    int k) {
   const int lane = threadIdx.x % 32;
   const int b = blockIdx.x * kWarps + threadIdx.x / 32;
   if (b >= B) return;  // whole warps leave together
   const int cols = n + k;
-  const float* a = A + (long long)b * n * n;
-  const float* y = Y + (long long)b * n * k;
+  const S* a = A + (long long)b * n * n;
+  const S* y = Y + (long long)b * n * k;
 
   // m[s][r] = M[r, lane + 32 s]
-  float m[2][kMaxN];
+  S m[2][kMaxN];
 #pragma unroll
   for (int s = 0; s < 2; ++s) {
     const int c = lane + 32 * s;
 #pragma unroll
     for (int r = 0; r < kMaxN; ++r) {
-      float v = 0.f;
+      S v = 0;
       if (r < n && c < cols) v = c < n ? a[r * n + c] : y[r * k + (c - n)];
       m[s][r] = v;
     }
@@ -61,11 +65,11 @@ __global__ void __launch_bounds__(kWarps * 32) solve_small_kernel(
         // found by every lane from lane i's registers, then rows i and p
         // swap in every column
         int p = i;
-        float best = fabsf(__shfl_sync(0xffffffffu, m[0][i], i));
+        S best = ab(__shfl_sync(0xffffffffu, m[0][i], i));
 #pragma unroll
         for (int r = i + 1; r < kMaxN; ++r) {
           if (r < n) {
-            const float v = fabsf(__shfl_sync(0xffffffffu, m[0][r], i));
+            const S v = ab(__shfl_sync(0xffffffffu, m[0][r], i));
             if (v > best || (isnan(v) && !isnan(best))) {
               best = v;
               p = r;
@@ -77,7 +81,7 @@ __global__ void __launch_bounds__(kWarps * 32) solve_small_kernel(
           if (r == p) {
 #pragma unroll
             for (int s = 0; s < 2; ++s) {
-              const float t = m[s][r];
+              const S t = m[s][r];
               m[s][r] = m[s][i];
               m[s][i] = t;
             }
@@ -85,14 +89,14 @@ __global__ void __launch_bounds__(kWarps * 32) solve_small_kernel(
         }
       }
       // the pivot row divided by the pivot (lane i holds column i in slot 0)
-      const float pivot = __shfl_sync(0xffffffffu, m[0][i], i);
-      float piv[2];
+      const S pivot = __shfl_sync(0xffffffffu, m[0][i], i);
+      S piv[2];
 #pragma unroll
       for (int s = 0; s < 2; ++s) piv[s] = m[s][i] / pivot;
 #pragma unroll
       for (int r = 0; r < kMaxN; ++r) {
         if (r < n) {
-          const float f = __shfl_sync(0xffffffffu, m[0][r], i);  // M[r, i]
+          const S f = __shfl_sync(0xffffffffu, m[0][r], i);  // M[r, i]
 #pragma unroll
           for (int s = 0; s < 2; ++s) m[s][r] = m[s][r] - f * piv[s];
         }
@@ -102,7 +106,7 @@ __global__ void __launch_bounds__(kWarps * 32) solve_small_kernel(
     }
   }
 
-  float* x = X + (long long)b * n * k;
+  S* x = X + (long long)b * n * k;
 #pragma unroll
   for (int s = 0; s < 2; ++s) {
     const int c = lane + 32 * s;
@@ -114,12 +118,12 @@ __global__ void __launch_bounds__(kWarps * 32) solve_small_kernel(
   }
 }
 
-template <bool kPivot>
-int launch(const float* A, const float* Y, float* X, int B, int n, int k, void* stream) {
+template <bool kPivot, typename S>
+int launch(const S* A, const S* Y, S* X, int B, int n, int k, void* stream) {
   if (B < 1 || n < 1 || n > kMaxN || k < 1 || n + k > 64)
     return static_cast<int>(cudaErrorInvalidValue);
   const int blocks = (B + kWarps - 1) / kWarps;
-  solve_small_kernel<kPivot><<<blocks, kWarps * 32, 0, static_cast<cudaStream_t>(stream)>>>(
+  solve_small_kernel<kPivot, S><<<blocks, kWarps * 32, 0, static_cast<cudaStream_t>(stream)>>>(
       A, Y, X, B, n, k);
   return static_cast<int>(cudaGetLastError());
 }
@@ -134,4 +138,10 @@ extern "C" int bn_solve_small(const float* A, const float* Y, float* X, int B, i
 extern "C" int bn_solve_small_pivot(const float* A, const float* Y, float* X, int B, int n,
                                     int k, void* stream) {
   return launch<true>(A, Y, X, B, n, k, stream);
+}
+
+// float64 (float64 EM's M-step), without pivoting; counted apart.
+extern "C" int bn_solve_small_f64(const double* A, const double* Y, double* X, int B, int n,
+                                  int k, void* stream) {
+  return launch<false>(A, Y, X, B, n, k, stream);
 }

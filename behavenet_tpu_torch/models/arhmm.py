@@ -23,11 +23,12 @@ EM iteration is
   the expected transitions' log-likelihood over ``log_Ps``, ``Rs`` and
   ``r`` (the gradient by autograd, the update ``optax.adam``'s written
   out); per-state weighted least squares (weights times tau when robust)
-  with the JAX package's Jacobi equilibration and 1e-5 ridge,
-  solved by ``ops.smallmat.solve_small`` (K11), then the weighted residual
-  covariances; robust, 10 finite-difference Newton steps on the dof nu.
-  Its weighted contractions are ``torch.einsum``, as they are plain einsums
-  in the JAX package.
+  with the JAX package's Jacobi equilibration and 1e-5 ridge: the weighted
+  sums XtWX, XtWY and wsum in one pass over the frames (:func:`mstep_stats`:
+  K31 ``kernels/arhmm_mstep.cu`` on the card), solved by
+  ``ops.smallmat.solve_small`` (K11), then the weighted residual
+  covariances in a second pass (:func:`mstep_cov`, K31's second launcher);
+  robust, 10 finite-difference Newton steps on the dof nu.
 
 Conventions match the JAX package (and ssm): the first ``lags`` frames of
 a trial are scored under a fixed N(0, I) for every state, and the AR
@@ -43,8 +44,13 @@ recurrent models' states and every observation in host loops over numpy,
 as the JAX package does. Randomness comes from a ``torch.Generator``
 (``generator``, in place of the JAX package's ``key``).
 
-Not ported yet, and raising ``NotImplementedError``: ``em_dtype='float64'``
-(ROADMAP A1c), meshes and ``iters_per_dispatch > 1``.
+``dtype='float64'`` (the CLI's ``em_dtype``) runs EM, ``log_likelihood``,
+``expected_states`` and ``most_likely_states`` in float64: parameters,
+padded trials and every intermediate, through the ``_f64`` launchers of
+K8-K11 and K31 on the card. Not ported yet, and raising
+``NotImplementedError``: float64 with ``parallel_scan``, ``posterior_sample``
+or ``sample`` / ``sample_x`` (they need K13-K16 in float64, ROADMAP A1c),
+meshes and ``iters_per_dispatch > 1``.
 """
 
 import collections
@@ -54,14 +60,16 @@ import pickle
 import numpy as np
 import torch
 
-from behavenet_tpu_torch.kernels.build import launch
+from behavenet_tpu_torch.kernels.build import dtype_suffix, launch
 from behavenet_tpu_torch.ops import hmm as hmm_ops
 from behavenet_tpu_torch.ops.smallmat import solve_small
 from behavenet_tpu_torch.utils.device import resolve_device
 
 __all__ = ['ARHMM', 'PaddedTrials', 'pad_trials', 'obs_precision', 'log_likes',
            'log_likes_plain', 'log_likes_cuda', 'student_t_terms', 'robust_log_likes',
-           'robust_log_likes_plain', 'robust_log_likes_cuda', 'kmeans', 'check_ported']
+           'robust_log_likes_plain', 'robust_log_likes_cuda', 'mstep_stats',
+           'mstep_stats_plain', 'mstep_stats_cuda', 'mstep_cov', 'mstep_cov_plain',
+           'mstep_cov_cuda', 'kmeans', 'check_ported']
 
 LN2PI = float(np.log(2 * np.pi))
 _OBSERVATIONS = ('ar', 'gaussian', 'diagonal_ar', 'diagonal_gaussian')
@@ -70,6 +78,8 @@ _TRANSITIONS = ('stationary', 'sticky', 'recurrent', 'recurrent_only')
 _RECURRENT_ADAM_STEPS, _RECURRENT_ADAM_LR = 25, 1e-2   # models/arhmm.py:670-680
 _NU_NEWTON_STEPS = 10                                   # models/arhmm.py:613
 _MAX_D, _MAX_LAG_COLS = 16, 64  # K8 keeps a frame and its lags in registers
+_DTYPES = {'float32': torch.float32, 'float64': torch.float64}
+_MSTEP_CHUNK = 512   # frames a block of K31 sums (kChunk, kernels/arhmm_mstep.cu)
 
 # the device an unpickled model's parameters go to: ``utils.pickles.load``
 # sets it; unset, ``None`` means 'cuda' (which raises without a GPU)
@@ -79,12 +89,14 @@ UNPICKLE_DEVICE = contextvars.ContextVar('UNPICKLE_DEVICE', default=None)
 PaddedTrials = collections.namedtuple('PaddedTrials', ['x', 'mask'])
 
 
-def pad_trials(datas, device):
-    """List of (T_i, D) arrays -> :class:`PaddedTrials` on ``device``."""
-    datas = [np.asarray(d, dtype=np.float32) for d in datas]
+def pad_trials(datas, device, dtype=torch.float32):
+    """List of (T_i, D) arrays -> :class:`PaddedTrials` of ``dtype`` on
+    ``device``."""
+    np_dtype = np.float64 if dtype == torch.float64 else np.float32
+    datas = [np.asarray(d, dtype=np_dtype) for d in datas]
     t_max = max(d.shape[0] for d in datas)
-    x = np.zeros((len(datas), t_max, datas[0].shape[1]), dtype=np.float32)
-    mask = np.zeros((len(datas), t_max), dtype=np.float32)
+    x = np.zeros((len(datas), t_max, datas[0].shape[1]), dtype=np_dtype)
+    mask = np.zeros((len(datas), t_max), dtype=np_dtype)
     for i, d in enumerate(datas):
         x[i, :d.shape[0]] = d
         mask[i, :d.shape[0]] = 1.0
@@ -159,14 +171,10 @@ def log_likes_plain(x, mask, As, bs, prec, logdet, lags, diagonal):
 
 
 def _check_log_likes(name, tensors, lags, diagonal):
-    """K8's input checks: x, mask, As, bs, prec, logdet (or c)[, nus]."""
+    """K8's input checks: x, mask, As, bs, prec, logdet (or c)[, nus];
+    returns the launcher suffix of their dtype."""
     x, mask, As, bs, prec, logdet = tensors[:6]
-    for t in tensors:
-        if t.device.type != 'cuda' or t.device != x.device:
-            raise ValueError('%s: every tensor must lie on one CUDA device, got %s'
-                             % (name, [str(t.device) for t in tensors]))
-        if t.dtype != torch.float32:
-            raise ValueError('%s: tensors must be float32, got %s' % (name, t.dtype))
+    f64 = dtype_suffix(name, tensors)
     N, T, D = x.shape
     K, P = bs.shape[0], As.shape[2]
     want_prec = (K, D) if diagonal else (K, D, D)
@@ -177,21 +185,23 @@ def _check_log_likes(name, tensors, lags, diagonal):
     if D > _MAX_D or D * lags > _MAX_LAG_COLS:
         raise ValueError('%s: takes D <= %d and D * lags <= %d, got D=%d, lags=%d'
                          % (name, _MAX_D, _MAX_LAG_COLS, D, lags))
+    return f64
 
 
 def log_likes_cuda(x, mask, As, bs, prec, logdet, lags, diagonal):
-    """K8 on the card: :func:`log_likes_plain`'s (N, T, K)."""
+    """K8 on the card: :func:`log_likes_plain`'s (N, T, K), float32 or
+    float64 (``bn_arhmm_log_likes_f64``) in the inputs' dtype."""
     name = 'arhmm_log_likes'
     tensors = (x, mask, As, bs, prec, logdet)
-    _check_log_likes(name, tensors, lags, diagonal)
+    f64 = _check_log_likes(name, tensors, lags, diagonal)
     N, T, D = x.shape
     K, P = bs.shape[0], As.shape[2]
     x, mask, As, bs, prec, logdet = (t.contiguous() for t in tensors)
-    out = torch.empty((N, T, K), device=x.device, dtype=torch.float32)
+    out = torch.empty((N, T, K), device=x.device, dtype=x.dtype)
     if out.numel():
         launch(name, x.data_ptr(), mask.data_ptr(), As.data_ptr(), bs.data_ptr(),
                prec.data_ptr(), logdet.data_ptr(), N, T, D, K, P, lags, int(diagonal),
-               out.data_ptr())
+               out.data_ptr(), symbol='bn_arhmm_log_likes' + f64)
     return out
 
 
@@ -233,21 +243,22 @@ def robust_log_likes_plain(x, mask, As, bs, prec, c, nus, lags, diagonal, with_t
 
 def robust_log_likes_cuda(x, mask, As, bs, prec, c, nus, lags, diagonal, with_tau=False):
     """K8's Student's-t launcher on the card: (ll, tau or None) as
-    :func:`robust_log_likes_plain`."""
+    :func:`robust_log_likes_plain`, float32 or float64 in the inputs'
+    dtype (tau in the same)."""
     name = 'arhmm_log_likes'
     N, T, D = x.shape
     K = bs.shape[0]
-    _check_log_likes(name, (x, mask, As, bs, prec, c, nus), lags, diagonal)
+    f64 = _check_log_likes(name, (x, mask, As, bs, prec, c, nus), lags, diagonal)
     if nus.shape != (K,):
         raise ValueError('%s: nus must be (K,), got %s' % (name, tuple(nus.shape)))
     x, mask, As, bs, prec, c, nus = (t.contiguous() for t in (x, mask, As, bs, prec, c, nus))
-    out = torch.empty((N, T, K), device=x.device, dtype=torch.float32)
-    tau = torch.empty((N, T, K), device=x.device, dtype=torch.float32) if with_tau else None
+    out = torch.empty((N, T, K), device=x.device, dtype=x.dtype)
+    tau = torch.empty((N, T, K), device=x.device, dtype=x.dtype) if with_tau else None
     if out.numel():
         launch(name, x.data_ptr(), mask.data_ptr(), As.data_ptr(), bs.data_ptr(),
                prec.data_ptr(), c.data_ptr(), nus.data_ptr(), N, T, D, K, As.shape[2], lags,
                int(diagonal), out.data_ptr(), tau.data_ptr() if with_tau else None,
-               symbol='bn_arhmm_log_likes_robust')
+               symbol='bn_arhmm_log_likes_robust' + f64)
     return out, tau
 
 
@@ -262,6 +273,145 @@ def robust_log_likes(x, mask, As, bs, Sigmas, nus, lags, diagonal, with_tau=Fals
     if x.device.type != 'cuda':
         raise ValueError('robust_log_likes: no implementation for device %s' % x.device)
     return robust_log_likes_cuda(x, mask, As, bs, prec, c, nus, lags, diagonal, with_tau)
+
+
+# ------------------------------------------- the M-step's weighted sums (K31)
+
+
+def _mstep_weights(gammas, mask, tau, lags):
+    """The regression weights (N, T, K) as the JAX package builds them
+    (models/arhmm.py:504-511): gammas times the mask, times tau when given,
+    times (t >= lags) when ``lags > 0``: frames without a full lag history
+    weigh 0."""
+    w = gammas * mask[:, :, None]
+    if tau is not None:
+        w = w * tau
+    if lags > 0:
+        w = w * (torch.arange(gammas.shape[1], device=gammas.device) >= lags)[None, :, None]
+    return w
+
+
+def _design(x, lags):
+    """The design rows (N, T, D * lags + 1): [x_{t-1}, ..., x_{t-lags}, 1]
+    (JAX: models/arhmm.py:512-515)."""
+    ones = torch.ones(x.shape[:2] + (1,), dtype=x.dtype, device=x.device)
+    return torch.cat([_lagged(x, lags), ones], dim=2) if lags > 0 else ones
+
+
+def _flat(x, mask, gammas, tau, lags):
+    """(design rows (N T, P), y (N T, D), weights (N T, K)), the JAX
+    package's ``Xf``, ``Yf``, ``Wf``."""
+    Xd = _design(x, lags)
+    return (Xd.reshape(-1, Xd.shape[2]), x.reshape(-1, x.shape[2]),
+            _mstep_weights(gammas, mask, tau, lags).reshape(-1, gammas.shape[2]))
+
+
+def mstep_stats_plain(x, mask, gammas, tau, lags):
+    """The M-step's weighted sums (JAX: models/arhmm.py:522-523, :538):
+    (XtWX (K, P, P), XtWY (K, P, D), wsum (K,)) with P = D * lags + 1, over
+    padded trials x (N, T, D), mask (N, T), the posteriors gammas (N, T, K)
+    and the robust weights tau (N, T, K) or None; plain PyTorch, the JAX
+    formulas in the tensors' dtype."""
+    Xf, Yf, Wf = _flat(x, mask, gammas, tau, lags)
+    return (torch.einsum('np,nk,nq->kpq', Xf, Wf, Xf),
+            torch.einsum('np,nk,nd->kpd', Xf, Wf, Yf), torch.sum(Wf, dim=0))
+
+
+def mstep_cov_plain(x, mask, gammas, tau, beta, lags, diagonal):
+    """The raw weighted residual sums of the M-step (JAX:
+    models/arhmm.py:537-546, before the division by wsum): with r = y -
+    X^T beta_k, sum w r r^T (K, D, D), or with ``diagonal`` sum w r^2 (K,
+    D); ``beta`` (K, P, D) the solved regression. Plain PyTorch."""
+    Xf, Yf, Wf = _flat(x, mask, gammas, tau, lags)
+    resid = Yf[:, None, :] - torch.einsum('np,kpd->nkd', Xf, beta)   # (N T, K, D)
+    if diagonal:
+        return torch.einsum('nk,nkd->kd', Wf, resid ** 2)
+    return torch.einsum('nk,nkd,nke->kde', Wf, resid, resid)
+
+
+def _check_mstep(name, x, mask, gammas, tau, lags, beta=None):
+    """K31's input checks; returns (N, T, D, K, P, chunks, the launcher
+    suffix of the dtype) and the inputs made contiguous."""
+    tensors = tuple(t for t in (x, mask, gammas, tau, beta) if t is not None)
+    f64 = dtype_suffix(name, tensors)
+    N, T, D = x.shape
+    K = gammas.shape[2]
+    if mask.shape != (N, T) or gammas.shape != (N, T, K) or \
+            (tau is not None and tau.shape != (N, T, K)):
+        raise ValueError('%s: takes x (N, T, D), mask (N, T), gammas and tau (N, T, K), got '
+                         '%s' % (name, [tuple(t.shape) for t in tensors]))
+    if not 1 <= D <= _MAX_D or lags < 0 or D * lags > _MAX_LAG_COLS:
+        raise ValueError('%s: takes D <= %d and D * lags <= %d, got D=%d, lags=%d'
+                         % (name, _MAX_D, _MAX_LAG_COLS, D, lags))
+    if beta is not None and beta.shape != (K, D * lags + 1, D):
+        raise ValueError('%s: beta must be (K, P, D) = %s, got %s'
+                         % (name, (K, D * lags + 1, D), tuple(beta.shape)))
+    chunks = -(-N * T // _MSTEP_CHUNK)
+    x, mask, gammas = (t.contiguous() for t in (x, mask, gammas))
+    tau = None if tau is None else tau.contiguous()
+    return (N, T, D, K, D * lags + 1, chunks, f64), (x, mask, gammas, tau)
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def mstep_stats_cuda(x, mask, gammas, tau, lags):
+    """K31's first pass on the card: :func:`mstep_stats_plain`'s (XtWX,
+    XtWY, wsum), float32 or float64 (``bn_arhmm_mstep_stats_f64``) in the
+    inputs' dtype, summed in float64 either way; fixed-order sums, the same
+    bits on every call."""
+    name = 'arhmm_mstep_stats'
+    (N, T, D, K, P, chunks, f64), (x, mask, gammas, tau) = _check_mstep(
+        name, x, mask, gammas, tau, lags)
+    kw = dict(device=x.device, dtype=x.dtype)
+    XtWX, XtWY, wsum = torch.empty((K, P, P), **kw), torch.empty((K, P, D), **kw), \
+        torch.empty(K, **kw)
+    part = torch.empty((chunks, K, P * (P + 1) // 2 + P * D), device=x.device,
+                       dtype=torch.float64)
+    launch(name, x.data_ptr(), mask.data_ptr(), gammas.data_ptr(), _ptr(tau), N, T, D, K, lags,
+           chunks, part.data_ptr(), XtWX.data_ptr(), XtWY.data_ptr(), wsum.data_ptr(),
+           symbol='bn_arhmm_mstep_stats' + f64)
+    return XtWX, XtWY, wsum
+
+
+def mstep_cov_cuda(x, mask, gammas, tau, beta, lags, diagonal):
+    """K31's second pass on the card: :func:`mstep_cov_plain`'s raw
+    residual sums, (K, D, D) or (K, D) with ``diagonal``, float32 or
+    float64 (``bn_arhmm_mstep_cov_f64``) in the inputs' dtype, the residuals
+    and sums in float64 either way."""
+    name = 'arhmm_mstep_cov'
+    (N, T, D, K, P, chunks, f64), (x, mask, gammas, tau) = _check_mstep(
+        name, x, mask, gammas, tau, lags, beta)
+    beta = beta.contiguous()
+    E = D if diagonal else D * (D + 1) // 2
+    out = torch.empty((K, D) if diagonal else (K, D, D), device=x.device, dtype=x.dtype)
+    part = torch.empty((chunks, K, E), device=x.device, dtype=torch.float64)
+    launch('arhmm_mstep_stats', x.data_ptr(), mask.data_ptr(), gammas.data_ptr(), _ptr(tau),
+           beta.data_ptr(), N, T, D, K, lags, int(diagonal), chunks, part.data_ptr(),
+           out.data_ptr(), symbol='bn_arhmm_mstep_cov' + f64)
+    return out
+
+
+def mstep_stats(x, mask, gammas, tau, lags):
+    """(XtWX (K, P, P), XtWY (K, P, D), wsum (K,)) of the M-step: K31 on a
+    ``cuda`` tensor, the plain version on a ``cpu`` one."""
+    if x.device.type == 'cpu':
+        return mstep_stats_plain(x, mask, gammas, tau, lags)
+    if x.device.type != 'cuda':
+        raise ValueError('mstep_stats: no implementation for device %s' % x.device)
+    return mstep_stats_cuda(x, mask, gammas, tau, lags)
+
+
+def mstep_cov(x, mask, gammas, tau, beta, lags, diagonal):
+    """The M-step's raw weighted residual sums, (K, D, D) or (K, D) with
+    ``diagonal``: K31's second pass on a ``cuda`` tensor, the plain version
+    on a ``cpu`` one."""
+    if x.device.type == 'cpu':
+        return mstep_cov_plain(x, mask, gammas, tau, beta, lags, diagonal)
+    if x.device.type != 'cuda':
+        raise ValueError('mstep_cov: no implementation for device %s' % x.device)
+    return mstep_cov_cuda(x, mask, gammas, tau, beta, lags, diagonal)
 
 
 # ------------------------------------------------------------------ k-means
@@ -343,27 +493,34 @@ def kmeans(X, K, n_init=10, rng_seed=0):
 # ------------------------------------------------------------------- model
 
 
-def check_ported(observations, transitions, dtype='float32'):
+def check_ported(observations, transitions, dtype='float32', parallel_scan=False):
     """Raise ``NotImplementedError`` for a configuration the port cannot fit
     yet (naming the slice that brings it), ``ValueError`` for an invalid one."""
     if observations not in _OBSERVATIONS + _ROBUST:
         raise ValueError('"%s" is an invalid observation type' % observations)
     if transitions not in _TRANSITIONS:
         raise ValueError('"%s" is an invalid transition type' % transitions)
-    if dtype != 'float32':
-        raise NotImplementedError('em_dtype "%s" is not ported; the port runs EM in '
-                                  'float32 (float64 EM is ROADMAP item A1c)' % dtype)
+    if dtype not in _DTYPES:
+        raise ValueError('dtype must be "float32" or "float64", got %r' % (dtype,))
+    if dtype == 'float64' and parallel_scan:
+        raise NotImplementedError(_f64_refusal('parallel_scan'))
+
+
+def _f64_refusal(what):
+    return ('%s in float64 is not ported yet: it needs the parallel scans and samplers '
+            '(K13-K16) in float64, the rest of ROADMAP item A1c' % what)
 
 
 class ARHMM:
     """(AR)HMM with EM fitting; the JAX package's ``ARHMM`` API (itself
-    ssm.HMM's where the reference uses it), with parameters held as float32
-    tensors on ``device`` (``None`` means ``'cuda'``)."""
+    ssm.HMM's where the reference uses it), with parameters held as tensors
+    of ``dtype`` (float32, or float64 for float64 EM) on ``device``
+    (``None`` means ``'cuda'``)."""
 
     def __init__(self, K, D, lags=1, observations='ar', transitions='stationary',
                  kappa=0.0, nu=4.0, rng_seed=0, parallel_scan=False, dtype='float32',
                  device=None):
-        check_ported(observations, transitions, dtype)
+        check_ported(observations, transitions, dtype, parallel_scan)
         self.device = resolve_device(device)
         self.K = int(K)
         self.D = int(D)
@@ -403,8 +560,13 @@ class ARHMM:
         """Whether the transitions are input-driven, (N, T-1, K, K)."""
         return self.transitions in ('recurrent', 'recurrent_only')
 
+    @property
+    def torch_dtype(self):
+        """The tensors' dtype: torch.float32, or torch.float64 for float64 EM."""
+        return _DTYPES[self.dtype]
+
     def _tensors(self, arrays):
-        return {k: torch.tensor(np.asarray(v), dtype=torch.float32, device=self.device)
+        return {k: torch.tensor(np.asarray(v), dtype=self.torch_dtype, device=self.device)
                 for k, v in arrays.items()}
 
     def to(self, device):
@@ -427,7 +589,8 @@ class ARHMM:
         state.setdefault('parallel_scan', False)
         state.setdefault('dtype', 'float32')
         state.setdefault('robust', state['observations'] in _ROBUST)
-        check_ported(state['observations'], state['transitions'], state['dtype'])
+        check_ported(state['observations'], state['transitions'], state['dtype'],
+                     state['parallel_scan'])
         self.__dict__.update(state)
         self.device = resolve_device(UNPICKLE_DEVICE.get())
         self.params = self._tensors(state['params'])
@@ -444,13 +607,14 @@ class ARHMM:
 
     # ------------------------------------------------------ likelihood core
     def pad(self, datas):
-        """A trial or list of trials -> :class:`PaddedTrials` on the model's
-        device (a :class:`PaddedTrials` passes through)."""
+        """A trial or list of trials -> :class:`PaddedTrials` of the model's
+        dtype on its device (a :class:`PaddedTrials` passes through, cast as
+        the JAX package pads in its dtype)."""
         if isinstance(datas, PaddedTrials):
-            return PaddedTrials(datas.x.to(self.device), datas.mask.to(self.device))
+            return PaddedTrials(*(t.to(self.device, self.torch_dtype) for t in datas))
         if not isinstance(datas, (list, tuple)):
             datas = [datas]
-        return pad_trials(datas, self.device)
+        return pad_trials(datas, self.device, self.torch_dtype)
 
     def _log_likes(self, params, x, mask, with_tau=False):
         """Per-frame observation log-likelihoods (N, T, K) of padded trials;
@@ -529,12 +693,17 @@ class ARHMM:
         if mesh is not None:
             raise NotImplementedError('sequence-parallel posterior sampling (mesh) is not '
                                       'ported yet')
+        self._check_sampling('posterior_sample')
         x, mask = self.pad([data])
         p = self.params
         path = hmm_ops.sample_posterior(p['log_pi0'], self._log_P(p, x),
                                         self._log_likes(p, x, mask), mask,
                                         parallel=self.parallel_scan, generator=generator)
         return path[0].cpu().numpy()
+
+    def _check_sampling(self, what):
+        if self.dtype == 'float64':
+            raise NotImplementedError(_f64_refusal(what))
 
     def _numpy_params(self):
         return {k: v.detach().cpu().numpy().astype(np.float64) for k, v in self.params.items()}
@@ -547,6 +716,7 @@ class ARHMM:
         x_t, so states and observations are drawn together in a host loop.
         The noise comes from ``generator`` (on the model's device; ``None``:
         seeded from numpy)."""
+        self._check_sampling('sample')
         gen = hmm_ops.generator_for(self.device, generator)
         if not self.recurrent:
             lp = torch.log_softmax(self.params['log_Ps'], dim=1)
@@ -605,6 +775,7 @@ class ARHMM:
         """Observations (T, D) float32 given a state sequence (JAX:
         models/arhmm.py:396), the noise from ``generator`` (on the model's
         device; ``None``: seeded from numpy)."""
+        self._check_sampling('sample_x')
         gen = hmm_ops.generator_for(self.device, generator)
         states = np.asarray(states)
         T, D = len(states), self.D
@@ -697,7 +868,7 @@ class ARHMM:
         transitions' (JAX: models/arhmm.py:484), with the robust weights
         ``tau`` (N, T, K) under ``params``."""
         K, D, lags = self.K, self.D, self.lags
-        dev = x.device
+        dev, dt = x.device, x.dtype
         new = dict(params)
 
         pi0 = torch.mean(gammas[:, 0, :], dim=0) + 1e-8
@@ -706,54 +877,38 @@ class ARHMM:
         if not self.recurrent:
             counts = torch.sum(xi_sums, dim=0)
             if self.transitions == 'sticky':
-                counts = counts + self.kappa * torch.eye(K, device=dev)
+                counts = counts + self.kappa * torch.eye(K, dtype=dt, device=dev)
             counts = counts + 1e-8
             new['log_Ps'] = torch.log(counts / torch.sum(counts, dim=1, keepdim=True))
 
-        # weighted least squares; frames without a full lag history weigh 0
-        w = gammas * mask[:, :, None]
-        if self.robust:
-            w = w * tau
-        ones = torch.ones(x.shape[:2] + (1,), device=dev)
-        if lags > 0:
-            w = w * (torch.arange(x.shape[1], device=dev) >= lags)[None, :, None]
-            Xd = torch.cat([_lagged(x, lags), ones], dim=2)
-        else:
-            Xd = ones
-        N, T, Pdim = Xd.shape
-        Xf, Yf, Wf = Xd.reshape(-1, Pdim), x.reshape(-1, D), w.reshape(-1, K)
-
-        XtWX = torch.einsum('np,nk,nq->kpq', Xf, Wf, Xf)
-        XtWY = torch.einsum('np,nk,nd->kpd', Xf, Wf, Yf)
+        # weighted least squares over the frames (K31's first pass): frames
+        # without a full lag history weigh 0, robust ones tau times more
+        tau = tau if self.robust else None
+        XtWX, XtWY, wsum = mstep_stats(x, mask, gammas, tau, lags)
+        Pdim = XtWX.shape[1]
         # Jacobi equilibration, then a relative 1e-5 ridge: SPD, so the
         # pivot-free unrolled solve is safe
         s = 1.0 / torch.sqrt(torch.clamp(torch.diagonal(XtWX, dim1=1, dim2=2), min=1e-8))
-        A = XtWX * s[:, :, None] * s[:, None, :] + 1e-5 * torch.eye(Pdim, device=dev)[None]
+        A = XtWX * s[:, :, None] * s[:, None, :] + \
+            1e-5 * torch.eye(Pdim, dtype=dt, device=dev)[None]
         beta = s[:, :, None] * solve_small(A, XtWY * s[:, :, None])   # (K, P, D)
         if lags > 0:
             new['As'] = beta[:, :-1, :].transpose(1, 2).contiguous()
         new['bs'] = beta[:, -1, :].contiguous()
 
-        resid = Yf[:, None, :] - torch.einsum('np,kpd->nkd', Xf, beta)   # (N T, K, D)
-        wsum = torch.sum(Wf, dim=0)   # tau included, as the JAX package's code has it
+        # the residuals' weighted sums (K31's second pass); wsum holds tau,
+        # as the JAX package's code has it
+        S = mstep_cov(x, mask, gammas, tau, beta, lags, self.diagonal)
         if self.diagonal:
-            var = torch.sum(Wf[:, :, None] * resid ** 2, dim=0) / \
-                torch.clamp(wsum[:, None], min=1e-8) + 1e-6
+            var = S / torch.clamp(wsum[:, None], min=1e-8) + 1e-6
             new['Sigmas'] = torch.diag_embed(var)
         else:
-            # sum_n W_nk r_nk r_nk^T as a (D, D) product per state and trial,
-            # then the sum over trials: as one contraction over all N T
-            # frames per state it is a GEMM with a 100k-long reduction and
-            # one output tile
-            R = resid.transpose(0, 1).reshape(K * N, T, D)
-            RW = (resid * Wf[:, :, None]).transpose(0, 1).reshape(K * N, T, D)
-            Sig = torch.bmm(RW.transpose(1, 2), R).reshape(K, N, D, D).sum(dim=1) / \
-                torch.clamp(wsum[:, None, None], min=1e-8)
+            Sig = S / torch.clamp(wsum[:, None, None], min=1e-8)
             # symmetrize, plus a scale-relative jitter that keeps the next
             # E-step's Cholesky positive definite
             Sig = 0.5 * (Sig + Sig.transpose(1, 2))
             jit = 1e-6 * (1.0 + torch.diagonal(Sig, dim1=1, dim2=2).amax(dim=1))
-            new['Sigmas'] = Sig + jit[:, None, None] * torch.eye(D, device=dev)[None]
+            new['Sigmas'] = Sig + jit[:, None, None] * torch.eye(D, dtype=dt, device=dev)[None]
 
         if self.robust:
             new['nus'] = self._m_step_nu(params, mask, gammas, tau)

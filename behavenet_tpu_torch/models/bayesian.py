@@ -17,8 +17,8 @@ ARHMM asks for ``parallel``), then the IMM-collapsed filter (K17) and the
 RTS smoother (K18) of ``ops.imm`` on the companion state, or with
 ``parallel=True`` the associative Kalman filter and smoother of
 ``ops.kalman`` (K19, K20) over the gamma-weighted dynamics. Everything runs
-on the ARHMM's device. The sequence-parallel ``mesh=`` is not ported yet
-and raises.
+on the ARHMM's device, in float32: a float64 ARHMM raises, as does the
+sequence-parallel ``mesh=``; neither is ported yet.
 """
 
 import numpy as np
@@ -48,6 +48,11 @@ class BayesianDecoder:
         state_evidence_weight : float
             weight on the neural state-decoder log-probabilities
         """
+        if arhmm.dtype == 'float64':
+            raise NotImplementedError(
+                'the Bayesian decoder on a float64 ARHMM is not ported yet: it needs the IMM '
+                'filter and the Kalman kernels (K17-K22) in float64, the rest of ROADMAP item '
+                'A1c')
         self.arhmm = arhmm
         self.K = arhmm.K
         self.D = arhmm.D

@@ -23,7 +23,9 @@ chunked parallel-prefix scans K13 and K14 (``kernels/hmm_scan.cu``);
 On ``cpu`` tensors the plain PyTorch versions beside them run, picked from
 the input's device and from nothing else. A time-varying ``log_P`` goes to
 the kernels' ``_tv`` launchers, which also write the per-step pairwise
-posteriors for :func:`forward_backward`'s ``with_xi``. Randomness comes
+posteriors for :func:`forward_backward`'s ``with_xi``. K9 and K10 take
+float64 inputs too (their ``_f64`` launchers, for float64 EM); the scans
+and samplers take float32. Randomness comes
 from an explicit ``torch.Generator`` (the JAX package's ``key``); each
 sampler's plain version takes its uniforms explicitly, so that a test can
 feed it JAX's.
@@ -34,7 +36,7 @@ import math
 import numpy as np
 import torch
 
-from behavenet_tpu_torch.kernels.build import launch
+from behavenet_tpu_torch.kernels.build import dtype_suffix, launch
 from behavenet_tpu_torch.ops.scans import chunked_prefix_scan, prefix_scan
 
 __all__ = ['forward_plain', 'backward_plain', 'forward_backward_plain',
@@ -47,6 +49,7 @@ __all__ = ['forward_plain', 'backward_plain', 'forward_backward_plain',
            'sample_states', 'sample_states_cuda', 'path_log_prob', 'scan_chunk']
 
 _MAX_K = 32   # K9, K10 and K13-K16 put state k in lane k of a warp
+_MAX_K_F64 = 16   # K9's double instances (kTopK, kernels/hmm_forward_backward.cu)
 
 
 def _mask(log_lik, mask):
@@ -375,16 +378,13 @@ def sample_states_plain(log_pi0, log_P, u0, u):
 # -------------------------------------------------------------- the kernels
 
 
-def _check(name, log_pi0, log_P, log_lik, mask):
-    """Checks a kernel's inputs; returns N, T, K, whether ``log_P`` is
-    time-varying, and the inputs made contiguous."""
+def _check(name, log_pi0, log_P, log_lik, mask, float64=False):
+    """Checks a kernel's inputs (all float32, or with ``float64`` all
+    float64 too: K9's and K10's launchers take it); returns N, T, K,
+    whether ``log_P`` is time-varying, the launcher suffix of the dtype
+    ('' or '_f64') and the inputs made contiguous."""
     tensors = (log_pi0, log_P, log_lik, mask)
-    for t in tensors:
-        if t.device.type != 'cuda' or t.device != log_lik.device:
-            raise ValueError('%s: every tensor must lie on one CUDA device, got %s'
-                             % (name, [str(t.device) for t in tensors]))
-        if t.dtype != torch.float32:
-            raise ValueError('%s: tensors must be float32, got %s' % (name, t.dtype))
+    f64 = dtype_suffix(name, tensors, float64)
     if log_lik.dim() != 3:
         raise ValueError('%s: log_lik must be (N, T, K), got %s'
                          % (name, tuple(log_lik.shape)))
@@ -398,64 +398,78 @@ def _check(name, log_pi0, log_P, log_lik, mask):
     if not 1 <= K <= _MAX_K or T < 1:
         raise ValueError('%s: takes 1 <= K <= %d states and T >= 1, got K=%d, T=%d'
                          % (name, _MAX_K, K, T))
-    return N, T, K, log_P.dim() == 4, (t.contiguous() for t in tensors)
+    return N, T, K, log_P.dim() == 4, f64, (t.contiguous() for t in tensors)
+
+
+def _check_k9_f64(name, K, f64):
+    """K9 in float64 takes at most _MAX_K_F64 states."""
+    if f64 and K > _MAX_K_F64:
+        raise NotImplementedError(
+            '%s: float64 with K=%d states is not ported yet: the float64 forward-backward '
+            'takes K <= %d, the rest of ROADMAP item A1c' % (name, K, _MAX_K_F64))
 
 
 def forward_backward_cuda(log_pi0, log_P, log_lik, mask, with_xi=False):
     """K9 on the card: (gamma, log_Z, xi_sum[, xi]) as
-    :func:`forward_backward_plain`. The forward and backward passes write
+    :func:`forward_backward_plain`, float32 or float64 (the ``_f64``
+    launchers, K <= 16) in the inputs' dtype. The forward and backward passes write
     log_alpha and log_beta (N, T, K) to scratch, a last pass the
     posteriors. A time-varying ``log_P`` runs the ``_tv`` launcher, which
     reads ``log_P[n, t]`` per step and, with ``with_xi``, writes the
     per-step xi; ``with_xi`` takes a time-varying ``log_P`` only."""
     name = 'hmm_forward_backward'
-    N, T, K, tv, (pi0, lp, ll, m) = _check(name, log_pi0, log_P, log_lik, mask)
+    N, T, K, tv, f64, (pi0, lp, ll, m) = _check(name, log_pi0, log_P, log_lik, mask, True)
+    _check_k9_f64(name, K, f64)
     if with_xi and not tv:
         raise ValueError('%s: with_xi takes a time-varying log_P (N, T-1, K, K), got %s'
                          % (name, tuple(log_P.shape)))
-    dev = ll.device
-    scratch = torch.empty((2, N, T, K), device=dev, dtype=torch.float32)
-    gamma = torch.empty((N, T, K), device=dev, dtype=torch.float32)
-    log_Z = torch.empty(N, device=dev, dtype=torch.float32)
-    xi_sum = torch.empty((N, K, K), device=dev, dtype=torch.float32)
-    xi = torch.empty((N, T - 1, K, K), device=dev, dtype=torch.float32) if with_xi else None
+    dev, dt = ll.device, ll.dtype
+    scratch = torch.empty((2, N, T, K), device=dev, dtype=dt)
+    gamma = torch.empty((N, T, K), device=dev, dtype=dt)
+    log_Z = torch.empty(N, device=dev, dtype=dt)
+    xi_sum = torch.empty((N, K, K), device=dev, dtype=dt)
+    xi = torch.empty((N, T - 1, K, K), device=dev, dtype=dt) if with_xi else None
     if N:
         args = (pi0.data_ptr(), lp.data_ptr(), ll.data_ptr(), m.data_ptr(), N, T, K,
                 scratch[0].data_ptr(), scratch[1].data_ptr(), gamma.data_ptr(),
                 log_Z.data_ptr(), xi_sum.data_ptr())
         if tv:
             launch(name, *args, xi.data_ptr() if with_xi else None,
-                   symbol='bn_hmm_forward_backward_tv')
+                   symbol='bn_hmm_forward_backward_tv' + f64)
         else:
-            launch(name, *args, symbol='bn_hmm_forward_backward')
+            launch(name, *args, symbol='bn_hmm_forward_backward' + f64)
     out = (gamma, log_Z, xi_sum)
     return out + (xi,) if with_xi else out
 
 
 def log_normalizer_cuda(log_pi0, log_P, log_lik, mask):
-    """K9's forward pass alone on the card: log_Z (N,)."""
+    """K9's forward pass alone on the card: log_Z (N,), float32 or float64
+    (K <= 16) in the inputs' dtype."""
     name = 'hmm_forward_backward'
-    N, T, K, tv, (pi0, lp, ll, m) = _check(name, log_pi0, log_P, log_lik, mask)
-    log_Z = torch.empty(N, device=ll.device, dtype=torch.float32)
+    N, T, K, tv, f64, (pi0, lp, ll, m) = _check(name, log_pi0, log_P, log_lik, mask, True)
+    _check_k9_f64(name, K, f64)
+    log_Z = torch.empty(N, device=ll.device, dtype=ll.dtype)
     if N:
         launch(name, pi0.data_ptr(), lp.data_ptr(), ll.data_ptr(), m.data_ptr(), N, T, K,
-               log_Z.data_ptr(), symbol='bn_hmm_forward_tv' if tv else 'bn_hmm_forward')
+               log_Z.data_ptr(),
+               symbol=('bn_hmm_forward_tv' if tv else 'bn_hmm_forward') + f64)
     return log_Z
 
 
 def viterbi_cuda(log_pi0, log_P, log_lik, mask):
     """K10 on the card: the (N, T) int32 paths of :func:`viterbi_plain`.
     Backpointers go to (N, T-1, K) int32 scratch; the backtrace runs in the
-    same kernel. A time-varying ``log_P`` runs the ``_tv`` launcher."""
+    same kernel. A time-varying ``log_P`` runs the ``_tv`` launcher; float64
+    scores the ``_f64`` ones."""
     name = 'hmm_viterbi'
-    N, T, K, tv, (pi0, lp, ll, m) = _check(name, log_pi0, log_P, log_lik, mask)
+    N, T, K, tv, f64, (pi0, lp, ll, m) = _check(name, log_pi0, log_P, log_lik, mask, True)
     dev = ll.device
     backptrs = torch.empty((N, max(T - 1, 1), K), device=dev, dtype=torch.int32)
     path = torch.empty((N, T), device=dev, dtype=torch.int32)
     if N:
         launch(name, pi0.data_ptr(), lp.data_ptr(), ll.data_ptr(), m.data_ptr(), N, T, K,
                backptrs.data_ptr(), path.data_ptr(),
-               symbol='bn_hmm_viterbi_tv' if tv else 'bn_hmm_viterbi')
+               symbol=('bn_hmm_viterbi_tv' if tv else 'bn_hmm_viterbi') + f64)
     return path
 
 
@@ -486,7 +500,7 @@ def forward_backward_scan_cuda(log_pi0, log_P, log_lik, mask, with_xi=False):
     pass over chunks of frames. A time-varying ``log_P`` runs the ``_tv``
     launcher, which alone takes ``with_xi``."""
     name = 'hmm_scan'
-    N, T, K, tv, (pi0, lp, ll, m) = _check(name, log_pi0, log_P, log_lik, mask)
+    N, T, K, tv, _, (pi0, lp, ll, m) = _check(name, log_pi0, log_P, log_lik, mask)
     if with_xi and not tv:
         raise ValueError('%s: with_xi takes a time-varying log_P (N, T-1, K, K), got %s'
                          % (name, tuple(log_P.shape)))
@@ -518,7 +532,7 @@ def forward_scan_cuda(log_pi0, log_P, log_lik, mask, with_alpha=False):
     and the entry vectors alone, and with ``with_alpha`` (log_alpha (N, T,
     K), log_Z) from the chunks' recursions too."""
     name = 'hmm_scan'
-    N, T, K, tv, (pi0, lp, ll, m) = _check(name, log_pi0, log_P, log_lik, mask)
+    N, T, K, tv, _, (pi0, lp, ll, m) = _check(name, log_pi0, log_P, log_lik, mask)
     dev = ll.device
     L, _, prod, entries = _scan_scratch(N, T, K, dev)
     log_Z = torch.empty(N, device=dev, dtype=torch.float32)
@@ -535,7 +549,7 @@ def forward_alpha_cuda(log_pi0, log_P, log_lik, mask):
     """K9's forward pass alone on the card, writing the filtered alphas:
     (log_alpha (N, T, K), log_Z (N,)) as :func:`forward_plain`."""
     name = 'hmm_forward_backward'
-    N, T, K, tv, (pi0, lp, ll, m) = _check(name, log_pi0, log_P, log_lik, mask)
+    N, T, K, tv, _, (pi0, lp, ll, m) = _check(name, log_pi0, log_P, log_lik, mask)
     log_Z = torch.empty(N, device=ll.device, dtype=torch.float32)
     log_alpha = torch.empty((N, T, K), device=ll.device, dtype=torch.float32)
     if N:
@@ -551,7 +565,7 @@ def viterbi_scan_cuda(log_pi0, log_P, log_lik, mask):
     backpointers (N, T-1, K) and the last states, the chunked backtrace
     composes them (``kernels/hmm_scan.cu``, ``hmm_backtrace.cuh``)."""
     name = 'hmm_viterbi_scan'
-    N, T, K, tv, (pi0, lp, ll, m) = _check(name, log_pi0, log_P, log_lik, mask)
+    N, T, K, tv, _, (pi0, lp, ll, m) = _check(name, log_pi0, log_P, log_lik, mask)
     dev = ll.device
     L, C, prod, entries = _scan_scratch(N, T, K, dev)
     psi = torch.empty((N, max(T - 1, 1), K), device=dev, dtype=torch.int32)

@@ -17,7 +17,7 @@ operation order; on the card they run inside K12 (``kernels/gaussian_nll.cu``,
 
 import torch
 
-from behavenet_tpu_torch.kernels.build import launch
+from behavenet_tpu_torch.kernels.build import dtype_suffix, launch
 
 __all__ = ['solve_small', 'solve_small_plain', 'solve_small_cuda', 'cholesky_small',
            'solve_tril_small']
@@ -68,14 +68,10 @@ def solve_small_plain(A, Y, pivot=False):
 
 def solve_small_cuda(A, Y, pivot=False):
     """K11 on the card: the solution of every (n, n) system of the batch,
-    n <= 16 and n + k <= 64, float32; with ``pivot`` JAX's partial row
+    n <= 16 and n + k <= 64, float32 or (without ``pivot``) float64 in A's
+    dtype (``bn_solve_small_f64``); with ``pivot`` JAX's partial row
     pivoting (the ``bn_solve_small_pivot`` launcher)."""
-    for t in (A, Y):
-        if t.device.type != 'cuda' or t.device != A.device:
-            raise ValueError('solve_small_cuda: A and Y must lie on one CUDA device, '
-                             'got %s and %s' % (A.device, Y.device))
-        if t.dtype != torch.float32:
-            raise ValueError('solve_small_cuda: takes float32, got %s' % t.dtype)
+    f64 = dtype_suffix('solve_small_cuda', (A, Y), float64=not pivot)
     vec, Y = _prepare(A, Y)
     n, k = A.shape[-1], Y.shape[-1]
     if A.shape[-2] != n or Y.shape[-2] != n:
@@ -90,7 +86,7 @@ def solve_small_cuda(A, Y, pivot=False):
     x = torch.empty_like(y)
     if a.shape[0]:
         launch('solve_small', a.data_ptr(), y.data_ptr(), x.data_ptr(),
-               a.shape[0], n, k, symbol='bn_solve_small_pivot' if pivot else None)
+               a.shape[0], n, k, symbol='bn_solve_small_pivot' if pivot else 'bn_solve_small' + f64)
     x = x.reshape(batch + (n, k))
     return x[..., 0] if vec else x
 

@@ -43,7 +43,8 @@ def load(path, device=None):
 
 def load_arhmm(path, device=None):
     """A fitted ARHMM (``best_val_model.pt`` of either package's ARHMM CLI)
-    as the port's ``ARHMM`` on ``device`` (``None`` means ``'cuda'``)."""
+    as the port's ``ARHMM`` on ``device`` (``None`` means ``'cuda'``), in
+    the dtype it was fitted in (a float64 model's parameters stay float64)."""
     from behavenet_tpu_torch.models.arhmm import ARHMM
     model = load(path, device=device)
     if not isinstance(model, ARHMM):

@@ -209,12 +209,13 @@ def state_dict_to_params(model, tensors=None):
     return {'encoder': enc, 'decoder': dec}
 
 
-def arhmm_params_from_jax(params, device=None):
-    """The port ARHMM's ``params`` (float32 tensors on ``device``, ``None``
-    meaning ``'cuda'``) from a JAX ARHMM's (``log_pi0``, ``log_Ps``, ``As``,
-    ``bs``, ``Sigmas``, ``nus``, and with recurrent transitions ``Rs`` and
-    ``r``: numpy arrays, or anything ``np.asarray`` reads). The two packages
-    lay them out alike."""
+def arhmm_params_from_jax(params, device=None, dtype=torch.float32):
+    """The port ARHMM's ``params`` (tensors of ``dtype`` on ``device``,
+    ``None`` meaning ``'cuda'``; ``torch.float64`` for a float64 model, whose
+    parameters then cross unrounded) from a JAX ARHMM's (``log_pi0``,
+    ``log_Ps``, ``As``, ``bs``, ``Sigmas``, ``nus``, and with recurrent
+    transitions ``Rs`` and ``r``: numpy arrays, or anything ``np.asarray``
+    reads). The two packages lay them out alike."""
     from behavenet_tpu_torch.utils.device import resolve_device
     dev = resolve_device(device)
-    return {k: torch.tensor(_f32(v), device=dev) for k, v in params.items()}
+    return {k: torch.tensor(np.asarray(v), dtype=dtype, device=dev) for k, v in params.items()}

@@ -6,7 +6,7 @@
 On one CUDA GPU (an H100: the kernels are built for sm_90a) it
 
 1. prints the card's name and power limit (nvidia-smi);
-2. builds the port's twenty CUDA kernel sources from this checkout;
+2. builds the port's twenty-one CUDA kernel sources from this checkout;
 3. holds each kernel against its plain PyTorch version at the shapes the
    two main paths give it, and times the kernel, the plain version and the
    one PyTorch call that computes the same function (TF32 off for every
@@ -85,7 +85,19 @@ On one CUDA GPU (an H100: the kernels are built for sm_90a) it
    K13 / K14 against K9 / K10 and the plain parallel version in float64;
    the CLI over the published grid with ``parallel_scan: true``, its K = 12
    model served through ``load_arhmm`` (decoding, ``posterior_sample``,
-   ``sample(1000)``).
+   ``sample(1000)``). Then K31 (row 18b, the M-step's weighted sums,
+   kernels/arhmm_mstep.cu) on the EM trials cut to 900-1000 frames: the
+   statistics and the residual covariance, float32 and float64, full,
+   diagonal, robust (tau), lags 0 and 2 (P = 19) and K = 2, each against the
+   plain version in float64, a second call bit for bit, timed beside the
+   einsum / bmm path it replaced; the float64 launchers of K8-K11 against
+   their plain versions in float64 at the EM and the CLI's shapes; float64
+   EM (``ARHMM(dtype='float64')``) through ``fit`` at the EM shapes (every
+   ``_f64`` launcher of its path every iteration; the first iteration
+   against a plain float64 one; timed and profiled) and one 'recurrent' +
+   'robust_ar' float64 iteration with its decoding; and the CLI with
+   ``em_dtype: float64`` over K = 2, 4, its K = 4 model served in float64
+   through ``load_arhmm``.
 8. the neural decoders (main paths 9-12) at the published decoding config
    (configs/decoding_jsons: a 9-wide temporal conv, one hidden layer of 32
    relu units, 9 AE latents or 4 ARHMM states) on 189-frame trials of 256
@@ -222,9 +234,12 @@ L2_REG = 1e-5                # nonzero (ae_model.json has 0) so K6's L2 term run
 SEED = 0
 DEVICE = 'cuda'
 
-# H100 SXM published peaks (NVIDIA's data sheet, dense): float32
-# outside the tensor cores, which is what the kernels use, and HBM3.
+# H100 SXM published peaks (NVIDIA's data sheet, dense): float32 outside
+# the tensor cores, float64 on them (the card's float64 peak: 67 TFLOP/s,
+# twice the 34 of its CUDA cores), and HBM3. A bound is the least time the
+# card could take, so each type takes the card's highest rate for it.
 PEAK_F32_FLOPS = 67e12
+PEAK_F64_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
 
 # Kernel vs plain version, float32 on both sides, different summation order
@@ -411,21 +426,57 @@ KERNELS = {
                    'behavenet_tpu/ops/conv.py:419'),
     'batch_norm_backward': ('behavenet_tpu_torch/kernels/batch_norm.cu',
                             'behavenet_tpu/ops/conv.py:419'),
+    # the M-step's weighted sums (K31, row 18b): the statistics, then the
+    # residual covariance; float32 and float64
+    'arhmm_mstep_stats': ('behavenet_tpu_torch/kernels/arhmm_mstep.cu',
+                          'behavenet_tpu/models/arhmm.py:522'),
+    'arhmm_mstep_cov': ('behavenet_tpu_torch/kernels/arhmm_mstep.cu',
+                        'behavenet_tpu/models/arhmm.py:537'),
+    'arhmm_mstep_stats_f64': ('behavenet_tpu_torch/kernels/arhmm_mstep.cu',
+                              'behavenet_tpu/models/arhmm.py:522'),
+    'arhmm_mstep_cov_f64': ('behavenet_tpu_torch/kernels/arhmm_mstep.cu',
+                            'behavenet_tpu/models/arhmm.py:537'),
+    # float64 EM's launchers of K8-K11 (em_dtype 'float64')
+    'arhmm_log_likes_f64': ('behavenet_tpu_torch/kernels/arhmm_log_likes.cu',
+                            'behavenet_tpu/models/arhmm.py:187'),
+    'arhmm_log_likes_robust_f64': ('behavenet_tpu_torch/kernels/arhmm_log_likes.cu',
+                                   'behavenet_tpu/models/arhmm.py:211'),
+    'hmm_forward_backward_f64': ('behavenet_tpu_torch/kernels/hmm_forward_backward.cu',
+                                 'behavenet_tpu/ops/hmm.py:115'),
+    'hmm_forward_backward_tv_f64': ('behavenet_tpu_torch/kernels/hmm_forward_backward.cu',
+                                    'behavenet_tpu/ops/hmm.py:167'),
+    'hmm_forward_f64': ('behavenet_tpu_torch/kernels/hmm_forward_backward.cu',
+                        'behavenet_tpu/ops/hmm.py:39'),
+    'hmm_forward_tv_f64': ('behavenet_tpu_torch/kernels/hmm_forward_backward.cu',
+                           'behavenet_tpu/ops/hmm.py:39'),
+    'hmm_viterbi_f64': ('behavenet_tpu_torch/kernels/hmm_viterbi.cu',
+                        'behavenet_tpu/ops/hmm.py:186'),
+    'hmm_viterbi_tv_f64': ('behavenet_tpu_torch/kernels/hmm_viterbi.cu',
+                           'behavenet_tpu/ops/hmm.py:186'),
+    'solve_small_f64': ('behavenet_tpu_torch/kernels/solve_small.cu',
+                        'behavenet_tpu/ops/smallmat.py:17'),
 }
 
 # the kernels a served request runs (an AE train step runs K1-K6, a
 # beta-TC-VAE or PS-VAE step K1-K7, an MSPS-VAE step K25 and K26 too; ARHMM
-# EM runs K8, K9 and K11, the ARHMM CLI and serving K10 too)
+# EM runs K8, K9, K11 and K31's two passes, the ARHMM CLI and serving K10 too)
 SERVE_KERNELS = ('conv2d_nhwc', 'conv_transpose2d_nhwc', 'conv_transpose2d_smallcout_sigmoid')
 AE_KERNELS = SERVE_KERNELS + ('conv2d_grad_w_nhwc', 'masked_mse', 'amsgrad_step')
 VAE_KERNELS = AE_KERNELS + ('decomposed_kl',)
 MSPS_KERNELS = VAE_KERNELS + ('triplet_loss', 'triplet_loss_grad')
-EM_KERNELS = ('arhmm_log_likes', 'hmm_forward_backward', 'solve_small')
+MSTEP_KERNELS = ('solve_small', 'arhmm_mstep_stats', 'arhmm_mstep_cov')
+EM_KERNELS = ('arhmm_log_likes', 'hmm_forward_backward') + MSTEP_KERNELS
 ARHMM_KERNELS = EM_KERNELS + ('hmm_viterbi',)
 # a recurrent + robust ARHMM's EM, CLI and serving run the launchers for
 # Student's-t observations and time-varying transitions
-RECURRENT_EM_KERNELS = ('arhmm_log_likes_robust', 'hmm_forward_backward_tv', 'solve_small')
+RECURRENT_EM_KERNELS = ('arhmm_log_likes_robust', 'hmm_forward_backward_tv') + MSTEP_KERNELS
 RECURRENT_KERNELS = RECURRENT_EM_KERNELS + ('hmm_viterbi_tv',)
+# float64 EM (em_dtype 'float64') runs every one of them in its _f64 form
+F64_MSTEP_KERNELS = tuple(k + '_f64' for k in MSTEP_KERNELS)
+F64_EM_KERNELS = ('arhmm_log_likes_f64', 'hmm_forward_backward_f64') + F64_MSTEP_KERNELS
+F64_REC_EM_KERNELS = ('arhmm_log_likes_robust_f64', 'hmm_forward_backward_tv_f64') + \
+    F64_MSTEP_KERNELS
+F64_CLI_KERNELS = F64_EM_KERNELS + ('hmm_forward_f64', 'hmm_viterbi_f64')
 
 # The ARHMM at the JAX package's EM benchmark shapes (bench.py:300
 # measure_arhmm_em; the reference NP dataset's 1000-frame trials,
@@ -472,10 +523,30 @@ REC_EM_ITERS, REC_PARAM_REL_TOL, REC_DRIVE = 20, 1e-3, 0.5
 # errors (plus one draw's worth, for a count's discreteness) of gamma (K15,
 # SAMPLE_DRAWS draws of one trial) and of softmax(log_Ps) (K16, CHAINS
 # chains of CHAIN_STEPS steps).
-PARALLEL_EM_KERNELS = ('arhmm_log_likes', 'hmm_scan', 'solve_small')
-PARALLEL_REC_EM_KERNELS = ('arhmm_log_likes_robust', 'hmm_scan_tv', 'solve_small')
+# K31 (the M-step's weighted sums, row 18b) against its plain version on the
+# EM trials cut to seeded lengths in MSTEP_LENGTHS, at MSTEP_CASES (states,
+# lags, diagonal, robust): the float32 kernel (float32 in and out, float64
+# sums) within MSTEP_F32_REL_TOL of each output's largest entry from the
+# plain version in float64, and no farther from it than the plain float32
+# version (or one float32 ulp of that entry, F32_ULP); the float64 kernel
+# within MSTEP_F64_REL_TOL; a second call equal bit for bit. The float64
+# launchers of K8-K11 against their plain versions in float64 within
+# F64_REL_TOL of each output's largest entry (float64 sums of up to 1000
+# steps in another order), Viterbi paths as K10's float32 ones, at the EM
+# shape and the CLI's (F64_CLI_STATES states). Float64 EM: F64_EM_ITERS
+# iterations, the first one's LL and parameters within F64_PARAM_REL_TOL of
+# a plain float64 iteration; the CLI over F64_CLI_GRID.
+MSTEP_LENGTHS = (900, 1000)
+MSTEP_CASES = {'full': (EM_STATES, 1, False, False), 'diagonal': (EM_STATES, 1, True, False),
+               'robust': (EM_STATES, 1, False, True), 'lags0': (EM_STATES, 0, False, False),
+               'lags2': (EM_STATES, 2, False, False), 'k2': (2, 1, False, False)}
+MSTEP_F32_REL_TOL, MSTEP_F64_REL_TOL, F32_ULP = 1e-5, 1e-12, 2.0 ** -23
+F64_REL_TOL, F64_CLI_STATES, F64_EM_ITERS, F64_PARAM_REL_TOL = 1e-10, 4, 10, 1e-9
+F64_CLI_GRID = [2, 4]
+PARALLEL_EM_KERNELS = ('arhmm_log_likes', 'hmm_scan') + MSTEP_KERNELS
+PARALLEL_REC_EM_KERNELS = ('arhmm_log_likes_robust', 'hmm_scan_tv') + MSTEP_KERNELS
 PARALLEL_REC_DECODE_KERNELS = ('hmm_viterbi_scan_tv', 'hmm_sample_posterior_tv')
-PARALLEL_CLI_KERNELS = ('arhmm_log_likes', 'solve_small', 'hmm_scan', 'hmm_viterbi_scan')
+PARALLEL_CLI_KERNELS = ('arhmm_log_likes', 'hmm_scan', 'hmm_viterbi_scan') + MSTEP_KERNELS
 LONG_FRAMES = 100000
 SAMPLE_DRAWS, CHAINS, CHAIN_STEPS, SAMPLE_LEN = 400, 1000, 1000, 1000
 DRAW_TIE_TOL, SAMPLE_SE = 1e-5, 5.0
@@ -1401,7 +1472,7 @@ def step_from_host(step, host_batch, batch):
 # kernel function name -> the port kernel it belongs to (the robust and
 # time-varying instances of K8-K10 first: their template flag is true)
 KERNEL_OF = tuple(
-    ('%s<%d, true>' % (fn, k), label) for fn, label in (
+    ('%s<%d, true,' % (fn, k), label) for fn, label in (
         ('arhmm_log_likes_kernel', 'K8 arhmm_log_likes (robust)'),
         ('forward_backward_kernel', 'K9 hmm_forward_backward (time-varying)'),
         ('forward_kernel', 'K9 hmm_forward_backward (forward alone, time-varying)'),
@@ -1449,7 +1520,9 @@ KERNEL_OF = tuple(
              ('bn_stats_', 'K29 batch_norm (statistics)'),
              ('bn_count_kernel', 'K29 batch_norm (statistics)'),
              ('bn_apply_kernel', 'K29 batch_norm (apply)'),
-             ('bn_grad_', 'K30 batch_norm_backward'))
+             ('bn_grad_', 'K30 batch_norm_backward'),
+             ('mstep_stats_', 'K31 arhmm_mstep (statistics)'),
+             ('mstep_cov_', 'K31 arhmm_mstep (covariance)'))
 
 
 def profile_steps(fn, steps=5, warmup=2, phase='train_profile', **labels):
@@ -2084,11 +2157,11 @@ def reset_launches(build):
         build.LAUNCHES[name] = 0
 
 
-def bound(n_ops, n_bytes):
+def bound(n_ops, n_bytes, peak_flops=PEAK_F32_FLOPS):
     """The least time of a call: the larger of its operations at the f32
-    peak and its bytes (each input read once, each output written once) at
-    the memory rate."""
-    t_ops = n_ops / PEAK_F32_FLOPS * 1e3
+    peak (``PEAK_F64_FLOPS`` for float64 work) and its bytes (each input
+    read once, each output written once) at the memory rate."""
+    t_ops = n_ops / peak_flops * 1e3
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
     return dict(bound_ms=max(t_ops, t_bytes), t_ops_ms=t_ops, t_bytes_ms=t_bytes,
                 bound_by='operations' if t_ops >= t_bytes else 'bytes')
@@ -2118,8 +2191,8 @@ def plain_arhmm(port):
     """Route the ARHMM's kernel entry points to their plain versions: K8's
     ``log_likes`` and ``robust_log_likes``, K9's ``forward_backward`` and
     ``log_normalizer`` (K13's with ``parallel``), K10's (K14's) ``viterbi``
-    and the M-step's K11 ``solve_small``, for the plain twin of a run on
-    the card."""
+    and the M-step's K11 ``solve_small`` and K31 ``mstep_stats`` /
+    ``mstep_cov``, for the plain twin of a run on the card."""
     am, hmm = port.arhmm, port.hmm
 
     def log_likes(x, mask, As, bs, Sigmas, lags, diagonal):
@@ -2138,6 +2211,7 @@ def plain_arhmm(port):
         return (hmm.viterbi_parallel_plain if parallel else hmm.viterbi_plain)(*args)
     routes = ((am, 'log_likes', log_likes), (am, 'robust_log_likes', robust_log_likes),
               (am, 'solve_small', port.smallmat.solve_small_plain),
+              (am, 'mstep_stats', am.mstep_stats_plain), (am, 'mstep_cov', am.mstep_cov_plain),
               (hmm, 'forward_backward', hmm.forward_backward_plain),
               (hmm, 'log_normalizer', log_normalizer), (hmm, 'viterbi', viterbi))
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in routes]
@@ -2517,6 +2591,411 @@ def check_viterbi_tv(port, models, trials):
     return rec
 
 
+# ------------------------------------------- K31 and the float64 launchers
+
+
+def mstep_case_inputs(port, model, trials, K, robust, gen):
+    """The K31 check's inputs at the EM shape: the EM trials cut to seeded
+    lengths in MSTEP_LENGTHS (x zero past them), the mask, gammas (K = 16:
+    the model's posteriors; else seeded draws normalized over states) and,
+    robust, tau from K8's Student's-t launcher at dof 4."""
+    am, hmm = port.arhmm, port.hmm
+    x, mask = trials
+    N, T, _ = x.shape
+    lo, hi = MSTEP_LENGTHS
+    lengths = torch.randint(lo, hi + 1, (N,), generator=gen, device=DEVICE)
+    m = (torch.arange(T, device=DEVICE)[None] < lengths[:, None]).to(x.dtype) * mask
+    xm = x * m[:, :, None]
+    p = model.params
+    if K == model.K:
+        gammas = hmm.forward_backward(p['log_pi0'], model._log_P(p), model._log_likes(p, xm, m),
+                                      m)[0]
+    else:
+        g = torch.rand((N, T, K), generator=gen, device=DEVICE) + 0.05
+        gammas = g / g.sum(dim=2, keepdim=True) * m[:, :, None]
+    tau = None
+    if robust:
+        nus = torch.full((model.K,), 4.0, device=DEVICE)
+        tau = am.robust_log_likes(xm, m, p['As'], p['bs'], p['Sigmas'], nus, model.lags, False,
+                                  with_tau=True)[1]
+    return xm, m, gammas, tau
+
+
+def mstep_beta(XtWX, XtWY):
+    """The regression of the M-step from float64 sums (equilibrated and
+    ridged as the port's ``_m_step``), by ``torch.linalg.solve``: a beta for
+    the covariance pass's check at every width (K11 takes P <= 16)."""
+    s = 1.0 / torch.sqrt(torch.clamp(torch.diagonal(XtWX, dim1=1, dim2=2), min=1e-8))
+    eye = torch.eye(XtWX.shape[1], dtype=XtWX.dtype, device=XtWX.device)
+    A = XtWX * s[:, :, None] * s[:, None, :] + 1e-5 * eye[None]
+    return s[:, :, None] * torch.linalg.solve(A, XtWY * s[:, :, None])
+
+
+def composed_mstep_cov(am, x, mask, gammas, tau, beta, lags, diagonal):
+    """The port's residual sums before K31: the residuals of every frame and
+    state, then per state and trial a (D, D) ``bmm`` summed over trials
+    (diagonal: a weighted sum of squares). The yardstick of K31's second
+    pass; the port never calls it."""
+    N, T, D = x.shape
+    K = gammas.shape[2]
+    Xd = am._design(x, lags)
+    Xf, Yf = Xd.reshape(-1, Xd.shape[2]), x.reshape(-1, D)
+    Wf = am._mstep_weights(gammas, mask, tau, lags).reshape(-1, K)
+    resid = Yf[:, None, :] - torch.einsum('np,kpd->nkd', Xf, beta)
+    if diagonal:
+        return torch.sum(Wf[:, :, None] * resid ** 2, dim=0)
+    R = resid.transpose(0, 1).reshape(K * N, T, D)
+    RW = (resid * Wf[:, :, None]).transpose(0, 1).reshape(K * N, T, D)
+    return torch.bmm(RW.transpose(1, 2), R).reshape(K, N, D, D).sum(dim=1)
+
+
+def rel_err(got, want):
+    """max |got - want| over the largest |want|, in float64."""
+    want = want.double()
+    return ((got.double() - want).abs().max() / want.abs().max().clamp(min=1e-300)).item()
+
+
+def mstep_bounds(frames, K, D, P, diagonal, robust, cov, itemsize):
+    """K31's work for ``frames`` weighted frames: the weight (2 or 3
+    multiplies), then per state P (P + 1) / 2 + P D multiply-adds (the
+    statistics) or P D + D (D + 1) / 2 (diagonal: + D) (the residual sums);
+    bytes: x, the mask, gammas (and tau), beta for the covariance, the
+    outputs."""
+    macs = P * D + (D if diagonal else D * (D + 1) // 2) if cov else P * (P + 1) // 2 + P * D
+    n_ops = frames * K * (2 * macs + (3 if robust else 2))
+    n_in = frames * (D + 1 + K * (2 if robust else 1)) + (K * P * D if cov else 0)
+    n_out = (K * D if diagonal else K * D * D) if cov else K * (P * P + P * D + 1)
+    return n_ops, itemsize * (n_in + n_out)
+
+
+def check_mstep(port, model, trials):
+    """K31 (the M-step's weighted sums, both passes, float32 and float64)
+    against its plain version on ragged trials of MSTEP_LENGTHS frames at
+    the EM shape, cases MSTEP_CASES: every float32 output within
+    MSTEP_F32_REL_TOL of its largest entry from the plain version run in
+    float64 and no farther from it than the plain float32 version (or one
+    float32 ulp of that entry); every float64 output within
+    MSTEP_F64_REL_TOL; a second call equal to the first, bit for bit. The
+    main path's case ('full') is timed beside the plain versions and the
+    composed einsum / bmm path it replaced."""
+    am = port.arhmm
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(SEED + 13)
+    cases, timed = {}, {}
+    for name, (K, lags, diagonal, robust) in MSTEP_CASES.items():
+        x, m, g, tau = mstep_case_inputs(port, model, trials, K, robust, gen)
+        f64 = [None if t is None else t.double() for t in (x, m, g, tau)]
+        st64 = am.mstep_stats_plain(*f64, lags)
+        beta64 = mstep_beta(*st64[:2])
+        beta = beta64.float()
+        cv64 = am.mstep_cov_plain(*f64, beta.double(), lags, diagonal)
+        st32, st32b = am.mstep_stats_cuda(x, m, g, tau, lags), am.mstep_stats_cuda(x, m, g, tau,
+                                                                                   lags)
+        cv32, cv32b = (am.mstep_cov_cuda(x, m, g, tau, beta, lags, diagonal) for _ in range(2))
+        stk64, stk64b = (am.mstep_stats_cuda(*f64, lags) for _ in range(2))
+        cvk64, cvk64b = (am.mstep_cov_cuda(*f64, beta.double(), lags, diagonal)
+                         for _ in range(2))
+        stp32 = am.mstep_stats_plain(x, m, g, tau, lags)
+        cvp32 = am.mstep_cov_plain(x, m, g, tau, beta, lags, diagonal)
+        torch.cuda.synchronize()
+        c = dict(states=K, lags=lags, diagonal=diagonal, robust=robust, P=EM_DIM * lags + 1,
+                 frames=m.sum().item(),
+                 stats_f32_err=max(rel_err(a, b) for a, b in zip(st32, st64)),
+                 stats_plain_f32_err=max(rel_err(a, b) for a, b in zip(stp32, st64)),
+                 stats_f64_err=max(rel_err(a, b) for a, b in zip(stk64, st64)),
+                 cov_f32_err=rel_err(cv32, cv64), cov_plain_f32_err=rel_err(cvp32, cv64),
+                 cov_f64_err=rel_err(cvk64, cv64),
+                 same_bits=all(torch.equal(a, b) for a, b in
+                               list(zip(st32, st32b)) + list(zip(stk64, stk64b))
+                               + [(cv32, cv32b), (cvk64, cvk64b)]),
+                 finite=all(bool(torch.isfinite(t).all().item())
+                            for t in st32 + stk64 + (cv32, cvk64)))
+        c['ok'] = bool(
+            c['same_bits'] and c['finite'] and
+            all(c[k + '_f32_err'] <= MSTEP_F32_REL_TOL and
+                c[k + '_f32_err'] <= max(c[k + '_plain_f32_err'], F32_ULP)
+                for k in ('stats', 'cov')) and
+            max(c['stats_f64_err'], c['cov_f64_err']) <= MSTEP_F64_REL_TOL)
+        cases[name] = c
+        if name == 'full':
+            timed = dict(inputs=(x, m, g, tau), f64=f64, beta=beta, lags=lags, K=K,
+                         frames=c['frames'])
+        del st64, cv64, st32, st32b, cv32, cv32b, stk64, stk64b, cvk64, cvk64b, stp32, cvp32
+    rows = []
+    x, m, g, tau = timed['inputs']
+    lags, K, frames = timed['lags'], timed['K'], timed['frames']
+    P = EM_DIM * lags + 1
+    for suffix, args, beta, itemsize, peak in (
+            ('', (x, m, g, tau), timed['beta'], 4, PEAK_F32_FLOPS),
+            ('_f64', timed['f64'], timed['beta'].double(), 8, PEAK_F64_FLOPS)):
+        for kernel, fn, plain, library, cov in (
+                ('arhmm_mstep_stats', lambda a=args: am.mstep_stats_cuda(*a, lags),
+                 lambda a=args: am.mstep_stats_plain(*a, lags),
+                 lambda a=args: am.mstep_stats_plain(*a, lags), False),
+                ('arhmm_mstep_cov', lambda a=args, b=beta: am.mstep_cov_cuda(*a, b, lags, False),
+                 lambda a=args, b=beta: am.mstep_cov_plain(*a, b, lags, False),
+                 lambda a=args, b=beta: composed_mstep_cov(am, *a, b, lags, False), True)):
+            n_ops, n_bytes = mstep_bounds(frames, K, EM_DIM, P, False, tau is not None, cov,
+                                          itemsize)
+            err = max(v[('cov' if cov else 'stats') + ('_f64_err' if suffix else '_f32_err')]
+                      for v in cases.values())
+            rows.append(dict(
+                phase='arhmm_kernel_check', kernel=kernel + suffix, layer='m_step',
+                frames=EM_TRIALS * EM_FRAMES, weighted_frames=frames, states=K, dim=EM_DIM,
+                max_abs_err=err, rel_tol=MSTEP_F64_REL_TOL if suffix else MSTEP_F32_REL_TOL,
+                ms=median_ms(fn), plain_ms=median_ms(plain, samples=3, inner=2),
+                library_ms=median_ms(library, samples=3, inner=2),
+                library='the einsum / bmm path K31 replaced',
+                gflop=n_ops / 1e9, mbytes=n_bytes / 1e6, **bound(n_ops, n_bytes, peak)))
+    rec = dict(phase='arhmm_mstep_check', lengths=MSTEP_LENGTHS, f32_rel_tol=MSTEP_F32_REL_TOL,
+               f64_rel_tol=MSTEP_F64_REL_TOL, f32_ulp=F32_ULP, cases=cases,
+               timed={r['kernel']: dict(ms=r['ms'], plain_ms=r['plain_ms'],
+                                        library_ms=r['library_ms'], bound_ms=r['bound_ms'])
+                      for r in rows})
+    emit(rec)
+    for r in rows:
+        emit(r)
+    bad = [name for name, c in cases.items() if not c['ok']]
+    if bad:
+        raise AssertionError('K31 disagrees with its plain version (%s): %s' % (bad, rec))
+    return rows
+
+
+def f64_params(model):
+    """``model``'s parameters as float64 tensors."""
+    return {k: v.double() for k, v in model.params.items()}
+
+
+def check_f64_kernels(port, model, rec_models, trials):
+    """The float64 launchers of K8 (both), K9 (stationary, time-varying with
+    xi, the forward pass alone, stationary and time-varying), K10 (both) and
+    K11 against their plain versions in float64, at the EM shape (the EM
+    workload's trials and model; the seeded 'recurrent' robust model's
+    time-varying log_P) and at the CLI's (CLI_TRIALS trials of TRIAL
+    frames, the first F64_CLI_STATES states): log-likelihoods, tau,
+    log_Z, gamma, xi and solutions within F64_REL_TOL of their largest
+    entry, Viterbi paths as K10's float32 ones are held."""
+    am, hmm, sm = port.arhmm, port.hmm, port.smallmat
+    x32, mask32 = trials
+    shapes = {'em': (x32.double(), mask32.double(), EM_STATES),
+              'cli': (x32[:CLI_TRIALS, :TRIAL].double(), mask32[:CLI_TRIALS, :TRIAL].double(),
+                      F64_CLI_STATES)}
+    rows, bad = [], []
+
+    def row(kernel, shape, err, fn, plain, n_ops, n_bytes, library=None, **extra):
+        r = dict(phase='arhmm_f64_check', kernel=kernel, layer=shape,
+                 frames=extra.pop('frames'), max_abs_err=err, rel_tol=F64_REL_TOL,
+                 ms=median_ms(fn, samples=3, inner=5),
+                 plain_ms=median_ms(plain, samples=3, inner=1, warmup=1),
+                 library_ms=None if library is None else median_ms(library),
+                 gflop=n_ops / 1e9, mbytes=n_bytes / 1e6,
+                 **bound(n_ops, n_bytes, PEAK_F64_FLOPS), **extra)
+        emit(r)
+        rows.append(r)
+        if not (r['max_abs_err'] <= F64_REL_TOL and extra.get('paths_ok', True)):
+            bad.append((kernel, shape))
+
+    for shape, (x, mask, K) in shapes.items():
+        N, T, D = x.shape
+        frames = mask.sum().item()
+        p = {k: v[:K, :K] if k == 'log_Ps' else v[:K] for k, v in f64_params(model).items()}
+        p['log_pi0'] = torch.log_softmax(p['log_pi0'], dim=0)
+        prec, logdet = am.obs_precision(p['Sigmas'], False)
+        a = (x, mask, p['As'], p['bs'], prec, logdet, 1, False)
+        per_state = 2 * D * D + D * (D + 1) + 4 * D
+        row('arhmm_log_likes_f64', shape, rel_err(am.log_likes_cuda(*a), am.log_likes_plain(*a)),
+            lambda: am.log_likes_cuda(*a), lambda: am.log_likes_plain(*a),
+            N * (T - 1) * K * per_state, 8 * (x.numel() + mask.numel() + N * T * K + 2 * K * D
+                                              + K * D * D + K), frames=N * T)
+        rp = {k: v[:K] for k, v in f64_params(rec_models['recurrent']).items()}
+        prec_r, logdet_r = am.obs_precision(rp['Sigmas'], False)
+        nus, c = am.student_t_terms(rp['nus'], logdet_r, D)
+        ra = (x, mask, rp['As'], rp['bs'], prec_r, c, nus, 1, False, True)
+        (ll_k, tau_k), (ll_p, tau_p) = am.robust_log_likes_cuda(*ra), am.robust_log_likes_plain(*ra)
+        row('arhmm_log_likes_robust_f64', shape, max(rel_err(ll_k, ll_p), rel_err(tau_k, tau_p)),
+            lambda: am.robust_log_likes_cuda(*ra), lambda: am.robust_log_likes_plain(*ra),
+            N * T * K * (per_state + 6),
+            8 * (x.numel() + mask.numel() + 2 * N * T * K + 2 * K * D + K * D * D + 2 * K),
+            frames=N * T)
+        del ll_k, tau_k, ll_p, tau_p
+        pi0, lp = p['log_pi0'], torch.log_softmax(p['log_Ps'], dim=1)
+        ll = am.log_likes_plain(*a)
+        out_k = hmm.forward_backward_cuda(pi0, lp, ll, mask)
+        out_p = hmm.forward_backward_plain(pi0, lp, ll, mask)
+        fz_k = hmm.log_normalizer_cuda(pi0, lp, ll, mask)
+        n_ops = (20 * K * K + 6 * K) * frames
+        row('hmm_forward_backward_f64', shape, max(rel_err(a_, b_) for a_, b_ in
+                                                   zip(out_k, out_p)),
+            lambda: hmm.forward_backward_cuda(pi0, lp, ll, mask),
+            lambda: hmm.forward_backward_plain(pi0, lp, ll, mask), n_ops,
+            8 * (ll.numel() + mask.numel() + K * K + K + N * T * K + N + N * K * K),
+            frames=N * T)
+        row('hmm_forward_f64', shape, rel_err(fz_k, out_p[1]),
+            lambda: hmm.log_normalizer_cuda(pi0, lp, ll, mask),
+            lambda: hmm.forward_plain(pi0, lp, ll, mask), 8 * K * K * frames,
+            8 * (ll.numel() + mask.numel() + K * K + K + N), frames=N * T)
+        path_k, path_p = hmm.viterbi_cuda(pi0, lp, ll, mask), hmm.viterbi_plain(pi0, lp, ll, mask)
+        lp_k = hmm.path_log_prob(pi0, lp, ll, mask, path_k)
+        lp_p = hmm.path_log_prob(pi0, lp, ll, mask, path_p)
+        agree = (path_k == path_p).double().mean().item()
+        lp_rel = ((lp_k - lp_p).abs() / lp_p.abs()).max().item()
+        row('hmm_viterbi_f64', shape, rel_err(lp_k, lp_p),
+            lambda: hmm.viterbi_cuda(pi0, lp, ll, mask),
+            lambda: hmm.viterbi_plain(pi0, lp, ll, mask), 2 * K * K * frames,
+            8 * (ll.numel() + mask.numel() + K * K + K) + 4 * path_k.numel(), frames=N * T,
+            path_agreement=agree, path_log_prob_rel_err=lp_rel,
+            paths_ok=agree >= PATH_AGREE and lp_rel <= F64_REL_TOL)
+        del out_k, out_p
+        # time-varying: the seeded 'recurrent' model's log_P in float64
+        rpl = dict(rp, log_pi0=torch.log_softmax(rp['log_pi0'], dim=0),
+                   log_Ps=rp['log_Ps'][:, :K])
+        lpt = torch.log_softmax(rpl['log_Ps'][None, None] + torch.einsum(
+            'kd,ntd->ntk', rpl['Rs'], x[:, :-1])[:, :, None, :], dim=3)
+        llt = am.robust_log_likes_plain(*ra)[0]
+        out_k = hmm.forward_backward_cuda(rpl['log_pi0'], lpt, llt, mask, with_xi=True)
+        out_p = hmm.forward_backward_plain(rpl['log_pi0'], lpt, llt, mask, with_xi=True)
+        fz_k = hmm.log_normalizer_cuda(rpl['log_pi0'], lpt, llt, mask)
+        row('hmm_forward_backward_tv_f64', shape,
+            max(rel_err(a_, b_) for a_, b_ in zip(out_k, out_p)),
+            lambda: hmm.forward_backward_cuda(rpl['log_pi0'], lpt, llt, mask, with_xi=True),
+            lambda: hmm.forward_backward_plain(rpl['log_pi0'], lpt, llt, mask, with_xi=True),
+            n_ops, 8 * (llt.numel() + mask.numel() + lpt.numel() + K + N * T * K + N
+                        + N * K * K + lpt.numel()), frames=N * T)
+        row('hmm_forward_tv_f64', shape, rel_err(fz_k, out_p[1]),
+            lambda: hmm.log_normalizer_cuda(rpl['log_pi0'], lpt, llt, mask),
+            lambda: hmm.forward_plain(rpl['log_pi0'], lpt, llt, mask), 8 * K * K * frames,
+            8 * (llt.numel() + mask.numel() + lpt.numel() + K + N), frames=N * T)
+        del out_k, out_p
+        path_k = hmm.viterbi_cuda(rpl['log_pi0'], lpt, llt, mask)
+        path_p = hmm.viterbi_plain(rpl['log_pi0'], lpt, llt, mask)
+        lp_k = hmm.path_log_prob(rpl['log_pi0'], lpt, llt, mask, path_k)
+        lp_p = hmm.path_log_prob(rpl['log_pi0'], lpt, llt, mask, path_p)
+        agree = (path_k == path_p).double().mean().item()
+        lp_rel = ((lp_k - lp_p).abs() / lp_p.abs()).max().item()
+        row('hmm_viterbi_tv_f64', shape, rel_err(lp_k, lp_p),
+            lambda: hmm.viterbi_cuda(rpl['log_pi0'], lpt, llt, mask),
+            lambda: hmm.viterbi_plain(rpl['log_pi0'], lpt, llt, mask), 2 * K * K * frames,
+            8 * (llt.numel() + mask.numel() + lpt.numel() + K) + 4 * path_k.numel(),
+            frames=N * T, path_agreement=agree, path_log_prob_rel_err=lp_rel,
+            paths_ok=agree >= PATH_AGREE and lp_rel <= F64_REL_TOL)
+        del lpt, llt
+        # K11 at the systems a float64 M-step solves on these trials
+        g = torch.softmax(ll, dim=2) * mask[:, :, None]
+        XtWX, XtWY, _ = am.mstep_stats_plain(x, mask, g, None, 1)
+        s = 1.0 / torch.sqrt(torch.clamp(torch.diagonal(XtWX, dim1=1, dim2=2), min=1e-8))
+        A = XtWX * s[:, :, None] * s[:, None, :] + 1e-5 * torch.eye(
+            D + 1, dtype=torch.float64, device=DEVICE)[None]
+        Y = XtWY * s[:, :, None]
+        B, n, k = Y.shape
+        row('solve_small_f64', shape, rel_err(sm.solve_small_cuda(A, Y),
+                                              sm.solve_small_plain(A, Y)),
+            lambda: sm.solve_small_cuda(A, Y), lambda: sm.solve_small_plain(A, Y),
+            2 * B * n * n * (n + k), 8 * (A.numel() + 2 * Y.numel()),
+            library=lambda: torch.linalg.solve(A, Y), frames=B)
+    torch.cuda.synchronize()
+    # K9's double instances stop at 16 states: 17 raises before any launch
+    before = dict(port.build.LAUNCHES)
+    z = torch.zeros((1, 4, 17), dtype=torch.float64, device=DEVICE)
+    try:
+        hmm.forward_backward_cuda(z[0, 0], torch.zeros_like(z[0, 0, :, None].expand(17, 17)), z,
+                                  z[:, :, 0])
+        bad.append(('hmm_forward_backward_f64', 'accepted 17 states'))
+    except NotImplementedError:
+        pass
+    if port.build.LAUNCHES != before:
+        bad.append(('hmm_forward_backward_f64', 'launched at 17 states'))
+    if bad:
+        raise AssertionError('float64 launchers disagree with their plain versions: %s' % bad)
+    return rows
+
+
+def arhmm_em_f64(port, init_params, rec_params, trials):
+    """Main path 6e: float64 EM on the card. ``ARHMM(dtype='float64')`` from
+    the EM workload's initialized parameters (cast up) fits F64_EM_ITERS
+    iterations of the EM trials (cast up by ``pad``): every LL finite and
+    non-decreasing, F64_EM_KERNELS every iteration; the first iteration's
+    LL and parameters within F64_PARAM_REL_TOL (of each parameter's largest
+    entry) of a plain float64 iteration on the card; an iteration's time
+    beside the plain one's, and its profile. Then one iteration of a
+    float64 'recurrent' + 'robust_ar' model (the seeded recurrent model's
+    parameters) against its plain twin, its ``log_likelihood`` and
+    ``most_likely_states_batch`` of ten trials (K9's forward pass and K10,
+    time-varying, in float64)."""
+    am, build = port.arhmm, port.build
+    kw = dict(lags=1, rng_seed=SEED, dtype='float64', device=DEVICE)
+    m64 = am.ARHMM(EM_STATES, EM_DIM, **kw)
+    m64.params = {k: v.double() for k, v in init_params.items()}
+    padded = m64.pad(am.PaddedTrials(*trials))
+    x, mask = padded
+    p0 = dict(m64.params)
+    new_k, ll_k = m64._em_step(p0, x, mask)
+    with plain_arhmm(port):
+        new_p, ll_p = m64._em_step(p0, x, mask)
+    torch.cuda.synchronize()
+    param_err = {k: rel_err(new_k[k], new_p[k]) for k in new_p}
+    ll_rel = abs(ll_k.item() - ll_p.item()) / abs(ll_p.item())
+    dtypes_ok = all(v.dtype == torch.float64 for v in new_k.values())
+    del new_k, new_p
+
+    reset_launches(build)
+    t0 = time.perf_counter()
+    lls = m64.fit(padded, num_iters=F64_EM_ITERS)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = dict(build.LAUNCHES)
+    finite = bool(np.isfinite(lls).all())
+    rising = all(b >= a - EM_LL_REL_TOL * abs(a) for a, b in zip(lls, lls[1:]))
+    missing = [k for k in F64_EM_KERNELS if launches[k] < F64_EM_ITERS]
+
+    def step(m=m64):
+        m.fit(padded, num_iters=1)
+    twin = am.ARHMM(EM_STATES, EM_DIM, **kw)
+    twin.params = dict(m64.params)
+    ms = request_ms(step, reps=EM_TIMED_ITERS, warmup=2)
+    with plain_arhmm(port):
+        plain_ms = request_ms(lambda: step(twin), reps=3, warmup=1)
+    prof = profile_steps(step, phase='arhmm_em_f64_profile', frames=EM_TRIALS * EM_FRAMES,
+                         bucket=None)
+
+    rec = am.ARHMM(EM_STATES, EM_DIM, observations='robust_ar', transitions='recurrent', **kw)
+    rec.params = {k: v.double() for k, v in rec_params.items()}
+    p0 = dict(rec.params)
+    reset_launches(build)
+    rnew_k, rll_k = rec._em_step(p0, x, mask)
+    rec.params = rnew_k
+    rec_ll = rec.log_likelihood(padded)
+    paths = rec.most_likely_states_batch([x[i].cpu().numpy() for i in range(10)])
+    torch.cuda.synchronize()
+    rec_launches = dict(build.LAUNCHES)
+    with plain_arhmm(port):
+        rnew_p, rll_p = rec._em_step(p0, x, mask)
+    rec_err = {k: rel_err(rnew_k[k], rnew_p[k]) for k in rnew_p}
+    rec_ll_rel = abs(rll_k.item() - rll_p.item()) / abs(rll_p.item())
+    rec_missing = [k for k in F64_REC_EM_KERNELS + ('hmm_forward_tv_f64', 'hmm_viterbi_tv_f64')
+                   if rec_launches[k] == 0]
+    del rnew_k, rnew_p
+    out = dict(phase='arhmm_em_f64', trials=EM_TRIALS, frames_per_trial=EM_FRAMES,
+               states=EM_STATES, dim=EM_DIM, iterations=F64_EM_ITERS, fit_seconds=fit_s,
+               lls=lls, finite=finite, non_decreasing=rising, dtypes_float64=dtypes_ok,
+               launches={k: v for k, v in launches.items() if v},
+               launches_per_iteration={k: launches[k] / F64_EM_ITERS for k in F64_EM_KERNELS},
+               first_iteration=dict(ll_rel_err=ll_rel, param_rel_err=param_err,
+                                    rel_tol=F64_PARAM_REL_TOL),
+               ms_per_iteration=ms, iterations_per_s=1e3 / ms, plain_ms_per_iteration=plain_ms,
+               device_idle_share=prof['device_idle_share'],
+               recurrent=dict(ll_rel_err=rec_ll_rel, param_rel_err=rec_err,
+                              log_likelihood=rec_ll, paths=len(paths),
+                              launches={k: v for k, v in rec_launches.items() if v}))
+    emit(out)
+    emit(prof)
+    if missing or rec_missing or not finite or not rising or not dtypes_ok or \
+            max(list(param_err.values()) + list(rec_err.values()) + [ll_rel, rec_ll_rel]) > \
+            F64_PARAM_REL_TOL:
+        raise AssertionError('float64 EM on the card failed (missing %s, %s): %s'
+                             % (missing, rec_missing, out))
+    return {k: launches[k] + rec_launches[k] for k in launches}
+
+
 def arhmm_em(port, model, trials, init_s):
     """Main path 6a: ``ARHMM.fit`` from ``initialize``, 20 EM iterations of
     the EM workload on the card; then an iteration's time beside the same
@@ -2653,9 +3132,10 @@ def arhmm_cli(port, tmp, kernels=ARHMM_KERNELS, **model):
     training_cfg['export_states'] = True
     compute_cfg.pop('device')
     ids = CLI_IDS
-    tmp = os.path.join(tmp, 'arhmm_cli_%s_%s%s' % (
+    f64 = '_f64' if model_cfg.get('em_dtype') == 'float64' else ''
+    tmp = os.path.join(tmp, 'arhmm_cli_%s_%s%s%s' % (
         model_cfg['transitions'], model_cfg['noise_type'],
-        '_parallel' if model_cfg.get('parallel_scan') else ''))
+        '_parallel' if model_cfg.get('parallel_scan') else '', f64))
     save_dir = os.path.join(tmp, 'arhmm_store')
     latents = sample_arhmm(CLI_TRIALS, TRIAL, 8, model_cfg['n_ae_latents'], SEED + 5)
     write_latents_store(port, save_dir, ids, model_cfg, training_cfg, latents)
@@ -2703,8 +3183,8 @@ def arhmm_cli(port, tmp, kernels=ARHMM_KERNELS, **model):
                           states_ok=ok_states, epochs=len(logged['tr_loss']) // 2,
                           tr_loss=logged['tr_loss'][::2], val_loss=logged['val_loss'][::2])
     missing = [k for k in kernels if launches[k] == 0]
-    rec = dict(phase='arhmm_cli', transitions=model_cfg['transitions'],
-               noise_type=model_cfg['noise_type'],
+    rec = dict(phase='arhmm_cli' + f64, transitions=model_cfg['transitions'],
+               noise_type=model_cfg['noise_type'], em_dtype=model_cfg.get('em_dtype', 'float32'),
                parallel_scan=bool(model_cfg.get('parallel_scan', False)),
                trials=CLI_TRIALS, frames_per_trial=TRIAL,
                dim=model_cfg['n_ae_latents'], iterations=training_cfg['n_iters'],
@@ -2719,11 +3199,11 @@ def arhmm_cli(port, tmp, kernels=ARHMM_KERNELS, **model):
 
 
 def arhmm_serve(port, vdir, latents, kernels=('arhmm_log_likes', 'hmm_forward_backward',
-                                               'hmm_viterbi')):
+                                               'hmm_viterbi'), dtype='float32'):
     """Main path 8: a fitted ``best_val_model.pt`` loads through
-    ``load_arhmm`` on the card and decodes one trial: the Viterbi path and
-    the posteriors against the plain path's on the card, ``kernels``
-    launched."""
+    ``load_arhmm`` on the card, its parameters in ``dtype``, and decodes one
+    trial: the Viterbi path and the posteriors against the plain path's on
+    the card, ``kernels`` launched."""
     hmm = port.hmm
     trial = latents[0]
     reset_launches(port.build)
@@ -2742,9 +3222,10 @@ def arhmm_serve(port, vdir, latents, kernels=('arhmm_log_likes', 'hmm_forward_ba
     agree = float(np.mean(path == path_p))
     lp_rel = abs(lps[0] - lps[1]) / abs(lps[1])
     gamma_err = float(np.abs(gamma - gamma_p).max())
+    dtypes = sorted({str(v.dtype) for v in model.params.values()})
     rec = dict(phase='arhmm_serve', transitions=model.transitions,
                observations=model.observations, parallel_scan=model.parallel_scan,
-               states=model.K, frames=TRIAL,
+               dtype=model.dtype, param_dtypes=dtypes, states=model.K, frames=TRIAL,
                device=str(model.device),
                path_agreement=agree, path_log_prob_rel_err=lp_rel, gamma_max_abs_err=gamma_err,
                launches=launches,
@@ -2753,7 +3234,8 @@ def arhmm_serve(port, vdir, latents, kernels=('arhmm_log_likes', 'hmm_forward_ba
     emit(rec)
     missing = [k for k in kernels if launches[k] == 0]
     if missing or agree < PATH_AGREE or lp_rel > PATH_LP_REL_TOL or \
-            gamma_err > GAMMA_ABS_TOL or model.device.type != torch.device(DEVICE).type:
+            gamma_err > GAMMA_ABS_TOL or model.device.type != torch.device(DEVICE).type or \
+            model.dtype != dtype or dtypes != ['torch.' + dtype]:
         raise AssertionError('the fitted ARHMM does not serve (missing %s): %s'
                              % (missing, rec))
     return launches
@@ -5172,7 +5654,8 @@ def main():
               cuda=torch.version.cuda, device=kind))
 
     seconds = port.build.build_all()
-    emit(dict(phase='build', seconds=seconds, ptxas=port.build.ptxas_info()))
+    emit(dict(phase='build', seconds=seconds, library_seconds=port.build.build_seconds(),
+              ptxas=port.build.ptxas_info()))
 
     hp = model_hparams(port.arch)
     pool_hp = pool_hparams(port.arch)
@@ -5193,6 +5676,9 @@ def main():
         checks.append(check_robust_log_likes(port, rec_models['recurrent'], em_trials))
         checks += [check(port, rec_models, em_trials)
                    for check in (check_forward_backward_tv, check_viterbi_tv)]
+        checks += check_mstep(port, em_model, em_trials)
+        checks += check_f64_kernels(port, em_model, rec_models, em_trials)
+        rec_params = dict(rec_models['recurrent'].params)
         scan_in = scan_cases(port, em_model, rec_models, em_trials)
         for check in (check_scan, check_viterbi_scan):
             checks += check(port, scan_in)
@@ -5254,9 +5740,10 @@ def main():
                 port, recurrent_arhmm(port, em_model, 'recurrent', 'robust_ar',
                                       parallel_scan=True),
                 em_trials, PARALLEL_REC_EM_KERNELS, REC_EM_ITERS)
+            launches['arhmm_em_f64'] = arhmm_em_f64(port, init_params, rec_params, em_trials)
             launches['arhmm_long_session'] = long_session(port, em_model)
             launches['bayesian_long_session'] = bayesian_long_session(port, em_model)
-            del em_model, em_trials, rec_models, par_model, init_params
+            del em_model, em_trials, rec_models, par_model, init_params, rec_params
             stat_cli = arhmm_cli(port, tmp)
             launches['arhmm_cli'] = stat_cli.launches
             vdir, cli_latents = stat_cli.vdirs[max(stat_cli.vdirs)], stat_cli.latents
@@ -5281,6 +5768,13 @@ def main():
             launches['arhmm_sample_serve_parallel'] = arhmm_sample_serve(
                 port, vdir, cli_latents, ('hmm_scan', 'hmm_sample_posterior',
                                           'hmm_sample_states'))
+            f64_cli = arhmm_cli(port, tmp, F64_CLI_KERNELS, em_dtype='float64',
+                                n_arhmm_states=F64_CLI_GRID)
+            launches['arhmm_cli_f64'] = f64_cli.launches
+            launches['arhmm_serve_f64'] = arhmm_serve(
+                port, f64_cli.vdirs[max(f64_cli.vdirs)], f64_cli.latents,
+                ('arhmm_log_likes_f64', 'hmm_forward_backward_f64', 'hmm_viterbi_f64'),
+                dtype='float64')
             launches['bayesian_cli'], preds, logits = bayesian_cli(
                 port, tmp, stat_cli, BAYES_KERNELS)
             launches['bayesian_serve'] = bayesian_serve(

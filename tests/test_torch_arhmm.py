@@ -184,7 +184,9 @@ def test_jax_written_model_loads_without_jax(datas, tmp_path):
     """A JAX-written ``best_val_model.pt`` (``ARHMM.save``, as the JAX CLI
     pickles it) loads through ``load_arhmm`` in a process that never
     imports jax or behavenet_tpu, and gives JAX's Viterbi paths; so does a
-    recurrent, robust one (its paths as the port's of the same params); the same
+    recurrent, robust one (its paths as the port's of the same params), and
+    a float64 one loads as a float64 model (its paths as the port's float64
+    decoding of the same params); the same
     process reads a latents pickle, initializes (k-means), fits and pickles
     a model without importing sklearn or h5py."""
     j = JaxARHMM(K, D, lags=1, rng_seed=4)
@@ -203,6 +205,16 @@ def test_jax_written_model_loads_without_jax(datas, tmp_path):
     tr = ARHMM(K, D, device='cpu', **kw)
     tr.params = arhmm_params_from_jax(_np_params(jr), device='cpu')
     np.savez(str(tmp_path / 'recurrent.npz'), *tr.most_likely_states_batch(datas))
+    with jax.enable_x64(True):
+        j64 = JaxARHMM(K, D, lags=1, rng_seed=4, dtype='float64')
+        j64.params = dict(j64.params, **{k: jax.numpy.asarray(np.asarray(j.params[k]),
+                                                              dtype=np.float64)
+                                         for k in ('As', 'bs', 'Sigmas')})
+        j64.save(str(tmp_path / 'f64.pt'))
+        p64 = {k: np.array(v) for k, v in j64.params.items()}
+    t64 = ARHMM(K, D, lags=1, rng_seed=4, dtype='float64', device='cpu')
+    t64.params = arhmm_params_from_jax(p64, device='cpu', dtype=torch.float64)
+    np.savez(str(tmp_path / 'f64.npz'), *t64.most_likely_states_batch(datas))
     with open(str(tmp_path / 'l_e_a_s_latents.pkl'), 'wb') as f:
         pickle.dump({'latents': datas, 'trials': None}, f)
     code = (
@@ -223,6 +235,13 @@ def test_jax_written_model_loads_without_jax(datas, tmp_path):
         'assert r.recurrent and r.robust and r.params["Rs"].shape == (r.K, r.D)\n'
         'for i in range(n):\n'
         '    assert np.array_equal(r.most_likely_states(io["arr_%d" % i]),\n'
+        '                          want["arr_%d" % i]), i\n'
+        'f = load_arhmm(os.path.join(tmp, "f64.pt"), device="cpu")\n'
+        'assert f.dtype == "float64"\n'
+        'assert all(str(v.dtype) == "torch.float64" for v in f.params.values())\n'
+        'want = np.load(os.path.join(tmp, "f64.npz"))\n'
+        'for i in range(n):\n'
+        '    assert np.array_equal(f.most_likely_states(io["arr_%d" % i]),\n'
         '                          want["arr_%d" % i]), i\n'
         'ds = SingleSessionDataset(tmp, signals=["ae_latents"], transforms=[None],\n'
         '                          paths=[os.path.join(tmp, "l_e_a_s_latents.pkl")])\n'
@@ -281,11 +300,13 @@ def test_port_model_pickles_round_trip(em_pair, tmp_path, datas):
 
 
 def test_unported_configurations_raise():
-    """float64 EM (ROADMAP A1c) and ``iters_per_dispatch > 1`` are refused;
-    ``parallel_scan``, posterior sampling and sampling are ported
-    (tests/test_torch_arhmm_sampling.py)."""
-    for kw in (dict(dtype='float64'),
-               dict(observations='robust_ar', transitions='recurrent', dtype='float64')):
+    """float64 EM with ``parallel_scan`` (the rest of ROADMAP A1c) and
+    ``iters_per_dispatch > 1`` are refused; float64 EM
+    (tests/test_torch_arhmm_f64.py), ``parallel_scan``, posterior sampling
+    and sampling are ported (tests/test_torch_arhmm_sampling.py)."""
+    for kw in (dict(dtype='float64', parallel_scan=True),
+               dict(observations='robust_ar', transitions='recurrent', dtype='float64',
+                    parallel_scan=True)):
         with pytest.raises(NotImplementedError, match='A1c'):
             ARHMM(K, D, device='cpu', **kw)
     t = ARHMM(K, D, device='cpu', parallel_scan=True)
@@ -425,15 +446,17 @@ def test_cli_best_ae_version_matches_jax(cli_run):
 
 
 @pytest.mark.parametrize('model,exc', [
-    (dict(em_dtype='float64'), NotImplementedError),
+    (dict(em_dtype='float64', parallel_scan=True), NotImplementedError),
     (dict(transitions='recurrent', noise_type='studentst', parallel_scan=True), None),
     (dict(parallel_scan=True), None),
 ], ids=['model0-NotImplementedError', 'model1-NotImplementedError',
         'model2-NotImplementedError'])   # the ids of the cases' earlier refusals
 def test_cli_refuses_unported_configurations(cli_run, model, exc):
-    """``em_dtype: float64`` is refused before any work; ``parallel_scan:
-    true`` fits on the CPU: a completed version whose pickled model carries
-    the flag and whose states pickle holds its Viterbi paths."""
+    """``em_dtype: float64`` with ``parallel_scan: true`` is refused before
+    any work (float64 alone fits: tests/test_torch_arhmm_f64.py);
+    ``parallel_scan: true`` fits on the CPU: a completed version whose
+    pickled model carries the flag and whose states pickle holds its
+    Viterbi paths."""
     from behavenet_tpu_torch.fitting.hyperparams import get_all_params, run_grid_search
     _, _, latents, tmp = cli_run
     name = 'refused' if exc else 'parallel_%s' % model.get('transitions', 'stationary')

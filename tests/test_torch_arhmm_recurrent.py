@@ -334,7 +334,8 @@ def test_recurrent_m_step_is_adam_on_the_expected_transitions(em_pair, datas):
 
 def test_ported_configurations_construct():
     """Every observation type with every transition type builds, on the CPU
-    as asked, with ``parallel_scan`` too; float64 EM still raises."""
+    as asked, with ``parallel_scan`` too, and in float64; float64 with
+    ``parallel_scan`` still raises."""
     for obs in ('ar', 'robust_ar', 'diagonal_robust_ar', 'studentst', 'diagonal_studentst'):
         for transitions in ('stationary', 'sticky', 'recurrent', 'recurrent_only'):
             m = ARHMM(K, D, observations=obs, transitions=transitions, device='cpu')
@@ -342,9 +343,12 @@ def test_ported_configurations_construct():
             assert ('Rs' in m.params) == m.recurrent
     assert ARHMM(K, D, observations='robust_ar', transitions='recurrent', device='cpu',
                  parallel_scan=True).parallel_scan
+    m = ARHMM(K, D, observations='robust_ar', transitions='recurrent', device='cpu',
+              dtype='float64')
+    assert all(v.dtype == torch.float64 for v in m.params.values())
     with pytest.raises(NotImplementedError, match='A1c'):
         ARHMM(K, D, observations='robust_ar', transitions='recurrent', device='cpu',
-              dtype='float64')
+              dtype='float64', parallel_scan=True)
     with pytest.raises(ValueError):
         ARHMM(K, D, transitions='bogus', device='cpu')
 
