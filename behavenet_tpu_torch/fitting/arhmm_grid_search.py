@@ -25,15 +25,19 @@ and every ``transitions`` (``stationary``/``standard``, ``sticky``,
 ``<transitions>/<noise_type>`` directory. ``parallel_scan: true`` runs the
 message passes as parallel-prefix scans (K13, K14). ``em_dtype: float64``
 fits in float64: the latents are padded in float64, and the states and the
-float64 model are written as for float32. Not ported, and raising
-``NotImplementedError``: ``em_dtype: float64`` with ``parallel_scan: true``
-(ROADMAP A1c), ``export_train_plots`` and the JAX CLI's multi-device mesh.
+float64 model are written as for float32. On more than one CUDA device EM
+is sharded over the trials (``parallel.make_mesh(axis_name='dp')``, as the
+JAX CLI's multi-device branch; float64 EM stays on one device: a mesh in
+float64 is ROADMAP A1c). Not ported, and raising ``NotImplementedError``:
+``em_dtype: float64`` with ``parallel_scan: true`` (ROADMAP A1c) and
+``export_train_plots``.
 """
 
 import os
 import pickle
 
 import numpy as np
+import torch
 
 from behavenet_tpu_torch.data.utils import build_data_generator
 from behavenet_tpu_torch.fitting.eval import export_states
@@ -42,6 +46,7 @@ from behavenet_tpu_torch.fitting.experiment import (
 from behavenet_tpu_torch.fitting.hyperparams import (
     get_all_params, print_hparams, run_grid_search)
 from behavenet_tpu_torch.models.arhmm import ARHMM, check_ported
+from behavenet_tpu_torch.parallel import make_mesh
 from behavenet_tpu_torch.plotting.arhmm_utils import get_latent_arrays_by_dtype
 from behavenet_tpu_torch.utils.device import resolve_device
 
@@ -53,6 +58,16 @@ _OBS_TYPES = {  # noise_type -> (observations without lags, with lags)
     'diagonal_gaussian': ('diagonal_gaussian', 'diagonal_ar'),
     'diagonal_studentst': ('diagonal_studentst', 'diagonal_robust_ar'),
 }
+
+
+def _em_mesh(device):
+    """The mesh of EM (JAX: arhmm_grid_search.py:126-133): on more than one
+    CUDA device, the trials sharded over all of them; else None."""
+    if device.type == 'cuda' and torch.cuda.device_count() > 1:
+        mesh = make_mesh(axis_name='dp')
+        print('sharding EM over %i devices' % mesh.size)
+        return mesh
+    return None
 
 
 def main(hparams, *args):
@@ -138,6 +153,7 @@ def main(hparams, *args):
     scopes = [(-1, normalized(latents))]
     scopes += [(d, normalized(latents_sess[d])) for d in range(n_datasets)]
     train = scopes[0][1]['train'][0]
+    mesh = _em_mesh(device) if em_dtype == 'float32' else None
 
     def neg_ll_rows(epoch):
         return [{'epoch': epoch, 'dataset': d, 'trial': -1,
@@ -151,7 +167,7 @@ def main(hparams, *args):
     for epoch in range(hparams['n_iters'] + 1):
         print('epoch %03i/%03i' % (epoch, hparams['n_iters']))
         if epoch > 0:
-            hmm.fit(train, method='em', num_iters=1, initialize=False)
+            hmm.fit(train, method='em', num_iters=1, initialize=False, mesh=mesh)
         rows = neg_ll_rows(epoch)
         for row in rows:
             exp.log(row)

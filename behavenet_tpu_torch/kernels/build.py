@@ -25,7 +25,7 @@ import subprocess
 import threading
 
 __all__ = ['SOURCES', 'VARIANTS', 'LAUNCHES', 'build_all', 'library', 'launch', 'dtype_suffix',
-           'ptxas_info', 'build_seconds']
+           'check_device', 'ptxas_info', 'build_seconds']
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(os.path.dirname(_HERE), '_build')
@@ -53,8 +53,9 @@ SOURCES = {
     'max_pool2d': 'pool.cu',
     'batch_norm': 'batch_norm.cu',
     'arhmm_mstep_stats': 'arhmm_mstep.cu',
+    'hmm_shard_totals': 'hmm_shard.cu',
 }
-_HEADERS = ('igemm.cuh', 'hmm.cuh', 'hmm_backtrace.cuh')
+_HEADERS = ('igemm.cuh', 'hmm.cuh', 'hmm_backtrace.cuh', 'hmm_scan.cuh')
 
 # launchers counted under a name of their own: variant -> (kernel, symbols);
 # K14 and K16 share a source with K13 and K15, K18 (the RTS smoother) with
@@ -64,9 +65,12 @@ _HEADERS = ('igemm.cuh', 'hmm.cuh', 'hmm_backtrace.cuh')
 # K25 (its forward), K27's backward and K28 (the unpool, forward and
 # backward) with K27 (the max pool), K30 (batch norm's backward) with K29
 # (batch norm), K31's second pass (the residual covariance) with its first
-# (the statistics); K9's forward pass that writes the filtered alphas for
-# K15 and K11's pivoting solve are counted apart from their kernels' other
-# launchers, and so is every float64 launcher (``_f64``: float64 EM)
+# (the statistics), K33-K35 (a time shard's finish, map total and
+# backtrace) with K32 (its totals); K9's forward pass that writes the
+# filtered alphas for K15 and K11's pivoting solve are counted apart from
+# their kernels' other launchers, and so is every float64 launcher
+# (``_f64``: float64 EM), K32's (max, +) form and each of K33's and K34's
+# modes
 VARIANTS = {
     'arhmm_log_likes_robust': ('arhmm_log_likes', ('bn_arhmm_log_likes_robust',)),
     'hmm_forward_backward_tv': ('hmm_forward_backward',
@@ -103,6 +107,17 @@ VARIANTS = {
     'hmm_viterbi_f64': ('hmm_viterbi', ('bn_hmm_viterbi_f64',)),
     'hmm_viterbi_tv_f64': ('hmm_viterbi', ('bn_hmm_viterbi_tv_f64',)),
     'solve_small_f64': ('solve_small', ('bn_solve_small_f64',)),
+    'hmm_shard_totals_maxplus': ('hmm_shard_totals', ('bn_hmm_shard_totals_maxplus',
+                                                      'bn_hmm_shard_totals_maxplus_tv')),
+    'hmm_shard_finish': ('hmm_shard_totals', ('bn_hmm_shard_finish', 'bn_hmm_shard_finish_tv')),
+    'hmm_shard_finish_alpha': ('hmm_shard_totals', ('bn_hmm_shard_alpha',
+                                                    'bn_hmm_shard_alpha_tv')),
+    'hmm_shard_finish_viterbi': ('hmm_shard_totals', ('bn_hmm_shard_viterbi',
+                                                      'bn_hmm_shard_viterbi_tv')),
+    'hmm_shard_maps': ('hmm_shard_totals', ('bn_hmm_shard_maps',)),
+    'hmm_shard_maps_sample': ('hmm_shard_totals', ('bn_hmm_shard_sample_maps',
+                                                   'bn_hmm_shard_sample_maps_tv')),
+    'hmm_shard_backtrace': ('hmm_shard_totals', ('bn_hmm_shard_backtrace',)),
 }
 _COUNTED_AS = {sym: variant for variant, (_, syms) in VARIANTS.items() for sym in syms}
 
@@ -194,6 +209,21 @@ _SIGNATURES = {
         'bn_arhmm_mstep_cov': [_P] * 5 + [_I] * 7 + [_P] * 3,
         'bn_arhmm_mstep_stats_f64': [_P] * 4 + [_I] * 6 + [_P] * 5,
         'bn_arhmm_mstep_cov_f64': [_P] * 5 + [_I] * 7 + [_P] * 3},
+    'hmm_shard_totals': {
+        'bn_hmm_shard_totals': [_P] * 5 + [_I] * 4 + [_P] * 3,
+        'bn_hmm_shard_totals_tv': [_P] * 5 + [_I] * 4 + [_P] * 3,
+        'bn_hmm_shard_totals_maxplus': [_P] * 5 + [_I] * 4 + [_P] * 3,
+        'bn_hmm_shard_totals_maxplus_tv': [_P] * 5 + [_I] * 4 + [_P] * 3,
+        'bn_hmm_shard_finish': [_P, _I, _I] + [_P] * 6 + [_I] * 4 + [_P] * 10,
+        'bn_hmm_shard_finish_tv': [_P, _I, _I] + [_P] * 6 + [_I] * 4 + [_P] * 10,
+        'bn_hmm_shard_alpha': [_P, _I, _I] + [_P] * 5 + [_I] * 4 + [_P] * 5,
+        'bn_hmm_shard_alpha_tv': [_P, _I, _I] + [_P] * 5 + [_I] * 4 + [_P] * 5,
+        'bn_hmm_shard_viterbi': [_P, _I, _I] + [_P] * 5 + [_I] * 4 + [_P] * 7,
+        'bn_hmm_shard_viterbi_tv': [_P, _I, _I] + [_P] * 5 + [_I] * 4 + [_P] * 7,
+        'bn_hmm_shard_maps': [_P] * 2 + [_I] * 4 + [_P] * 3,
+        'bn_hmm_shard_sample_maps': [_P] * 8 + [_I] * 4 + [_P] * 6,
+        'bn_hmm_shard_sample_maps_tv': [_P] * 8 + [_I] * 4 + [_P] * 6,
+        'bn_hmm_shard_backtrace': [_P] * 2 + [_I] * 2 + [_P] * 2 + [_I] * 4 + [_P] * 3},
 }
 
 # sources built as two libraries side by side: the float launchers
@@ -322,10 +352,24 @@ def dtype_suffix(name, tensors, float64=True):
         raise ValueError('%s: tensors must be all float32%s, got %s'
                          % (name, ' or all float64' if float64 else '',
                             [t.dtype for t in tensors]))
-    if any(t.device.type != 'cuda' or t.device != x.device for t in tensors):
+    check_device(name, tensors)
+    return '_f64' if x.dtype == torch.float64 else ''
+
+
+def check_device(name, tensors):
+    """Raise unless every tensor lies on one CUDA device and that device is
+    the current one, whose stream :func:`launch` takes: a caller with
+    tensors on another card runs its launches under
+    ``torch.cuda.device(...)``."""
+    import torch
+    dev = tensors[0].device
+    if any(t.device.type != 'cuda' or t.device != dev for t in tensors):
         raise ValueError('%s: every tensor must lie on one CUDA device, got %s'
                          % (name, [str(t.device) for t in tensors]))
-    return '_f64' if x.dtype == torch.float64 else ''
+    if dev.index != torch.cuda.current_device():
+        raise ValueError('%s: the tensors lie on %s but the current device is cuda:%d; launch '
+                         'under torch.cuda.device(%r)'
+                         % (name, dev, torch.cuda.current_device(), str(dev)))
 
 
 def ptxas_info():

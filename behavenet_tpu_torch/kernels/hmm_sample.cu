@@ -35,82 +35,7 @@
 
 namespace {
 
-using hmm::kFull;
-using hmm::kWarps;
-
-__device__ __forceinline__ float gumbel(float u) { return -logf(-logf(u)); }
-
-// The first maximum over the warp's lanes of v (lanes past K hold -inf);
-// ties to the lowest lane.
-__device__ __forceinline__ int warp_argmax(float v, int K) {
-  const int lane = threadIdx.x % 32;
-  float best = lane < K ? v : -INFINITY;
-  int arg = lane < K ? lane : 1 << 30;
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-    const float b2 = __shfl_xor_sync(kFull, best, o);
-    const int a2 = __shfl_xor_sync(kFull, arg, o);
-    if (b2 > best || (b2 == best && a2 < arg)) {
-      best = b2;
-      arg = a2;
-    }
-  }
-  return arg < K ? arg : 0;
-}
-
-// One warp per (trial, frame t): t < T-1 writes psi[n][t] (K,), t = T-1
-// writes z_{T-1} into bounds[n][C].
-template <int KMAX, bool TV>
-__global__ void __launch_bounds__(kWarps * 32) draw_maps_kernel(
-    const float* __restrict__ log_alpha, const float* __restrict__ log_P,
-    const float* __restrict__ mask, const float* __restrict__ u_last,
-    const float* __restrict__ u_maps, int N, int T, int K, int C, int* __restrict__ psi,
-    int* __restrict__ bounds) {
-  const long long w = (long long)blockIdx.x * kWarps + threadIdx.x / 32;
-  if (w >= (long long)N * T) return;  // whole warps leave together
-  const int n = w / T, t = w % T, k = threadIdx.x % 32, S = T - 1;
-  const bool on = k < K;
-  const long long KK = (long long)K * K;
-  const float a = on ? __ldg(log_alpha + ((long long)n * T + t) * K + k) : -INFINITY;
-  if (t == S) {
-    float mx = a;
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, o));
-    const float v = on ? (a - mx) + gumbel(__ldg(u_last + (long long)n * K + k)) : -INFINITY;
-    const int z = warp_argmax(v, K);
-    if (k == 0) bounds[(long long)n * (C + 1) + C] = z;
-    return;
-  }
-  const float* lp = TV ? log_P + ((long long)n * S + t) * KK : log_P;
-  float l[KMAX];
-  float mx = -INFINITY;
-#pragma unroll
-  for (int i = 0; i < KMAX; ++i) {
-    if (i < K) {
-      l[i] = __shfl_sync(kFull, a, i) + (on ? __ldg(lp + i * K + k) : 0.f);
-      mx = fmaxf(mx, l[i]);
-    }
-  }
-  if (!on) return;
-  int z = k;  // the identity map on a step into a padded frame
-  if (__ldg(mask + (long long)n * T + t + 1) > 0.f) {
-    const float shift = isfinite(mx) ? mx : 0.f;
-    const float* u = u_maps + (((long long)n * S + t) * K + k) * K;
-    float best = -INFINITY;
-    z = 0;
-#pragma unroll
-    for (int i = 0; i < KMAX; ++i) {
-      if (i < K) {
-        const float s = (l[i] - shift) + gumbel(__ldg(u + i));
-        if (s > best) {  // strict: the first maximum wins, as jnp.argmax
-          best = s;
-          z = i;
-        }
-      }
-    }
-  }
-  psi[((long long)n * S + t) * K + k] = z;
-}
+using namespace hmm;
 
 template <bool TV>
 int launch_sample_posterior(const float* log_alpha, const float* log_P, const float* mask,

@@ -48,13 +48,25 @@ as the JAX package does. Randomness comes from a ``torch.Generator``
 ``expected_states`` and ``most_likely_states`` in float64: parameters,
 padded trials and every intermediate, through the ``_f64`` launchers of
 K8-K11 and K31 on the card. Not ported yet, and raising
-``NotImplementedError``: float64 with ``parallel_scan``, ``posterior_sample``
-or ``sample`` / ``sample_x`` (they need K13-K16 in float64, ROADMAP A1c),
-meshes and ``iters_per_dispatch > 1``.
+``NotImplementedError``: float64 with ``parallel_scan``, ``posterior_sample``,
+``sample`` / ``sample_x`` or a mesh (they need K13-K16 and K32-K35 in
+float64, ROADMAP A1c).
+
+A ``parallel.Mesh`` (an ordered list of devices, one per shard) spreads one
+call over several devices, as the JAX package's ``jax.sharding.Mesh``:
+``expected_states``, ``most_likely_states`` and ``posterior_sample`` with
+``mesh=`` cut the trial's frames into shards, each with its lag history
+(its log-likelihoods made on its device, the initial condition on global
+frames only), and run ``parallel.seq``'s time-sharded passes (K32-K35 on
+the card). ``fit(mesh=...)`` shards the trials, or with ``shard_time``
+every trial's frames, each part's E-step and M-step sums on its device,
+the sums added in part order on the first; ``iters_per_dispatch`` reads
+the log-likelihoods once every k iterations.
 """
 
 import collections
 import contextvars
+import functools
 import pickle
 
 import numpy as np
@@ -63,6 +75,8 @@ import torch
 from behavenet_tpu_torch.kernels.build import dtype_suffix, launch
 from behavenet_tpu_torch.ops import hmm as hmm_ops
 from behavenet_tpu_torch.ops.smallmat import solve_small
+from behavenet_tpu_torch.parallel import seq
+from behavenet_tpu_torch.parallel.mesh import Mesh, on_device, per_device
 from behavenet_tpu_torch.utils.device import resolve_device
 
 __all__ = ['ARHMM', 'PaddedTrials', 'pad_trials', 'obs_precision', 'log_likes',
@@ -87,6 +101,30 @@ UNPICKLE_DEVICE = contextvars.ContextVar('UNPICKLE_DEVICE', default=None)
 
 # stacked trials (N, T, D) and their mask (N, T), on one device
 PaddedTrials = collections.namedtuple('PaddedTrials', ['x', 'mask'])
+
+# what one device holds of the padded trials in EM (ARHMM._layout)
+_Part = collections.namedtuple('_Part', ['device', 'x', 'mask', 'halo', 't0', 'm_prev'])
+
+
+def _reduce(tensors, device):
+    """The sum of ``tensors`` copied to ``device``, added in their order."""
+    return functools.reduce(torch.add, [t.to(device) for t in tensors])
+
+
+def _on_own_device(method):
+    """Run ``method`` with the model's device current (``on_device``), so
+    that a model on any card launches there."""
+    @functools.wraps(method)
+    def run(self, *args, **kwargs):
+        with on_device(self.device):
+            return method(self, *args, **kwargs)
+    return run
+
+
+def _params_on(params, parts):
+    """A copy of ``params`` on each device the parts lie on."""
+    return {dev: {k: v.to(dev) for k, v in params.items()}
+            for dev in dict.fromkeys(part.device for part in parts)}
 
 
 def pad_trials(datas, device, dtype=torch.float32):
@@ -644,6 +682,7 @@ class ARHMM:
         return torch.log_softmax(logits, dim=3)
 
     # ------------------------------------------------------------- public api
+    @_on_own_device
     def log_likelihood(self, datas):
         """Total log-likelihood of a trial, a list of trials or
         :class:`PaddedTrials` (ssm.HMM API), the forward pass alone."""
@@ -654,6 +693,7 @@ class ARHMM:
                                        parallel=self.parallel_scan)
         return float(torch.sum(log_Z))
 
+    @_on_own_device
     def most_likely_states_batch(self, datas):
         """Viterbi paths of a list of trials in one launch: a list of (T_i,)
         int32 arrays."""
@@ -665,17 +705,49 @@ class ARHMM:
                                 mask, parallel=self.parallel_scan).cpu().numpy()
         return [paths[i, :len(d)] for i, d in enumerate(datas)]
 
+    def _check_mesh(self, mesh):
+        if not isinstance(mesh, Mesh):
+            raise TypeError('mesh must be a behavenet_tpu_torch.parallel.Mesh, got %r' % (mesh,))
+        if self.dtype == 'float64':
+            raise NotImplementedError(
+                'a mesh in float64 is not ported yet: the time-sharded passes K32-K35 and the '
+                'scans K13-K16 they build on take float32, the rest of ROADMAP item A1c')
+
+    def _shards(self, data, mesh):
+        """One trial cut along time over ``mesh``: log_pi0 on the first
+        device and the trial's :class:`parallel.seq.Shard`\\ s, each shard's
+        log-likelihoods and log-transitions made on its device from its
+        frames and their lag history."""
+        self._check_mesh(mesh)
+        x, mask = self.pad([data])
+        parts = self._time_parts(x, mask, mesh, max(self.lags, int(self.recurrent)))
+        on = _params_on(self.params, parts)
+        shards = per_device(lambda part: seq.Shard(
+            part.device, self._part_obs(on[part.device], part), part.mask,
+            *self._part_log_P(on[part.device], part), part.m_prev), parts)
+        return on[parts[0].device]['log_pi0'], shards
+
+    @staticmethod
+    def _joined(per_shard):
+        return torch.cat([t[0].cpu() for t in per_shard]).numpy()
+
+    @_on_own_device
     def most_likely_states(self, data, mesh=None):
-        """Viterbi path (T,) int32 of one trial (ssm.HMM API)."""
+        """Viterbi path (T,) int32 of one trial (ssm.HMM API). With ``mesh``
+        (a ``parallel.Mesh``) the trial's time axis is sharded over its
+        devices (``parallel.seq.viterbi_shards``: K32-K35 on the card; JAX:
+        models/arhmm.py:257)."""
         if mesh is not None:
-            raise NotImplementedError('sequence-parallel Viterbi (mesh) is not ported yet')
+            return self._joined(seq.viterbi_shards(*self._shards(data, mesh)))
         return self.most_likely_states_batch([data])[0]
 
+    @_on_own_device
     def expected_states(self, data, mesh=None):
-        """Posterior marginals gamma (T, K) of one trial."""
+        """Posterior marginals gamma (T, K) of one trial; with ``mesh`` the
+        time axis sharded (``parallel.seq.forward_backward_shards``: K32 and
+        K33 on the card; JAX: models/arhmm.py:276)."""
         if mesh is not None:
-            raise NotImplementedError('sequence-parallel forward-backward (mesh) is not '
-                                      'ported yet')
+            return self._joined(seq.forward_backward_shards(*self._shards(data, mesh))[0])
         x, mask = self.pad([data])
         p = self.params
         gamma, _, _ = hmm_ops.forward_backward(p['log_pi0'], self._log_P(p, x),
@@ -683,17 +755,26 @@ class ARHMM:
                                                parallel=self.parallel_scan)
         return gamma[0].cpu().numpy()
 
+    @_on_own_device
     def posterior_sample(self, data, generator=None, mesh=None):
         """A state path z ~ p(z | data) of one trial, (T,) int32 (JAX:
         models/arhmm.py:296): forward filtering, backward sampling with
         presampled predecessor maps (``ops.hmm.sample_posterior``; with
         ``parallel_scan`` the filter is the parallel scan), the uniforms
         from ``generator`` (on the model's device; ``None``: seeded from
-        numpy)."""
-        if mesh is not None:
-            raise NotImplementedError('sequence-parallel posterior sampling (mesh) is not '
-                                      'ported yet')
+        numpy). With ``mesh`` the time axis is sharded
+        (``parallel.seq.sample_posterior_shards``: K32-K35 on the card), the
+        uniforms drawn in the same order on the mesh's first device: the
+        same generator state draws the same path, up to float reassociation
+        at a near-tie."""
         self._check_sampling('posterior_sample')
+        if mesh is not None:
+            pi0, shards = self._shards(data, mesh)
+            dev, T = shards[0].device, len(data)
+            gen = hmm_ops.generator_for(dev, generator)
+            u_last = hmm_ops.uniforms((1, self.K), gen, dev)
+            u_maps = hmm_ops.uniforms((1, max(T - 1, 0), self.K, self.K), gen, dev)
+            return self._joined(seq.sample_posterior_shards(pi0, shards, u_last, u_maps))
         x, mask = self.pad([data])
         p = self.params
         path = hmm_ops.sample_posterior(p['log_pi0'], self._log_P(p, x),
@@ -708,6 +789,7 @@ class ARHMM:
     def _numpy_params(self):
         return {k: v.detach().cpu().numpy().astype(np.float64) for k, v in self.params.items()}
 
+    @_on_own_device
     def sample(self, T, generator=None, prefix=None, with_noise=True):
         """(states (T,) int32, observations (T, D) float32) from the generative
         model (JAX: models/arhmm.py:336). A stationary or sticky model draws
@@ -851,31 +933,167 @@ class ARHMM:
         self.params = dict(self.params)
         self.params.update(self._tensors({'As': As, 'bs': bs, 'Sigmas': Sigmas}))
 
+    # A part of the padded trials that one device holds: for EM on one
+    # device the trials themselves; on a mesh a slice of the trials (the
+    # trial layout) or of the frames (the time layout). x carries ``halo``
+    # frames before the part's own (the wrapped history of global frame
+    # t0 - halo .. t0 - 1) so that its design rows and lags need no other
+    # device; mask (N, Ts) covers its own frames, t0 is the global index of
+    # the first, m_prev the mask of frame t0 - 1 (time layout, t0 > 0).
+    def _part(self, x, mask):
+        return _Part(x.device, x, mask, 0, 0, None)
+
+    def _time_parts(self, x, mask, mesh, halo):
+        """The time layout: frames [t0, t1) of every trial on each mesh
+        device (``parallel.seq.shard_bounds``), with ``halo`` frames of
+        history (the trial's wrapped end before frame 0, as the JAX
+        package's ``jnp.roll``)."""
+        T = x.shape[1]
+        parts = []
+        for (t0, t1), dev in zip(seq.shard_bounds(T, mesh.size), mesh.devices):
+            if t1 > t0:
+                rows = torch.arange(t0 - halo, t1, device=x.device) % T
+                parts.append(_Part(dev, x[:, rows].to(dev), mask[:, t0:t1].to(dev), halo, t0,
+                                   mask[:, t0 - 1].to(dev) if t0 else None))
+        return parts
+
+    def _layout(self, x, mask, mesh=None, shard_time=False):
+        """The parts of EM over padded trials: one on their device, or on
+        ``mesh`` the time layout (T padded to a mesh multiple with masked
+        frames, JAX: models/arhmm.py:733-741) or the trial layout (the trial
+        count padded with fully masked trials, :752-757). Returns (parts,
+        shard_time, the padded trial count)."""
+        if mesh is None:
+            return [self._part(x, mask)], False, x.shape[0]
+        n = mesh.size
+        if shard_time:
+            pad = (-x.shape[1]) % n
+            x = torch.cat([x, x.new_zeros((x.shape[0], pad, x.shape[2]))], dim=1)
+            mask = torch.cat([mask, mask.new_zeros((mask.shape[0], pad))], dim=1)
+            return self._time_parts(x, mask, mesh, self.lags), True, x.shape[0]
+        pad = (-x.shape[0]) % n
+        x = torch.cat([x, x.new_zeros((pad,) + x.shape[1:])])
+        mask = torch.cat([mask, mask.new_zeros((pad,) + mask.shape[1:])])
+        per = x.shape[0] // n
+        return [_Part(dev, x[i * per:(i + 1) * per].to(dev), mask[i * per:(i + 1) * per].to(dev),
+                      0, 0, None) for i, dev in enumerate(mesh.devices)], False, x.shape[0]
+
+    def _part_obs(self, params, part, with_tau=False):
+        """A part's observation log-likelihoods over its own frames (N, Ts,
+        K) and, with ``with_tau``, the robust weights over its rows with the
+        halo (N, H + Ts, K) (None unless Student's t). A time shard's frames
+        before global frame ``lags`` take the initial condition there."""
+        H = part.halo
+        mask = torch.cat([part.mask.new_zeros((part.mask.shape[0], H)), part.mask], dim=1)
+        ll, tau = self._log_likes(params, part.x, mask, with_tau=True)
+        ll = ll[:, H:]
+        first = min(max(self.lags - part.t0, 0), ll.shape[1]) if H else 0
+        if first:
+            own = part.x[:, H:H + first]
+            init = -0.5 * (self.D * LN2PI + torch.sum(own ** 2, dim=2))
+            ll = torch.cat([init[:, :, None].expand(-1, -1, self.K) * part.mask[:, :first, None],
+                            ll[:, first:]], dim=1)
+        return (ll, tau) if with_tau else ll
+
+    def _part_log_P(self, params, part):
+        """A time shard's transition log-probs: (its own steps, the step
+        into its first frame or None on the first shard), (K, K) each, or
+        recurrent (N, Ts-1, K, K) and (N, K, K) driven by the halo's last
+        frame."""
+        if not self.recurrent:
+            lp = self._log_P(params)
+            return lp, (lp if part.t0 else None)
+        H = part.halo
+        if not part.t0:
+            return self._log_P(params, part.x[:, H:]), None
+        steps = self._log_P(params, part.x[:, H - 1:])
+        return steps[:, 1:], steps[:, 0]
+
     def _em_step(self, params, x, mask):
-        """One EM iteration on padded trials (N, T, D): returns (new params,
-        the total log-likelihood under ``params`` as a 0-d tensor)."""
-        ll, tau = self._log_likes(params, x, mask, with_tau=True)
-        post = hmm_ops.forward_backward(params['log_pi0'], self._log_P(params, x), ll, mask,
-                                        with_xi=self.recurrent, parallel=self.parallel_scan)
-        gammas, log_Zs, xi_sums = post[:3]
-        new = self._m_step(params, x, mask, gammas, xi_sums, tau)
+        """One EM iteration on padded trials (N, T, D) on one device: returns
+        (new params, the total log-likelihood under ``params`` as a 0-d
+        tensor)."""
+        return self._em_step_parts(params, self._layout(x, mask))
+
+    def _em_step_parts(self, params, layout):
+        """One EM iteration over :meth:`_layout`'s parts: each part's E-step
+        on its device (K8, then K9 or K13 per trial part, or the time
+        shards' K32 and K33 through ``parallel.seq``), the M-step's sums per
+        part added in part order on the first part's device, where the new
+        parameters are made (JAX: models/arhmm.py:474 ``_em_step``, :561
+        ``_em_step_sp``). Each part's launches run under its device, the
+        M-step's under the first part's."""
+        parts, shard_time, n_trials = layout
+        dev0 = parts[0].device
+        on = _params_on(params, parts)
+        obs = per_device(lambda part: self._part_obs(on[part.device], part, with_tau=True), parts)
+        xis = None
+        if shard_time:
+            shards = [seq.Shard(part.device, ll, part.mask,
+                                *self._part_log_P(on[part.device], part), part.m_prev)
+                      for part, (ll, _) in zip(parts, obs)]
+            gammas, log_Z, xi_sum = seq.forward_backward_shards(on[dev0]['log_pi0'], shards)
+            total_ll, counts, pi0_sum = log_Z.sum(), xi_sum.sum(0), gammas[0][:, 0].sum(0)
+        else:
+            posts = per_device(lambda part, o: hmm_ops.forward_backward(
+                on[part.device]['log_pi0'], self._log_P(on[part.device], part.x), o[0], part.mask,
+                with_xi=self.recurrent, parallel=self.parallel_scan), parts, obs)
+            gammas = [post[0] for post in posts]
+            total_ll = _reduce([post[1].sum() for post in posts], dev0)
+            counts = _reduce([post[2].sum(0) for post in posts], dev0)
+            pi0_sum = _reduce([post[0][:, 0].sum(0) for post in posts], dev0)
+            if self.recurrent:
+                xis = [post[3] for post in posts]
+        with on_device(dev0):
+            new = self._m_step_parts(on[dev0], parts, gammas, [tau for _, tau in obs], counts,
+                                     pi0_sum, n_trials)
         if self.recurrent:
-            new.update(self._m_step_recurrent(params, x, post[3]))
-        return new, torch.sum(log_Zs)
+            new.update(self._m_step_recurrent(on[dev0], [part.x for part in parts], xis))
+        return new, total_ll
 
     def _m_step(self, params, x, mask, gammas, xi_sums, tau=None):
         """All M-step updates from the posteriors but the recurrent
-        transitions' (JAX: models/arhmm.py:484), with the robust weights
-        ``tau`` (N, T, K) under ``params``."""
+        transitions' (JAX: models/arhmm.py:484), on padded trials on one
+        device, with the robust weights ``tau`` (N, T, K) under
+        ``params``."""
+        with on_device(x.device):
+            return self._m_step_parts(params, [self._part(x, mask)], [gammas], [tau],
+                                      torch.sum(xi_sums, dim=0), gammas[:, 0].sum(0),
+                                      x.shape[0])
+
+    def _mstep_inputs(self, part, gammas, tau):
+        """K31's inputs over a part's rows with the halo, (x, mask, gammas,
+        tau): the halo weighs 0, and so do a time shard's frames before
+        global frame ``lags`` (K31's own t >= lags rule sees local rows)."""
+        H = part.halo
+        tau = tau if self.robust else None
+        if not H:
+            return part.x, part.mask, gammas, tau
+        N, T_s = part.mask.shape
+        late = torch.arange(part.t0, part.t0 + T_s, device=part.mask.device) >= self.lags
+        mask = torch.cat([part.mask.new_zeros((N, H)), part.mask * late], dim=1)
+        return part.x, mask, torch.cat([gammas.new_zeros((N, H, self.K)), gammas], dim=1), tau
+
+    def _m_step_parts(self, params, parts, gammas, taus, counts, pi0_sum, n_trials):
+        """The M-step over parts (JAX: models/arhmm.py:484): every sum over
+        (trial, frame) is a sum of the parts' sums, added in part order on
+        the device of ``params`` (the first part's): the initial
+        distribution from ``pi0_sum`` (the posteriors of frame 0 summed
+        over the trials) over ``n_trials``, the transition ``counts``, K31's
+        two passes per part around one solve (K11), the dof's sums. Returns
+        the new params dict on that device. Each part's K31 launches run
+        under its device; the caller makes that of ``params`` current for
+        the rest."""
         K, D, lags = self.K, self.D, self.lags
-        dev, dt = x.device, x.dtype
+        dev = params['log_pi0'].device
+        dt = params['log_pi0'].dtype
         new = dict(params)
 
-        pi0 = torch.mean(gammas[:, 0, :], dim=0) + 1e-8
+        pi0 = pi0_sum.to(dev) / n_trials + 1e-8
         new['log_pi0'] = torch.log(pi0 / torch.sum(pi0))
 
         if not self.recurrent:
-            counts = torch.sum(xi_sums, dim=0)
+            counts = counts.to(dev)
             if self.transitions == 'sticky':
                 counts = counts + self.kappa * torch.eye(K, dtype=dt, device=dev)
             counts = counts + 1e-8
@@ -883,8 +1101,9 @@ class ARHMM:
 
         # weighted least squares over the frames (K31's first pass): frames
         # without a full lag history weigh 0, robust ones tau times more
-        tau = tau if self.robust else None
-        XtWX, XtWY, wsum = mstep_stats(x, mask, gammas, tau, lags)
+        inputs = [self._mstep_inputs(part, g, tau) for part, g, tau in zip(parts, gammas, taus)]
+        stats = per_device(lambda part, args: mstep_stats(*args, lags), parts, inputs)
+        XtWX, XtWY, wsum = (_reduce([st[i] for st in stats], dev) for i in range(3))
         Pdim = XtWX.shape[1]
         # Jacobi equilibration, then a relative 1e-5 ridge: SPD, so the
         # pivot-free unrolled solve is safe
@@ -898,7 +1117,8 @@ class ARHMM:
 
         # the residuals' weighted sums (K31's second pass); wsum holds tau,
         # as the JAX package's code has it
-        S = mstep_cov(x, mask, gammas, tau, beta, lags, self.diagonal)
+        S = _reduce(per_device(lambda part, args: mstep_cov(*args, beta.to(part.device), lags,
+                                                            self.diagonal), parts, inputs), dev)
         if self.diagonal:
             var = S / torch.clamp(wsum[:, None], min=1e-8) + 1e-6
             new['Sigmas'] = torch.diag_embed(var)
@@ -911,22 +1131,30 @@ class ARHMM:
             new['Sigmas'] = Sig + jit[:, None, None] * torch.eye(D, dtype=dt, device=dev)[None]
 
         if self.robust:
-            new['nus'] = self._m_step_nu(params, mask, gammas, tau)
+            new['nus'] = self._m_step_nu(params, [(part.mask, g, tau[:, part.halo:])
+                                                  for part, g, tau in zip(parts, gammas, taus)])
         return new
 
-    def _m_step_nu(self, params, mask, gammas, taus):
+    def _m_step_nu(self, params, parts):
         """Newton steps on the per-state dof (JAX: models/arhmm.py:582): the
         root of log(nu/2) - digamma(nu/2) + c, with c = 1 + E_w[E[log tau]
         - tau] under the old params (every frame weighs its posterior, the
         first ``lags`` frames too), the derivative a forward difference of
-        step 1e-3 nu, each step clipped to [1, 200]."""
+        step 1e-3 nu, each step clipped to [1, 200]. ``parts`` holds (mask,
+        gammas, taus) over each part's own frames; their sums add in part
+        order."""
         D = self.D
-        w = gammas * mask[:, :, None]
-        wsum = torch.clamp(torch.sum(w, dim=(0, 1)), min=1e-8)
         nus = torch.clamp(params['nus'], min=1e-2)
-        e_log_tau = torch.digamma(0.5 * (nus + D)) + torch.log(taus) \
-            - torch.log(0.5 * (nus + D))
-        c = 1.0 + torch.sum(w * (e_log_tau - taus), dim=(0, 1)) / wsum
+        dev = nus.device
+        sums = []
+        for mask, gammas, taus in parts:
+            w = gammas * mask[:, :, None]
+            nu_p = nus.to(w.device)
+            e_log_tau = torch.digamma(0.5 * (nu_p + D)) + torch.log(taus) \
+                - torch.log(0.5 * (nu_p + D))
+            sums.append((torch.sum(w, dim=(0, 1)), torch.sum(w * (e_log_tau - taus), dim=(0, 1))))
+        wsum = torch.clamp(_reduce([sm[0] for sm in sums], dev), min=1e-8)
+        c = 1.0 + _reduce([sm[1] for sm in sums], dev) / wsum
         nu = nus
         for _ in range(_NU_NEWTON_STEPS):
             half = 0.5 * nu
@@ -946,19 +1174,25 @@ class ARHMM:
         ``xis`` (N, T-1, K, K) under the old params; the gradient by
         autograd, the update ``optax.adam(1e-2)``'s (b1 0.9, b2 0.999, eps
         1e-8, written out: a parameter the objective does not read keeps its
-        value, as a zero gradient leaves it in optax). Returns the three
-        tensors."""
+        value, as a zero gradient leaves it in optax). ``x`` and ``xis`` may
+        be lists over the parts of a trial layout, each on its device: the
+        objective is the sum of theirs, taken in part order on the device of
+        ``params``. Returns the three tensors."""
+        if torch.is_tensor(x):
+            x, xis = [x], [xis]
         keys = ('log_Ps', 'Rs', 'r')
         trans = [params[k].detach().clone() for k in keys]
         mu = [torch.zeros_like(p) for p in trans]
         nu = [torch.zeros_like(p) for p in trans]
-        xis = xis.detach()
+        xis = [v.detach() for v in xis]
         b1, b2, eps, lr = 0.9, 0.999, 1e-8, _RECURRENT_ADAM_LR
         for step in range(1, _RECURRENT_ADAM_STEPS + 1):
             leaves = [p.detach().requires_grad_(True) for p in trans]
             with torch.enable_grad():
-                loss = -torch.sum(xis * self._log_P(dict(params, **dict(zip(keys, leaves))),
-                                                    x))
+                losses = [-torch.sum(xi * self._log_P(
+                    dict(params, **{k: v.to(xp.device) for k, v in zip(keys, leaves)}), xp))
+                    for xp, xi in zip(x, xis)]
+                loss = _reduce(losses, trans[0].device)
                 grads = torch.autograd.grad(loss, leaves, allow_unused=True)
             for i, g in enumerate(grads):
                 if g is None:
@@ -969,30 +1203,50 @@ class ARHMM:
                 trans[i] = trans[i] - lr * upd
         return dict(zip(keys, trans))
 
+    @_on_own_device
     def fit(self, datas, method='em', num_iters=1, initialize=False, tolerance=0.0,
             mesh=None, shard_time=False, iters_per_dispatch=1):
         """Run EM iterations (ssm.HMM.fit API subset); returns the
         log-likelihood before each iteration's M-step, as Python floats.
         ``datas`` is a list of trials or :class:`PaddedTrials` (then
         ``initialize`` is not available). With ``tolerance > 0`` EM stops
-        once the relative change of the last two values is below it."""
+        once the relative change of the last two values is below it.
+
+        ``mesh`` (a ``parallel.Mesh``) spreads EM over its devices (JAX:
+        models/arhmm.py:684): the trials (padded to a mesh multiple with
+        fully masked trials, which add nothing) or, with ``shard_time``,
+        every trial's frames (padded with masked frames; stationary and
+        sticky transitions only), each part's E-step on its device and the
+        M-step's sums added in part order on the first. ``iters_per_dispatch``
+        runs k iterations back to back with their log-likelihoods kept on
+        the device and read once; the tolerance is checked between such
+        runs (a fit may go up to k - 1 iterations past the stopping point),
+        and the ``num_iters % k`` left over run one at a time."""
         if method != 'em':
             raise NotImplementedError('only EM fitting is supported')
-        if mesh is not None or shard_time:
-            raise NotImplementedError('multi-device EM (mesh, shard_time) is not ported '
-                                      'yet (kernel row 19)')
-        if int(iters_per_dispatch) > 1:
-            raise NotImplementedError('iters_per_dispatch > 1 is not ported yet')
+        if shard_time and mesh is None:
+            raise ValueError('shard_time=True requires mesh= (a parallel.Mesh to shard the time '
+                             'axis over); without one the run would silently be single-device')
+        if mesh is not None:
+            self._check_mesh(mesh)
+            if shard_time and self.recurrent:
+                raise NotImplementedError('shard_time EM supports stationary/sticky transitions '
+                                          'only')
         if initialize:
             if isinstance(datas, PaddedTrials):
                 raise ValueError('initialize needs the list of trials, not PaddedTrials')
             self.initialize(datas if isinstance(datas, (list, tuple)) else [datas])
-        x, mask = self.pad(datas)
-        lls = []
+        layout = self._layout(*self.pad(datas), mesh, shard_time)
+        k = max(1, int(iters_per_dispatch))
+        params, lls = self.params, []
         while len(lls) < num_iters:
             if tolerance > 0 and len(lls) >= 2 and \
                     abs((lls[-1] - lls[-2]) / lls[-1]) < tolerance:
                 break
-            self.params, ll = self._em_step(self.params, x, mask)
-            lls.append(float(ll))
+            dispatch = []
+            for _ in range(k if num_iters - len(lls) >= k else 1):
+                params, ll = self._em_step_parts(params, layout)
+                dispatch.append(ll)
+            lls.extend(torch.stack(dispatch).tolist())
+            self.params = {key: v.to(self.device) for key, v in params.items()}
         return lls

@@ -18,7 +18,8 @@ RTS smoother (K18) of ``ops.imm`` on the companion state, or with
 ``parallel=True`` the associative Kalman filter and smoother of
 ``ops.kalman`` (K19, K20) over the gamma-weighted dynamics. Everything runs
 on the ARHMM's device, in float32: a float64 ARHMM raises, as does the
-sequence-parallel ``mesh=``; neither is ported yet.
+sequence-parallel ``mesh=``, which needs the time-sharded Kalman passes
+(kernel row 19b); neither is ported yet.
 """
 
 import numpy as np
@@ -175,8 +176,9 @@ class BayesianDecoder:
             mixture-spread covariance term (negligible when the state
             posterior is concentrated)
         mesh : optional
-            sequence-parallel decoding across devices; not ported yet,
-            raises
+            sequence-parallel decoding across devices; not ported yet (it
+            needs the time-sharded Kalman filter and smoother, kernel row
+            19b), raises
         as_numpy : bool
             fetch results to host numpy arrays (default); False keeps them
             as tensors on the ARHMM's device
@@ -187,8 +189,9 @@ class BayesianDecoder:
         (T,), 'states_posterior' (T, K)
         """
         if mesh is not None:
-            raise NotImplementedError('sequence-parallel decoding (mesh=) is not ported yet '
-                                      '(ROADMAP item A8, kernel row 19)')
+            raise NotImplementedError('sequence-parallel decoding (mesh=) is not ported yet: '
+                                      'it needs the time-sharded Kalman filter and smoother '
+                                      '(kernel row 19b, ROADMAP item A8)')
         if self.R is None:
             raise RuntimeError('call estimate_obs_noise() or pass obs_noise first')
         y = np.asarray(ae_predictions, dtype=np.float32)

@@ -36,7 +36,7 @@ import math
 import numpy as np
 import torch
 
-from behavenet_tpu_torch.kernels.build import dtype_suffix, launch
+from behavenet_tpu_torch.kernels.build import check_device, dtype_suffix, launch
 from behavenet_tpu_torch.ops.scans import chunked_prefix_scan, prefix_scan
 
 __all__ = ['forward_plain', 'backward_plain', 'forward_backward_plain',
@@ -119,7 +119,8 @@ def _posteriors(log_P, log_lik, mask, log_alpha, log_beta):
     return gamma, torch.exp(log_xi) * pair_mask
 
 
-def forward_backward_plain(log_pi0, log_P, log_lik, mask=None, with_xi=False, parallel=False):
+def forward_backward_plain(log_pi0, log_P, log_lik, mask=None, with_xi=False, parallel=False,
+                           scan=None):
     """Posterior marginals and expected transition counts (JAX:
     ops/hmm.py:115).
 
@@ -130,13 +131,14 @@ def forward_backward_plain(log_pi0, log_P, log_lik, mask=None, with_xi=False, pa
     first; xi_sum is the masked sum over t of the pairwise posteriors
     p(z_t, z_{t+1} | x). ``parallel`` runs the message passes as
     parallel-prefix scans (:func:`forward_parallel_plain`,
-    :func:`backward_parallel_plain`): the same function to float32
-    roundoff.
+    :func:`backward_parallel_plain`, by ``scan``, default :func:`_prefix`):
+    the same function to float32 roundoff.
     """
     mask = _mask(log_lik, mask)
     if parallel:
-        log_alpha, log_Z = forward_parallel_plain(log_pi0, log_P, log_lik, mask)
-        log_beta = backward_parallel_plain(log_P, log_lik, mask)
+        scan = scan or _prefix
+        log_alpha, log_Z = forward_parallel_plain(log_pi0, log_P, log_lik, mask, scan)
+        log_beta = backward_parallel_plain(log_P, log_lik, mask, scan)
     else:
         log_alpha, log_Z = forward_plain(log_pi0, log_P, log_lik, mask)
         log_beta = backward_plain(log_P, log_lik, mask)
@@ -253,41 +255,44 @@ def _chain(log_P, log_lik, mask):
     return Ms.transpose(0, 1), ident
 
 
-def forward_parallel_plain(log_pi0, log_P, log_lik, mask=None):
+def forward_parallel_plain(log_pi0, log_P, log_lik, mask=None, scan=_prefix):
     """Forward pass by a parallel-prefix scan in log space (JAX:
     ops/hmm.py:404 ``forward_parallel``). Returns (log_alpha (N, T, K),
-    log_Z (N,))."""
+    log_Z (N,)). ``scan(combine, elems, identity, reverse=False)`` scans
+    the time-leading step matrices (``parallel.seq`` passes its
+    time-sharded ``sp_scan``)."""
     mask = _mask(log_lik, mask)
     alpha0 = log_pi0[None] + log_lik[:, 0] * mask[:, 0, None]
     Ms, ident = _chain(log_P, log_lik, mask)
-    prefix = _prefix(_log_matmul, Ms, ident)                          # (T-1, N, K, K)
+    prefix = scan(_log_matmul, Ms, ident)                             # (T-1, N, K, K)
     alphas = torch.logsumexp(alpha0[None, :, :, None] + prefix, dim=2)   # (T-1, N, K)
     log_alpha = torch.cat([alpha0[:, None], alphas.transpose(0, 1)], dim=1)
     return log_alpha, torch.logsumexp(log_alpha[:, -1], dim=1)
 
 
-def backward_parallel_plain(log_P, log_lik, mask=None):
+def backward_parallel_plain(log_P, log_lik, mask=None, scan=_prefix):
     """Backward pass by a parallel-prefix suffix scan (JAX: ops/hmm.py:65
     ``backward_parallel``): beta_t is the row logsumexp of M_t x ... x
-    M_{T-2}, scanned as transposes. Returns log_beta (N, T, K)."""
+    M_{T-2}, scanned as transposes (by ``scan``, as
+    :func:`forward_parallel_plain`'s). Returns log_beta (N, T, K)."""
     mask = _mask(log_lik, mask)
     N, _, K = log_lik.shape
     zeros = torch.zeros((N, 1, K), dtype=log_lik.dtype, device=log_lik.device)
     Ms, ident = _chain(log_P, log_lik, mask)
-    suffix_T = _prefix(_log_matmul, Ms.transpose(-1, -2), ident, reverse=True)
+    suffix_T = scan(_log_matmul, Ms.transpose(-1, -2), ident, reverse=True)
     betas = torch.logsumexp(suffix_T.transpose(-1, -2), dim=-1)      # (T-1, N, K)
     return torch.cat([betas.transpose(0, 1), zeros], dim=1)
 
 
-def _backtrace(psi, z_last, parallel):
+def _backtrace(psi, z_last, parallel, scan=_prefix):
     """Paths (N, T) int32 from the maps psi (N, T-1, K) (z_t = psi_t[z_{t+1}])
     and the last states (N,): a T-step loop, or with ``parallel`` the
-    pointer-doubling suffix scan of the maps (JAX: ops/hmm.py:260-268,
-    :340-350)."""
+    pointer-doubling suffix scan of the maps by ``scan`` (JAX:
+    ops/hmm.py:260-268, :340-350)."""
     N, S, K = psi.shape
     if parallel and S:
         iota = torch.arange(K, dtype=psi.dtype, device=psi.device)
-        comp = _prefix(_compose_maps, psi.transpose(0, 1), iota, reverse=True)   # (S, N, K)
+        comp = scan(_compose_maps, psi.transpose(0, 1), iota, reverse=True)      # (S, N, K)
         zs = torch.gather(comp, 2, z_last[None, :, None].expand(S, N, 1))[:, :, 0].T
     else:
         z, cols = z_last, []
@@ -298,24 +303,24 @@ def _backtrace(psi, z_last, parallel):
     return torch.cat([zs, z_last[:, None]], dim=1).to(torch.int32)
 
 
-def viterbi_parallel_plain(log_pi0, log_P, log_lik, mask=None):
+def viterbi_parallel_plain(log_pi0, log_P, log_lik, mask=None, scan=_prefix):
     """Viterbi by a (max, +) parallel-prefix scan (JAX: ops/hmm.py:225
     ``viterbi_parallel``): the deltas from the scan, every backpointer from
     the completed deltas at once (lowest index on ties, the identity on a
-    padded step), then the pointer-doubling backtrace. Returns (N, T)
-    int32."""
+    padded step), then the pointer-doubling backtrace; both scans by
+    ``scan``, as :func:`forward_parallel_plain`'s. Returns (N, T) int32."""
     mask = _mask(log_lik, mask)
     K = log_lik.shape[2]
     delta0 = log_pi0[None] + log_lik[:, 0] * mask[:, 0, None]
     Ms, ident = _chain(log_P, log_lik, mask)
-    prefix = _prefix(_maxplus_matmul, Ms, ident)
+    prefix = scan(_maxplus_matmul, Ms, ident)
     deltas = (delta0[None, :, :, None] + prefix).amax(dim=2).transpose(0, 1)
     delta = torch.cat([delta0[:, None], deltas], dim=1)                 # (N, T, K)
     scores = delta[:, :-1, :, None] + _steps_P(log_P)                   # (N, T-1, K, K)
     psi = torch.argmax(scores, dim=2)
     iota = torch.arange(K, device=log_lik.device).expand_as(psi)
     psi = torch.where(mask[:, 1:, None] > 0, psi, iota)
-    return _backtrace(psi, torch.argmax(delta[:, -1], dim=1), parallel=True)
+    return _backtrace(psi, torch.argmax(delta[:, -1], dim=1), parallel=True, scan=scan)
 
 
 # ------------------------------------------------------ sampling, plain
@@ -347,19 +352,22 @@ def presample_path_draws_plain(log_alpha, log_P, mask, u_last, u_maps):
     return z_last, torch.where(mask[:, 1:, None] > 0, psi, iota)
 
 
-def sample_posterior_plain(log_pi0, log_P, log_lik, mask, u_last, u_maps, parallel=False):
+def sample_posterior_plain(log_pi0, log_P, log_lik, mask, u_last, u_maps, parallel=False,
+                           scan=_prefix):
     """Posterior state paths (N, T) int32 by forward filtering, backward
     sampling (JAX: ops/hmm.py:310 ``sample_posterior``) from the uniforms
     ``u_last`` (N, K) and ``u_maps`` (N, T-1, K, K): the filtered alphas of
     the sequential or, with ``parallel``, the parallel forward pass, the
     presampled maps of :func:`presample_path_draws_plain`, composed by a
     T-step loop or the pointer-doubling suffix scan (the same paths from
-    the same maps)."""
+    the same maps); with ``parallel`` both scans by ``scan``."""
     mask = _mask(log_lik, mask)
-    fwd = forward_parallel_plain if parallel else forward_plain
-    log_alpha, _ = fwd(log_pi0, log_P, log_lik, mask)
+    if parallel:
+        log_alpha, _ = forward_parallel_plain(log_pi0, log_P, log_lik, mask, scan)
+    else:
+        log_alpha, _ = forward_plain(log_pi0, log_P, log_lik, mask)
     z_last, psi = presample_path_draws_plain(log_alpha, log_P, mask, u_last, u_maps)
-    return _backtrace(psi, z_last, parallel)
+    return _backtrace(psi, z_last, parallel, scan)
 
 
 def sample_states_plain(log_pi0, log_P, u0, u):
@@ -581,11 +589,8 @@ def viterbi_scan_cuda(log_pi0, log_P, log_lik, mask):
 
 
 def _check_tensors(name, tensors, dtypes):
-    dev = tensors[0].device
+    check_device(name, tensors)
     for t, dt in zip(tensors, dtypes):
-        if t.device.type != 'cuda' or t.device != dev:
-            raise ValueError('%s: every tensor must lie on one CUDA device, got %s'
-                             % (name, [str(t.device) for t in tensors]))
         if t.dtype != dt:
             raise ValueError('%s: takes %s tensors, got %s' % (name, dt, t.dtype))
 
@@ -642,6 +647,217 @@ def sample_states_cuda(log_pi0, log_P, u0, u):
     if B:
         launch('hmm_sample_posterior', pi0.data_ptr(), lp.data_ptr(), u0.data_ptr(),
                u.data_ptr(), B, S + 1, K, path.data_ptr(), symbol='bn_hmm_sample_states')
+    return path
+
+
+# --------------------------------------- time shards (K32-K35, row 19a)
+# A shard of a time-sharded chain holds frames [t0, t1) of every trial as
+# a trial of its own: log_lik (N, Ts, K), mask (N, Ts), log_P (K, K) or its
+# own steps (N, Ts-1, K, K); a shard after the first also the step into
+# t0, entry_P (K, K) or (N, K, K), and the mask of frame t0 - 1, m_prev
+# (N,). ``parallel.seq`` cuts the chain, launches these on each shard's
+# device and copies the totals between shards (kernels/hmm_shard.cu).
+
+_SHARD = 'hmm_shard_totals'   # the source of K32-K35
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _check_shard(log_pi0, log_P, entry_P, log_lik, mask):
+    """K32 / K33's input checks (``_check``'s, and entry_P's shape beside
+    log_P's); returns N, T, K, the _tv suffix and the inputs made
+    contiguous."""
+    N, T, K, tv, _, (pi0, lp, ll, m) = _check(_SHARD, log_pi0, log_P, log_lik, mask)
+    if entry_P is not None:
+        dtype_suffix(_SHARD, (ll, entry_P), float64=False)
+        if tuple(entry_P.shape) != ((N, K, K) if tv else (K, K)):
+            raise ValueError('%s: entry_P must be %s beside log_P %s, got %s'
+                             % (_SHARD, (N, K, K) if tv else (K, K), tuple(log_P.shape),
+                                tuple(entry_P.shape)))
+        entry_P = entry_P.contiguous()
+    return N, T, K, '_tv' if tv else '', (pi0, lp, entry_P, ll, m)
+
+
+def _check_totals(totals, s, N, K, dev, dtype=torch.float32, width=None):
+    """The gathered totals (n_sh, N, K+1, K) (or map totals (n_sh, N, K)) on
+    the shard's device; returns n_sh."""
+    want = (N, K if width is None else width, K) if dtype == torch.float32 else (N, K)
+    if totals.dim() != len(want) + 1 or tuple(totals.shape[1:]) != want or \
+            totals.dtype != dtype or totals.device != dev or not 0 <= s < totals.shape[0]:
+        raise ValueError('%s: takes totals (n_sh,) + %s %s on %s and 0 <= s < n_sh, got %s %s '
+                         'on %s, s=%d' % (_SHARD, want, dtype, dev, tuple(totals.shape),
+                                          totals.dtype, totals.device, s))
+    return totals.shape[0]
+
+
+def shard_totals_cuda(log_pi0, log_P, entry_P, log_lik, mask, maxplus=False):
+    """K32 on the card: the shard's total (N, K+1, K) in the log or, with
+    ``maxplus``, the (max, +) semiring, rows 0..K-1 the product of its step
+    matrices (the entry step's first), row K (first shard: entry_P None)
+    alpha_0 = log_pi0 + log_lik[:, 0] m[:, 0]; and the chunk products (N,
+    C, K, K) that K33 reads."""
+    N, T, K, tv, (pi0, lp, ep, ll, m) = _check_shard(log_pi0, log_P, entry_P, log_lik, mask)
+    L = scan_chunk(T)
+    kw = dict(device=ll.device, dtype=torch.float32)
+    prod = torch.empty((N, _n_chunks(T, L), K, K), **kw)
+    totals = torch.empty((N, K + 1, K), **kw)
+    launch(_SHARD, pi0.data_ptr(), lp.data_ptr(), _ptr(ep), ll.data_ptr(), m.data_ptr(), N, T,
+           K, L, prod.data_ptr(), totals.data_ptr(),
+           symbol='bn_hmm_shard_totals' + ('_maxplus' if maxplus else '') + tv)
+    return totals, prod
+
+
+def _finish_scratch(N, T, K, dev):
+    L = scan_chunk(T)
+    kw = dict(device=dev, dtype=torch.float32)
+    return L, torch.empty((2, N, _n_chunks(T, L) + 1, K), **kw), torch.empty((3, N, K), **kw)
+
+
+def shard_forward_backward_cuda(totals, s, log_pi0, log_P, entry_P, log_lik, mask, m_prev,
+                                prod):
+    """K33's posteriors on shard ``s``: from the gathered totals (n_sh, N,
+    K+1, K) of K32 (log semiring) and this shard's chunk products ``prod``,
+    (gamma (N, Ts, K), log_Z (N,) on the last shard else None, the xi_sum
+    (N, K, K) of the shard's steps, the step into t0 included)."""
+    N, T, K, tv, (pi0, lp, ep, ll, m) = _check_shard(log_pi0, log_P, entry_P, log_lik, mask)
+    n_sh = _check_totals(totals, s, N, K, ll.device, width=K + 1)
+    if s > 0 and (m_prev is None or m_prev.shape != (N,)):
+        raise ValueError('%s: a shard after the first takes m_prev (N,)' % _SHARD)
+    dev = ll.device
+    L, entries, ends = _finish_scratch(N, T, K, dev)
+    kw = dict(device=dev, dtype=torch.float32)
+    passes = torch.empty((2, N, T, K), **kw)
+    parts = torch.empty((N, -(-T // L), K, K), **kw)
+    gamma, log_Z, xi_sum = (torch.empty((N, T, K), **kw), torch.empty(N, **kw),
+                            torch.empty((N, K, K), **kw))
+    launch(_SHARD, totals.contiguous().data_ptr(), n_sh, s, pi0.data_ptr(), lp.data_ptr(),
+           _ptr(ep), ll.data_ptr(), m.data_ptr(), _ptr(None if s == 0 else m_prev.contiguous()),
+           N, T, K, L, prod.data_ptr(), entries.data_ptr(), ends.data_ptr(),
+           passes[0].data_ptr(), passes[1].data_ptr(), parts.data_ptr(), gamma.data_ptr(),
+           log_Z.data_ptr(), xi_sum.data_ptr(), symbol='bn_hmm_shard_finish' + tv)
+    return gamma, (log_Z if s == n_sh - 1 else None), xi_sum
+
+
+def shard_forward_alpha_cuda(totals, s, log_pi0, log_P, entry_P, log_lik, mask, prod):
+    """K33's filtered alphas on shard ``s``: (log_alpha (N, Ts, K), alpha at
+    frame t0 - 1 (N, K), None on the first shard) for K34's draws."""
+    N, T, K, tv, (pi0, lp, ep, ll, m) = _check_shard(log_pi0, log_P, entry_P, log_lik, mask)
+    n_sh = _check_totals(totals, s, N, K, ll.device, width=K + 1)
+    L, entries, ends = _finish_scratch(N, T, K, ll.device)
+    log_alpha = torch.empty((N, T, K), device=ll.device, dtype=torch.float32)
+    launch(_SHARD, totals.contiguous().data_ptr(), n_sh, s, pi0.data_ptr(), lp.data_ptr(),
+           _ptr(ep), ll.data_ptr(), m.data_ptr(), N, T, K, L, prod.data_ptr(),
+           entries.data_ptr(), ends.data_ptr(), log_alpha.data_ptr(),
+           symbol='bn_hmm_shard_alpha' + tv)
+    return log_alpha, (ends[0] if s > 0 else None)
+
+
+def shard_viterbi_cuda(totals, s, log_pi0, log_P, entry_P, log_lik, mask, prod):
+    """K33's Viterbi on shard ``s`` from the gathered (max, +) totals: (the
+    backpointers psi (N, max(Ts-1, 1), K), the entry step's (N, K) or None
+    on the first shard, z_{T-1} (N,) on the last shard or None), int32."""
+    N, T, K, tv, (pi0, lp, ep, ll, m) = _check_shard(log_pi0, log_P, entry_P, log_lik, mask)
+    n_sh = _check_totals(totals, s, N, K, ll.device, width=K + 1)
+    L, entries, ends = _finish_scratch(N, T, K, ll.device)
+    kw = dict(device=ll.device, dtype=torch.int32)
+    psi = torch.empty((N, max(T - 1, 1), K), **kw)
+    psi_entry = torch.empty((N, K), **kw)
+    bounds = torch.empty((N, _n_chunks(T, L) + 1), **kw)
+    launch(_SHARD, totals.contiguous().data_ptr(), n_sh, s, pi0.data_ptr(), lp.data_ptr(),
+           _ptr(ep), ll.data_ptr(), m.data_ptr(), N, T, K, L, prod.data_ptr(),
+           entries.data_ptr(), ends.data_ptr(), psi.data_ptr(), psi_entry.data_ptr(),
+           bounds.data_ptr(), symbol='bn_hmm_shard_viterbi' + tv)
+    return psi, (psi_entry if s > 0 else None), \
+        (bounds[:, -1].contiguous() if s == n_sh - 1 else None)
+
+
+def _check_maps(name, tensors, N, K):
+    _check_tensors(name, tensors, (torch.int32,) * len(tensors))
+    if any(t.shape[0] != N or t.shape[-1] != K for t in tensors):
+        raise ValueError('%s: maps of (N, ..., K) = (%d, ..., %d), got %s'
+                         % (name, N, K, [tuple(t.shape) for t in tensors]))
+
+
+def shard_maps_cuda(psi, psi_entry, T):
+    """K34 from K33's backpointers psi (N, max(T-1, 1), K) of a shard of T
+    frames and its entry step's psi_entry (N, K) (None on the first shard):
+    (the shard's map total G (N, K), the chunks' composed maps (N, C, K)
+    that K35 reads), int32."""
+    N, _, K = psi.shape
+    _check_maps(_SHARD, [t for t in (psi, psi_entry) if t is not None], N, K)
+    L = scan_chunk(T)
+    maps = torch.empty((N, _n_chunks(T, L), K), device=psi.device, dtype=torch.int32)
+    G = torch.empty((N, K), device=psi.device, dtype=torch.int32)
+    launch(_SHARD, psi.contiguous().data_ptr(), _ptr(psi_entry), N, T, K, L, maps.data_ptr(),
+           G.data_ptr(), symbol='bn_hmm_shard_maps')
+    return G, maps
+
+
+def shard_sample_maps_cuda(log_alpha, log_P, mask, u_maps, u_last=None, alpha_prev=None,
+                           entry_P=None, u_entry=None):
+    """K34 by sampling on a shard: K15's draws of the predecessor maps of
+    its steps from its alphas (N, Ts, K), log_P, mask and uniforms u_maps
+    (N, Ts-1, K, K), and of the entry step's from alpha_prev (the alpha of
+    frame t0 - 1, (N, K)), entry_P and u_entry (N, K, K) (all three None on
+    the first shard); on the last shard z_{T-1} from u_last (N, K). Returns
+    (G (N, K), the chunks' maps, psi, z_{T-1} (N,) or None), int32."""
+    N, T, K = log_alpha.shape
+    tv = log_P.dim() == 4
+    given = [t for t in (log_alpha, log_P, mask, u_maps, u_last, alpha_prev, entry_P, u_entry)
+             if t is not None]
+    _check_tensors(_SHARD, given, (torch.float32,) * len(given))
+    if log_P.shape not in ((K, K), (N, T - 1, K, K)) or mask.shape != (N, T) or \
+            u_maps.shape != (N, T - 1, K, K) or (u_last is not None and u_last.shape != (N, K)):
+        raise ValueError('%s: takes log_P (K, K) or (N, T-1, K, K), mask (N, T), u_maps (N, '
+                         'T-1, K, K) and u_last (N, K) beside log_alpha %s, got %s'
+                         % (_SHARD, (N, T, K), [tuple(t.shape) for t in given[1:]]))
+    entry = (alpha_prev, entry_P, u_entry)
+    if any(t is not None for t in entry) and any(
+            t is None or tuple(t.shape) != want
+            for t, want in zip(entry, ((N, K), (N, K, K) if tv else (K, K), (N, K, K)))):
+        raise ValueError('%s: alpha_prev (N, K), entry_P (as a step of log_P) and u_entry (N, '
+                         'K, K) go together, got %s' % (_SHARD, [None if t is None else
+                                                                 tuple(t.shape) for t in entry]))
+    if not 1 <= K <= _MAX_K:
+        raise ValueError('%s: takes 1 <= K <= %d states, got K=%d' % (_SHARD, _MAX_K, K))
+    la, lp, m, um = (t.contiguous() for t in (log_alpha, log_P, mask, u_maps))
+    L = scan_chunk(T)
+    C = _n_chunks(T, L)
+    kw = dict(device=la.device, dtype=torch.int32)
+    psi, psi_entry = torch.empty((N, max(T - 1, 1), K), **kw), torch.empty((N, K), **kw)
+    maps, bounds, G = (torch.empty((N, C, K), **kw), torch.empty((N, C + 1), **kw),
+                       torch.empty((N, K), **kw))
+    launch(_SHARD, la.data_ptr(), lp.data_ptr(), m.data_ptr(),
+           _ptr(None if u_last is None else u_last.contiguous()), um.data_ptr(),
+           _ptr(None if alpha_prev is None else alpha_prev.contiguous()),
+           _ptr(None if entry_P is None else entry_P.contiguous()),
+           _ptr(None if u_entry is None else u_entry.contiguous()), N, T, K, L, psi.data_ptr(),
+           psi_entry.data_ptr(), maps.data_ptr(), bounds.data_ptr(), G.data_ptr(),
+           symbol='bn_hmm_shard_sample_maps' + ('_tv' if tv else ''))
+    return G, maps, psi, (bounds[:, -1].contiguous() if u_last is not None else None)
+
+
+def shard_backtrace_cuda(G, z_last, s, psi, maps, T):
+    """K35 on shard ``s`` of T frames: the gathered map totals G (n_sh, N,
+    K) and z_{T-1} (N,), with the shard's psi and K34's chunk maps, give
+    its path (N, T) int32."""
+    N, C, K = maps.shape
+    _check_maps(_SHARD, [psi, maps, G[0]], N, K)
+    n_sh = _check_totals(G, s, N, K, psi.device, dtype=torch.int32)
+    if z_last.shape != (N,) or z_last.dtype != torch.int32 or z_last.device != psi.device:
+        raise ValueError('%s: z_last must be (N,) int32 on %s, got %s %s on %s'
+                         % (_SHARD, psi.device, tuple(z_last.shape), z_last.dtype,
+                            z_last.device))
+    L = scan_chunk(T)
+    if C != _n_chunks(T, L):
+        raise ValueError('%s: maps of %d chunks do not fit T=%d' % (_SHARD, C, T))
+    bounds = torch.empty((N, C + 1), device=psi.device, dtype=torch.int32)
+    path = torch.empty((N, T), device=psi.device, dtype=torch.int32)
+    launch(_SHARD, G.contiguous().data_ptr(), z_last.contiguous().data_ptr(), n_sh, s,
+           psi.contiguous().data_ptr(), maps.contiguous().data_ptr(), N, T, K, L,
+           bounds.data_ptr(), path.data_ptr(), symbol='bn_hmm_shard_backtrace')
     return path
 
 

@@ -6,7 +6,7 @@
 On one CUDA GPU (an H100: the kernels are built for sm_90a) it
 
 1. prints the card's name and power limit (nvidia-smi);
-2. builds the port's twenty-one CUDA kernel sources from this checkout;
+2. builds the port's twenty-two CUDA kernel sources from this checkout;
 3. holds each kernel against its plain PyTorch version at the shapes the
    two main paths give it, and times the kernel, the plain version and the
    one PyTorch call that computes the same function (TF32 off for every
@@ -97,7 +97,23 @@ On one CUDA GPU (an H100: the kernels are built for sm_90a) it
    against a plain float64 one; timed and profiled) and one 'recurrent' +
    'robust_ar' float64 iteration with its decoding; and the CLI with
    ``em_dtype: float64`` over K = 2, 4, its K = 4 model served in float64
-   through ``load_arhmm``.
+   through ``load_arhmm``. Then the time-sharded passes (row 19a,
+   kernels/hmm_shard.cu) on the 100,000-frame session, on meshes that
+   repeat the card 1, 2 and 4 times (``parallel.Mesh``: every shard's
+   launches and every exchange run, one shard after another): K32 (a
+   shard's totals, log and (max, +)), K33 (its posteriors, filtered alphas
+   or backpointers), K34 (its map total, from the backpointers or drawn)
+   and K35 (its backtrace) through ``parallel.seq``'s passes against their
+   plain versions, float64 and, with one shard, K13-K15 bit for bit, the
+   stationary EM model's chain and the recurrent model's time-varying one,
+   each launcher timed (``check_sp_kernels``); EM on meshes
+   (``arhmm_em_sp``: ``fit(shard_time=True)`` over 4 shards of two
+   100,000-frame sessions, the trial layout over 2 shards of the EM
+   workload, each with and without ``iters_per_dispatch=2``, against the
+   unsharded fit; timed and profiled); and ``expected_states``,
+   ``most_likely_states`` and ``posterior_sample(mesh=)`` of the session on
+   1 and 4 shards beside the unsharded ``parallel_scan`` calls
+   (``arhmm_sp_serve``).
 8. the neural decoders (main paths 9-12) at the published decoding config
    (configs/decoding_jsons: a 9-wide temporal conv, one hidden layer of 32
    relu units, 9 AE latents or 4 ARHMM states) on 189-frame trials of 256
@@ -203,10 +219,23 @@ Each phase prints one JSON line; the line before the last lists the kernels
 with their numbers, and the last line is ``{"ok": true, "device": ...}``.
 Without a CUDA device, or outside a checkout of the repository, it exits
 non-zero and prints no result. Any failure exits non-zero.
+
+    python3 chip_smoke.py --cards N
+
+runs, after the build, only the mesh paths across N distinct cards of one
+host (``mesh_cards``): the ARHMM's ``expected_states`` /
+``most_likely_states`` / ``posterior_sample(mesh=)`` of the 100,000-frame
+session and ``fit`` in both layouts (with and without
+``iters_per_dispatch=2``) on a mesh of cards 0..N-1 and on one that starts
+at card 1 (its first device not the model's), held to the same calls on a
+mesh that repeats card 0 N times; then the ARHMM CLI, which shards EM over
+the trials on every card.
 """
 
+import argparse
 import contextlib
 import csv
+import functools
 import json
 import os
 import pickle
@@ -455,6 +484,26 @@ KERNELS = {
                            'behavenet_tpu/ops/hmm.py:186'),
     'solve_small_f64': ('behavenet_tpu_torch/kernels/solve_small.cu',
                         'behavenet_tpu/ops/smallmat.py:17'),
+    # the time-sharded passes (row 19a): a shard's totals (K32, log and
+    # (max, +) semirings), its finish (K33: posteriors, filtered alphas,
+    # backpointers), its map total (K34: from the backpointers or drawn) and
+    # its backtrace (K35)
+    'hmm_shard_totals': ('behavenet_tpu_torch/kernels/hmm_shard.cu',
+                         'behavenet_tpu/parallel/seq.py:58'),
+    'hmm_shard_totals_maxplus': ('behavenet_tpu_torch/kernels/hmm_shard.cu',
+                                 'behavenet_tpu/parallel/seq.py:58'),
+    'hmm_shard_finish': ('behavenet_tpu_torch/kernels/hmm_shard.cu',
+                         'behavenet_tpu/parallel/seq.py:143'),
+    'hmm_shard_finish_alpha': ('behavenet_tpu_torch/kernels/hmm_shard.cu',
+                               'behavenet_tpu/parallel/seq.py:134'),
+    'hmm_shard_finish_viterbi': ('behavenet_tpu_torch/kernels/hmm_shard.cu',
+                                 'behavenet_tpu/parallel/seq.py:182'),
+    'hmm_shard_maps': ('behavenet_tpu_torch/kernels/hmm_shard.cu',
+                       'behavenet_tpu/parallel/seq.py:208'),
+    'hmm_shard_maps_sample': ('behavenet_tpu_torch/kernels/hmm_shard.cu',
+                              'behavenet_tpu/parallel/seq.py:214'),
+    'hmm_shard_backtrace': ('behavenet_tpu_torch/kernels/hmm_shard.cu',
+                            'behavenet_tpu/parallel/seq.py:208'),
 }
 
 # the kernels a served request runs (an AE train step runs K1-K6, a
@@ -549,6 +598,36 @@ PARALLEL_REC_DECODE_KERNELS = ('hmm_viterbi_scan_tv', 'hmm_sample_posterior_tv')
 PARALLEL_CLI_KERNELS = ('arhmm_log_likes', 'hmm_scan', 'hmm_viterbi_scan') + MSTEP_KERNELS
 LONG_FRAMES = 100000
 SAMPLE_DRAWS, CHAINS, CHAIN_STEPS, SAMPLE_LEN = 400, 1000, 1000, 1000
+# The time-sharded passes (K32-K35, row 19a) on the long session, on meshes
+# that repeat the card SP_SHARDS times: an n-shard mesh on one card runs
+# every shard's launches and every exchange, one shard after another. K32
+# and K33 against the plain parallel/seq.py passes and float64 as K13 is
+# held (check_scan's tolerances); paths and draws against the plain
+# versions by PATH_AGREE and, Viterbi, PATH_LP_REL_TOL; the filtered alphas
+# within LOGZ_REL_TOL of their largest magnitude, and against the plain
+# forward pass in float64 frame by frame, relative to each frame's largest
+# magnitude (at least 1), within LOGZ_REL_TOL or twice the larger of the
+# plain float32 pass's and K13's own errors; with one shard K13-K15's
+# outputs bit for bit. The shard boundaries (each
+# boundary step's xi counted once) and padding on the long session's first
+# SP_CUT_FRAMES frames with the frames from SP_CUT_VALID on masked, on
+# meshes of SP_CUT_SHARDS shards (with 8 the last shard is padding only):
+# xi_sum within SP_XI_ABS_TOL counts of the plain pass's in every entry,
+# and its total within SP_XI_COUNT_TOL of the number of steps between two
+# valid frames (a dropped or doubled boundary step moves it by 1). EM on
+# meshes (SP_EM_SHARDS for the time layout on two long sessions,
+# SP_TRIAL_SHARDS for the trial layout on the EM workload): SP_EM_ITERS
+# iterations, with and without iters_per_dispatch SP_DISPATCH, the LLs
+# non-decreasing and within SP_EM_REL_TOL of the unsharded fit's (K13 on
+# the long sessions: K9's float32 log_Z drifts 7e-4 there).
+SP_SHARDS, SP_EM_SHARDS, SP_TRIAL_SHARDS = (1, 2, 4), 4, 2
+SP_CUT_FRAMES, SP_CUT_VALID, SP_CUT_SHARDS = 1003, 880, (4, 8)
+SP_XI_ABS_TOL, SP_XI_COUNT_TOL = 1e-3, 1e-2
+MESH_CARD_ITERS = 3   # EM iterations of each fit in mesh_cards
+SP_EM_ITERS, SP_DISPATCH, SP_EM_REL_TOL = 4, 2, 1e-4
+SP_KERNELS = ('hmm_shard_totals', 'hmm_shard_finish', 'hmm_shard_totals_maxplus',
+              'hmm_shard_finish_viterbi', 'hmm_shard_maps', 'hmm_shard_backtrace',
+              'hmm_shard_finish_alpha', 'hmm_shard_maps_sample')
 DRAW_TIE_TOL, SAMPLE_SE = 1e-5, 5.0
 
 # The neural decoders at the published decoding config
@@ -696,8 +775,9 @@ def import_port():
     from behavenet_tpu_torch.models import aes, arch, arhmm, base, bayesian, decoders, vaes
     from behavenet_tpu_torch.ops import conv as ops
     from behavenet_tpu_torch.ops import hmm, imm, kalman, losses, lstm, optim, smallmat
+    from behavenet_tpu_torch.parallel import mesh, seq
     from behavenet_tpu_torch.utils import pickles, weights
-    return types.SimpleNamespace(
+    return types.SimpleNamespace(mesh=mesh, seq=seq,
         serving=serving, build=build, arch=arch, base=base, ops=ops, aes=aes,
         vaes=vaes, losses=losses, optim=optim, training=training,
         experiment=experiment, weights=weights, arhmm=arhmm, hmm=hmm, smallmat=smallmat,
@@ -3802,7 +3882,486 @@ def long_session(port, model):
     if missing or z_err['k13'] > z_tol or g_err['k13'] > g_tol or agree < PATH_AGREE or \
             lp_rel > PATH_LP_REL_TOL:
         raise AssertionError('the long session disagrees (missing %s): %s' % (missing, rec))
+    return launches, dict(data=data, chain=(pi0, lp, ll, mask), gamma64=g_d, log_z64=z_d.item(),
+                          gamma_tol=g_tol, log_z_tol=z_tol)
+
+
+def sp_launchers(port, pi0, lp, ll, m, mesh, u_last, u_maps):
+    """K32-K35 on every shard of ``mesh`` (one card) through
+    ``parallel.seq``'s own stages, each from the outputs of the stages
+    before it in one run: kernel -> a function that runs that stage (its
+    launcher on every shard, with the exchange it reads). Also the shards
+    and the filtered alphas of K33's alpha mode, joined (1, T, K)."""
+    seq = port.seq
+    shards = seq.shard_chain(lp, ll, m, mesh)
+    t_log, t_max = seq.stage_totals(pi0, shards), seq.stage_totals(pi0, shards, maxplus=True)
+    vit, al = seq.stage_viterbi(t_max, shards), seq.stage_alphas(t_log, shards)
+    mp = seq.stage_maps(shards, vit)
+    fns = {'hmm_shard_totals': lambda: seq.stage_totals(pi0, shards),
+           'hmm_shard_totals_maxplus': lambda: seq.stage_totals(pi0, shards, maxplus=True),
+           'hmm_shard_finish': lambda: seq.stage_finish(t_log, shards),
+           'hmm_shard_finish_alpha': lambda: seq.stage_alphas(t_log, shards),
+           'hmm_shard_finish_viterbi': lambda: seq.stage_viterbi(t_max, shards),
+           'hmm_shard_maps': lambda: seq.stage_maps(shards, vit),
+           'hmm_shard_maps_sample': lambda: seq.stage_sample_maps(shards, al, u_last, u_maps),
+           'hmm_shard_backtrace': lambda: seq.stage_backtrace(shards, [v[0] for v in vit], mp,
+                                                              vit[-1][2])}
+    return fns, shards, torch.cat([a for a, _ in al], dim=1)
+
+
+def sp_bounds(K, frames, n_sh, tv):
+    """Each launcher's bound over a trial of ``frames`` frames cut into
+    ``n_sh`` shards, K13's accounting ((20 K^2 + 6 K) operations a frame,
+    inputs read and outputs written once) split by launcher: K32 the
+    forward chain's 5 K^2 (a K-term log-sum-exp a state: add, max,
+    subtract, exp, sum), K33 the rest of K13's (posteriors: 15 K^2 + 6 K)
+    or the alphas' 5 K^2; (max, +) K^2 each for K32 and K33 (K14's 2 K^2);
+    K34 a gather a state a step (drawn: K15's 8 K^2); K35 one a frame."""
+    F, KK = frames, K * K
+    lp = 4 * (F * KK if tv else KK)
+    chain = 4 * F * (K + 1) + lp                  # log_lik and mask, log_P
+    tot = 4 * n_sh * (K + 1) * K                  # the gathered totals
+    return {'hmm_shard_totals': bound(5 * KK * F, chain + tot),
+            'hmm_shard_totals_maxplus': bound(KK * F, chain + tot),
+            'hmm_shard_finish': bound((15 * KK + 6 * K) * F,
+                                      chain + tot + 4 * F * K + 4 * n_sh * KK + 4),
+            'hmm_shard_finish_alpha': bound(5 * KK * F, chain + tot + 4 * F * K),
+            'hmm_shard_finish_viterbi': bound(KK * F, chain + tot + 4 * F * K),
+            'hmm_shard_maps': bound(K * F, 4 * F * K + 4 * n_sh * K),
+            'hmm_shard_maps_sample': bound(8 * KK * F, 4 * F * K + lp + 4 * F * KK
+                                           + 4 * F * K + 4 * n_sh * K),
+            'hmm_shard_backtrace': bound(F, 4 * F * K + 4 * n_sh * K + 4 * F)}
+
+
+def frame_rel_err(a, ref):
+    """The largest distance of log-alphas ``a`` (N, T, K) from the float64
+    ``ref`` in a frame, relative to that frame's largest |ref| (at least
+    1)."""
+    return ((a.double() - ref).abs().amax(-1) / ref.abs().amax(-1).clamp(min=1.0)).max().item()
+
+
+def sp_boundaries(port, pi0, lp, ll, m):
+    """The shard boundaries and padding of K32-K35 on a short trial: the
+    first SP_CUT_FRAMES frames of the chain (pi0, lp, ll, m), the frames
+    from SP_CUT_VALID on masked, on meshes of SP_CUT_SHARDS shards of the
+    card, against the plain passes on the same mesh. A boundary step's xi
+    is one count among the trial's ~SP_CUT_VALID, so its loss or a second
+    count shows in xi_sum's total (held to the number of steps between two
+    valid frames) and in its entries."""
+    seq = port.seq
+    F, V = SP_CUT_FRAMES, SP_CUT_VALID
+    lp = lp[:, :F - 1] if lp.dim() == 4 else lp
+    ll, m = ll[:, :F], m[:, :F].clone()
+    m[:, V:] = 0
+    args = (pi0, lp, ll, m)
+    steps = (m[:, 1:] * m[:, :-1]).double().sum().item()
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 16)
+    u = (port.hmm.uniforms((1, EM_STATES), gen, ll.device),
+         port.hmm.uniforms((1, F - 1, EM_STATES, EM_STATES), gen, ll.device))
+    out = {}
+    for n in SP_CUT_SHARDS:
+        mesh = port.mesh.Mesh([DEVICE] * n, ('sp',))
+        fb, fb_p = seq.sp_forward_backward(*args, mesh=mesh), seq.sp_forward_backward_plain(
+            *args, mesh)
+        path, path_p = seq.sp_viterbi(*args, mesh=mesh), seq.sp_viterbi_plain(*args, mesh)
+        draw = seq.sp_sample_posterior(*args, mesh=mesh, uniforms=u)
+        draw_p = seq.sp_sample_posterior_plain(*args, *u, mesh)
+        lps = [path_lp64(port, *args, z) for z in (path, path_p)]
+        out[n] = dict(
+            shard_frames=[t1 - t0 for t0, t1 in seq.shard_bounds(F, n)], valid_frames=V,
+            steps=steps, xi_sum_max_abs_err=(fb[2] - fb_p[2]).abs().max().item(),
+            xi_count_err=abs(fb[2].double().sum().item() - steps),
+            plain_xi_count_err=abs(fb_p[2].double().sum().item() - steps),
+            gamma_max_abs_err=(fb[0] - fb_p[0]).abs().max().item(),
+            log_z_rel_err=abs(fb[1].item() - fb_p[1].item()) / abs(fb_p[1].item()),
+            padded_zero=bool((fb[0][m == 0] == 0).all().item()),
+            path_agreement=(path == path_p).float().mean().item(),
+            path_log_prob_rel_err=((lps[0] - lps[1]).abs() / lps[1].abs()).max().item(),
+            draw_agreement=(draw == draw_p).float().mean().item())
+    return out
+
+
+def check_sp_kernels(port, long, rec_model):
+    """K32-K35 (``kernels/hmm_shard.cu``, row 19a) on the long session at
+    full width (K = 16, LONG_FRAMES frames), stationary (the EM model, the
+    chain and float64 reference of ``long_session``) and time-varying (the
+    seeded 'recurrent' + 'robust_ar' model's (1, T-1, 16, 16) log_P), on
+    meshes of SP_SHARDS shards of the card: ``parallel.seq``'s passes
+    against their plain versions on the same mesh and inputs (gamma, log_Z,
+    xi_sum; Viterbi paths; draws from the same uniforms), gamma and log_Z
+    against the plain parallel pass in float64 within check_scan's
+    tolerances, each launcher's outputs from the first run (the alphas
+    against the plain forward pass), and with one shard K13's, K14's and
+    K15's outputs bit for bit. Each launcher timed on every shard of the
+    largest mesh beside the plain pass it serves; the passes timed whole at
+    every mesh beside K13-K15. The shard boundaries and padding on a short
+    trial (:func:`sp_boundaries`). Returns one line per launcher."""
+    hmm, seq = port.hmm, port.seq
+    x, mask = rec_model.pad([long['data']])
+    rp = rec_model.params
+    cases = [('stationary',) + long['chain'],
+             ('time_varying', rp['log_pi0'], rec_model._log_P(rp, x),
+              rec_model._log_likes(rp, x, mask), mask)]
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(SEED + 14)
+    K, frames = EM_STATES, LONG_FRAMES
+    res = {name: {} for name in SP_KERNELS}
+    phase = dict(phase='sp_pass_check', frames=frames, states=K, shards=list(SP_SHARDS), cases={})
+    for name, pi0, lp, ll, m in cases:
+        tv = lp.dim() == 4
+        u_last = hmm.uniforms((1, K), gen, ll.device)
+        u_maps = hmm.uniforms((1, frames - 1, K, K), gen, ll.device)
+        args = (pi0, lp, ll, m)
+        if tv:
+            g64, z64, _ = hmm.forward_backward_plain(*(t.double() for t in args), parallel=True)
+            z64 = z64.item()
+        else:
+            g64, z64 = torch.from_numpy(long['gamma64']).to(ll.device)[None], long['log_z64']
+        k13 = hmm.forward_backward_scan_cuda(*args)
+        k14 = hmm.viterbi_scan_cuda(*args)
+        la13 = hmm.forward_scan_cuda(*args, with_alpha=True)[0]
+        a64 = hmm.forward_parallel_plain(*(t.double() for t in args))[0]
+        k15 = hmm.sample_posterior_cuda(la13, lp, m, u_last, u_maps)
+        torch.cuda.synchronize()
+        per_n = {}
+        for n in SP_SHARDS:
+            mesh = port.mesh.Mesh([DEVICE] * n, ('sp',))
+            fb = seq.sp_forward_backward(*args, mesh=mesh)
+            fb_p = seq.sp_forward_backward_plain(*args, mesh)
+            path, path_p = seq.sp_viterbi(*args, mesh=mesh), seq.sp_viterbi_plain(*args, mesh)
+            draw = seq.sp_sample_posterior(*args, mesh=mesh, uniforms=(u_last, u_maps))
+            draw_p = seq.sp_sample_posterior_plain(*args, u_last, u_maps, mesh)
+            fns, _, alphas = sp_launchers(port, *args, mesh, u_last, u_maps)
+            scan = functools.partial(seq.sp_scan, mesh=mesh)
+            alphas_p = hmm.forward_parallel_plain(*args, scan=scan)[0]
+            torch.cuda.synchronize()
+            a_errs = {who: frame_rel_err(a, a64)
+                      for who, a in (('kernel', alphas), ('plain', alphas_p), ('k13', la13))}
+            lps = [path_lp64(port, *args, z) for z in (path, path_p, draw, draw_p)]
+            errs = {who: (o[0].double() - g64).abs().max().item()
+                    for who, o in (('kernel', fb), ('plain', fb_p), ('k13', k13))}
+            z_errs = {who: abs(o[1].item() - z64) / abs(z64)
+                      for who, o in (('kernel', fb), ('plain', fb_p), ('k13', k13))}
+            c = dict(
+                gamma_max_abs_err=(fb[0] - fb_p[0]).abs().max().item(),
+                log_z_rel_err=abs(fb[1].item() - fb_p[1].item()) / abs(fb_p[1].item()),
+                xi_sum_rel_err=(fb[2] - fb_p[2]).abs().max().item() / fb_p[2].abs().max().item(),
+                gamma_err_vs_f64=errs, log_z_rel_err_vs_f64=z_errs,
+                posterior_tol=max(GAMMA_ABS_TOL, 2 * max(errs['plain'], errs['k13'])),
+                log_z_tol=max(LOGZ_REL_TOL, 2 * max(z_errs['plain'], z_errs['k13'])),
+                alpha_rel_err=(alphas - alphas_p).abs().max().item()
+                / alphas_p.abs().max().item(),
+                alpha_frame_rel_err_vs_f64=a_errs,
+                alpha_frame_tol=max(LOGZ_REL_TOL, 2 * max(a_errs['plain'], a_errs['k13'])),
+                path_agreement=(path == path_p).float().mean().item(),
+                path_log_prob_rel_err=((lps[0] - lps[1]).abs() / lps[1].abs()).max().item(),
+                draw_agreement=(draw == draw_p).float().mean().item(),
+                draw_log_prob_rel_err=((lps[2] - lps[3]).abs() / lps[3].abs()).max().item(),
+                padded_zero=bool((fb[0][m == 0] == 0).all().item()),
+                finite=bool(torch.isfinite(fb[0]).all().item()),
+                pass_ms=dict(
+                    forward_backward=median_ms(lambda: seq.sp_forward_backward(*args, mesh=mesh),
+                                               samples=3, inner=3),
+                    viterbi=median_ms(lambda: seq.sp_viterbi(*args, mesh=mesh),
+                                      samples=3, inner=3),
+                    sample=median_ms(lambda: seq.sp_sample_posterior(
+                        *args, mesh=mesh, uniforms=(u_last, u_maps)), samples=3, inner=3)))
+            if n == 1:
+                c['equal_to_k13_k14_k15'] = [bool(torch.equal(a, b)) for a, b in (
+                    (fb[0], k13[0]), (fb[1], k13[1]), (fb[2], k13[2]), (path, k14), (draw, k15))]
+            per_n[n] = c
+            if n == max(SP_SHARDS):
+                plain = dict(
+                    forward_backward=median_ms(lambda: seq.sp_forward_backward_plain(*args, mesh),
+                                               samples=3, inner=1, warmup=1),
+                    alpha=median_ms(lambda: hmm.forward_parallel_plain(*args, scan=scan),
+                                    samples=3, inner=1, warmup=1),
+                    viterbi=median_ms(lambda: seq.sp_viterbi_plain(*args, mesh),
+                                      samples=3, inner=1, warmup=1),
+                    sample=median_ms(lambda: seq.sp_sample_posterior_plain(
+                        *args, u_last, u_maps, mesh), samples=3, inner=1, warmup=1))
+                serves = {'hmm_shard_totals': 'forward_backward',
+                          'hmm_shard_finish': 'forward_backward',
+                          'hmm_shard_finish_alpha': 'alpha', 'hmm_shard_maps_sample': 'sample'}
+                err = {'forward_backward': c['gamma_max_abs_err'],
+                       'alpha': c['alpha_rel_err'], 'viterbi': 1.0 - c['path_agreement'],
+                       'sample': 1.0 - c['draw_agreement']}
+                bounds = sp_bounds(K, frames, n, tv)
+                for kernel, fn in fns.items():
+                    pas = serves.get(kernel, 'viterbi')
+                    res[kernel]['%s_x%d' % (name, n)] = dict(
+                        frames=frames, shards=n, serves=pas, max_abs_err=err[pas],
+                        ms=median_ms(fn, samples=3, inner=5), plain_ms=plain[pas],
+                        **bounds[kernel])
+            del fb, fb_p, path, path_p, draw, draw_p, fns, alphas, alphas_p
+        phase['cases'][name] = dict(
+            boundaries=sp_boundaries(port, *args),
+            k13_ms=median_ms(lambda: hmm.forward_backward_scan_cuda(*args), samples=3, inner=3),
+            k14_ms=median_ms(lambda: hmm.viterbi_scan_cuda(*args), samples=3, inner=3),
+            k15_ms=median_ms(lambda: hmm.sample_posterior_cuda(
+                hmm.forward_scan_cuda(*args, with_alpha=True)[0], lp, m, u_last, u_maps),
+                samples=3, inner=3),
+            by_shards=per_n)
+        del k13, k14, k15, la13, a64, u_maps, g64
+    emit(phase)
+    bad = ['%s x%d' % (name, n) for name, c in phase['cases'].items()
+           for n, v in c['by_shards'].items()
+           if not v['finite'] or not v['padded_zero'] or not all(v.get('equal_to_k13_k14_k15', [1]))
+           or v['gamma_err_vs_f64']['kernel'] > v['posterior_tol']
+           or v['log_z_rel_err_vs_f64']['kernel'] > v['log_z_tol']
+           or v['log_z_rel_err'] > LOGZ_REL_TOL or v['xi_sum_rel_err'] > XI_REL_TOL
+           or v['alpha_rel_err'] > LOGZ_REL_TOL
+           or v['alpha_frame_rel_err_vs_f64']['kernel'] > v['alpha_frame_tol']
+           or v['path_agreement'] < PATH_AGREE
+           or v['path_log_prob_rel_err'] > PATH_LP_REL_TOL or v['draw_agreement'] < PATH_AGREE]
+    bad += ['%s boundaries x%d' % (name, n) for name, c in phase['cases'].items()
+            for n, v in c['boundaries'].items()
+            if v['xi_sum_max_abs_err'] > SP_XI_ABS_TOL or v['xi_count_err'] > SP_XI_COUNT_TOL
+            or v['gamma_max_abs_err'] > GAMMA_ABS_TOL or v['log_z_rel_err'] > LOGZ_REL_TOL
+            or not v['padded_zero'] or v['path_agreement'] < PATH_AGREE
+            or v['path_log_prob_rel_err'] > PATH_LP_REL_TOL or v['draw_agreement'] < PATH_AGREE]
+    if bad:
+        raise AssertionError('the time-sharded passes disagree (%s): %s' % (bad, phase))
+    rows = []
+    for kernel in SP_KERNELS:
+        rec = dict(phase='sp_kernel_check', kernel=kernel, layer=next(iter(res[kernel])),
+                   frames=frames, states=K, library_ms=None, cases=res[kernel],
+                   bound_note='the chains of the chunks and the n-step folds, not these',
+                   err_note='max_abs_err: gamma for the posterior launchers, the alphas\' '
+                            'error relative to their largest magnitude for the alpha mode, '
+                            'the share of frames that differ for paths and draws; plain_ms: '
+                            'the plain pass the launcher serves')
+        for k in ('ms', 'plain_ms', 'bound_ms', 't_ops_ms', 't_bytes_ms'):
+            rec[k] = sum(c[k] for c in res[kernel].values())
+        rec['max_abs_err'] = max(c['max_abs_err'] for c in res[kernel].values())
+        rec['bound_by'] = 'operations' if rec['t_ops_ms'] >= rec['t_bytes_ms'] else 'bytes'
+        emit(rec)
+        rows.append(rec)
+    return rows
+
+
+def arhmm_em_sp(port, init_params, session, trials):
+    """Main path 6f: EM on meshes of the card. The time layout
+    (``fit(mesh=SP_EM_SHARDS shards, shard_time=True)``) on two
+    LONG_FRAMES-frame sessions (the long session and its time reversal), and
+    the trial layout (``fit(mesh=SP_TRIAL_SHARDS shards)``) on the EM
+    workload, each for SP_EM_ITERS iterations from the EM model's
+    initialized params, one at a time and SP_DISPATCH to a dispatch: LLs finite and
+    non-decreasing, within SP_EM_REL_TOL of the unsharded fit's (K13 on the
+    long sessions, K9 on the EM workload); K32 and K33 on every shard every
+    iteration of the time layout, K9 on every shard of the trial layout.
+    Then an iteration of each timed beside the unsharded one, and the time
+    layout's profiled (its chunked phases show under K13's names, which
+    they share)."""
+    build, ARHMM, Mesh = port.build, port.arhmm.ARHMM, port.mesh.Mesh
+    p0 = dict(init_params)
+    sessions = port.arhmm.pad_trials([session, session[::-1].copy()], DEVICE)
+    layouts = {'time': (Mesh([DEVICE] * SP_EM_SHARDS, ('sp',)), True, sessions),
+               'trials': (Mesh([DEVICE] * SP_TRIAL_SHARDS, ('dp',)), False, trials)}
+
+    def fresh(parallel_scan=False):
+        m = ARHMM(EM_STATES, EM_DIM, lags=1, rng_seed=SEED, parallel_scan=parallel_scan,
+                  device=DEVICE)
+        m.params = dict(p0)
+        return m
+    rec = dict(phase='arhmm_em_sp', states=EM_STATES, dim=EM_DIM, iterations=SP_EM_ITERS,
+               layouts={})
+    refs = {name: fresh(shard_time).fit(data, num_iters=SP_EM_ITERS)
+            for name, (_, shard_time, data) in layouts.items()}
+    torch.cuda.synchronize()
+    reset_launches(build)
+    fits = {}
+    for name, (mesh, shard_time, data) in layouts.items():
+        for k in (1, SP_DISPATCH):
+            m = fresh()
+            t0 = time.perf_counter()
+            lls = m.fit(data, num_iters=SP_EM_ITERS, mesh=mesh, shard_time=shard_time,
+                        iters_per_dispatch=k)
+            torch.cuda.synchronize()
+            fits[name, k] = (lls, time.perf_counter() - t0)
+    launches = dict(build.LAUNCHES)
+    for name, (mesh, shard_time, data) in layouts.items():
+        ref = refs[name]
+        out = dict(shards=mesh.size, shard_time=shard_time, unsharded_lls=ref,
+                   frames=int(data.mask.sum().item()))
+        for k in (1, SP_DISPATCH):
+            lls, fit_s = fits[name, k]
+            out['iters_per_dispatch_%d' % k] = dict(
+                lls=lls, fit_seconds=fit_s, finite=bool(np.isfinite(lls).all()),
+                rising=all(b >= a - EM_LL_REL_TOL * abs(a) for a, b in zip(lls, lls[1:])),
+                rel_err_vs_unsharded=max(abs(a - b) / abs(b) for a, b in zip(lls, ref)))
+        m = fresh()
+        out['ms_per_iteration'] = request_ms(
+            lambda: m.fit(data, num_iters=1, mesh=mesh, shard_time=shard_time), reps=5,
+            warmup=2)
+        u = fresh(shard_time)
+        out['unsharded_ms_per_iteration'] = request_ms(lambda: u.fit(data, num_iters=1), reps=5,
+                                                       warmup=2)
+        rec['layouts'][name] = out
+    per_iter = SP_EM_SHARDS * SP_EM_ITERS * 2
+    need = {'hmm_shard_totals': per_iter, 'hmm_shard_finish': per_iter,
+            'hmm_forward_backward': SP_TRIAL_SHARDS * SP_EM_ITERS * 2,
+            'arhmm_log_likes': 1, 'arhmm_mstep_stats': 1, 'arhmm_mstep_cov': 1, 'solve_small': 1}
+    missing = [k for k, v in need.items() if launches[k] < v]
+    rec['launches'] = {k: launches[k] for k in need}
+    emit(rec)
+    bad = [(name, k) for name, out in rec['layouts'].items() for k, v in out.items()
+           if k.startswith('iters_per_dispatch') and (not v['finite'] or not v['rising']
+                                                      or v['rel_err_vs_unsharded'] > SP_EM_REL_TOL)]
+    if missing or bad:
+        raise AssertionError('EM on a mesh failed (missing %s, bad %s): %s'
+                             % (missing, bad, rec))
+    mesh, _, data = layouts['time']
+    m = fresh()
+    emit(profile_steps(lambda: m.fit(data, num_iters=1, mesh=mesh, shard_time=True),
+                       phase='arhmm_em_sp_profile', frames=2 * LONG_FRAMES, bucket=None,
+                       shards=SP_EM_SHARDS))
     return launches
+
+
+def arhmm_sp_serve(port, model, long):
+    """Main path 8d: one LONG_FRAMES-frame session served with a mesh:
+    ``expected_states``, ``most_likely_states`` and ``posterior_sample(mesh=)``
+    on meshes of 1 and SP_EM_SHARDS shards of the card (K32-K35), beside the
+    unsharded ``parallel_scan`` calls (K13-K15): gamma against float64 within
+    ``long_session``'s tolerance, paths agreeing on PATH_AGREE of the frames
+    with their float64 joint log-probabilities within PATH_LP_REL_TOL, the
+    draw from the same generator state agreeing on PATH_AGREE (one shard:
+    equal); every call timed."""
+    build, hmm = port.build, port.hmm
+    data = long['data']
+    par = port.arhmm.ARHMM(EM_STATES, EM_DIM, lags=1, rng_seed=SEED, parallel_scan=True,
+                           device=DEVICE)
+    par.params = dict(model.params)
+
+    def gen():
+        return torch.Generator(device=DEVICE).manual_seed(SEED + 15)
+    meshes = {n: port.mesh.Mesh([DEVICE] * n, ('sp',)) for n in (1, SP_EM_SHARDS)}
+    reset_launches(build)
+    got = {n: (model.expected_states(data, mesh=mesh), model.most_likely_states(data, mesh=mesh),
+               model.posterior_sample(data, generator=gen(), mesh=mesh))
+           for n, mesh in meshes.items()}
+    torch.cuda.synchronize()
+    launches = dict(build.LAUNCHES)
+    ref = (par.expected_states(data), par.most_likely_states(data),
+           par.posterior_sample(data, generator=gen()))
+    pi0, lp, ll, m = long['chain']
+
+    def lp64(z):
+        return path_lp64(port, pi0, lp, ll, m, torch.from_numpy(z[None]).to(DEVICE)).item()
+    rec = dict(phase='arhmm_sp_serve', frames=LONG_FRAMES, states=EM_STATES,
+               launches={k: launches[k] for k in SP_KERNELS}, by_shards={})
+    for n, (g, z, s) in got.items():
+        lps = (lp64(z), lp64(ref[1]))
+        rec['by_shards'][n] = dict(
+            gamma_max_abs_err_vs_f64=float(np.abs(g - long['gamma64']).max()),
+            gamma_tol=long['gamma_tol'], path_agreement=float(np.mean(z == ref[1])),
+            path_log_prob_rel_err=abs(lps[0] - lps[1]) / abs(lps[1]),
+            draw_agreement=float(np.mean(s == ref[2])), draw_equal=bool(np.array_equal(s, ref[2])),
+            expected_states_ms=request_ms(lambda: model.expected_states(data, mesh=meshes[n]),
+                                          reps=5),
+            most_likely_states_ms=request_ms(
+                lambda: model.most_likely_states(data, mesh=meshes[n]), reps=5),
+            posterior_sample_ms=request_ms(
+                lambda: model.posterior_sample(data, generator=gen(), mesh=meshes[n]), reps=5))
+    rec['unsharded_parallel_scan_ms'] = dict(
+        expected_states=request_ms(lambda: par.expected_states(data), reps=5),
+        most_likely_states=request_ms(lambda: par.most_likely_states(data), reps=5),
+        posterior_sample=request_ms(lambda: par.posterior_sample(data, generator=gen()), reps=5))
+    emit(rec)
+    missing = [k for k in SP_KERNELS if launches[k] == 0]
+    bad = [n for n, v in rec['by_shards'].items()
+           if v['gamma_max_abs_err_vs_f64'] > v['gamma_tol'] or v['path_agreement'] < PATH_AGREE
+           or v['path_log_prob_rel_err'] > PATH_LP_REL_TOL or v['draw_agreement'] < PATH_AGREE
+           or (n == 1 and not v['draw_equal'])]
+    if missing or bad:
+        raise AssertionError('serving with a mesh failed (missing %s, bad %s): %s'
+                             % (missing, bad, rec))
+    return launches
+
+
+def mesh_cards(port, n):
+    """``--cards n``: the mesh paths with every shard on a card of its own.
+    On meshes of cards 0..n-1 ('cards') and 1..n-1, 0 ('rotated': the
+    mesh's first device, where the sums are added and the M-step runs, is
+    not the model's card) the EM model serves the long session
+    (``expected_states``, ``most_likely_states``, ``posterior_sample(mesh=)``)
+    and fits MESH_CARD_ITERS iterations in the time layout (two long
+    sessions) and the trial layout (the EM workload), with and without
+    ``iters_per_dispatch``; each against the same calls on a mesh that
+    repeats card 0 n times (the same shards: gamma within GAMMA_ABS_TOL,
+    paths and draws agreeing on PATH_AGREE of the frames, the LLs within
+    SP_EM_REL_TOL; whether they are equal bit for bit is reported). An EM
+    iteration timed on each mesh. Then the ARHMM CLI, which on more than
+    one card shards EM over the trials (``_em_mesh``): it must say so and
+    launch the EM kernels."""
+    Mesh, build = port.mesh.Mesh, port.build
+    cards = ['cuda:%d' % i for i in range(n)]
+    meshes = {'one_card': [cards[0]] * n, 'cards': cards, 'rotated': cards[1:] + cards[:1]}
+    model, trials, _ = em_workload(port)
+    p0 = dict(model.params)
+    data = sample_arhmm(1, LONG_FRAMES, EM_STATES, EM_DIM, SEED + 4, path_seed=SEED + 6)[0]
+    layouts = {'time': (port.arhmm.pad_trials([data, data[::-1].copy()], DEVICE), True),
+               'trials': (trials, False)}
+
+    def fresh():
+        m = port.arhmm.ARHMM(EM_STATES, EM_DIM, lags=1, rng_seed=SEED, device=DEVICE)
+        m.params = dict(p0)
+        return m
+
+    def sync_all():
+        for d in cards:
+            torch.cuda.synchronize(d)
+    got, rec = {}, dict(phase='mesh_cards', cards=n, meshes=meshes, by_mesh={})
+    for name, devs in meshes.items():
+        mesh = Mesh(devs, ('sp',))
+        reset_launches(build)
+        gen = torch.Generator(device=devs[0]).manual_seed(SEED + 17)
+        served = (model.expected_states(data, mesh=mesh), model.most_likely_states(data, mesh=mesh),
+                  model.posterior_sample(data, generator=gen, mesh=mesh))
+        fits = {(layout, k): fresh().fit(trials_, num_iters=MESH_CARD_ITERS, mesh=mesh,
+                                         shard_time=shard_time, iters_per_dispatch=k)
+                for layout, (trials_, shard_time) in layouts.items() for k in (1, SP_DISPATCH)}
+        sync_all()
+        launches = {k: v for k, v in build.LAUNCHES.items() if v}
+        got[name] = served, fits
+        ms = {}
+        for layout, (trials_, shard_time) in layouts.items():
+            m = fresh()
+            ms[layout] = request_ms(lambda: (m.fit(trials_, num_iters=1, mesh=mesh,
+                                                   shard_time=shard_time), sync_all()),
+                                    reps=5, warmup=2)
+        rec['by_mesh'][name] = dict(launches=launches, ms_per_iteration=ms)
+    ref_served, ref_fits = got['one_card']
+    for name in ('cards', 'rotated'):
+        (g, z, d), fits = got[name]
+        rec['by_mesh'][name].update(
+            gamma_max_abs_err=float(np.abs(g - ref_served[0]).max()),
+            path_agreement=float(np.mean(z == ref_served[1])),
+            draw_agreement=float(np.mean(d == ref_served[2])),
+            served_equal=[bool(np.array_equal(a, b)) for a, b in zip((g, z, d), ref_served)],
+            fits={'%s_x%d' % key: dict(
+                lls=lls, rel_err=max(abs(a - b) / abs(b) for a, b in zip(lls, ref_fits[key])),
+                equal=lls == ref_fits[key],
+                rising=all(b >= a - EM_LL_REL_TOL * abs(a) for a, b in zip(lls, lls[1:])))
+                for key, lls in fits.items()})
+    with tempfile.TemporaryDirectory() as tmp:
+        cli = arhmm_cli(port, tmp)
+        with open(os.path.join(os.path.dirname(cli.save_dir), 'arhmm_cli.log')) as f:
+            said = f.read()
+    rec['cli'] = dict(sharded=('sharding EM over %d devices' % n) in said,
+                      launches={k: cli.launches[k] for k in ARHMM_KERNELS})
+    emit(rec)
+    bad = [name for name in ('cards', 'rotated') for v in [rec['by_mesh'][name]]
+           if v['gamma_max_abs_err'] > GAMMA_ABS_TOL or v['path_agreement'] < PATH_AGREE
+           or v['draw_agreement'] < PATH_AGREE
+           or any(f['rel_err'] > SP_EM_REL_TOL or not f['rising'] for f in v['fits'].values())]
+    need = SP_KERNELS + ('arhmm_log_likes', 'hmm_forward_backward') + MSTEP_KERNELS
+    missing = ['%s %s' % (name, k) for name, v in rec['by_mesh'].items() for k in need
+               if k not in v['launches']]
+    if bad or missing or not rec['cli']['sharded']:
+        raise AssertionError('the mesh across cards failed (bad %s, missing %s): %s'
+                             % (bad, missing, rec))
 
 
 def arhmm_sample_serve(port, vdir, latents, kernels):
@@ -5638,6 +6197,10 @@ def kernel_row(name, rows, launches):
 
 
 def main():
+    parser = argparse.ArgumentParser(description='Chip smoke test of behavenet_tpu_torch.')
+    parser.add_argument('--cards', type=int, default=None,
+                        help='run only the mesh paths across this many cards (mesh_cards)')
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device is available', file=sys.stderr)
         return 1
@@ -5656,6 +6219,13 @@ def main():
     seconds = port.build.build_all()
     emit(dict(phase='build', seconds=seconds, library_seconds=port.build.build_seconds(),
               ptxas=port.build.ptxas_info()))
+    if args.cards is not None:
+        if not 2 <= args.cards <= torch.cuda.device_count():
+            raise SystemExit('--cards takes 2..%d here' % torch.cuda.device_count())
+        mesh_cards(port, args.cards)
+        emit({'ok': True, 'device': {'platform': 'gpu', 'kind': kind,
+                                     'count': torch.cuda.device_count()}})
+        return 0
 
     hp = model_hparams(port.arch)
     pool_hp = pool_hparams(port.arch)
@@ -5741,7 +6311,12 @@ def main():
                                       parallel_scan=True),
                 em_trials, PARALLEL_REC_EM_KERNELS, REC_EM_ITERS)
             launches['arhmm_em_f64'] = arhmm_em_f64(port, init_params, rec_params, em_trials)
-            launches['arhmm_long_session'] = long_session(port, em_model)
+            launches['arhmm_long_session'], long_run = long_session(port, em_model)
+            checks += check_sp_kernels(port, long_run, rec_models['recurrent'])
+            launches['arhmm_em_sp'] = arhmm_em_sp(port, init_params, long_run['data'],
+                                                  em_trials)
+            launches['arhmm_sp_serve'] = arhmm_sp_serve(port, em_model, long_run)
+            del long_run
             launches['bayesian_long_session'] = bayesian_long_session(port, em_model)
             del em_model, em_trials, rec_models, par_model, init_params, rec_params
             stat_cli = arhmm_cli(port, tmp)

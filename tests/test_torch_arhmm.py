@@ -24,6 +24,7 @@ from behavenet_tpu_torch.fitting import arhmm_grid_search
 from behavenet_tpu_torch.fitting.experiment import get_best_model_version
 from behavenet_tpu_torch.models import arhmm
 from behavenet_tpu_torch.models.arhmm import ARHMM
+from behavenet_tpu_torch.parallel import Mesh
 from behavenet_tpu_torch.utils import pickles
 from behavenet_tpu_torch.utils.weights import arhmm_params_from_jax
 from tests.jax_low import compile_low, jit_low
@@ -300,10 +301,11 @@ def test_port_model_pickles_round_trip(em_pair, tmp_path, datas):
 
 
 def test_unported_configurations_raise():
-    """float64 EM with ``parallel_scan`` (the rest of ROADMAP A1c) and
-    ``iters_per_dispatch > 1`` are refused; float64 EM
-    (tests/test_torch_arhmm_f64.py), ``parallel_scan``, posterior sampling
-    and sampling are ported (tests/test_torch_arhmm_sampling.py)."""
+    """float64 EM with ``parallel_scan`` or a mesh (the rest of ROADMAP A1c)
+    is refused; float64 EM (tests/test_torch_arhmm_f64.py),
+    ``parallel_scan``, posterior sampling and sampling
+    (tests/test_torch_arhmm_sampling.py), meshes and ``iters_per_dispatch``
+    (tests/test_torch_seq.py) are ported."""
     for kw in (dict(dtype='float64', parallel_scan=True),
                dict(observations='robust_ar', transitions='recurrent', dtype='float64',
                     parallel_scan=True)):
@@ -311,8 +313,8 @@ def test_unported_configurations_raise():
             ARHMM(K, D, device='cpu', **kw)
     t = ARHMM(K, D, device='cpu', parallel_scan=True)
     assert t.parallel_scan
-    with pytest.raises(NotImplementedError):
-        t.fit([np.zeros((5, D))], iters_per_dispatch=2)
+    with pytest.raises(NotImplementedError, match='A1c'):
+        ARHMM(K, D, device='cpu', dtype='float64').fit([np.zeros((5, D))], mesh=Mesh(['cpu']))
     with pytest.raises(RuntimeError, match='CUDA'):
         ARHMM(K, D)   # device=None means 'cuda', which this machine lacks
 
