@@ -54,8 +54,9 @@ SOURCES = {
     'batch_norm': 'batch_norm.cu',
     'arhmm_mstep_stats': 'arhmm_mstep.cu',
     'hmm_shard_totals': 'hmm_shard.cu',
+    'kalman_shard_filter_totals': 'kalman_shard.cu',
 }
-_HEADERS = ('igemm.cuh', 'hmm.cuh', 'hmm_backtrace.cuh', 'hmm_scan.cuh')
+_HEADERS = ('igemm.cuh', 'hmm.cuh', 'hmm_backtrace.cuh', 'hmm_scan.cuh', 'kalman_scan.cuh')
 
 # launchers counted under a name of their own: variant -> (kernel, symbols);
 # K14 and K16 share a source with K13 and K15, K18 (the RTS smoother) with
@@ -66,7 +67,9 @@ _HEADERS = ('igemm.cuh', 'hmm.cuh', 'hmm_backtrace.cuh', 'hmm_scan.cuh')
 # backward) with K27 (the max pool), K30 (batch norm's backward) with K29
 # (batch norm), K31's second pass (the residual covariance) with its first
 # (the statistics), K33-K35 (a time shard's finish, map total and
-# backtrace) with K32 (its totals); K9's forward pass that writes the
+# backtrace) with K32 (its totals), K37-K39 (the time-sharded Kalman
+# filter's finish, the smoother's totals and finish) with K36 (the
+# filter's totals); K9's forward pass that writes the
 # filtered alphas for K15 and K11's pivoting solve are counted apart from
 # their kernels' other launchers, and so is every float64 launcher
 # (``_f64``: float64 EM), K32's (max, +) form and each of K33's and K34's
@@ -118,6 +121,12 @@ VARIANTS = {
     'hmm_shard_maps_sample': ('hmm_shard_totals', ('bn_hmm_shard_sample_maps',
                                                    'bn_hmm_shard_sample_maps_tv')),
     'hmm_shard_backtrace': ('hmm_shard_totals', ('bn_hmm_shard_backtrace',)),
+    'kalman_shard_filter_finish': ('kalman_shard_filter_totals',
+                                   ('bn_kalman_shard_filter_finish',)),
+    'kalman_shard_smoother_totals': ('kalman_shard_filter_totals',
+                                     ('bn_kalman_shard_smoother_totals',)),
+    'kalman_shard_smoother_finish': ('kalman_shard_filter_totals',
+                                     ('bn_kalman_shard_smoother_finish',)),
 }
 _COUNTED_AS = {sym: variant for variant, (_, syms) in VARIANTS.items() for sym in syms}
 
@@ -224,6 +233,11 @@ _SIGNATURES = {
         'bn_hmm_shard_sample_maps': [_P] * 8 + [_I] * 4 + [_P] * 6,
         'bn_hmm_shard_sample_maps_tv': [_P] * 8 + [_I] * 4 + [_P] * 6,
         'bn_hmm_shard_backtrace': [_P] * 2 + [_I] * 2 + [_P] * 2 + [_I] * 4 + [_P] * 3},
+    'kalman_shard_filter_totals': {
+        'bn_kalman_shard_filter_totals': [_P] * 9 + [_I] * 5 + [_P] * 3,
+        'bn_kalman_shard_filter_finish': [_P, _I, _I] + [_P] * 9 + [_I] * 4 + [_P] * 4,
+        'bn_kalman_shard_smoother_totals': [_P] * 5 + [_I] * 4 + [_P] * 3,
+        'bn_kalman_shard_smoother_finish': [_P, _I, _I] + [_P] * 5 + [_I] * 3 + [_P] * 4},
 }
 
 # sources built as two libraries side by side: the float launchers

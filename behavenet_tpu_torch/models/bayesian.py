@@ -16,10 +16,13 @@ port's HMM ops (K9 and K10 on the card; K13 and K14 when the decode or the
 ARHMM asks for ``parallel``), then the IMM-collapsed filter (K17) and the
 RTS smoother (K18) of ``ops.imm`` on the companion state, or with
 ``parallel=True`` the associative Kalman filter and smoother of
-``ops.kalman`` (K19, K20) over the gamma-weighted dynamics. Everything runs
-on the ARHMM's device, in float32: a float64 ARHMM raises, as does the
-sequence-parallel ``mesh=``, which needs the time-sharded Kalman passes
-(kernel row 19b); neither is ported yet.
+``ops.kalman`` (K19, K20) over the gamma-weighted dynamics. With ``mesh``
+(a :class:`~behavenet_tpu_torch.parallel.Mesh`) the trial's time axis is
+sharded over the mesh's devices: the discrete pass runs
+``parallel.seq``'s ``sp_forward_backward`` and ``sp_viterbi`` (K32-K35 on
+the card), the continuous one its time-sharded Kalman filter and smoother
+(K36-K39). Everything runs in float32, on the ARHMM's device or the
+mesh's: a float64 ARHMM raises (ROADMAP item A1c).
 """
 
 import numpy as np
@@ -27,6 +30,7 @@ import torch
 
 from behavenet_tpu_torch.ops import hmm as hmm_ops
 from behavenet_tpu_torch.ops import imm, kalman
+from behavenet_tpu_torch.parallel import Mesh, seq
 
 __all__ = ['BayesianDecoder']
 
@@ -175,13 +179,15 @@ class BayesianDecoder:
             (K13, K14); preferred for very long trials. It omits the IMM
             mixture-spread covariance term (negligible when the state
             posterior is concentrated)
-        mesh : optional
-            sequence-parallel decoding across devices; not ported yet (it
-            needs the time-sharded Kalman filter and smoother, kernel row
-            19b), raises
+        mesh : behavenet_tpu_torch.parallel.Mesh, optional
+            a 1-D mesh (any axis name): shard the trial's time axis over
+            its devices; every message pass (forward-backward, Viterbi,
+            the Kalman filter and smoother) runs time-sharded through
+            ``parallel.seq``. Implies ``parallel=True``
         as_numpy : bool
             fetch results to host numpy arrays (default); False keeps them
-            as tensors on the ARHMM's device
+            as tensors on the ARHMM's device (with ``mesh``, the mesh's
+            first device)
 
         Returns
         -------
@@ -189,9 +195,10 @@ class BayesianDecoder:
         (T,), 'states_posterior' (T, K)
         """
         if mesh is not None:
-            raise NotImplementedError('sequence-parallel decoding (mesh=) is not ported yet: '
-                                      'it needs the time-sharded Kalman filter and smoother '
-                                      '(kernel row 19b, ROADMAP item A8)')
+            if not isinstance(mesh, Mesh):
+                raise TypeError('mesh must be a behavenet_tpu_torch.parallel.Mesh, got %r'
+                                % (mesh,))
+            parallel = True
         if self.R is None:
             raise RuntimeError('call estimate_obs_noise() or pass obs_noise first')
         y = np.asarray(ae_predictions, dtype=np.float32)
@@ -206,12 +213,20 @@ class BayesianDecoder:
         q = None if arhmm_predictions is None else self._tensor(arhmm_predictions)
         ll = self._discrete_loglik(torch.where(m[:, None] > 0, y, 0.0), q) * m[:, None]
         log_P = torch.log_softmax(p['log_Ps'], dim=1)
-        par_scan = bool(parallel or self.arhmm.parallel_scan)
-        gamma = hmm_ops.forward_backward(p['log_pi0'], log_P, ll[None], parallel=par_scan)[0][0]
-        states = hmm_ops.viterbi(p['log_pi0'], log_P, ll[None], parallel=par_scan)[0]
+        if mesh is not None:
+            axis = mesh.axis_names[0]
+            gamma = seq.sp_forward_backward(p['log_pi0'], log_P, ll, mesh=mesh,
+                                            axis_name=axis)[0]
+            states = seq.sp_viterbi(p['log_pi0'], log_P, ll, mesh=mesh, axis_name=axis)
+        else:
+            par_scan = bool(parallel or self.arhmm.parallel_scan)
+            gamma = hmm_ops.forward_backward(p['log_pi0'], log_P, ll[None],
+                                             parallel=par_scan)[0][0]
+            states = hmm_ops.viterbi(p['log_pi0'], log_P, ll[None], parallel=par_scan)[0]
 
         if parallel:
-            mus_s, Sigmas_s = self._soft_kalman_parallel(y, m, gamma, smooth)
+            mus_s, Sigmas_s = self._soft_kalman_parallel(y, m, gamma.to(self.device), smooth,
+                                                         mesh)
         else:
             mus_s, Sigmas_s, mus_p, Sigmas_p = self._kalman_filter(y, m, gamma)
             if smooth:
@@ -264,15 +279,24 @@ class BayesianDecoder:
         Q[0] = 1e-6 * eye
         return F, c, Q, mu0, Sigma0
 
-    def _soft_kalman_parallel(self, y, obs_mask, gamma, smooth):
+    def _soft_kalman_parallel(self, y, obs_mask, gamma, smooth, mesh=None):
         """The gamma-weighted time-varying LDS solved with associative scans
         (JAX: models/bayesian.py:365): (mus, Sigmas), K19 and K20 on the
-        card."""
+        card; with ``mesh`` time-sharded (K36-K39 on the card), the
+        filtered moments kept on their shards for the smoother, the result
+        on the mesh's first device."""
         F, c, Q, mu0, Sigma0 = self._soft_dynamics(y, gamma)
         # the plain version's two-level scan above 8192 frames, as JAX's
         # (which chunks to bound its compile time); the kernels chunk by
         # their own length
         chunk = 8192 if y.shape[0] > 8192 else None
+        if mesh is not None:
+            shards = seq.shard_lds(mesh, F, c, Q, self._H, self.R, y, obs_mask, mu0, Sigma0,
+                                   axis_name=mesh.axis_names[0])
+            moments = seq.kalman_filter_shards(shards, chunk)
+            if smooth:
+                moments = seq.kalman_smooth_shards(shards, moments, chunk)
+            return seq.joined_frames(moments, mesh.devices[0])
         ms, Ps = kalman.filter_parallel(F, c, Q, self._H, self.R, y, obs_mask, mu0, Sigma0,
                                         chunk=chunk)
         if smooth:

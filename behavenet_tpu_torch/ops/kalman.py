@@ -28,6 +28,15 @@ input's device and from nothing else:
 - :func:`smooth_sequential`: K22 (``bn_kalman_smoother``,
   ``kalman_smoother``).
 
+``parallel.seq``'s time-sharded passes run K36-K39 of
+``kernels/kalman_shard.cu`` through the ``shard_*_cuda`` wrappers here: a
+shard's filtering total (K36, ``bn_kalman_shard_filter_totals``) and its
+filtered moments from the gathered totals (K37,
+``kalman_shard_filter_finish``), its smoothing total (K38,
+``kalman_shard_smoother_totals``) and its smoothed moments (K39,
+``kalman_shard_smoother_finish``). They have no public dispatcher of their
+own: their plain versions are ``parallel.seq``'s ``sp_kalman_*_plain``.
+
 K19 and K20 compute what the associative scans compute, not their tree:
 each chunk of L = ``ops.hmm.scan_chunk(T)`` steps is composed into one
 element, the chunk totals are carried in order, and each chunk then runs
@@ -50,7 +59,9 @@ from behavenet_tpu_torch.ops.smallmat import solve_small_plain
 __all__ = ['filter_sequential', 'filter_parallel', 'smooth_sequential', 'smooth_parallel',
            'filter_sequential_plain', 'filter_parallel_plain', 'smooth_sequential_plain',
            'smooth_parallel_plain', 'filter_sequential_cuda', 'filter_parallel_cuda',
-           'smooth_sequential_cuda', 'smooth_parallel_cuda', 'MAX_N', 'MAX_D']
+           'smooth_sequential_cuda', 'smooth_parallel_cuda', 'shard_filter_totals_cuda',
+           'shard_filter_finish_cuda', 'shard_smoother_totals_cuda',
+           'shard_smoother_finish_cuda', 'MAX_N', 'MAX_D']
 
 MAX_N = 32   # the widest state the kernels take (the decoder's D = 16 at lags 2)
 MAX_D = 16   # the widest observation
@@ -265,6 +276,18 @@ def _filter_shapes(T, n, d):
     return ((T, n, n), (T, n), (T, n, n), (d, n), (d, d), (T, d), (T,), (n,), (n, n))
 
 
+def _filter_scratch(n, C):
+    """The floats of K19's and K36 / K37's scratch: C composites (3 n^2 +
+    2 n), then C entry moments (n^2 + n)."""
+    return C * (4 * n * n + 3 * n)
+
+
+def _smoother_scratch(n, C):
+    """The floats of K20's and K38 / K39's scratch: C composites (2 n^2 +
+    n), then C exit moments (n^2 + n)."""
+    return C * (3 * n * n + 2 * n)
+
+
 def _chunks(T, chunk):
     L = int(chunk) if chunk else scan_chunk(T)
     if L < 1:
@@ -283,8 +306,7 @@ def filter_parallel_cuda(F, c, Q, H, R, y, mask, m0, P0, chunk=None):
     ts = _check(name, (F, c, Q, H, R, y, mask, m0, P0), _filter_shapes(T, n, d))
     L, C = _chunks(T, chunk)
     dev = y.device
-    # per chunk: the composed (A, b, C, eta, J), then the entry moments (m, P)
-    scratch = torch.empty(C * (4 * n * n + 3 * n), device=dev, dtype=torch.float32)
+    scratch = torch.empty(_filter_scratch(n, C), device=dev, dtype=torch.float32)
     ms = torch.empty((T, n), device=dev, dtype=torch.float32)
     Ps = torch.empty((T, n, n), device=dev, dtype=torch.float32)
     launch(name, *(t.data_ptr() for t in ts), T, n, d, L, scratch.data_ptr(), ms.data_ptr(),
@@ -299,9 +321,7 @@ def smooth_parallel_cuda(F, c, Q, ms, Ps, chunk=None):
     T, n = _sizes(name, F)
     ts = _check(name, (F, c, Q, ms, Ps), ((T, n, n), (T, n), (T, n, n), (T, n), (T, n, n)))
     L, C = _chunks(T, chunk)
-    dev = F.device
-    # per chunk: the composed (E, g, L), then the exit moments (m, P)
-    scratch = torch.empty(C * (3 * n * n + 2 * n), device=dev, dtype=torch.float32)
+    scratch = torch.empty(_smoother_scratch(n, C), device=F.device, dtype=torch.float32)
     ms_s = torch.empty_like(ts[3])
     Ps_s = torch.empty_like(ts[4])
     launch('kalman_filter_scan', *(t.data_ptr() for t in ts), T, n, L, scratch.data_ptr(),
@@ -338,6 +358,123 @@ def smooth_sequential_cuda(F, c, Q, ms, Ps, m_pred, P_pred):
     launch('kalman_filter_scan', F.data_ptr(), ms.data_ptr(), Ps.data_ptr(), m_pred.data_ptr(),
            P_pred.data_ptr(), T, n, ms_s.data_ptr(), Ps_s.data_ptr(),
            symbol='bn_kalman_smoother')
+    return ms_s, Ps_s
+
+
+# ------------------------------------------------- the time-sharded kernels
+
+_SHARD = 'kalman_shard_filter_totals'   # the source of K36-K39
+
+
+def _filter_elem(n):
+    return 3 * n * n + 2 * n   # [A | b | C | eta | J]
+
+
+def _smoother_elem(n):
+    return 2 * n * n + n       # [E | g | L]
+
+
+def _check_shard_state(name, totals, s, width, scratch, size):
+    """The gathered totals (n_sh, width) and 0 <= s < n_sh, and a totals
+    stage's scratch of ``size`` floats; returns n_sh."""
+    if totals.dim() != 2 or totals.shape[1] != width or not 0 <= s < totals.shape[0]:
+        raise ValueError('%s: takes totals (n_sh, %d) and 0 <= s < n_sh, got %s and s=%d'
+                         % (name, width, tuple(totals.shape), s))
+    if tuple(scratch.shape) != (size,):
+        raise ValueError('%s: the totals stage\'s scratch has %d floats here, got %s'
+                         % (name, size, tuple(scratch.shape)))
+    return totals.shape[0]
+
+
+def _filter_shard(name, F, c, Q, H, R, y, mask, m0, P0, extra=(), extra_shapes=()):
+    """(T, n, d, L, C, the inputs checked and made contiguous) of a filter
+    shard's launch."""
+    d = y.shape[-1]
+    T, n = _sizes(name, F, d)
+    ts = _check(name, (F, c, Q, H, R, y, mask, m0, P0) + tuple(extra),
+                _filter_shapes(T, n, d) + tuple(extra_shapes))
+    return (T, n, d) + _chunks(T, None) + (ts,)
+
+
+def shard_filter_totals_cuda(F, c, Q, H, R, y, mask, m0, P0, first):
+    """K36 on the card, for a time shard of T frames (the inputs as
+    :func:`filter_parallel_cuda`'s): its total, the fold of its chunks'
+    filtering elements (3 n^2 + 2 n,) laid out [A | b | C | eta | J], and
+    the scratch holding the chunk composites that K37 reads. ``first``:
+    the shard holds the trial's first frame, whose element absorbs the
+    prior (m0, P0; a later shard does not read them)."""
+    name = 'kalman_shard_filter_totals'
+    T, n, d, L, C, ts = _filter_shard(name, F, c, Q, H, R, y, mask, m0, P0)
+    kw = dict(device=y.device, dtype=torch.float32)
+    scratch, total = torch.empty(_filter_scratch(n, C), **kw), torch.empty(_filter_elem(n), **kw)
+    launch(_SHARD, *(t.data_ptr() for t in ts), T, n, d, L, int(bool(first)),
+           scratch.data_ptr(), total.data_ptr(), symbol='bn_kalman_shard_filter_totals')
+    return total, scratch
+
+
+def shard_filter_finish_cuda(totals, s, F, c, Q, H, R, y, mask, m0, P0, scratch):
+    """K37 on shard ``s``: from the gathered K36 totals (n_sh, 3 n^2 + 2 n)
+    and this shard's K36 scratch, its filtered (ms (T, n), Ps (T, n, n))."""
+    name = 'kalman_shard_filter_finish'
+    T, n, d, L, C, ts = _filter_shard(name, F, c, Q, H, R, y, mask, m0, P0, (totals, scratch),
+                                      (tuple(totals.shape), tuple(scratch.shape)))
+    n_sh = _check_shard_state(name, totals, s, _filter_elem(n), scratch,
+                              _filter_scratch(n, C))
+    kw = dict(device=y.device, dtype=torch.float32)
+    ms, Ps = torch.empty((T, n), **kw), torch.empty((T, n, n), **kw)
+    launch(_SHARD, ts[9].data_ptr(), n_sh, s, *(t.data_ptr() for t in ts[:9]), T, n, d, L,
+           ts[10].data_ptr(), ms.data_ptr(), Ps.data_ptr(),
+           symbol='bn_kalman_shard_filter_finish')
+    return ms, Ps
+
+
+def _smoother_shard(name, F, c, Q, ms, Ps, extra=(), extra_shapes=()):
+    """(T, n, terminal, L, C, the inputs checked and made contiguous) of a
+    smoother shard's launch: F, c, Q hold T + 1 frames on a shard before the
+    trial's last, T on the last (``terminal``)."""
+    Tf, n = _sizes(name, F)
+    T = ms.shape[0]
+    if Tf not in (T, T + 1):
+        raise ValueError('%s: F, c, Q take T + 1 frames (T on the trial\'s last shard) beside '
+                         'T = %d filtered frames, got %d' % (name, T, Tf))
+    ts = _check(name, (F, c, Q, ms, Ps) + tuple(extra),
+                ((Tf, n, n), (Tf, n), (Tf, n, n), (T, n), (T, n, n)) + tuple(extra_shapes))
+    return (T, n, Tf == T) + _chunks(T, None) + (ts,)
+
+
+def shard_smoother_totals_cuda(F, c, Q, ms, Ps):
+    """K38 on the card, for a time shard of T frames: from its filtered
+    (ms (T, n), Ps (T, n, n)) and F, c, Q at T + 1 frames (the next shard's
+    first frame at T; T frames on the trial's last shard, which holds the
+    terminal element), its total, the fold of its chunks' smoothing
+    elements (2 n^2 + n,) laid out [E | g | L], and the scratch holding the
+    chunk composites that K39 reads."""
+    name = 'kalman_shard_smoother_totals'
+    T, n, terminal, L, C, ts = _smoother_shard(name, F, c, Q, ms, Ps)
+    kw = dict(device=ms.device, dtype=torch.float32)
+    scratch = torch.empty(_smoother_scratch(n, C), **kw)
+    total = torch.empty(_smoother_elem(n), **kw)
+    launch(_SHARD, *(t.data_ptr() for t in ts), T, n, L, int(terminal), scratch.data_ptr(),
+           total.data_ptr(), symbol='bn_kalman_shard_smoother_totals')
+    return total, scratch
+
+
+def shard_smoother_finish_cuda(totals, s, F, c, Q, ms, Ps, scratch):
+    """K39 on shard ``s``: from the gathered K38 totals (n_sh, 2 n^2 + n)
+    and this shard's K38 scratch, its smoothed (ms_s (T, n), Ps_s (T, n,
+    n)); the last shard, and only it, is the terminal one."""
+    name = 'kalman_shard_smoother_finish'
+    T, n, terminal, L, C, ts = _smoother_shard(name, F, c, Q, ms, Ps, (totals, scratch),
+                                               (tuple(totals.shape), tuple(scratch.shape)))
+    n_sh = _check_shard_state(name, totals, s, _smoother_elem(n), scratch,
+                              _smoother_scratch(n, C))
+    if terminal != (s == n_sh - 1):
+        raise ValueError('%s: shard %d of %d takes F, c, Q of %d frames beside T = %d'
+                         % (name, s, n_sh, T + (s < n_sh - 1), T))
+    ms_s, Ps_s = torch.empty_like(ts[3]), torch.empty_like(ts[4])
+    launch(_SHARD, ts[5].data_ptr(), n_sh, s, *(t.data_ptr() for t in ts[:5]), T, n, L,
+           ts[6].data_ptr(), ms_s.data_ptr(), Ps_s.data_ptr(),
+           symbol='bn_kalman_shard_smoother_finish')
     return ms_s, Ps_s
 
 

@@ -1,5 +1,6 @@
-"""Time-sharded HMM message passing over a :class:`~.mesh.Mesh` (the port
-of ``behavenet_tpu/parallel/seq.py``'s HMM passes, kernel row 19a).
+"""Time-sharded HMM message passing and Kalman filtering and smoothing
+over a :class:`~.mesh.Mesh` (the port of ``behavenet_tpu/parallel/seq.py``,
+kernel rows 19a and 19b).
 
 The JAX package shards one long trial's time axis across chips with the
 standard three-phase scan: each device scans its contiguous time shard,
@@ -28,8 +29,23 @@ device folds that offset into its own prefixes (seq.py:1-25). Here:
 - ``sp_*_plain`` are the plain versions on the whole mesh, the reference
   the kernels are held to.
 
-The Kalman passes of seq.py (``sp_kalman_filter``, ``sp_kalman_smooth``,
-row 19b) are not ported yet.
+The Kalman passes (row 19b) follow the same plan over a linear-Gaussian
+model's frames:
+
+- :func:`sp_kalman_filter` and :func:`sp_kalman_smooth` take whole-trial
+  tensors (``ops.kalman``'s shapes) and return (ms, Ps) or (ms_s, Ps_s) on
+  the mesh's first device. They cut the trial with :func:`shard_lds` into
+  :class:`KalmanShard`\\ s, each holding one frame of F, c, Q past its own
+  (a frame's smoothing element reads the dynamics into the next frame).
+  On CUDA devices each shard runs K36 and K37 (filter) or K38 and K39
+  (smoother) of ``kernels/kalman_shard.cu`` (``ops.kalman``'s
+  ``shard_*_cuda``), with the shards' element totals copied between
+  them; on ``cpu`` devices the plain versions ``sp_kalman_filter_plain``
+  and ``sp_kalman_smooth_plain``: ``ops.kalman``'s elements and combines
+  scanned by :func:`sp_scan`, JAX's formulas.
+- :func:`kalman_filter_shards` and :func:`kalman_smooth_shards` take and
+  return per-shard tensors, so that the Bayesian decoder keeps the
+  filtered moments on their shards for the smoother.
 """
 
 import collections
@@ -38,6 +54,7 @@ import functools
 import torch
 
 from behavenet_tpu_torch.ops import hmm as hmm_ops
+from behavenet_tpu_torch.ops import kalman as kalman_ops
 from behavenet_tpu_torch.ops.scans import chunked_prefix_scan, prefix_scan
 from behavenet_tpu_torch.parallel.mesh import Mesh, per_device
 
@@ -46,7 +63,12 @@ __all__ = ['sp_scan', 'Shard', 'shard_bounds', 'shard_chain', 'on_card',
            'stage_sample_maps', 'stage_backtrace',
            'forward_backward_shards', 'viterbi_shards', 'sample_posterior_shards',
            'sp_forward_backward', 'sp_viterbi', 'sp_sample_posterior',
-           'sp_forward_backward_plain', 'sp_viterbi_plain', 'sp_sample_posterior_plain']
+           'sp_forward_backward_plain', 'sp_viterbi_plain', 'sp_sample_posterior_plain',
+           'KalmanShard', 'shard_lds', 'stage_kalman_filter_totals',
+           'stage_kalman_filter_finish', 'stage_kalman_smoother_totals',
+           'stage_kalman_smoother_finish', 'kalman_filter_shards', 'kalman_smooth_shards',
+           'joined_frames', 'sp_kalman_filter', 'sp_kalman_smooth', 'sp_kalman_filter_plain',
+           'sp_kalman_smooth_plain']
 
 
 def _map(fn, *elems):
@@ -179,8 +201,13 @@ def _split(full, shards):
     return out
 
 
+def _shard_mesh(shards):
+    """The mesh of the shards' devices (empty shards are left out)."""
+    return Mesh([sh.device for sh in shards])
+
+
 def _plain_scan(shards):
-    mesh = Mesh([sh.device for sh in shards])
+    mesh = _shard_mesh(shards)
     return functools.partial(sp_scan, mesh=mesh, axis_name=mesh.axis_names[0])
 
 
@@ -406,3 +433,160 @@ def sp_sample_posterior(log_pi0, log_P, log_lik, mask=None, mesh=None, axis_name
                                     u_last, u_maps)
     path = _joined(paths, dev0)
     return path[0] if single else path
+
+
+# ------------------------------------------------------ the Kalman passes
+
+# One shard of a linear-Gaussian model's trial cut along time (its
+# ``frames`` frames [t0, t1)) on its device: F, c, Q with frames + 1 rows,
+# the next shard's first frame last (``frames`` rows on the trial's last
+# shard); y (frames, d) and mask (frames,); copies of H, R, m0, P0. The
+# smoother reads F, c, Q only (the rest may be None).
+KalmanShard = collections.namedtuple('KalmanShard', ['device', 'frames', 'F', 'c', 'Q', 'H',
+                                                     'R', 'y', 'mask', 'm0', 'P0'])
+
+
+def shard_lds(mesh, F, c, Q, H=None, R=None, y=None, mask=None, m0=None, P0=None,
+              axis_name='sp'):
+    """The model (F, c, Q (T, ...), H, R, y, mask, m0, P0 as ``ops.kalman``
+    takes them) cut by :func:`shard_bounds` into :class:`KalmanShard`\\ s
+    on the mesh's devices; empty shards are left out."""
+    n = _axis_size(mesh, axis_name)
+    T = F.shape[0]
+
+    def on(t, dev, rows=None):
+        return None if t is None else (t if rows is None else t[rows]).to(dev)
+    shards = []
+    for (t0, t1), dev in zip(shard_bounds(T, n), mesh.devices):
+        if t1 == t0:
+            continue
+        halo, own = slice(t0, min(t1 + 1, T)), slice(t0, t1)
+        shards.append(KalmanShard(dev, t1 - t0, on(F, dev, halo), on(c, dev, halo),
+                                  on(Q, dev, halo), on(H, dev), on(R, dev), on(y, dev, own),
+                                  on(mask, dev, own), on(m0, dev), on(P0, dev)))
+    return shards
+
+
+def _filter_ins(sh):
+    """A shard's filter inputs, as ``ops.kalman`` takes them."""
+    T = sh.frames
+    return sh.F[:T], sh.c[:T], sh.Q[:T], sh.H, sh.R, sh.y, sh.mask, sh.m0, sh.P0
+
+
+def joined_frames(per_shard, device):
+    """Per-shard tuples of (Ts, ...) tensors joined along time on
+    ``device``."""
+    return tuple(torch.cat([t.to(device) for t in parts], dim=0) for parts in zip(*per_shard))
+
+
+def _split_frames(full, shards):
+    """A tuple of (T, ...) tensors -> each shard's frames on its device."""
+    out, t0 = [], 0
+    for sh in shards:
+        out.append(tuple(t[t0:t0 + sh.frames].to(sh.device) for t in full))
+        t0 += sh.frames
+    return out
+
+
+# The stages of the Kalman passes on the card, as the HMM passes' above:
+# each runs one launcher (K36-K39) on every shard, under its device.
+
+def stage_kalman_filter_totals(shards):
+    """K36: (its filtering total, its chunk composites) each."""
+    return per_device(lambda sh, s: kalman_ops.shard_filter_totals_cuda(
+        *_filter_ins(sh), first=s == 0), shards, range(len(shards)))
+
+
+def stage_kalman_filter_finish(tot, shards):
+    """K37 from :func:`stage_kalman_filter_totals`' ``tot``: (ms, Ps) each."""
+    return per_device(lambda sh, s: kalman_ops.shard_filter_finish_cuda(
+        _gather([t[0] for t in tot], sh.device), s, *_filter_ins(sh), tot[s][1]),
+        shards, range(len(shards)))
+
+
+def stage_kalman_smoother_totals(shards, filtered):
+    """K38 from each shard's filtered (ms, Ps): (its smoothing total, its
+    chunk composites) each."""
+    return per_device(lambda sh, f: kalman_ops.shard_smoother_totals_cuda(
+        sh.F, sh.c, sh.Q, *f), shards, filtered)
+
+
+def stage_kalman_smoother_finish(tot, shards, filtered):
+    """K39 from :func:`stage_kalman_smoother_totals`' ``tot``: (ms_s, Ps_s)
+    each."""
+    return per_device(lambda sh, s, f: kalman_ops.shard_smoother_finish_cuda(
+        _gather([t[0] for t in tot], sh.device), s, sh.F, sh.c, sh.Q, *f, tot[s][1]),
+        shards, range(len(shards)), filtered)
+
+
+def sp_kalman_filter_plain(F, c, Q, H, R, y, mask, m0, P0, mesh, axis_name='sp', chunk=None):
+    """The plain version of :func:`sp_kalman_filter` (JAX: seq.py:238):
+    ``ops.kalman``'s filtering elements (element 0 absorbing the prior)
+    scanned by :func:`sp_scan` over ``mesh``, T padded with the identity
+    element, each shard's scan in chunks of ``chunk``. (ms, Ps) on the
+    mesh's first device."""
+    n = F.shape[1]
+    elems = kalman_ops._filter_elements(F, c, Q, H, R, y, mask, m0, P0)
+    z = F.new_zeros
+    identity = (torch.eye(n, dtype=F.dtype, device=F.device), z(n), z(n, n), z(n), z(n, n))
+    _, b, C, _, _ = sp_scan(kalman_ops._filter_combine, elems, identity, mesh,
+                            axis_name=axis_name, chunk=chunk)
+    return b, C
+
+
+def sp_kalman_smooth_plain(F, c, Q, ms, Ps, mesh, axis_name='sp', chunk=None):
+    """The plain version of :func:`sp_kalman_smooth` (JAX: seq.py:258):
+    ``ops.kalman``'s smoothing elements (the last the terminal one) suffix
+    scanned by :func:`sp_scan` over ``mesh``. (ms_s, Ps_s) on the mesh's
+    first device."""
+    n = ms.shape[1]
+    elems = kalman_ops._smooth_elements(F, c, Q, ms, Ps)
+    identity = (torch.eye(n, dtype=F.dtype, device=F.device), F.new_zeros(n), F.new_zeros(n, n))
+    _, g, L = sp_scan(kalman_ops._smooth_combine, elems, identity, mesh, axis_name=axis_name,
+                      reverse=True, chunk=chunk)
+    return g, L
+
+
+def kalman_filter_shards(shards, chunk=None):
+    """Filtered moments of a cut model: (ms (Ts, n), Ps (Ts, n, n)) of each
+    shard on its device. On CUDA devices K36 then K37 on every shard; on
+    the CPU the plain version over the trial put back together, its scan
+    in chunks of ``chunk``."""
+    if on_card([sh.device for sh in shards]):
+        return stage_kalman_filter_finish(stage_kalman_filter_totals(shards), shards)
+    sh0 = shards[0]
+    F, c, Q, y, mask = joined_frames([_filter_ins(sh)[:3] + (sh.y, sh.mask) for sh in shards],
+                                     sh0.device)
+    return _split_frames(sp_kalman_filter_plain(F, c, Q, sh0.H, sh0.R, y, mask, sh0.m0, sh0.P0,
+                                                _shard_mesh(shards), chunk=chunk), shards)
+
+
+def kalman_smooth_shards(shards, filtered, chunk=None):
+    """Smoothed moments of a cut model from each shard's filtered (ms, Ps):
+    (ms_s, Ps_s) of each shard on its device. On CUDA devices K38 then K39
+    on every shard; on the CPU the plain version over the trial put back
+    together."""
+    if on_card([sh.device for sh in shards]):
+        return stage_kalman_smoother_finish(stage_kalman_smoother_totals(shards, filtered),
+                                            shards, filtered)
+    ins = joined_frames([_filter_ins(sh)[:3] + tuple(f) for sh, f in zip(shards, filtered)],
+                        shards[0].device)
+    return _split_frames(sp_kalman_smooth_plain(*ins, _shard_mesh(shards), chunk=chunk), shards)
+
+
+def sp_kalman_filter(F, c, Q, H, R, y, mask, m0, P0, mesh, axis_name='sp', chunk=None):
+    """The Kalman filter with the time axis sharded over ``mesh`` (JAX:
+    seq.py:238): (ms, Ps) as ``ops.kalman.filter_parallel``, on the mesh's
+    first device; :func:`kalman_filter_shards` of :func:`shard_lds`."""
+    shards = shard_lds(mesh, F, c, Q, H, R, y, mask, m0, P0, axis_name=axis_name)
+    return joined_frames(kalman_filter_shards(shards, chunk), mesh.devices[0])
+
+
+def sp_kalman_smooth(F, c, Q, ms, Ps, mesh, axis_name='sp', chunk=None):
+    """The RTS smoother with the time axis sharded over ``mesh`` (JAX:
+    seq.py:258): (ms_s, Ps_s) as ``ops.kalman.smooth_parallel`` from the
+    filtered (ms, Ps), on the mesh's first device:
+    :func:`kalman_smooth_shards`."""
+    shards = shard_lds(mesh, F, c, Q, axis_name=axis_name)
+    filtered = _split_frames((ms, Ps), shards)
+    return joined_frames(kalman_smooth_shards(shards, filtered, chunk), mesh.devices[0])

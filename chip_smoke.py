@@ -6,7 +6,7 @@
 On one CUDA GPU (an H100: the kernels are built for sm_90a) it
 
 1. prints the card's name and power limit (nvidia-smi);
-2. builds the port's twenty-two CUDA kernel sources from this checkout;
+2. builds the port's twenty-three CUDA kernel sources from this checkout;
 3. holds each kernel against its plain PyTorch version at the shapes the
    two main paths give it, and times the kernel, the plain version and the
    one PyTorch call that computes the same function (TF32 off for every
@@ -152,7 +152,8 @@ On one CUDA GPU (an H100: the kernels are built for sm_90a) it
    observed, n = 9), at lags 2 (n = 18) and with a general H (the JAX
    package's Kalman tests' system at n = 9, d = 5), K19 / K20 against K21
    / K22, and K19 / K20 on one 10,000-frame trial at three chunk lengths
-   against float64; K11's pivoting launcher at the combine's matrices and
+   against the plain parallel versions in float64 on the card; K11's
+   pivoting launcher at the combine's matrices and
    with a zero leading pivot; the Bayesian CLI with ``"parallel_scan":
    true`` (K13, K14, K19 and K20 must launch; decoded test MSE below the
    raw predictions'); ``decode(parallel=True)`` of one trial against its
@@ -160,7 +161,17 @@ On one CUDA GPU (an H100: the kernels are built for sm_90a) it
    ``solve_small(pivot=True)`` on a general LDS (K19-K22 and the pivot
    launcher); and a 100,000-frame trial drawn from the fitted EM model,
    ``decode(parallel=True)`` timed beside the sequential ``decode`` under
-   JAX's MSE gates.
+   JAX's MSE gates. Then row 19b (kernels/kalman_shard.cu) on meshes that
+   repeat the card 1, 2 and 4 times: K36 / K37 (a time shard's filtering
+   total; its filtered moments from the gathered totals) and K38 / K39 (the
+   smoother's) through ``parallel.seq``'s time-sharded Kalman passes at
+   that trial's soft LDS and the CLI's, against the plain sharded passes
+   and float64 per frame, with one shard K19's and K20's outputs bit for
+   bit, at masked shard boundaries and on trials shorter than the mesh,
+   each launcher timed (``check_sp_kalman``); and ``decode(mesh=)`` of the
+   100,000-frame trial and of a CLI trial from the fitted K = 4 model
+   against ``decode(parallel=True)`` and a float64 decode, timed and
+   profiled on each mesh (``bayesian_sp_serve``).
 11. the LSTM decoder (main paths 16-19; row 20, kernels/lstm.cu): K23 (the
    forward: the input projection, then one block a direction walks the
    192-step chain) against ``lstm_scan_plain`` and ``torch.nn.LSTM`` (the
@@ -228,8 +239,9 @@ host (``mesh_cards``): the ARHMM's ``expected_states`` /
 session and ``fit`` in both layouts (with and without
 ``iters_per_dispatch=2``) on a mesh of cards 0..N-1 and on one that starts
 at card 1 (its first device not the model's), held to the same calls on a
-mesh that repeats card 0 N times; then the ARHMM CLI, which shards EM over
-the trials on every card.
+mesh that repeats card 0 N times; ``decode(mesh=)`` of the Bayesian
+decoder's 100,000-frame session on the same meshes, equal bit for bit; then
+the ARHMM CLI, which shards EM over the trials on every card.
 """
 
 import argparse
@@ -504,6 +516,17 @@ KERNELS = {
                               'behavenet_tpu/parallel/seq.py:214'),
     'hmm_shard_backtrace': ('behavenet_tpu_torch/kernels/hmm_shard.cu',
                             'behavenet_tpu/parallel/seq.py:208'),
+    # the time-sharded Kalman passes (row 19b): a shard's filtering total
+    # (K36) and its filtered moments (K37), its smoothing total (K38) and
+    # its smoothed moments (K39)
+    'kalman_shard_filter_totals': ('behavenet_tpu_torch/kernels/kalman_shard.cu',
+                                   'behavenet_tpu/parallel/seq.py:238'),
+    'kalman_shard_filter_finish': ('behavenet_tpu_torch/kernels/kalman_shard.cu',
+                                   'behavenet_tpu/parallel/seq.py:238'),
+    'kalman_shard_smoother_totals': ('behavenet_tpu_torch/kernels/kalman_shard.cu',
+                                     'behavenet_tpu/parallel/seq.py:258'),
+    'kalman_shard_smoother_finish': ('behavenet_tpu_torch/kernels/kalman_shard.cu',
+                                     'behavenet_tpu/parallel/seq.py:258'),
 }
 
 # the kernels a served request runs (an AE train step runs K1-K6, a
@@ -727,6 +750,41 @@ BAYES_ASSOC_KERNELS = ('hmm_scan', 'hmm_viterbi_scan', 'kalman_filter_scan',
                        'kalman_smoother_scan')
 KALMAN_OPS_KERNELS = ('kalman_filter', 'kalman_smoother', 'kalman_filter_scan',
                       'kalman_smoother_scan', 'solve_small_pivot')
+
+# The time-sharded Kalman passes (K36-K39, row 19b) and decode(mesh=), on
+# meshes that repeat the card SP_SHARDS times, at the long session's soft
+# LDS (bayesian_long_session: K = 16, n = d = 9, LONG_FRAMES frames) and
+# the CLI's (soft_lds at the 192-frame bucket). With one shard K36 + K37
+# give K19's (ms, Ps) and K38 + K39 K20's bit for bit (the same chunks,
+# carries and recursions). On n shards each output against the plain
+# sharded pass on the same mesh and inputs and both against the plain pass
+# in float64 on the card (the smoother on K19's moments), per frame: the
+# largest distance in a frame relative to max(1, that frame's largest
+# |float64|), the kernel within max(KALMAN_REL_TOL, twice the larger of the
+# plain float32 pass's and K19's (K20's) own distances) of float64 and
+# within max(KALMAN_REL_TOL, three times it) of the plain pass (the two
+# distances add up). The boundaries: SP_KALMAN_CUT frames of the long
+# session's dynamics with the observations masked on both sides of every
+# cut and from SP_KALMAN_VALID on (with 8 shards the last shard predicts
+# only), on SP_CUT_SHARDS shards; and short trials of SP_KALMAN_SHORT
+# frames on 8 shards (empty shards, a shard that holds only the terminal
+# frame), every frame against the plain pass as above.
+SP_KALMAN_CUT, SP_KALMAN_VALID, SP_KALMAN_SHORT = 1003, 880, (5, 9)
+SP_KALMAN_KERNELS = ('kalman_shard_filter_totals', 'kalman_shard_filter_finish',
+                     'kalman_shard_smoother_totals', 'kalman_shard_smoother_finish')
+# decode(mesh=) against decode(parallel=True) of the same trial and a
+# float64 decode on the card (the plain passes in float64: the discrete
+# pass's gamma, the gamma-weighted dynamics, the Kalman filter and
+# smoother): gamma within max(GAMMA_ABS_TOL, twice the unsharded decode's
+# own distance) of the float64 gamma; the paths agreeing on PATH_AGREE of
+# the frames; the latents and their covariances, per frame as above,
+# within max(KALMAN_REL_TOL, twice the unsharded decode's distance) of the
+# float64 decode's and within max(KALMAN_REL_TOL, three times it) of the
+# unsharded decode's (float32 gammas differ by up to a few 1e-2 at near
+# ties of 100,000-frame chains and carry into F, c, Q); and within the
+# K36-K39 tolerances above of the float64 plain Kalman passes on the mesh
+# decode's own gamma.
+BAYES_SP_KERNELS = SP_KERNELS[:6] + SP_KALMAN_KERNELS
 
 
 _T0 = time.perf_counter()
@@ -1580,12 +1638,12 @@ KERNEL_OF = tuple(
              ('draw_maps_kernel', 'K15 hmm_sample_posterior'),
              ('sample_states_kernel', 'K16 hmm_sample_states'),
              ('imm_filter_kernel', 'K17 imm_filter'), ('rts_smoother_kernel', 'K18 rts_smoother'),
-             ('filter_compose_kernel', 'K19 kalman_filter_scan'),
-             ('filter_carry_kernel', 'K19 kalman_filter_scan'),
-             ('filter_run_kernel', 'K19/K21 kalman_filter(_scan)'),
-             ('smoother_compose_kernel', 'K20 kalman_smoother_scan'),
-             ('smoother_carry_kernel', 'K20 kalman_smoother_scan'),
-             ('smoother_run_kernel', 'K20 kalman_smoother_scan'),
+             ('filter_compose_kernel', 'K19/K36 kalman filter (compose)'),
+             ('filter_chain_kernel', 'K19/K36/K37 kalman filter (chain)'),
+             ('filter_run_kernel', 'K19/K21/K37 kalman filter (run)'),
+             ('smoother_compose_kernel', 'K20/K38 kalman smoother (compose)'),
+             ('smoother_chain_kernel', 'K20/K38/K39 kalman smoother (chain)'),
+             ('smoother_run_kernel', 'K20/K39 kalman smoother (run)'),
              ('smoother_sequential_kernel', 'K22 kalman_smoother'),
              ('lstm_project_kernel', 'K23 lstm_forward'),
              ('lstm_chain_kernel', 'K23 lstm_forward'),
@@ -4292,9 +4350,12 @@ def mesh_cards(port, n):
     repeats card 0 n times (the same shards: gamma within GAMMA_ABS_TOL,
     paths and draws agreeing on PATH_AGREE of the frames, the LLs within
     SP_EM_REL_TOL; whether they are equal bit for bit is reported). An EM
-    iteration timed on each mesh. Then the ARHMM CLI, which on more than
-    one card shards EM over the trials (``_em_mesh``): it must say so and
-    launch the EM kernels."""
+    iteration timed on each mesh. The Bayesian decoder over the EM model
+    decodes the long session of ``long_decoder_trial`` with
+    ``decode(mesh=)`` on each mesh (K32-K35 and K36-K39 on every card),
+    every output equal bit for bit to the one-card mesh's, each decode
+    timed. Then the ARHMM CLI, which on more than one card shards EM over
+    the trials (``_em_mesh``): it must say so and launch the EM kernels."""
     Mesh, build = port.mesh.Mesh, port.build
     cards = ['cuda:%d' % i for i in range(n)]
     meshes = {'one_card': [cards[0]] * n, 'cards': cards, 'rotated': cards[1:] + cards[:1]}
@@ -4345,6 +4406,19 @@ def mesh_cards(port, n):
                 equal=lls == ref_fits[key],
                 rising=all(b >= a - EM_LL_REL_TOL * abs(a) for a, b in zip(lls, lls[1:])))
                 for key, lls in fits.items()})
+    dec, _, y, q = long_decoder_trial(port, model)
+    decoded = {}
+    for name, devs in meshes.items():
+        mesh = Mesh(devs, ('sp',))
+        reset_launches(build)
+        decoded[name] = dec.decode(y, q, mesh=mesh)
+        rec['by_mesh'][name]['decode'] = dict(
+            launches={k: build.LAUNCHES[k] for k in BAYES_SP_KERNELS},
+            ms=request_ms(lambda: dec.decode(y, q, mesh=mesh), reps=5))
+    for name in meshes:
+        rec['by_mesh'][name]['decode']['equal'] = {
+            key: bool(np.array_equal(val, decoded['one_card'][key]))
+            for key, val in decoded[name].items()}
     with tempfile.TemporaryDirectory() as tmp:
         cli = arhmm_cli(port, tmp)
         with open(os.path.join(os.path.dirname(cli.save_dir), 'arhmm_cli.log')) as f:
@@ -4356,9 +4430,13 @@ def mesh_cards(port, n):
            if v['gamma_max_abs_err'] > GAMMA_ABS_TOL or v['path_agreement'] < PATH_AGREE
            or v['draw_agreement'] < PATH_AGREE
            or any(f['rel_err'] > SP_EM_REL_TOL or not f['rising'] for f in v['fits'].values())]
+    bad += ['%s decode' % name for name, v in rec['by_mesh'].items()
+            if not all(v['decode']['equal'].values())]
     need = SP_KERNELS + ('arhmm_log_likes', 'hmm_forward_backward') + MSTEP_KERNELS
     missing = ['%s %s' % (name, k) for name, v in rec['by_mesh'].items() for k in need
                if k not in v['launches']]
+    missing += ['%s decode %s' % (name, k) for name, v in rec['by_mesh'].items()
+                for k, count in v['decode']['launches'].items() if count == 0]
     if bad or missing or not rec['cli']['sharded']:
         raise AssertionError('the mesh across cards failed (bad %s, missing %s): %s'
                              % (bad, missing, rec))
@@ -4524,7 +4602,8 @@ def check_imm(port):
     the 192-frame bucket, K = 4, 9 latents, lags 1), lags 2 (n = 18, the
     shift block) and K = 12 (the published ARHMM grid's largest); then one
     IMM_LONG-frame trial, K17 then K18, against the plain versions in
-    float64 on the host: within twice the float32 plain version's own
+    float64 on the host (on the card, a launch-bound chain of small ops,
+    they took longer): within twice the float32 plain version's own
     distance."""
     imm = port.imm
     rows = {'imm_filter': {}, 'rts_smoother': {}}
@@ -4559,10 +4638,12 @@ def check_imm(port):
     s_k = imm.rts_smoother_cuda(*f_k, dev_ins[2], dev_ins[3])
     torch.cuda.synchronize()
     kernel_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
     f32 = imm.imm_filter_plain(*ins)
     s32 = imm.rts_smoother_plain(*f32, ins[2], ins[3])
     f64 = imm.imm_filter_plain(*ins, dtype=torch.float64)
     s64 = imm.rts_smoother_plain(*f64, ins[2], ins[3], dtype=torch.float64)
+    reference_s = time.perf_counter() - t0
     long = {}
     for kernel, got, p32, p64 in (('imm_filter', f_k, f32, f64),
                                   ('rts_smoother', s_k, s32, s64)):
@@ -4576,7 +4657,7 @@ def check_imm(port):
         first = cases['cli']
         rec = dict(phase='bayesian_kernel_check', kernel=kernel, layer='cli', library_ms=None,
                    rel_tol=IMM_REL_TOL, cases=cases, long_trial=long[kernel],
-                   long_trial_kernels_s=kernel_s,
+                   long_trial_kernels_s=kernel_s, long_trial_references_s=reference_s,
                    bound_note='the T-step dependence chain, not these',
                    **{k: first[k] for k in ('frames', 'max_abs_err', 'ms', 'plain_ms',
                                             'bound_ms', 't_ops_ms', 't_bytes_ms', 'bound_by')})
@@ -4654,9 +4735,11 @@ def check_kalman(port):
     smoothers on their plain filters' moments), K19 / K20 against K21 /
     K22 (each filter, then its smoother), and every one against the
     float64 sequential versions on the host; then one IMM_LONG-frame
-    trial, K19 and K20 at KALMAN_CHUNKS against the float64 sequential
-    versions within twice the float32 plain parallel version's distance;
-    then K11's pivoting launcher (check_solve_pivot)."""
+    trial, K19 and K20 at KALMAN_CHUNKS against the plain parallel
+    versions in float64 on the card (float64 roundoff from the sequential
+    ones, which took ~25 s on the host) within twice the float32 plain
+    parallel version's distance; then K11's pivoting launcher
+    (check_solve_pivot)."""
     kal = port.kalman
     rows = {k: {} for k in ('kalman_filter_scan', 'kalman_smoother_scan', 'kalman_filter',
                             'kalman_smoother')}
@@ -4715,16 +4798,13 @@ def check_kalman(port):
 
     ins = soft_lds(port, BAYES_STATES, 1, IMM_LONG, SEED + 21)
     F, c, Q = ins[:3]
-    host = [t.cpu() for t in ins]
     chunk = 8192 if IMM_LONG > 8192 else None   # decode's, JAX's chunked branch
-    seq64 = kal.filter_sequential_plain(*host, dtype=torch.float64)
-    sseq64 = kal.smooth_sequential_plain(*host[:3], *seq64, dtype=torch.float64)
+    filt64 = kal.filter_parallel_plain(*ins, chunk=chunk, dtype=torch.float64)
+    smooth64 = kal.smooth_parallel_plain(F, c, Q, *filt64, chunk=chunk, dtype=torch.float64)
     par_p = kal.filter_parallel_plain(*ins, chunk=chunk)
     spar_p = kal.smooth_parallel_plain(F, c, Q, *par_p, chunk=chunk)
-    long = {'kalman_filter_scan': dict(plain32_vs_float64=imm_errors([t.cpu() for t in par_p],
-                                                                     seq64[:2])),
-            'kalman_smoother_scan': dict(plain32_vs_float64=imm_errors(
-                [t.cpu() for t in spar_p], sseq64))}
+    long = {'kalman_filter_scan': dict(plain32_vs_float64=imm_errors(par_p, filt64)),
+            'kalman_smoother_scan': dict(plain32_vs_float64=imm_errors(spar_p, smooth64))}
     for kernel in long:
         long[kernel].update(frames=IMM_LONG, tol=2 * long[kernel]['plain32_vs_float64'],
                             plain_chunk=chunk, chunks={}, finite=True)
@@ -4733,12 +4813,12 @@ def check_kalman(port):
         k20 = kal.smooth_parallel_cuda(F, c, Q, *k19, chunk=L)
         key = str(L) if L else 'scan_chunk=%d' % port.hmm.scan_chunk(IMM_LONG)
         for kernel, got, want, fn in (
-                ('kalman_filter_scan', k19, seq64[:2],
+                ('kalman_filter_scan', k19, filt64,
                  lambda: kal.filter_parallel_cuda(*ins, chunk=L)),
-                ('kalman_smoother_scan', k20, sseq64,
+                ('kalman_smoother_scan', k20, smooth64,
                  lambda: kal.smooth_parallel_cuda(F, c, Q, *k19, chunk=L))):
             long[kernel]['chunks'][key] = dict(
-                vs_float64=imm_errors([t.cpu() for t in got], want),
+                vs_float64=imm_errors(got, want),
                 ms=median_ms(fn, samples=3, inner=3))
             long[kernel]['finite'] &= all(bool(torch.isfinite(t).all().item()) for t in got)
 
@@ -5085,17 +5165,9 @@ def bayesian_long_session(port, model):
     JAX's gates: the parallel MSE below LONG_RAW_SHARE x the raw and
     LONG_SEQ_SHARE x the sequential decode's, every latent finite."""
     kal, imm, build = port.kalman, port.imm, port.build
-    gen = torch.Generator(device=DEVICE)
-    gen.manual_seed(SEED + 24)
     t0 = time.perf_counter()
-    z, x = model.sample(LONG_FRAMES, generator=gen)
-    rs = np.random.RandomState(SEED + 25)
-    y = (x + 0.5 * rs.randn(*x.shape)).astype(np.float32)
-    q = port.bayesian_decoder_grid_search._softmax_rows(
-        2.0 * np.eye(model.K)[z] + rs.randn(LONG_FRAMES, model.K))
+    dec, x, y, q = long_decoder_trial(port, model)
     sample_s = time.perf_counter() - t0
-    dec = port.bayesian.BayesianDecoder(model)
-    dec.estimate_obs_noise([x], [y])
     reset_launches(build)
     out_par = dec.decode(y, q, parallel=True)
     torch.cuda.synchronize()
@@ -5141,6 +5213,330 @@ def bayesian_long_session(port, model):
     if missing or not finite or not mse['parallel'] < LONG_RAW_SHARE * mse['raw'] or \
             not mse['parallel'] < LONG_SEQ_SHARE * mse['sequential']:
         raise AssertionError('the long parallel decode fails (missing %s): %s' % (missing, rec))
+    return launches, dict(dec=dec, x=x, y=y, q=q, ins=ins)
+
+
+def long_decoder_trial(port, model):
+    """The long session of :func:`bayesian_long_session`: a decoder over
+    ``model`` and one LONG_FRAMES-frame trial drawn from it, (decoder,
+    latents, predictions, state probabilities)."""
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(SEED + 24)
+    z, x = model.sample(LONG_FRAMES, generator=gen)
+    rs = np.random.RandomState(SEED + 25)
+    y = (x + 0.5 * rs.randn(*x.shape)).astype(np.float32)
+    q = port.bayesian_decoder_grid_search._softmax_rows(
+        2.0 * np.eye(model.K)[z] + rs.randn(LONG_FRAMES, model.K))
+    dec = port.bayesian.BayesianDecoder(model)
+    dec.estimate_obs_noise([x], [y])
+    return dec, x, y, q
+
+
+def frame_err(got, ref):
+    """The largest distance of the outputs ``got`` from ``ref`` (tuples of
+    (T, ...) tensors) in a frame, relative to max(1, that frame's largest
+    |ref|), over frames and outputs."""
+    def one(g, r):
+        r = r.double()
+        d = (g.double() - r.to(g.device)).abs().flatten(1).amax(1)
+        return (d / r.to(g.device).abs().flatten(1).amax(1).clamp(min=1.0)).max().item()
+    return max(one(g, r) for g, r in zip(got, ref))
+
+
+def kalman_f64(port, ins, chunk=None):
+    """The plain parallel filter and the smoother on K19's moments, in
+    float64 on the card: (filtered, smoothed, K19's moments)."""
+    kal = port.kalman
+    F, c, Q = ins[:3]
+    k19 = kal.filter_parallel_cuda(*ins)
+    return (kal.filter_parallel_plain(*ins, chunk=chunk, dtype=torch.float64),
+            kal.smooth_parallel_plain(F, c, Q, *k19, chunk=chunk, dtype=torch.float64), k19)
+
+
+def sp_kalman_bounds(T, d, n, observed, n_sh):
+    """(operations, bytes) of K36-K39 over a T-frame trial cut into n_sh
+    shards: each launcher held to one pass of the filter's (K36, K37) or
+    the smoother's (K38, K39) recursion over the trial (kalman_bounds'
+    count), its inputs read once (each shard's copy of H, R, m0, P0; the
+    smoother's halo frames; the gathered totals, n_sh on every shard) and
+    its outputs written once (the shards' totals or moments)."""
+    work = kalman_bounds(T, d, n, observed)
+    filt_ops, smooth_ops = work['filter_scan'][0], work['smoother_scan'][0]
+    ef, sf, moments = 3 * n * n + 2 * n, 2 * n * n + n, T * (n + n * n)
+    f_in = T * (2 * n * n + n + d + 1) + n_sh * (d * n + d * d + n + n * n)
+    s_in = (T + n_sh - 1) * (2 * n * n + n) + moments
+    return {'kalman_shard_filter_totals': (filt_ops, 4 * (f_in + n_sh * ef)),
+            'kalman_shard_filter_finish': (filt_ops, 4 * (f_in + n_sh * n_sh * ef + moments)),
+            'kalman_shard_smoother_totals': (smooth_ops, 4 * (s_in + n_sh * sf)),
+            'kalman_shard_smoother_finish': (smooth_ops,
+                                             4 * (s_in + n_sh * n_sh * sf + moments))}
+
+
+def sp_kalman_errors(port, ins, mesh, refs, chunk=None):
+    """The time-sharded filter (on ``ins``) and smoother (on K19's moments)
+    on ``mesh``, kernels and plain passes, against ``refs`` = kalman_f64's:
+    per-frame errors and their tolerances, and the kernels' outputs."""
+    seq, kal = port.seq, port.kalman
+    F, c, Q = ins[:3]
+    f64, s64, k19 = refs
+    got = (seq.sp_kalman_filter(*ins, mesh=mesh), seq.sp_kalman_smooth(F, c, Q, *k19, mesh=mesh))
+    plain = (seq.sp_kalman_filter_plain(*ins, mesh, chunk=chunk),
+             seq.sp_kalman_smooth_plain(F, c, Q, *k19, mesh, chunk=chunk))
+    own = (k19, kal.smooth_parallel_cuda(F, c, Q, *k19))
+    torch.cuda.synchronize()
+    out = {}
+    for i, which in enumerate(('filter', 'smoother')):
+        ref = (f64, s64)[i]
+        e_plain, e_own = frame_err(plain[i], ref), frame_err(own[i], ref)
+        out[which] = dict(
+            vs_plain=frame_err(got[i], plain[i]), vs_float64=frame_err(got[i], ref),
+            plain_vs_float64=e_plain, unsharded_kernel_vs_float64=e_own,
+            tol_float64=max(KALMAN_REL_TOL, 2 * max(e_plain, e_own)),
+            tol_plain=max(KALMAN_REL_TOL, 3 * max(e_plain, e_own)),
+            finite=all(bool(torch.isfinite(t).all().item()) for t in got[i]))
+    return out, got, own
+
+
+def sp_kalman_bad(errs):
+    """The passes of sp_kalman_errors' ``errs`` out of their tolerances."""
+    return [w for w in ('filter', 'smoother') if not errs[w]['finite'] or
+            errs[w]['vs_plain'] > errs[w]['tol_plain'] or
+            errs[w]['vs_float64'] > errs[w]['tol_float64']]
+
+
+def sp_kalman_boundaries(port, ins):
+    """K36-K39 at the shard boundaries: the first SP_KALMAN_CUT frames of
+    ``ins`` with the observations masked on both sides of every cut of
+    SP_CUT_SHARDS shards and from SP_KALMAN_VALID on, on those meshes; and
+    the first SP_KALMAN_SHORT frames on 8 shards (empty shards; at 9
+    frames the fifth shard holds only the terminal frame). Every frame
+    against the plain pass on the same mesh and float64."""
+    seq, Mesh = port.seq, port.mesh.Mesh
+    cut = [t[:SP_KALMAN_CUT].clone() if t.dim() and t.shape[0] == ins[0].shape[0] else t
+           for t in ins]
+    mask = cut[6]
+    mask[SP_KALMAN_VALID:] = 0
+    for n_sh in SP_CUT_SHARDS:
+        for t0, _ in seq.shard_bounds(SP_KALMAN_CUT, n_sh)[1:]:
+            mask[t0 - 1:t0 + 1] = 0
+    out = {}
+    cases = [('cut', cut, n_sh) for n_sh in SP_CUT_SHARDS] + \
+        [('short%d' % T, [t[:T] if t.dim() and t.shape[0] == ins[0].shape[0] else t
+                          for t in ins], 8) for T in SP_KALMAN_SHORT]
+    for name, case, n_sh in cases:
+        T = case[0].shape[0]
+        errs = sp_kalman_errors(port, case, Mesh([DEVICE] * n_sh, ('sp',)),
+                                kalman_f64(port, case))[0]
+        errs.update(frames=T, observed=int(case[6].sum().item()),
+                    shard_frames=[t1 - t0 for t0, t1 in seq.shard_bounds(T, n_sh)])
+        out['%s_x%d' % (name, n_sh)] = errs
+    return out
+
+
+def check_sp_kalman(port, cases):
+    """K36-K39 (``kernels/kalman_shard.cu``, row 19b) through
+    ``parallel.seq``'s time-sharded Kalman passes at ``cases`` (name ->
+    the soft LDS (F, c, Q, H, R, y, mask, m0, P0) on the card: the long
+    session's and the CLI's), on meshes of SP_SHARDS shards of the card:
+    each against the plain sharded pass on the same mesh and both against
+    the float64 plain pass, per frame (sp_kalman_errors); with one shard
+    K19's and K20's outputs bit for bit. Each launcher timed through
+    ``parallel.seq``'s stages (with the gathers it runs) on every shard of
+    the largest mesh beside the plain pass it serves; the passes timed
+    whole at every mesh beside K19 / K20. The shard boundaries
+    (sp_kalman_boundaries). Returns one line per launcher."""
+    kal, seq, Mesh = port.kalman, port.seq, port.mesh.Mesh
+    res = {name: {} for name in SP_KALMAN_KERNELS}
+    phase = dict(phase='sp_kalman_check', shards=list(SP_SHARDS), cases={})
+    for name, ins in cases.items():
+        F, c, Q = ins[:3]
+        T, n, d = F.shape[0], F.shape[-1], ins[5].shape[-1]
+        chunk = 8192 if T > 8192 else None   # decode's, JAX's chunked branch
+        refs = kalman_f64(port, ins, chunk)
+        k19 = refs[2]
+        per_n = {}
+        for n_sh in SP_SHARDS:
+            mesh = Mesh([DEVICE] * n_sh, ('sp',))
+            v, got, own = sp_kalman_errors(port, ins, mesh, refs, chunk)
+            if n_sh == 1:
+                v['equal_to_k19_k20'] = [bool(torch.equal(a, b)) for a, b in
+                                         zip(got[0] + got[1], own[0] + own[1])]
+            v['pass_ms'] = dict(
+                filter=median_ms(lambda: seq.sp_kalman_filter(*ins, mesh=mesh), samples=3,
+                                 inner=3),
+                smoother=median_ms(lambda: seq.sp_kalman_smooth(F, c, Q, *k19, mesh=mesh),
+                                   samples=3, inner=3))
+            per_n[n_sh] = v
+            if n_sh != max(SP_SHARDS):
+                continue
+            shards = seq.shard_lds(mesh, *ins)
+            tot_f = seq.stage_kalman_filter_totals(shards)
+            filt = [tuple(t) for t in seq.kalman_filter_shards(shards)]
+            tot_s = seq.stage_kalman_smoother_totals(shards, filt)
+            fns = {'kalman_shard_filter_totals': lambda: seq.stage_kalman_filter_totals(shards),
+                   'kalman_shard_filter_finish': lambda: seq.stage_kalman_filter_finish(
+                       tot_f, shards),
+                   'kalman_shard_smoother_totals': lambda: seq.stage_kalman_smoother_totals(
+                       shards, filt),
+                   'kalman_shard_smoother_finish': lambda: seq.stage_kalman_smoother_finish(
+                       tot_s, shards, filt)}
+            plain = dict(filter=median_ms(lambda: seq.sp_kalman_filter_plain(
+                *ins, mesh, chunk=chunk), samples=3, inner=1, warmup=1),
+                         smoother=median_ms(lambda: seq.sp_kalman_smooth_plain(
+                             F, c, Q, *k19, mesh, chunk=chunk), samples=3, inner=1, warmup=1))
+            bounds = sp_kalman_bounds(T, d, n, int(ins[6].sum().item()), n_sh)
+            for kernel, fn in fns.items():
+                which = 'filter' if 'filter' in kernel else 'smoother'
+                res[kernel]['%s_x%d' % (name, n_sh)] = dict(
+                    frames=T, shards=n_sh, serves=which, max_abs_err=v[which]['vs_plain'],
+                    ms=median_ms(fn, samples=3, inner=5), plain_ms=plain[which],
+                    **bound(*bounds[kernel]))
+        phase['cases'][name] = dict(
+            frames=T, n=n, d=d, observed=int(ins[6].sum().item()), chunk=chunk,
+            k19_ms=median_ms(lambda: kal.filter_parallel_cuda(*ins), samples=3, inner=3),
+            k20_ms=median_ms(lambda: kal.smooth_parallel_cuda(F, c, Q, *k19), samples=3,
+                             inner=3),
+            by_shards=per_n)
+        del refs, k19
+    phase['boundaries'] = sp_kalman_boundaries(port, cases['long'])
+    emit(phase)
+    bad = ['%s x%d %s' % (name, n_sh, w) for name, c in phase['cases'].items()
+           for n_sh, v in c['by_shards'].items() for w in sp_kalman_bad(v)]
+    bad += ['%s x%d unequal' % (name, n_sh) for name, c in phase['cases'].items()
+            for n_sh, v in c['by_shards'].items() if not all(v.get('equal_to_k19_k20', [1]))]
+    bad += ['boundaries %s %s' % (name, w) for name, v in phase['boundaries'].items()
+            for w in sp_kalman_bad(v)]
+    if bad:
+        raise AssertionError('the time-sharded Kalman passes disagree (%s): %s' % (bad, phase))
+    rows = []
+    for kernel in SP_KALMAN_KERNELS:
+        rec = dict(phase='sp_kalman_kernel_check', kernel=kernel, layer=next(iter(res[kernel])),
+                   frames=LONG_FRAMES, library_ms=None, cases=res[kernel],
+                   bound_note='the chains of the chunks and the folds, not these',
+                   err_note='max_abs_err: the pass\'s per-frame distance from the plain '
+                            'sharded pass on the same mesh; plain_ms: that plain pass')
+        for key in ('ms', 'plain_ms', 'bound_ms', 't_ops_ms', 't_bytes_ms'):
+            rec[key] = sum(c[key] for c in res[kernel].values())
+        rec['max_abs_err'] = max(c['max_abs_err'] for c in res[kernel].values())
+        rec['bound_by'] = 'operations' if rec['t_ops_ms'] >= rec['t_bytes_ms'] else 'bytes'
+        emit(rec)
+        rows.append(rec)
+    return rows
+
+
+def decoder_chain(dec, y, q):
+    """The discrete chain ``decode`` runs for predictions ``y`` (NaN rows
+    unobserved) and state probabilities ``q``: (log_pi0, log_P, ll (T, K),
+    the predictions with NaN rows zeroed, the observed mask)."""
+    y = np.asarray(y, dtype=np.float32)
+    m = dec._tensor((~np.any(np.isnan(y), axis=1)).astype(np.float32))
+    y0 = dec._tensor(np.nan_to_num(y))
+    p = dec.arhmm.params
+    ll = dec._discrete_loglik(y0, None if q is None else dec._tensor(q)) * m[:, None]
+    return p['log_pi0'], torch.log_softmax(p['log_Ps'], dim=1), ll, y0, m
+
+
+def soft_lds64(dec, y0, m, gamma):
+    """``decode``'s gamma-weighted dynamics (``BayesianDecoder._soft_dynamics``
+    with ``_init_moments``) in float64: (F, c, Q, H, R, y, mask, m0, P0) as
+    the Kalman passes take them."""
+    f64 = dict(dtype=torch.float64, device=y0.device)
+    As, bs, Qs = (t.double() for t in dec._aug_dynamics())
+    g = gamma.double()
+    F = torch.einsum('tk,kde->tde', g, As)
+    c = torch.einsum('tk,kd->td', g, bs)
+    Q = torch.einsum('tk,kde->tde', g, Qs)
+    eye = torch.eye(dec.n, **f64)
+    F[0], c[0], Q[0] = eye, 0.0, 1e-6 * eye
+    I_L, R = torch.eye(dec.lags, **f64), dec.R.double()
+    P0 = torch.kron(I_L, R) + torch.kron(
+        I_L, torch.einsum('k,kde->de', g[0], dec.arhmm.params['Sigmas'].double()))
+    return (F, c, Q, dec._H.double(), R, y0.double(), m.double(), y0[0].double().repeat(
+        dec.lags), P0)
+
+
+def bayesian_sp_serve(port, cases):
+    """Main path 14d: ``decode(y, q, mesh=...)`` on meshes of SP_SHARDS
+    shards of the card (K32-K35 for the discrete pass, K36-K39 for the
+    continuous one) at ``cases`` (name -> (decoder, y, q): the long
+    session's 100,000 frames, one 189-frame trial of the fitted K = 4 CLI
+    model), against ``decode(parallel=True)`` of the same trial (K13, K14,
+    K19, K20) and a float64 decode by the plain passes: gamma, paths and
+    latents as the constants above say. Each decode timed and profiled
+    (the device's idle share)."""
+    build, kal, hmm, Mesh = port.build, port.kalman, port.hmm, port.mesh.Mesh
+    meshes = {n: Mesh([DEVICE] * n, ('sp',)) for n in SP_SHARDS}
+    reset_launches(build)
+    got = {(name, n): dec.decode(y, q, mesh=mesh, as_numpy=False)
+           for name, (dec, y, q) in cases.items() for n, mesh in meshes.items()}
+    torch.cuda.synchronize()
+    launches = dict(build.LAUNCHES)
+    rec = dict(phase='bayesian_sp_serve', shards=list(SP_SHARDS), launches={
+        k: launches[k] for k in BAYES_SP_KERNELS}, cases={})
+    for name, (dec, y, q) in cases.items():
+        ref = dec.decode(y, q, parallel=True, as_numpy=False)
+        pi0, lp, ll, y0, m = decoder_chain(dec, y, q)
+        g64 = hmm.forward_backward_plain(pi0.double(), lp.double(), ll[None].double(),
+                                         parallel=True)[0][0]
+        ref_g = (ref['states_posterior'].double() - g64).abs().max().item()
+        gamma_tol = max(GAMMA_ABS_TOL, 2 * ref_g)
+        T, D = len(y), dec.D
+        chunk = 8192 if T > 8192 else None
+        lds64 = soft_lds64(dec, y0, m, g64)
+        dec64 = kal.smooth_parallel_plain(*lds64[:3], *kal.filter_parallel_plain(
+            *lds64, chunk=chunk), chunk=chunk)
+        dec64 = (dec64[0][:, :D], dec64[1][:, :D, :D])
+        ref_lat = frame_err((ref['latents'], ref['latents_cov']), dec64)
+        out = dict(frames=T, states=dec.K, gamma_tol=gamma_tol,
+                   unsharded_gamma_vs_float64=ref_g, unsharded_latents_vs_float64=ref_lat,
+                   latents_tol_decode64=max(KALMAN_REL_TOL, 2 * ref_lat),
+                   latents_tol_unsharded=max(KALMAN_REL_TOL, 3 * ref_lat), by_shards={},
+                   unsharded_decode_ms=request_ms(lambda: dec.decode(y, q, parallel=True),
+                                                  reps=5))
+        for n, mesh in meshes.items():
+            o = got[name, n]
+            F, c, Q, mu0, S0 = dec._soft_dynamics(y0, o['states_posterior'].to(dec.device))
+            ins = (F, c, Q, dec._H, dec.R, y0, m, mu0, S0)
+            f64, s64, k19 = kalman_f64(port, ins, chunk)
+            own64 = (s64[0][:, :D], s64[1][:, :D, :D])
+            plain = kal.smooth_parallel_plain(F, c, Q, *kal.filter_parallel_plain(
+                *ins, chunk=chunk), chunk=chunk)
+            own = kal.smooth_parallel_cuda(F, c, Q, *k19)
+            errs = [frame_err((t[0][:, :D], t[1][:, :D, :D]), own64) for t in (plain, own)]
+            prof = profile_steps(lambda: dec.decode(y, q, mesh=mesh), steps=3, warmup=1,
+                                 phase='bayesian_sp_serve_profile', frames=T, bucket=T,
+                                 case=name, shards=n)
+            out['by_shards'][n] = dict(
+                gamma_vs_float64=(o['states_posterior'].double() - g64.to(o['states_posterior']
+                                                                          .device))
+                .abs().max().item(),
+                gamma_vs_unsharded=(o['states_posterior'] - ref['states_posterior'].to(
+                    o['states_posterior'].device)).abs().max().item(),
+                path_agreement=(o['states'].cpu() == ref['states'].cpu()).float().mean().item(),
+                latents_vs_unsharded=frame_err((o['latents'], o['latents_cov']),
+                                               (ref['latents'], ref['latents_cov'])),
+                latents_vs_decode64=frame_err((o['latents'], o['latents_cov']), dec64),
+                latents_vs_float64=frame_err((o['latents'], o['latents_cov']), own64),
+                latents_tol_float64=max(KALMAN_REL_TOL, 2 * max(errs)),
+                finite=bool(torch.isfinite(o['latents']).all().item()),
+                decode_ms=request_ms(lambda: dec.decode(y, q, mesh=mesh), reps=5),
+                device_busy_ms=prof['device_busy_ms_per_step'],
+                device_idle_share=prof['device_idle_share'])
+            if n == max(SP_SHARDS):
+                emit(prof)
+        rec['cases'][name] = out
+    emit(rec)
+    missing = [k for k in BAYES_SP_KERNELS if launches[k] == 0]
+    bad = ['%s x%d' % (name, n) for name, c in rec['cases'].items()
+           for n, v in c['by_shards'].items()
+           if not v['finite'] or v['gamma_vs_float64'] > c['gamma_tol']
+           or v['path_agreement'] < PATH_AGREE
+           or v['latents_vs_unsharded'] > c['latents_tol_unsharded']
+           or v['latents_vs_decode64'] > c['latents_tol_decode64']
+           or v['latents_vs_float64'] > v['latents_tol_float64']]
+    if missing or bad:
+        raise AssertionError('decode with a mesh failed (missing %s, bad %s): %s'
+                             % (missing, bad, rec))
     return launches
 
 
@@ -6317,7 +6713,9 @@ def main():
                                                   em_trials)
             launches['arhmm_sp_serve'] = arhmm_sp_serve(port, em_model, long_run)
             del long_run
-            launches['bayesian_long_session'] = bayesian_long_session(port, em_model)
+            launches['bayesian_long_session'], long_case = bayesian_long_session(port, em_model)
+            checks += check_sp_kalman(port, {'long': long_case['ins'], 'cli': soft_lds(
+                port, BAYES_STATES, 1, TRIAL, SEED + 20, bucket=BUCKET)})
             del em_model, em_trials, rec_models, par_model, init_params, rec_params
             stat_cli = arhmm_cli(port, tmp)
             launches['arhmm_cli'] = stat_cli.launches
@@ -6365,6 +6763,14 @@ def main():
                 port, stat_cli.vdirs[BAYES_STATES], stat_cli.latents, preds, logits,
                 BAYES_ASSOC_KERNELS, name='bayesian_decode_parallel', parallel=True)
             launches['kalman_ops'] = kalman_ops(port)
+            cli_dec = port.bayesian.BayesianDecoder(port.pickles.load_arhmm(
+                os.path.join(stat_cli.vdirs[BAYES_STATES], 'best_val_model.pt')))
+            cli_dec.estimate_obs_noise(stat_cli.latents[:40], preds[:40])
+            softmax = port.bayesian_decoder_grid_search._softmax_rows
+            launches['bayesian_sp_serve'] = bayesian_sp_serve(port, {
+                'long': (long_case['dec'], long_case['y'], long_case['q']),
+                'cli': (cli_dec, preds[-1], softmax(logits[-1]))})
+            del long_case, cli_dec
         if tf32_flags() != default_flags:
             raise AssertionError('the TF32 flags were left changed: %s' % tf32_flags())
         fitted = {}

@@ -262,10 +262,10 @@ def test_states_posterior_and_obs_noise_match_jax(pairs):
 
 
 def test_unported_paths_raise(pairs):
-    """``mesh=`` names its ROADMAP item; the CUDA wrappers refuse CPU tensors
-    and shapes past their limits, launching nothing."""
+    """``mesh=`` takes a ``parallel.Mesh`` and nothing else; the CUDA wrappers
+    refuse CPU tensors and shapes past their limits, launching nothing."""
     _, tdec, _, y, q = pairs('lags1')
-    with pytest.raises(NotImplementedError, match='A8'):
+    with pytest.raises(TypeError, match='Mesh'):
         tdec.decode(y, q, mesh=object())
     before = dict(build.LAUNCHES)
     K, n, T, D = tdec.K, tdec.n, 8, tdec.D

@@ -290,10 +290,10 @@ def _refusal(which):
             f.fit(data, mesh=MESH)
         with pytest.raises(NotImplementedError, match='A1c'):
             f.expected_states(data[0], mesh=MESH)
-    else:   # the Bayesian decoder's mesh needs the sharded Kalman passes
+    else:   # the Bayesian decoder's mesh is a parallel.Mesh, not a device list
         dec = BayesianDecoder(t, obs_noise=0.1 * np.eye(2))
-        with pytest.raises(NotImplementedError, match='19b'):
-            dec.decode(data[0], mesh=MESH)
+        with pytest.raises(TypeError, match='Mesh'):
+            dec.decode(data[0], mesh=list(MESH.devices))
 
 
 @pytest.mark.parametrize('which', ['shard_time_without_mesh', 'recurrent_shard_time',
