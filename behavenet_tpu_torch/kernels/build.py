@@ -55,6 +55,8 @@ SOURCES = {
     'arhmm_mstep_stats': 'arhmm_mstep.cu',
     'hmm_shard_totals': 'hmm_shard.cu',
     'kalman_shard_filter_totals': 'kalman_shard.cu',
+    'arhmm_recurrent_mstep': 'arhmm_recurrent_mstep.cu',
+    'arhmm_nu_mstep': 'arhmm_nu_mstep.cu',
 }
 _HEADERS = ('igemm.cuh', 'hmm.cuh', 'hmm_backtrace.cuh', 'hmm_scan.cuh', 'kalman_scan.cuh')
 
@@ -69,7 +71,9 @@ _HEADERS = ('igemm.cuh', 'hmm.cuh', 'hmm_backtrace.cuh', 'hmm_scan.cuh', 'kalman
 # (the statistics), K33-K35 (a time shard's finish, map total and
 # backtrace) with K32 (its totals), K37-K39 (the time-sharded Kalman
 # filter's finish, the smoother's totals and finish) with K36 (the
-# filter's totals); K9's forward pass that writes the
+# filter's totals); K40's prep, step and update launchers and K41's pass
+# and finish count as their kernel; K9's
+# forward pass that writes the
 # filtered alphas for K15 and K11's pivoting solve are counted apart from
 # their kernels' other launchers, and so is every float64 launcher
 # (``_f64``: float64 EM), K32's (max, +) form and each of K33's and K34's
@@ -127,6 +131,10 @@ VARIANTS = {
                                      ('bn_kalman_shard_smoother_totals',)),
     'kalman_shard_smoother_finish': ('kalman_shard_filter_totals',
                                      ('bn_kalman_shard_smoother_finish',)),
+    'arhmm_recurrent_mstep_f64': ('arhmm_recurrent_mstep', (
+        'bn_arhmm_recurrent_prep_f64', 'bn_arhmm_recurrent_step_f64',
+        'bn_arhmm_recurrent_update_f64')),
+    'arhmm_nu_mstep_f64': ('arhmm_nu_mstep', ('bn_arhmm_nu_pass_f64', 'bn_arhmm_nu_finish_f64')),
 }
 _COUNTED_AS = {sym: variant for variant, (_, syms) in VARIANTS.items() for sym in syms}
 
@@ -135,7 +143,8 @@ LAUNCHES = {name: 0 for name in list(SOURCES) + list(VARIANTS)}
 _FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-O3', '-std=c++17',
           '-shared', '-Xcompiler', '-fPIC', '-lineinfo', '-Xptxas', '-v']
 
-_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+_P, _I, _L, _F, _D = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float,
+                      ctypes.c_double)
 # C signature of each launcher: kernel name -> {symbol: argtypes}; the first
 # symbol is the kernel's default launcher
 _SIGNATURES = {
@@ -238,6 +247,19 @@ _SIGNATURES = {
         'bn_kalman_shard_filter_finish': [_P, _I, _I] + [_P] * 9 + [_I] * 4 + [_P] * 4,
         'bn_kalman_shard_smoother_totals': [_P] * 5 + [_I] * 4 + [_P] * 3,
         'bn_kalman_shard_smoother_finish': [_P, _I, _I] + [_P] * 5 + [_I] * 3 + [_P] * 4},
+    'arhmm_recurrent_mstep': {
+        'bn_arhmm_recurrent_prep': [_P] * 2 + [_I] * 6 + [_P] * 3,
+        'bn_arhmm_recurrent_step': [_P] * 3 + [_I] * 6 + [_P] * 2,
+        'bn_arhmm_recurrent_update': [_P, _I, _P, _I] + [_I] * 4 + [_D] + [_P] * 4,
+        'bn_arhmm_recurrent_prep_f64': [_P] * 2 + [_I] * 6 + [_P] * 3,
+        'bn_arhmm_recurrent_step_f64': [_P] * 3 + [_I] * 6 + [_P] * 2,
+        'bn_arhmm_recurrent_update_f64': [_P, _I, _P, _I] + [_I] * 4 + [_D] + [_P] * 4},
+    'arhmm_nu_mstep': {
+        'bn_arhmm_nu_pass': [_P] * 3 + [_L, _P] + [_I] * 5 + [_P] * 2,
+        'bn_arhmm_nu_finish': [_P, _I, _I] + [_P] * 3,
+        'bn_arhmm_nu_pass_f64': [_P] * 3 + [_L, _P] + [_I] * 5 + [_P] * 2,
+        'bn_arhmm_nu_finish_f64': [_P, _I, _I] + [_P] * 3,
+        'bn_arhmm_digamma': [_P, _P, _I, _P]},
 }
 
 # sources built as two libraries side by side: the float launchers

@@ -13,7 +13,7 @@ EM iteration is
   weights tau of the same pass: K8 ``kernels/arhmm_log_likes.cu`` on the
   card);
 - the transition log-probs: stationary (K, K), or for the recurrent
-  transitions (N, T-1, K, K) driven by ``Rs x_t`` (:meth:`ARHMM._log_P`,
+  transitions (N, T-1, K, K) driven by ``Rs x_t`` (:func:`recurrent_log_P`,
   PyTorch ops, as plain ops in the JAX package);
 - forward-backward over all trials (``ops.hmm.forward_backward``: K9, or
   K13 with ``parallel_scan``), which with recurrent transitions also
@@ -21,14 +21,17 @@ EM iteration is
 - the M-step: the initial distribution; the transition counts (plus kappa
   on the diagonal when sticky) or, recurrent, 25 Adam steps (lr 1e-2) on
   the expected transitions' log-likelihood over ``log_Ps``, ``Rs`` and
-  ``r`` (the gradient by autograd, the update ``optax.adam``'s written
-  out); per-state weighted least squares (weights times tau when robust)
+  ``r`` (:func:`recurrent_mstep`: K40 ``kernels/arhmm_recurrent_mstep.cu``
+  on the card, the gradient written out; the plain version's by autograd,
+  with ``optax.adam``'s update written out); per-state weighted least
+  squares (weights times tau when robust)
   with the JAX package's Jacobi equilibration and 1e-5 ridge: the weighted
   sums XtWX, XtWY and wsum in one pass over the frames (:func:`mstep_stats`:
   K31 ``kernels/arhmm_mstep.cu`` on the card), solved by
   ``ops.smallmat.solve_small`` (K11), then the weighted residual
   covariances in a second pass (:func:`mstep_cov`, K31's second launcher);
-  robust, 10 finite-difference Newton steps on the dof nu.
+  robust, 10 finite-difference Newton steps on the dof nu
+  (:func:`nu_mstep`: K41 ``kernels/arhmm_nu_mstep.cu`` on the card).
 
 Conventions match the JAX package (and ssm): the first ``lags`` frames of
 a trial are scored under a fixed N(0, I) for every state, and the AR
@@ -47,7 +50,7 @@ as the JAX package does. Randomness comes from a ``torch.Generator``
 ``dtype='float64'`` (the CLI's ``em_dtype``) runs EM, ``log_likelihood``,
 ``expected_states`` and ``most_likely_states`` in float64: parameters,
 padded trials and every intermediate, through the ``_f64`` launchers of
-K8-K11 and K31 on the card. Not ported yet, and raising
+K8-K11, K31, K40 and K41 on the card. Not ported yet, and raising
 ``NotImplementedError``: float64 with ``parallel_scan``, ``posterior_sample``,
 ``sample`` / ``sample_x`` or a mesh (they need K13-K16 and K32-K35 in
 float64, ROADMAP A1c).
@@ -83,7 +86,9 @@ __all__ = ['ARHMM', 'PaddedTrials', 'pad_trials', 'obs_precision', 'log_likes',
            'log_likes_plain', 'log_likes_cuda', 'student_t_terms', 'robust_log_likes',
            'robust_log_likes_plain', 'robust_log_likes_cuda', 'mstep_stats',
            'mstep_stats_plain', 'mstep_stats_cuda', 'mstep_cov', 'mstep_cov_plain',
-           'mstep_cov_cuda', 'kmeans', 'check_ported']
+           'mstep_cov_cuda', 'recurrent_log_P', 'recurrent_mstep', 'recurrent_mstep_plain',
+           'recurrent_mstep_cuda', 'nu_mstep', 'nu_mstep_plain', 'nu_mstep_cuda', 'kmeans',
+           'check_ported']
 
 LN2PI = float(np.log(2 * np.pi))
 _OBSERVATIONS = ('ar', 'gaussian', 'diagonal_ar', 'diagonal_gaussian')
@@ -94,6 +99,10 @@ _NU_NEWTON_STEPS = 10                                   # models/arhmm.py:613
 _MAX_D, _MAX_LAG_COLS = 16, 64  # K8 keeps a frame and its lags in registers
 _DTYPES = {'float32': torch.float32, 'float64': torch.float64}
 _MSTEP_CHUNK = 512   # frames a block of K31 sums (kChunk, kernels/arhmm_mstep.cu)
+_REC_CHUNK = 256     # steps a block of K40 sums (kChunk, kernels/arhmm_recurrent_mstep.cu)
+_NU_CHUNK = 1024     # frames a block of K41's pass sums (kChunk, kernels/arhmm_nu_mstep.cu)
+_MAX_MSTEP_K = 32    # states K40 and K41 take
+_ADAM_B1, _ADAM_B2, _ADAM_EPS = 0.9, 0.999, 1e-8   # optax.adam's defaults
 
 # the device an unpickled model's parameters go to: ``utils.pickles.load``
 # sets it; unset, ``None`` means 'cuda' (which raises without a GPU)
@@ -452,6 +461,248 @@ def mstep_cov(x, mask, gammas, tau, beta, lags, diagonal):
     return mstep_cov_cuda(x, mask, gammas, tau, beta, lags, diagonal)
 
 
+# ---------------------- the recurrent and dof M-steps (K40, K41; row 18c)
+
+
+def _check_part(name, tensors, suffix):
+    """Raise unless ``tensors`` (one part's, under its device) lie on the
+    current CUDA device in the dtype of the launchers ``suffix`` names."""
+    if dtype_suffix(name, tensors) != suffix:
+        raise ValueError('%s: tensors must be all float32 or all float64, got %s'
+                         % (name, [t.dtype for t in tensors]))
+
+
+def recurrent_log_P(log_Ps, Rs, r, x, transitions):
+    """The recurrent transitions' log-probs (N, T-1, K, K) over padded
+    trials ``x`` (N, T, D), the step t -> t+1 driven by ``Rs x_t``: logits
+    ``log_Ps[j, k] + (Rs x_t)[k]`` ('recurrent') or ``r[k] + (Rs x_t)[k]``
+    for every j ('recurrent_only'), log-softmaxed over k (JAX:
+    models/arhmm.py:226)."""
+    drive = torch.einsum('kd,ntd->ntk', Rs, x[:, :-1])   # (N, T-1, K)
+    if transitions == 'recurrent':
+        logits = log_Ps[None, None] + drive[:, :, None, :]
+    else:   # recurrent_only: no base matrix
+        N, S, K = drive.shape
+        logits = (drive + r)[:, :, None, :].expand(N, S, K, K)
+    return torch.log_softmax(logits, dim=3)
+
+
+def recurrent_mstep_plain(log_Ps, Rs, r, x, xis, transitions):
+    """K40's plain version: 25 Adam steps on -sum xis log_P over
+    ``log_Ps``, ``Rs`` and ``r`` (JAX: models/arhmm.py:641), the gradient
+    by autograd, the update ``optax.adam(1e-2)``'s written out (b1 0.9, b2
+    0.999, eps 1e-8; a parameter the objective does not read keeps its
+    value, as a zero gradient leaves it in optax). ``x`` (N, T, D) and the
+    pairwise posteriors ``xis`` (N, T-1, K, K) under the old params are
+    lists over the parts of a trial layout, each on its device: the
+    objective is the sum of theirs, added in part order on the device of
+    ``log_Ps``. Returns the new (log_Ps, Rs, r)."""
+    trans = [p.detach().clone() for p in (log_Ps, Rs, r)]
+    dev = trans[0].device
+    mu = [torch.zeros_like(p) for p in trans]
+    nu = [torch.zeros_like(p) for p in trans]
+    xis = [v.detach() for v in xis]
+    b1, b2, eps, lr = _ADAM_B1, _ADAM_B2, _ADAM_EPS, _RECURRENT_ADAM_LR
+    for step in range(1, _RECURRENT_ADAM_STEPS + 1):
+        leaves = [p.detach().requires_grad_(True) for p in trans]
+        with torch.enable_grad():
+            losses = [-torch.sum(xi * recurrent_log_P(*(v.to(xp.device) for v in leaves), xp,
+                                                      transitions))
+                      for xp, xi in zip(x, xis)]
+            grads = torch.autograd.grad(_reduce(losses, dev), leaves, allow_unused=True)
+        for i, g in enumerate(grads):
+            if g is None:
+                continue
+            mu[i] = (1 - b1) * g + b1 * mu[i]
+            nu[i] = (1 - b2) * g * g + b2 * nu[i]
+            upd = (mu[i] / (1 - b1 ** step)) / (torch.sqrt(nu[i] / (1 - b2 ** step)) + eps)
+            trans[i] = trans[i] - lr * upd
+    return tuple(trans)
+
+
+def _part_rows(rows, off, C, dev):
+    """A part's rows ``off:off + C`` of the partials array ``rows``, for a
+    launch on ``dev``: a view of them when ``rows`` lies on ``dev``, else a
+    buffer there; and the function that copies the buffer into them once
+    the launch is queued (nothing for the view)."""
+    if dev == rows.device:
+        return rows[off:off + C], lambda: None
+    buf = torch.empty((C,) + tuple(rows.shape[1:]), device=dev, dtype=rows.dtype)
+    return buf, lambda: rows[off:off + C].copy_(buf)
+
+
+def recurrent_mstep_cuda(log_Ps, Rs, r, x, xis, transitions):
+    """K40 on the card: :func:`recurrent_mstep_plain`'s 25 Adam steps with
+    the gradient written out, float32 or float64
+    (``bn_arhmm_recurrent_*_f64``), sums in float64 in a fixed order (the
+    same bits on every call). Each part (a trial layout has several) runs
+    the prep once and a pass each Adam step on its device, into its rows
+    of one partials array on the device of ``log_Ps`` (copied there from
+    another card); each step's update runs there, and the parameters are
+    copied to the other parts' devices before the next step's passes: 1 +
+    25 x 2 launches for one part. Returns the new (log_Ps, Rs, r)."""
+    name = 'arhmm_recurrent_mstep'
+    only = int(transitions == 'recurrent_only')
+    dev0 = log_Ps.device
+    K, D = Rs.shape
+    if not 1 <= K <= _MAX_MSTEP_K or not 1 <= D <= _MAX_D:
+        raise ValueError('%s: takes K <= %d states and D <= %d, got K=%d, D=%d'
+                         % (name, _MAX_MSTEP_K, _MAX_D, K, D))
+    if log_Ps.shape != (K, K) or r.shape != (K,):
+        raise ValueError('%s: log_Ps must be (K, K) and r (K,) with K=%d, got %s, %s'
+                         % (name, K, tuple(log_Ps.shape), tuple(r.shape)))
+    R = 1 if only else K
+    n_prep, n_step, n_theta = K * K + K + K * D, R * K + K * D, K * K + K * D + K
+    parts = []
+    for xp, xi in zip(x, xis):
+        N, T = xp.shape[:2]
+        if xp.shape[2] != D or xi.shape != (N, T - 1, K, K):
+            raise ValueError('%s: x must be (N, T, %d) and xis (N, T-1, %d, %d), got %s, %s'
+                             % (name, D, K, K, tuple(xp.shape), tuple(xi.shape)))
+        parts.append((xp.contiguous(), xi.contiguous(), N, T, -(-N * (T - 1) // _REC_CHUNK)))
+    dt = log_Ps.dtype
+    with on_device(dev0):
+        f64 = dtype_suffix(name, [log_Ps, Rs, r])
+        theta = torch.cat([log_Ps.reshape(-1), Rs.reshape(-1), r.reshape(-1)])
+        moments = torch.zeros(2 * n_theta, device=dev0, dtype=dt)
+        lin = torch.empty(n_theta, device=dev0, dtype=torch.float64)
+    rows = sum(p[4] for p in parts)
+    prep_all = torch.empty((rows, n_prep), device=dev0, dtype=torch.float64)
+    step_all = torch.empty((rows, n_step), device=dev0, dtype=torch.float64)
+    runs, off = [], 0
+    for xp, xi, N, T, C in parts:
+        dev = xp.device
+        with on_device(dev):
+            _check_part(name, [xp, xi], f64)
+            prep, prep_done = _part_rows(prep_all, off, C, dev)
+            step_rows, step_done = _part_rows(step_all, off, C, dev)
+            run = dict(xp=xp, N=N, T=T, C=C, step=step_rows, step_done=step_done,
+                       theta=theta if dev == dev0 else torch.empty_like(theta, device=dev),
+                       s=torch.empty((N * (T - 1), R), device=dev, dtype=dt))
+            if C:
+                launch(name, xi.data_ptr(), xp.data_ptr(), N, T, D, K, only, C,
+                       prep.data_ptr(), run['s'].data_ptr(),
+                       symbol='bn_arhmm_recurrent_prep' + f64)
+            prep_done()
+        runs.append(run)
+        off += C
+    for step in range(1, _RECURRENT_ADAM_STEPS + 1):
+        for run in runs:
+            with on_device(run['xp'].device):
+                if run['theta'] is not theta:
+                    run['theta'].copy_(theta)
+                if run['C']:
+                    launch(name, run['s'].data_ptr(), run['xp'].data_ptr(),
+                           run['theta'].data_ptr(), run['N'], run['T'], D, K, only, run['C'],
+                           run['step'].data_ptr(), symbol='bn_arhmm_recurrent_step' + f64)
+                run['step_done']()
+        with on_device(dev0):
+            launch(name, prep_all.data_ptr(), rows, step_all.data_ptr(), rows, D, K, only, step,
+                   _RECURRENT_ADAM_LR, lin.data_ptr(), theta.data_ptr(), moments.data_ptr(),
+                   symbol='bn_arhmm_recurrent_update' + f64)
+    return (theta[:K * K].view(K, K), theta[K * K:K * K + K * D].view(K, D),
+            theta[K * K + K * D:])
+
+
+def recurrent_mstep(log_Ps, Rs, r, x, xis, transitions):
+    """The recurrent transitions' M-step, (log_Ps, Rs, r) after 25 Adam
+    steps: K40 on a ``cuda`` tensor, the plain version on a ``cpu`` one.
+    ``x`` and ``xis`` are lists over the parts of a trial layout."""
+    if log_Ps.device.type == 'cpu':
+        return recurrent_mstep_plain(log_Ps, Rs, r, x, xis, transitions)
+    if log_Ps.device.type != 'cuda':
+        raise ValueError('recurrent_mstep: no implementation for device %s' % log_Ps.device)
+    return recurrent_mstep_cuda(log_Ps, Rs, r, x, xis, transitions)
+
+
+def nu_mstep_plain(nus, parts, D):
+    """K41's plain version: Newton steps on the per-state dof (JAX:
+    models/arhmm.py:582): the root of log(nu/2) - digamma(nu/2) + c, with c
+    = 1 + E_w[E[log tau] - tau] under the old params (every frame weighs
+    its posterior, the first ``lags`` frames too), the derivative a forward
+    difference of step 1e-3 nu, each step clipped to [1, 200]. ``parts``
+    holds (mask (N, T), gammas (N, T, K), taus (N, T, K)) over each part's
+    own frames, on its device; their sums add in part order on the device
+    of ``nus``."""
+    nus = torch.clamp(nus, min=1e-2)
+    dev = nus.device
+    sums = []
+    for mask, gammas, taus in parts:
+        w = gammas * mask[:, :, None]
+        nu_p = nus.to(w.device)
+        e_log_tau = torch.digamma(0.5 * (nu_p + D)) + torch.log(taus) \
+            - torch.log(0.5 * (nu_p + D))
+        sums.append((torch.sum(w, dim=(0, 1)), torch.sum(w * (e_log_tau - taus), dim=(0, 1))))
+    wsum = torch.clamp(_reduce([sm[0] for sm in sums], dev), min=1e-8)
+    c = 1.0 + _reduce([sm[1] for sm in sums], dev) / wsum
+    nu = nus
+    for _ in range(_NU_NEWTON_STEPS):
+        half = 0.5 * nu
+        f = torch.log(half) - torch.digamma(half) + c
+        eps = 1e-3 * nu
+        half2 = 0.5 * (nu + eps)
+        f2 = torch.log(half2) - torch.digamma(half2) + c
+        grad = (f2 - f) / eps
+        step = f / torch.where(torch.abs(grad) > 1e-12, grad, torch.full_like(grad, -1e-12))
+        nu = torch.clamp(nu - step, 1.0, 200.0)
+    return nu
+
+
+def nu_mstep_cuda(nus, parts, D):
+    """K41 on the card: :func:`nu_mstep_plain`'s new nus, float32 or float64
+    (``bn_arhmm_nu_*_f64``), computed in float64 either way; a pass per
+    part on its device (tau may be a slice along time of a wider array)
+    into the rows of one partials array on the device of ``nus`` (copied
+    there from another card), then the sums and the Newton steps there in
+    one small launch. Fixed-order sums: the same bits on every call."""
+    name = 'arhmm_nu_mstep'
+    K = nus.shape[0]
+    if not 1 <= K <= _MAX_MSTEP_K:
+        raise ValueError('%s: takes K <= %d states, got %d' % (name, _MAX_MSTEP_K, K))
+    ins = []
+    for mask, gammas, tau in parts:
+        N, T = mask.shape
+        if gammas.shape != (N, T, K) or tau.shape != (N, T, K):
+            raise ValueError('%s: gammas and tau must be (N, T, %d) over mask (N, T) = %s, '
+                             'got %s, %s' % (name, K, (N, T), tuple(gammas.shape),
+                                             tuple(tau.shape)))
+        if tau.stride()[1:] != (K, 1):
+            tau = tau.contiguous()
+        ins.append((mask.contiguous(), gammas.contiguous(), tau, N, T, -(-N * T // _NU_CHUNK)))
+    dev0 = nus.device
+    rows = sum(p[5] for p in ins)
+    with on_device(dev0):
+        f64 = dtype_suffix(name, [nus])
+        part_all = torch.empty((rows, 2 * K), device=dev0, dtype=torch.float64)
+        out = torch.empty_like(nus)
+    off = 0
+    for mask, gammas, tau, N, T, C in ins:
+        dev = gammas.device
+        with on_device(dev):
+            nus_p = nus.to(dev)
+            _check_part(name, [gammas, mask, tau, nus_p], f64)
+            buf, done = _part_rows(part_all, off, C, dev)
+            launch(name, gammas.data_ptr(), mask.data_ptr(), tau.data_ptr(), tau.stride(0),
+                   nus_p.data_ptr(), N, T, K, D, C, buf.data_ptr(),
+                   symbol='bn_arhmm_nu_pass' + f64)
+            done()
+        off += C
+    with on_device(dev0):
+        launch(name, part_all.data_ptr(), rows, K, nus.data_ptr(), out.data_ptr(),
+               symbol='bn_arhmm_nu_finish' + f64)
+    return out
+
+
+def nu_mstep(nus, parts, D):
+    """The new Student's-t dofs (K,) from ``parts`` of (mask, gammas, tau):
+    K41 on a ``cuda`` tensor, the plain version on a ``cpu`` one."""
+    if nus.device.type == 'cpu':
+        return nu_mstep_plain(nus, parts, D)
+    if nus.device.type != 'cuda':
+        raise ValueError('nu_mstep: no implementation for device %s' % nus.device)
+    return nu_mstep_cuda(nus, parts, D)
+
+
 # ------------------------------------------------------------------ k-means
 
 
@@ -673,13 +924,7 @@ class ARHMM:
         t+1 driven by ``Rs x_t`` (JAX: models/arhmm.py:226)."""
         if not self.recurrent:
             return torch.log_softmax(params['log_Ps'], dim=1)
-        drive = torch.einsum('kd,ntd->ntk', params['Rs'], x[:, :-1])   # (N, T-1, K)
-        if self.transitions == 'recurrent':
-            logits = params['log_Ps'][None, None] + drive[:, :, None, :]
-        else:   # recurrent_only: no base matrix
-            N, S, K = drive.shape
-            logits = (drive + params['r'])[:, :, None, :].expand(N, S, K, K)
-        return torch.log_softmax(logits, dim=3)
+        return recurrent_log_P(params['log_Ps'], params['Rs'], params['r'], x, self.transitions)
 
     # ------------------------------------------------------------- public api
     @_on_own_device
@@ -1021,8 +1266,9 @@ class ARHMM:
         shards' K32 and K33 through ``parallel.seq``), the M-step's sums per
         part added in part order on the first part's device, where the new
         parameters are made (JAX: models/arhmm.py:474 ``_em_step``, :561
-        ``_em_step_sp``). Each part's launches run under its device, the
-        M-step's under the first part's."""
+        ``_em_step_sp``); recurrent, K40's prep and step passes per part and
+        its Adam updates on the first. Each part's launches run under its
+        device, the M-step's under the first part's."""
         parts, shard_time, n_trials = layout
         dev0 = parts[0].device
         on = _params_on(params, parts)
@@ -1080,7 +1326,8 @@ class ARHMM:
         the device of ``params`` (the first part's): the initial
         distribution from ``pi0_sum`` (the posteriors of frame 0 summed
         over the trials) over ``n_trials``, the transition ``counts``, K31's
-        two passes per part around one solve (K11), the dof's sums. Returns
+        two passes per part around one solve (K11), the dof's M-step (K41's
+        pass per part, its Newton steps on the first). Returns
         the new params dict on that device. Each part's K31 launches run
         under its device; the caller makes that of ``params`` current for
         the rest."""
@@ -1131,77 +1378,26 @@ class ARHMM:
             new['Sigmas'] = Sig + jit[:, None, None] * torch.eye(D, dtype=dt, device=dev)[None]
 
         if self.robust:
-            new['nus'] = self._m_step_nu(params, [(part.mask, g, tau[:, part.halo:])
-                                                  for part, g, tau in zip(parts, gammas, taus)])
+            # the dof's Newton steps (K41): the sums over every part's own
+            # frames, the first lags too
+            new['nus'] = nu_mstep(params['nus'], [(part.mask, g, tau[:, part.halo:])
+                                                  for part, g, tau in zip(parts, gammas, taus)],
+                                  D)
         return new
-
-    def _m_step_nu(self, params, parts):
-        """Newton steps on the per-state dof (JAX: models/arhmm.py:582): the
-        root of log(nu/2) - digamma(nu/2) + c, with c = 1 + E_w[E[log tau]
-        - tau] under the old params (every frame weighs its posterior, the
-        first ``lags`` frames too), the derivative a forward difference of
-        step 1e-3 nu, each step clipped to [1, 200]. ``parts`` holds (mask,
-        gammas, taus) over each part's own frames; their sums add in part
-        order."""
-        D = self.D
-        nus = torch.clamp(params['nus'], min=1e-2)
-        dev = nus.device
-        sums = []
-        for mask, gammas, taus in parts:
-            w = gammas * mask[:, :, None]
-            nu_p = nus.to(w.device)
-            e_log_tau = torch.digamma(0.5 * (nu_p + D)) + torch.log(taus) \
-                - torch.log(0.5 * (nu_p + D))
-            sums.append((torch.sum(w, dim=(0, 1)), torch.sum(w * (e_log_tau - taus), dim=(0, 1))))
-        wsum = torch.clamp(_reduce([sm[0] for sm in sums], dev), min=1e-8)
-        c = 1.0 + _reduce([sm[1] for sm in sums], dev) / wsum
-        nu = nus
-        for _ in range(_NU_NEWTON_STEPS):
-            half = 0.5 * nu
-            f = torch.log(half) - torch.digamma(half) + c
-            eps = 1e-3 * nu
-            half2 = 0.5 * (nu + eps)
-            f2 = torch.log(half2) - torch.digamma(half2) + c
-            grad = (f2 - f) / eps
-            step = f / torch.where(torch.abs(grad) > 1e-12, grad, torch.full_like(grad, -1e-12))
-            nu = torch.clamp(nu - step, 1.0, 200.0)
-        return nu
 
     def _m_step_recurrent(self, params, x, xis):
         """The recurrent transitions' gradient M-step (JAX:
-        models/arhmm.py:641): 25 Adam steps on -sum xis log_P_new over
-        ``log_Ps``, ``Rs`` and ``r``, from the per-step pairwise posteriors
-        ``xis`` (N, T-1, K, K) under the old params; the gradient by
-        autograd, the update ``optax.adam(1e-2)``'s (b1 0.9, b2 0.999, eps
-        1e-8, written out: a parameter the objective does not read keeps its
-        value, as a zero gradient leaves it in optax). ``x`` and ``xis`` may
-        be lists over the parts of a trial layout, each on its device: the
-        objective is the sum of theirs, taken in part order on the device of
-        ``params``. Returns the three tensors."""
+        models/arhmm.py:641) through :func:`recurrent_mstep` (K40 on the
+        card): 25 Adam steps on -sum xis log_P_new over ``log_Ps``, ``Rs``
+        and ``r`` from the per-step pairwise posteriors ``xis`` (N, T-1, K,
+        K) under the old params. ``x`` and ``xis`` may be lists over the
+        parts of a trial layout, each on its device; the sums add in part
+        order on the device of ``params``. Returns the three tensors."""
+        keys = ('log_Ps', 'Rs', 'r')
         if torch.is_tensor(x):
             x, xis = [x], [xis]
-        keys = ('log_Ps', 'Rs', 'r')
-        trans = [params[k].detach().clone() for k in keys]
-        mu = [torch.zeros_like(p) for p in trans]
-        nu = [torch.zeros_like(p) for p in trans]
-        xis = [v.detach() for v in xis]
-        b1, b2, eps, lr = 0.9, 0.999, 1e-8, _RECURRENT_ADAM_LR
-        for step in range(1, _RECURRENT_ADAM_STEPS + 1):
-            leaves = [p.detach().requires_grad_(True) for p in trans]
-            with torch.enable_grad():
-                losses = [-torch.sum(xi * self._log_P(
-                    dict(params, **{k: v.to(xp.device) for k, v in zip(keys, leaves)}), xp))
-                    for xp, xi in zip(x, xis)]
-                loss = _reduce(losses, trans[0].device)
-                grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-            for i, g in enumerate(grads):
-                if g is None:
-                    continue
-                mu[i] = (1 - b1) * g + b1 * mu[i]
-                nu[i] = (1 - b2) * g * g + b2 * nu[i]
-                upd = (mu[i] / (1 - b1 ** step)) / (torch.sqrt(nu[i] / (1 - b2 ** step)) + eps)
-                trans[i] = trans[i] - lr * upd
-        return dict(zip(keys, trans))
+        return dict(zip(keys, recurrent_mstep(*(params[k] for k in keys), x, xis,
+                                              self.transitions)))
 
     @_on_own_device
     def fit(self, datas, method='em', num_iters=1, initialize=False, tolerance=0.0,

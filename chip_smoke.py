@@ -6,7 +6,7 @@
 On one CUDA GPU (an H100: the kernels are built for sm_90a) it
 
 1. prints the card's name and power limit (nvidia-smi);
-2. builds the port's twenty-three CUDA kernel sources from this checkout;
+2. builds the port's twenty-five CUDA kernel sources from this checkout;
 3. holds each kernel against its plain PyTorch version at the shapes the
    two main paths give it, and times the kernel, the plain version and the
    one PyTorch call that computes the same function (TF32 off for every
@@ -97,7 +97,15 @@ On one CUDA GPU (an H100: the kernels are built for sm_90a) it
    against a plain float64 one; timed and profiled) and one 'recurrent' +
    'robust_ar' float64 iteration with its decoding; and the CLI with
    ``em_dtype: float64`` over K = 2, 4, its K = 4 model served in float64
-   through ``load_arhmm``. Then the time-sharded passes (row 19a,
+   through ``load_arhmm``. Then row 18c: K40 (the recurrent transitions'
+   25 Adam steps, kernels/arhmm_recurrent_mstep.cu) and K41 (the
+   Student's-t dof's Newton steps, kernels/arhmm_nu_mstep.cu), float32 and
+   float64, against their plain versions in float64 on the EM trials, full
+   and cut, 'recurrent' and 'recurrent_only', on one part and two, a second
+   call bit for bit, each timed beside its plain version; the device
+   digamma against ``torch.digamma``; every recurrent EM path (sequential,
+   ``parallel_scan``, float64, the CLI, the trial layout on 2 shards) must
+   launch them. Then the time-sharded passes (row 19a,
    kernels/hmm_shard.cu) on the 100,000-frame session, on meshes that
    repeat the card 1, 2 and 4 times (``parallel.Mesh``: every shard's
    launches and every exchange run, one shard after another): K32 (a
@@ -110,7 +118,9 @@ On one CUDA GPU (an H100: the kernels are built for sm_90a) it
    (``arhmm_em_sp``: ``fit(shard_time=True)`` over 4 shards of two
    100,000-frame sessions, the trial layout over 2 shards of the EM
    workload, each with and without ``iters_per_dispatch=2``, against the
-   unsharded fit; timed and profiled); and ``expected_states``,
+   unsharded fit; timed and profiled; and the recurrent + robust model in
+   the trial layout over 2 shards, against its unsharded fit, LLs and
+   parameters: K40's and K41's multi-part reductions); and ``expected_states``,
    ``most_likely_states`` and ``posterior_sample(mesh=)`` of the session on
    1 and 4 shards beside the unsharded ``parallel_scan`` calls
    (``arhmm_sp_serve``).
@@ -239,7 +249,9 @@ host (``mesh_cards``): the ARHMM's ``expected_states`` /
 session and ``fit`` in both layouts (with and without
 ``iters_per_dispatch=2``) on a mesh of cards 0..N-1 and on one that starts
 at card 1 (its first device not the model's), held to the same calls on a
-mesh that repeats card 0 N times; ``decode(mesh=)`` of the Bayesian
+mesh that repeats card 0 N times; the recurrent + robust model's fit in
+the trial layout on each of the three meshes against its unsharded fit
+(K40 and K41 on every card); ``decode(mesh=)`` of the Bayesian
 decoder's 100,000-frame session on the same meshes, equal bit for bit; then
 the ARHMM CLI, which shards EM over the trials on every card.
 """
@@ -527,6 +539,16 @@ KERNELS = {
                                      'behavenet_tpu/parallel/seq.py:258'),
     'kalman_shard_smoother_finish': ('behavenet_tpu_torch/kernels/kalman_shard.cu',
                                      'behavenet_tpu/parallel/seq.py:258'),
+    # the recurrent transitions' Adam M-step (K40) and the Student's-t dof's
+    # Newton M-step (K41) (row 18c); float32 and float64
+    'arhmm_recurrent_mstep': ('behavenet_tpu_torch/kernels/arhmm_recurrent_mstep.cu',
+                              'behavenet_tpu/models/arhmm.py:641'),
+    'arhmm_recurrent_mstep_f64': ('behavenet_tpu_torch/kernels/arhmm_recurrent_mstep.cu',
+                                  'behavenet_tpu/models/arhmm.py:641'),
+    'arhmm_nu_mstep': ('behavenet_tpu_torch/kernels/arhmm_nu_mstep.cu',
+                       'behavenet_tpu/models/arhmm.py:582'),
+    'arhmm_nu_mstep_f64': ('behavenet_tpu_torch/kernels/arhmm_nu_mstep.cu',
+                           'behavenet_tpu/models/arhmm.py:582'),
 }
 
 # the kernels a served request runs (an AE train step runs K1-K6, a
@@ -540,14 +562,17 @@ MSTEP_KERNELS = ('solve_small', 'arhmm_mstep_stats', 'arhmm_mstep_cov')
 EM_KERNELS = ('arhmm_log_likes', 'hmm_forward_backward') + MSTEP_KERNELS
 ARHMM_KERNELS = EM_KERNELS + ('hmm_viterbi',)
 # a recurrent + robust ARHMM's EM, CLI and serving run the launchers for
-# Student's-t observations and time-varying transitions
-RECURRENT_EM_KERNELS = ('arhmm_log_likes_robust', 'hmm_forward_backward_tv') + MSTEP_KERNELS
+# Student's-t observations and time-varying transitions, and its M-step K40
+# and K41
+REC_MSTEP_KERNELS = ('arhmm_recurrent_mstep', 'arhmm_nu_mstep')
+RECURRENT_EM_KERNELS = ('arhmm_log_likes_robust', 'hmm_forward_backward_tv') + MSTEP_KERNELS \
+    + REC_MSTEP_KERNELS
 RECURRENT_KERNELS = RECURRENT_EM_KERNELS + ('hmm_viterbi_tv',)
 # float64 EM (em_dtype 'float64') runs every one of them in its _f64 form
 F64_MSTEP_KERNELS = tuple(k + '_f64' for k in MSTEP_KERNELS)
 F64_EM_KERNELS = ('arhmm_log_likes_f64', 'hmm_forward_backward_f64') + F64_MSTEP_KERNELS
 F64_REC_EM_KERNELS = ('arhmm_log_likes_robust_f64', 'hmm_forward_backward_tv_f64') + \
-    F64_MSTEP_KERNELS
+    F64_MSTEP_KERNELS + tuple(k + '_f64' for k in REC_MSTEP_KERNELS)
 F64_CLI_KERNELS = F64_EM_KERNELS + ('hmm_forward_f64', 'hmm_viterbi_f64')
 
 # The ARHMM at the JAX package's EM benchmark shapes (bench.py:300
@@ -615,8 +640,34 @@ MSTEP_CASES = {'full': (EM_STATES, 1, False, False), 'diagonal': (EM_STATES, 1, 
 MSTEP_F32_REL_TOL, MSTEP_F64_REL_TOL, F32_ULP = 1e-5, 1e-12, 2.0 ** -23
 F64_REL_TOL, F64_CLI_STATES, F64_EM_ITERS, F64_PARAM_REL_TOL = 1e-10, 4, 10, 1e-9
 F64_CLI_GRID = [2, 4]
+# Row 18c: K40 (the recurrent transitions' 25 Adam steps) and K41 (the
+# dof's 10 Newton steps) on the EM trials, full and with every tenth trial
+# cut to EM_CUT frames, for 'recurrent' ('robust_ar') and 'recurrent_only'
+# ('diagonal_robust_ar') under the seeded recurrent models (xis from K9, tau
+# from K8), and at the CLI's shape (its 50 trials of TRIAL frames) for each
+# K of REC_CLI_GRID under 'recurrent' ('robust_ar'), each against its plain
+# version run in float64 on the card on the same inputs. K40's float32
+# log_Ps, Rs and r within max(REC_F32_ABS_TOL, twice the plain float32
+# version's own distance) of it, but never more than REC_F32_ABS_CAP
+# (Adam's first step is lr sign(g): an entry of g near 0 may flip sign
+# between two summation orders and move by 2 lr; the smallest |g| over the
+# largest at step 1 is reported; a flip in the plain version fails the case
+# rather than widen its gate); the float64 ones within REC_F64_ABS_TOL.
+# K41's float32 nus within max(NU_F32_REL_TOL, twice the plain float32
+# version's relative distance), at most NU_F32_REL_CAP, of it (the forward
+# difference amplifies digamma's last bits by 1e3-1e5), the float64 ones
+# within NU_F64_REL_TOL. The trial layout's two parts (the trials halved)
+# and a strided tau held as one part; a second call equal bit for bit. The
+# device digamma against torch.digamma in float64 over DIGAMMA_RANGE,
+# within DIGAMMA_TOL of max(1, |digamma|).
+REC_F32_ABS_TOL, REC_F32_ABS_CAP, REC_F64_ABS_TOL = 1e-5, 1e-4, 1e-9
+NU_F32_REL_TOL, NU_F32_REL_CAP, NU_F64_REL_TOL = 1e-4, 1e-3, 1e-9
+REC_CLI_GRID = (2, 4, 8, 12)  # configs/arhmm_jsons/arhmm_model.json's n_arhmm_states
+DIGAMMA_RANGE, DIGAMMA_TOL = (0.5, 110.0), 1e-13
+ADAM_STEPS = 25
 PARALLEL_EM_KERNELS = ('arhmm_log_likes', 'hmm_scan') + MSTEP_KERNELS
-PARALLEL_REC_EM_KERNELS = ('arhmm_log_likes_robust', 'hmm_scan_tv') + MSTEP_KERNELS
+PARALLEL_REC_EM_KERNELS = ('arhmm_log_likes_robust', 'hmm_scan_tv') + MSTEP_KERNELS + \
+    REC_MSTEP_KERNELS
 PARALLEL_REC_DECODE_KERNELS = ('hmm_viterbi_scan_tv', 'hmm_sample_posterior_tv')
 PARALLEL_CLI_KERNELS = ('arhmm_log_likes', 'hmm_scan', 'hmm_viterbi_scan') + MSTEP_KERNELS
 LONG_FRAMES = 100000
@@ -648,6 +699,11 @@ SP_CUT_FRAMES, SP_CUT_VALID, SP_CUT_SHARDS = 1003, 880, (4, 8)
 SP_XI_ABS_TOL, SP_XI_COUNT_TOL = 1e-3, 1e-2
 MESH_CARD_ITERS = 3   # EM iterations of each fit in mesh_cards
 SP_EM_ITERS, SP_DISPATCH, SP_EM_REL_TOL = 4, 2, 1e-4
+# the recurrent + robust model in the trial layout (K40's and K41's passes
+# per part, their sums on the first): SP_REC_ITERS iterations against the
+# unsharded fit, LLs within SP_EM_REL_TOL and every parameter within
+# REC_PARAM_REL_TOL of its largest entry
+SP_REC_ITERS = 2
 SP_KERNELS = ('hmm_shard_totals', 'hmm_shard_finish', 'hmm_shard_totals_maxplus',
               'hmm_shard_finish_viterbi', 'hmm_shard_maps', 'hmm_shard_backtrace',
               'hmm_shard_finish_alpha', 'hmm_shard_maps_sample')
@@ -1660,7 +1716,11 @@ KERNEL_OF = tuple(
              ('bn_apply_kernel', 'K29 batch_norm (apply)'),
              ('bn_grad_', 'K30 batch_norm_backward'),
              ('mstep_stats_', 'K31 arhmm_mstep (statistics)'),
-             ('mstep_cov_', 'K31 arhmm_mstep (covariance)'))
+             ('mstep_cov_', 'K31 arhmm_mstep (covariance)'),
+             ('rec_prep_kernel', 'K40 arhmm_recurrent_mstep (prep)'),
+             ('rec_step_kernel', 'K40 arhmm_recurrent_mstep (step)'),
+             ('rec_update_kernel', 'K40 arhmm_recurrent_mstep (update)'),
+             ('nu_pass_kernel', 'K41 arhmm_nu_mstep'), ('nu_finish_kernel', 'K41 arhmm_nu_mstep'))
 
 
 def profile_steps(fn, steps=5, warmup=2, phase='train_profile', **labels):
@@ -2329,8 +2389,9 @@ def plain_arhmm(port):
     """Route the ARHMM's kernel entry points to their plain versions: K8's
     ``log_likes`` and ``robust_log_likes``, K9's ``forward_backward`` and
     ``log_normalizer`` (K13's with ``parallel``), K10's (K14's) ``viterbi``
-    and the M-step's K11 ``solve_small`` and K31 ``mstep_stats`` /
-    ``mstep_cov``, for the plain twin of a run on the card."""
+    and the M-step's K11 ``solve_small``, K31 ``mstep_stats`` /
+    ``mstep_cov``, K40 ``recurrent_mstep`` and K41 ``nu_mstep``, for the
+    plain twin of a run on the card."""
     am, hmm = port.arhmm, port.hmm
 
     def log_likes(x, mask, As, bs, Sigmas, lags, diagonal):
@@ -2350,6 +2411,8 @@ def plain_arhmm(port):
     routes = ((am, 'log_likes', log_likes), (am, 'robust_log_likes', robust_log_likes),
               (am, 'solve_small', port.smallmat.solve_small_plain),
               (am, 'mstep_stats', am.mstep_stats_plain), (am, 'mstep_cov', am.mstep_cov_plain),
+              (am, 'recurrent_mstep', am.recurrent_mstep_plain),
+              (am, 'nu_mstep', am.nu_mstep_plain),
               (hmm, 'forward_backward', hmm.forward_backward_plain),
               (hmm, 'log_normalizer', log_normalizer), (hmm, 'viterbi', viterbi))
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in routes]
@@ -3044,6 +3107,200 @@ def check_f64_kernels(port, model, rec_models, trials):
         bad.append(('hmm_forward_backward_f64', 'launched at 17 states'))
     if bad:
         raise AssertionError('float64 launchers disagree with their plain versions: %s' % bad)
+    return rows
+
+
+def row18c_inputs(port, model, trials, cut):
+    """K40's and K41's inputs under ``model`` on the EM trials (every tenth
+    cut to EM_CUT frames with ``cut``): x zero past the cut, the mask, gammas
+    and the per-step xis (K9) and tau (K8's Student's-t launcher)."""
+    x, mask = trials
+    m = mask.clone()
+    if cut:
+        m[::10, EM_CUT:] = 0.0
+    xm = x * m[:, :, None]
+    p = model.params
+    ll, tau = model._log_likes(p, xm, m, with_tau=True)
+    gammas, _, _, xis = port.hmm.forward_backward(p['log_pi0'], model._log_P(p, xm), ll, m,
+                                                  with_xi=True)
+    return xm, m, gammas, tau, xis
+
+
+def first_grad_ratio(am, trans, x, xis, transitions):
+    """The smallest |entry| of the recurrent objective's gradient at the
+    start over its largest (float64 autograd; the entries the objective
+    reads)."""
+    leaves = [t.double().requires_grad_(True) for t in trans]
+    loss = -torch.sum(xis.double() * am.recurrent_log_P(*leaves, x.double(), transitions))
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    g = torch.cat([v.flatten() for v in grads if v is not None]).abs()
+    return (g.min() / g.max()).item()
+
+
+def row18c_case(am, model, inputs, transitions):
+    """One row-18c case: K40 and K41 on ``inputs`` (``row18c_inputs``) under
+    ``model``'s params, float32 and float64, one part and the trials halved
+    into two, against their plain versions in float64 (the tolerances
+    above). Returns the case's record, with ``ok``."""
+    keys = ('log_Ps', 'Rs', 'r')
+
+    def dist(a, b):
+        return max((u.double() - v.double()).abs().max().item() for u, v in zip(a, b))
+
+    def nu_dist(a, b):
+        return ((a.double() - b) / b).abs().max().item()
+    x, m, g, tau, xis = inputs
+    D, half = x.shape[2], x.shape[0] // 2
+    p = model.params
+    trans = [p[k] for k in keys]
+    t64 = [t.double() for t in trans]
+    x64, xis64 = x.double(), xis.double()
+    k32, k32b = (am.recurrent_mstep_cuda(*trans, [x], [xis], transitions) for _ in range(2))
+    k64, k64b = (am.recurrent_mstep_cuda(*t64, [x64], [xis64], transitions) for _ in range(2))
+    two = am.recurrent_mstep_cuda(*trans, [x[:half], x[half:]], [xis[:half], xis[half:]],
+                                  transitions)
+    p64 = am.recurrent_mstep_plain(*t64, [x64], [xis64], transitions)
+    p32 = am.recurrent_mstep_plain(*trans, [x], [xis], transitions)
+    nus = p['nus']
+    parts = [(m, g, tau)]
+    n32, n32b = (am.nu_mstep_cuda(nus, parts, D) for _ in range(2))
+    parts64 = [(m.double(), g.double(), tau.double())]
+    n64, n64b = (am.nu_mstep_cuda(nus.double(), parts64, D) for _ in range(2))
+    n_two = am.nu_mstep_cuda(nus, [(m[:half], g[:half], tau[:half]),
+                                   (m[half:], g[half:], tau[half:])], D)
+    wide = torch.cat([torch.ones_like(tau[:, :2]), tau], dim=1)[:, 2:]
+    n_strided = am.nu_mstep_cuda(nus, [(m, g, wide)], D)
+    pn64 = am.nu_mstep_plain(nus.double(), parts64, D)
+    pn32 = am.nu_mstep_plain(nus, parts, D)
+    torch.cuda.synchronize()
+    kept = keys.index('r' if transitions == 'recurrent' else 'log_Ps')
+    c = dict(
+        states=len(nus), trials=x.shape[0], frames_per_trial=x.shape[1],
+        steps=int((m[:, :-1] * m[:, 1:]).sum().item()),
+        first_grad_min_over_max=first_grad_ratio(am, trans, x, xis, transitions),
+        rec_f32_err=dist(k32, p64), rec_plain_f32_err=dist(p32, p64),
+        rec_f64_err=dist(k64, p64), rec_two_parts_err=dist(two, p64),
+        rec_kept=bool(torch.equal(k32[kept], trans[kept]) and torch.equal(k64[kept], t64[kept])),
+        nu_f32_rel_err=nu_dist(n32, pn64), nu_plain_f32_rel_err=nu_dist(pn32, pn64),
+        nu_f64_rel_err=nu_dist(n64, pn64), nu_two_parts_rel_err=nu_dist(n_two, pn64),
+        nu_strided_equal=bool(torch.equal(n_strided, n32)),
+        nus=n64.tolist(),
+        same_bits=all(torch.equal(a, b) for a, b in
+                      list(zip(k32, k32b)) + list(zip(k64, k64b)) + [(n32, n32b), (n64, n64b)]),
+        finite=all(bool(torch.isfinite(t).all().item()) for t in k32 + k64 + (n32, n64)))
+    c['rec_f32_tol'] = min(REC_F32_ABS_CAP, max(REC_F32_ABS_TOL, 2 * c['rec_plain_f32_err']))
+    c['nu_f32_tol'] = min(NU_F32_REL_CAP, max(NU_F32_REL_TOL, 2 * c['nu_plain_f32_rel_err']))
+    c['ok'] = bool(
+        c['same_bits'] and c['finite'] and c['rec_kept'] and c['nu_strided_equal'] and
+        max(c['rec_f32_err'], c['rec_two_parts_err']) <= c['rec_f32_tol'] and
+        c['rec_f64_err'] <= REC_F64_ABS_TOL and
+        max(c['nu_f32_rel_err'], c['nu_two_parts_rel_err']) <= c['nu_f32_tol'] and
+        c['nu_f64_rel_err'] <= NU_F64_REL_TOL)
+    return c
+
+
+def cli_recurrent_model(port, k):
+    """A ``k``-state 'recurrent' / 'robust_ar' ARHMM (the CLI's
+    ``transitions: recurrent``, ``noise_type: studentst``) initialized on the
+    CLI's latents (50 trials of TRIAL frames, D = EM_DIM), its dofs drawn in
+    [2, 10] and Rs and r at REC_DRIVE; and those latents as padded trials."""
+    datas = list(sample_arhmm(CLI_TRIALS, TRIAL, 8, EM_DIM, SEED + 5))
+    m = port.arhmm.ARHMM(k, EM_DIM, lags=1, observations='robust_ar', transitions='recurrent',
+                         rng_seed=SEED, device=DEVICE)
+    m.initialize(datas)
+    rs = np.random.RandomState(SEED + 30 + k)
+    m.params.update(m._tensors({'nus': rs.uniform(2, 10, k), 'Rs': REC_DRIVE * rs.randn(k, EM_DIM),
+                                'r': REC_DRIVE * rs.randn(k)}))
+    return m, m.pad(datas)
+
+
+def check_row18c(port, models, trials):
+    """K40 and K41 (row 18c) against their plain versions in float64 on the
+    card (``row18c_case``): at the EM shape, full and cut trials,
+    'recurrent' and 'recurrent_only'; at the CLI's shape over REC_CLI_GRID
+    under 'recurrent' and 'robust_ar'. Each launcher timed beside its plain
+    version on the EM shape's full trials under 'recurrent'; the device
+    digamma against torch.digamma."""
+    am, build = port.arhmm, port.build
+    cases, timed = {}, {}
+    for transitions, model in models.items():
+        for cut in (False, True):
+            inputs = row18c_inputs(port, model, trials, cut)
+            c = cases['%s_%s' % (transitions, 'cut' if cut else 'full')] = row18c_case(
+                am, model, inputs, transitions)
+            if transitions == 'recurrent' and not cut:
+                x, m, g, tau, xis = inputs
+                timed = dict(trans=[model.params[k] for k in ('log_Ps', 'Rs', 'r')], x=x,
+                             xis=xis, parts=[(m, g, tau)], nus=model.params['nus'],
+                             steps=c['steps'], frames=int(m.sum().item()))
+            del inputs
+    for k in REC_CLI_GRID:
+        model, cli_trials = cli_recurrent_model(port, k)
+        cases['cli_k%d' % k] = row18c_case(am, model, row18c_inputs(port, model, cli_trials,
+                                                                    False), 'recurrent')
+    xs = torch.linspace(*DIGAMMA_RANGE, 100001, device=DEVICE, dtype=torch.float64)
+    ys = torch.empty_like(xs)
+    err = build.library('arhmm_nu_mstep', 'bn_arhmm_digamma')(
+        xs.data_ptr(), ys.data_ptr(), xs.numel(), torch.cuda.current_stream().cuda_stream)
+    ref = torch.digamma(xs)
+    digamma_err = ((ys - ref).abs() / ref.abs().clamp(min=1.0)).max().item()
+
+    rows = []
+    K, D, steps, frames = EM_STATES, EM_DIM, timed['steps'], timed['frames']
+    trans, x, xis, parts, nus = (timed[k] for k in ('trans', 'x', 'xis', 'parts', 'nus'))
+    for suffix, dt, itemsize, peak in (('', torch.float32, 4, PEAK_F32_FLOPS),
+                                       ('_f64', torch.float64, 8, PEAK_F64_FLOPS)):
+        tr = [t.to(dt) for t in trans]
+        xd, xid = x.to(dt), xis.to(dt)
+        pd = [tuple(t.to(dt) for t in part) for part in parts]
+        nd = nus.to(dt)
+        # K40: per Adam step and step t -> t+1 the drive (2 K D), the K
+        # softmaxes (7 K^2: adds, max, subtractions, exps, sums, products)
+        # and the gradient's sums (2 K D); the prep 3 K^2 + 2 K D once; bytes:
+        # xis and x read, the parameters read and written
+        n_ops = steps * (ADAM_STEPS * (4 * K * D + 7 * K * K) + 3 * K * K + 2 * K * D)
+        n_bytes = itemsize * (xid.numel() + xd.numel() + 2 * (K * K + K * D + K))
+        rows.append(dict(
+            phase='arhmm_kernel_check', kernel='arhmm_recurrent_mstep' + suffix,
+            layer='m_step_recurrent', frames=EM_TRIALS * EM_FRAMES, steps=steps, states=K,
+            dim=D, adam_steps=ADAM_STEPS,
+            max_abs_err=max(c['rec_f64_err' if suffix else 'rec_f32_err']
+                            for c in cases.values()),
+            ms=median_ms(lambda: am.recurrent_mstep_cuda(*tr, [xd], [xid], 'recurrent'),
+                         samples=5, inner=3),
+            plain_ms=median_ms(lambda: am.recurrent_mstep_plain(*tr, [xd], [xid], 'recurrent'),
+                               samples=3, inner=1, warmup=1),
+            library_ms=None, library='none: no PyTorch call computes the 25 Adam steps',
+            gflop=n_ops / 1e9, mbytes=n_bytes / 1e6, **bound(n_ops, n_bytes, peak)))
+        # K41: per frame and state the weight, log tau and the weighted sum
+        # (6); bytes: gammas, mask and tau read, the nus read and written
+        n_ops = 6 * frames * K
+        n_bytes = itemsize * (pd[0][1].numel() + pd[0][0].numel() + pd[0][2].numel() + 2 * K)
+        rows.append(dict(
+            phase='arhmm_kernel_check', kernel='arhmm_nu_mstep' + suffix, layer='m_step_nu',
+            frames=EM_TRIALS * EM_FRAMES, states=K, dim=D,
+            max_abs_err=max((c['nu_f64_rel_err' if suffix else 'nu_f32_rel_err'])
+                            * max(c['nus']) for c in cases.values()),
+            ms=median_ms(lambda: am.nu_mstep_cuda(nd, pd, D)),
+            plain_ms=median_ms(lambda: am.nu_mstep_plain(nd, pd, D), samples=3, inner=2),
+            library_ms=None, library='none: no PyTorch call computes the Newton steps',
+            gflop=n_ops / 1e9, mbytes=n_bytes / 1e6, **bound(n_ops, n_bytes, peak)))
+    rec = dict(phase='arhmm_row18c_check', rec_f32_abs_tol=REC_F32_ABS_TOL,
+               rec_f32_abs_cap=REC_F32_ABS_CAP, rec_f64_abs_tol=REC_F64_ABS_TOL,
+               nu_f32_rel_tol=NU_F32_REL_TOL, nu_f32_rel_cap=NU_F32_REL_CAP,
+               nu_f64_rel_tol=NU_F64_REL_TOL, digamma_range=DIGAMMA_RANGE,
+               digamma_err=digamma_err, digamma_tol=DIGAMMA_TOL, digamma_launch_error=err,
+               cases=cases,
+               timed={r['kernel']: dict(ms=r['ms'], plain_ms=r['plain_ms'],
+                                        bound_ms=r['bound_ms'], bound_by=r['bound_by'])
+                      for r in rows})
+    emit(rec)
+    for r in rows:
+        emit(r)
+    bad = [name for name, c in cases.items() if not c['ok']]
+    if bad or err != 0 or not digamma_err <= DIGAMMA_TOL:
+        raise AssertionError('K40 / K41 disagree with their plain versions (%s): %s'
+                             % (bad, rec))
     return rows
 
 
@@ -4198,7 +4455,7 @@ def check_sp_kernels(port, long, rec_model):
     return rows
 
 
-def arhmm_em_sp(port, init_params, session, trials):
+def arhmm_em_sp(port, init_params, rec_params, session, trials):
     """Main path 6f: EM on meshes of the card. The time layout
     (``fit(mesh=SP_EM_SHARDS shards, shard_time=True)``) on two
     LONG_FRAMES-frame sessions (the long session and its time reversal), and
@@ -4210,7 +4467,10 @@ def arhmm_em_sp(port, init_params, session, trials):
     iteration of the time layout, K9 on every shard of the trial layout.
     Then an iteration of each timed beside the unsharded one, and the time
     layout's profiled (its chunked phases show under K13's names, which
-    they share)."""
+    they share). Last, the seeded 'recurrent' + 'robust_ar' model
+    (``rec_params``) in the trial layout for SP_REC_ITERS iterations against
+    its unsharded fit (LLs and parameters): K40's prep and step passes and
+    K41's pass on each part, their sums and updates on the first."""
     build, ARHMM, Mesh = port.build, port.arhmm.ARHMM, port.mesh.Mesh
     p0 = dict(init_params)
     sessions = port.arhmm.pad_trials([session, session[::-1].copy()], DEVICE)
@@ -4274,6 +4534,50 @@ def arhmm_em_sp(port, init_params, session, trials):
     emit(profile_steps(lambda: m.fit(data, num_iters=1, mesh=mesh, shard_time=True),
                        phase='arhmm_em_sp_profile', frames=2 * LONG_FRAMES, bucket=None,
                        shards=SP_EM_SHARDS))
+    rec_launches = recurrent_trial_layout(port, rec_params, trials,
+                                          Mesh([DEVICE] * SP_TRIAL_SHARDS, ('dp',)))
+    return {k: launches[k] + rec_launches[k] for k in launches}
+
+
+def recurrent_trial_layout(port, rec_params, trials, mesh, unsharded=None):
+    """The 'recurrent' + 'robust_ar' model from ``rec_params`` fitted
+    SP_REC_ITERS iterations in the trial layout on ``mesh`` against
+    ``unsharded`` (its fit without a mesh, made here when None: LLs, then
+    the parameters): LLs within SP_EM_REL_TOL and each parameter within
+    REC_PARAM_REL_TOL of its largest entry; K40 and K41 launched on each
+    part every iteration. Emits the phase and returns the launches."""
+    build = port.build
+
+    def fresh():
+        m = port.arhmm.ARHMM(EM_STATES, EM_DIM, lags=1, observations='robust_ar',
+                             transitions='recurrent', rng_seed=SEED, device=DEVICE)
+        m.params = dict(rec_params)
+        return m
+    if unsharded is None:
+        ref = fresh()
+        unsharded = (ref.fit(trials, num_iters=SP_REC_ITERS), ref.params)
+    torch.cuda.synchronize()
+    reset_launches(build)
+    m = fresh()
+    lls = m.fit(trials, num_iters=SP_REC_ITERS, mesh=mesh)
+    torch.cuda.synchronize()
+    launches = dict(build.LAUNCHES)
+    ref_lls, ref_params = unsharded
+    n = mesh.size
+    # each iteration: K40's prep on each part, then 25 x (a step pass on
+    # each part, the update); K41's pass on each part, then its finish
+    need = {'arhmm_recurrent_mstep': SP_REC_ITERS * (n + ADAM_STEPS * (n + 1)),
+            'arhmm_nu_mstep': SP_REC_ITERS * (n + 1)}
+    rec = dict(phase='arhmm_em_sp_recurrent', shards=n, devices=[str(d) for d in mesh.devices],
+               iterations=SP_REC_ITERS, lls=lls, unsharded_lls=ref_lls,
+               ll_rel_err=max(abs(a - b) / abs(b) for a, b in zip(lls, ref_lls)),
+               param_rel_err={k: rel_err(m.params[k], v.to(m.params[k].device))
+                              for k, v in ref_params.items()},
+               launches={k: launches[k] for k in need}, launches_needed=need)
+    emit(rec)
+    if any(launches[k] != v for k, v in need.items()) or rec['ll_rel_err'] > SP_EM_REL_TOL \
+            or max(rec['param_rel_err'].values()) > REC_PARAM_REL_TOL:
+        raise AssertionError('the recurrent EM in the trial layout failed: %s' % rec)
     return launches
 
 
@@ -4350,8 +4654,12 @@ def mesh_cards(port, n):
     repeats card 0 n times (the same shards: gamma within GAMMA_ABS_TOL,
     paths and draws agreeing on PATH_AGREE of the frames, the LLs within
     SP_EM_REL_TOL; whether they are equal bit for bit is reported). An EM
-    iteration timed on each mesh. The Bayesian decoder over the EM model
-    decodes the long session of ``long_decoder_trial`` with
+    iteration timed on each mesh. The seeded 'recurrent' + 'robust_ar'
+    model fits SP_REC_ITERS iterations in the trial layout on each mesh
+    against its unsharded fit (``recurrent_trial_layout``: K40 and K41 on
+    every card, their sums and updates on the mesh's first). The Bayesian
+    decoder over the EM model decodes the long session of
+    ``long_decoder_trial`` with
     ``decode(mesh=)`` on each mesh (K32-K35 and K36-K39 on every card),
     every output equal bit for bit to the one-card mesh's, each decode
     timed. Then the ARHMM CLI, which on more than one card shards EM over
@@ -4406,6 +4714,13 @@ def mesh_cards(port, n):
                 equal=lls == ref_fits[key],
                 rising=all(b >= a - EM_LL_REL_TOL * abs(a) for a, b in zip(lls, lls[1:])))
                 for key, lls in fits.items()})
+    rec_params = dict(recurrent_models(port, model)['recurrent'].params)
+    ref = port.arhmm.ARHMM(EM_STATES, EM_DIM, lags=1, observations='robust_ar',
+                           transitions='recurrent', rng_seed=SEED, device=DEVICE)
+    ref.params = dict(rec_params)
+    unsharded = (ref.fit(trials, num_iters=SP_REC_ITERS), ref.params)
+    for devs in meshes.values():
+        recurrent_trial_layout(port, rec_params, trials, Mesh(devs, ('dp',)), unsharded)
     dec, _, y, q = long_decoder_trial(port, model)
     decoded = {}
     for name, devs in meshes.items():
@@ -6644,6 +6959,7 @@ def main():
                    for check in (check_forward_backward_tv, check_viterbi_tv)]
         checks += check_mstep(port, em_model, em_trials)
         checks += check_f64_kernels(port, em_model, rec_models, em_trials)
+        checks += check_row18c(port, rec_models, em_trials)
         rec_params = dict(rec_models['recurrent'].params)
         scan_in = scan_cases(port, em_model, rec_models, em_trials)
         for check in (check_scan, check_viterbi_scan):
@@ -6709,8 +7025,8 @@ def main():
             launches['arhmm_em_f64'] = arhmm_em_f64(port, init_params, rec_params, em_trials)
             launches['arhmm_long_session'], long_run = long_session(port, em_model)
             checks += check_sp_kernels(port, long_run, rec_models['recurrent'])
-            launches['arhmm_em_sp'] = arhmm_em_sp(port, init_params, long_run['data'],
-                                                  em_trials)
+            launches['arhmm_em_sp'] = arhmm_em_sp(port, init_params, rec_params,
+                                                  long_run['data'], em_trials)
             launches['arhmm_sp_serve'] = arhmm_sp_serve(port, em_model, long_run)
             del long_run
             launches['bayesian_long_session'], long_case = bayesian_long_session(port, em_model)

@@ -11,8 +11,11 @@ of the steps masked, 41; the smoother at T = 47 on the port's plain
 filtered moments, on both sides.
 The decoder is a JAX ARHMM's seeded params carried into the port's, over
 one 97-frame trial with NaN borders and state evidence. Every JAX
-reference runs compiled at LLVM level 0 (``tests/jax_low.py``), the Kalman
-cases in one program.
+reference runs compiled at LLVM level 0 (``tests/jax_low.py``). The four
+filter cases share one program: JAX filters each system padded to the
+longest case's 53 frames with the observations past its own masked (a
+filtered moment reads the frames up to its own alone), and the port's
+frames are held to the first T; the smoother runs in a second program.
 
 Tolerances are JAX's own for these calls (tests/test_parallel/
 test_seq.py:122-176): moments within rtol = atol = 1e-4; decoded latents
@@ -69,19 +72,33 @@ def jmesh():
     return jax_make_mesh(axis_name='sp')
 
 
+def _padded(system, T):
+    """``system`` (an ``_lds``) extended to T frames: the last frame's F and
+    Q, c and y zero, the added observations masked."""
+    F, c, Q, H, R, y, mask, m0, P0 = system
+    pad = T - len(mask)
+
+    def ext(a, fill):
+        return np.concatenate([a, np.repeat(fill[None], pad, axis=0)])
+    return [ext(F, F[-1]), ext(c, np.zeros_like(c[0])), ext(Q, Q[-1]), H, R,
+            ext(y, np.zeros_like(y[0])), ext(mask, np.zeros_like(mask[0])), m0, P0]
+
+
 @pytest.fixture(scope='module')
 def jax_kalman(jmesh):
-    """JAX's sp_kalman_filter of each FILTER_CASES system, and its
-    sp_kalman_smooth of the smoother's system on the port's plain filtered
-    moments; one program."""
+    """JAX's sp_kalman_filter of each FILTER_CASES system (one program over
+    the systems padded to the longest case, each cut back to its own
+    frames), and its sp_kalman_smooth of the smoother's system on the
+    port's plain filtered moments."""
     systems = {name: _lds(*case) for name, case in FILTER_CASES.items()}
+    T_all = max(T for T, _, _ in FILTER_CASES.values())
+    padded = {name: _padded(s, T_all) for name, s in systems.items()}
     smooth_sys = _lds(SMOOTH_T, SMOOTH_SEED)
     moments = [m.numpy() for m in kalman.filter_parallel_plain(*map(_t, smooth_sys))]
-
-    def ref(systems, F, c, Q, ms, Ps):
-        return ({name: jseq.sp_kalman_filter(*s, jmesh) for name, s in systems.items()},
-                jseq.sp_kalman_smooth(F, c, Q, ms, Ps, jmesh))
-    filt, smoothed = jit_low(ref, systems, *smooth_sys[:3], *moments)
+    run = compile_low(lambda s: jseq.sp_kalman_filter(*s, jmesh), next(iter(padded.values())))
+    filt = {name: [np.asarray(a)[:FILTER_CASES[name][0]] for a in run(s)]
+            for name, s in padded.items()}
+    smoothed = jit_low(lambda *a: jseq.sp_kalman_smooth(*a, jmesh), *smooth_sys[:3], *moments)
     return systems, smooth_sys, filt, moments, smoothed
 
 
