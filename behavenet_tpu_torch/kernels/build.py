@@ -58,7 +58,8 @@ SOURCES = {
     'arhmm_recurrent_mstep': 'arhmm_recurrent_mstep.cu',
     'arhmm_nu_mstep': 'arhmm_nu_mstep.cu',
 }
-_HEADERS = ('igemm.cuh', 'hmm.cuh', 'hmm_backtrace.cuh', 'hmm_scan.cuh', 'kalman_scan.cuh')
+_HEADERS = ('conv_tiles.h', 'igemm.cuh', 'igemm_sm90.cuh', 'hmm.cuh', 'hmm_backtrace.cuh', 'hmm_scan.cuh',
+            'kalman_scan.cuh')
 
 # launchers counted under a name of their own: variant -> (kernel, symbols);
 # K14 and K16 share a source with K13 and K15, K18 (the RTS smoother) with
@@ -150,11 +151,11 @@ _P, _I, _L, _F, _D = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c
 _SIGNATURES = {
     'conv2d_nhwc': {'bn_conv2d_nhwc': [_P, _I, _P, _P, _P] + [_I] * 12 + [_P]},
     'conv_transpose2d_nhwc': {
-        'bn_conv_transpose2d_nhwc': [_P, _P, _P, _P] + [_I] * 12 + [_P]},
+        'bn_conv_transpose2d_nhwc': [_P, _P, _P, _P] + [_I] * 20 + [_P]},
     'conv_transpose2d_smallcout_sigmoid': {
         'bn_conv_transpose2d_smallcout': [_P, _P, _P, _P] + [_I] * 12 + [_P]},
     'conv2d_grad_w_nhwc': {
-        'bn_conv2d_grad_w_nhwc': [_P, _I, _P, _P, _P] + [_I] * 14 + [_P]},
+        'bn_conv2d_grad_w_nhwc': [_P, _I, _P, _P, _P] + [_I] * 24 + [_P]},
     'masked_mse': {
         'bn_masked_mse_fwd': [_P, _P, _I, _P, _P, _P, _P, _I, _L, _I, _P],
         'bn_masked_mse_bwd': [_P, _P, _I, _P, _P, _P, _P, _P, _I, _L, _I, _I, _P]},

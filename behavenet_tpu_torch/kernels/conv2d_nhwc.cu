@@ -14,14 +14,14 @@ extern "C" int bn_conv2d_nhwc(const void* x, int x_is_uint8, const float* w,
                               const float* bias, float* out, int N, int H, int W,
                               int Ci, int Co, int K, int S, int p0y, int p0x,
                               int OH, int OW, int act, void* stream) {
-  const dim3 grid = bn::igemm_grid((long long)N * OH * OW, Co, 1);
+  const dim3 grid = bn::igemm_grid((long long)N * OH * OW, Co);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (x_is_uint8)
-    bn::igemm_conv_kernel<uint8_t, false><<<grid, bn::kThreads, 0, st>>>(
+    bn::igemm_conv_kernel<uint8_t><<<grid, bn::kThreads, 0, st>>>(
         static_cast<const uint8_t*>(x), w, bias, out, N, H, W, Ci, Co, K, S,
         p0y, p0x, OH, OW, act);
   else
-    bn::igemm_conv_kernel<float, false><<<grid, bn::kThreads, 0, st>>>(
+    bn::igemm_conv_kernel<float><<<grid, bn::kThreads, 0, st>>>(
         static_cast<const float*>(x), w, bias, out, N, H, W, Ci, Co, K, S,
         p0y, p0x, OH, OW, act);
   return static_cast<int>(cudaGetLastError());

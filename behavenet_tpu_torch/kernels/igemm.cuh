@@ -1,20 +1,14 @@
-// Implicit-GEMM convolution core shared by conv2d_nhwc.cu and
-// conv_transpose2d_nhwc.cu (float32 on the CUDA cores, sm_90a).
+// Implicit-GEMM convolution core of K1 (conv2d_nhwc.cu), float32 on the
+// CUDA cores, sm_90a. K2 and K4 moved to igemm_sm90.cuh; K1 moves there at
+// its redesign, and this header goes with it.
 //
-// Both layers are a product out[m, co] = sum_kk A[m, kk] * B[kk, co] with
+// The layer is a product out[m, co] = sum_kk A[m, kk] * B[kk, co] with
 //   m  = an output pixel (n, oy, ox) of an NHWC output,
 //   kk = a (tap_y, tap_x, ci) triple, B = the HWIO weight rows of those taps,
-//   A  = the NHWC input pixel that tap reads (zero outside the image),
+//   A  = the NHWC input pixel that tap reads, iy = oy*S - p0y + ty (zero
+//        outside the image),
 // gathered from device memory straight into shared memory: no im2col
-// buffer, no zero-dilated input and no padded copy is ever written.
-//
-// kTransposed = false: strided conv, iy = oy*S - p0y + ty for every tap.
-// kTransposed = true: transposed conv in gather form,
-//   out[o] = sum_t x[(o + p0 - t) / S] * w[t] over taps where the division
-//   is exact. Output pixels of one phase (oy % S, ox % S) = (ry, rx) all use
-//   the taps t = t0 + S*j with t0 = (r + p0) % S, and read iy = qy + c - j
-//   with qy = oy / S and c = (r + p0 - t0) / S. blockIdx.z walks the S*S
-//   phases, so no multiply-by-zero tap is ever issued.
+// buffer and no padded copy is ever written.
 //
 // Tiling: a 256-thread block owns a 64-pixel x 64-channel output tile and
 // walks K = taps * Cin in steps of 16; each thread keeps a 4x4 register
@@ -22,31 +16,16 @@
 // ~105 MFLOP per frame on < 3 MB of weights, so the layers are bound by
 // the float32 issue rate, not by bytes: the tile reuses each A value 64x
 // and each B value 64x out of shared memory. No double buffering, no
-// tensor cores yet.
+// tensor cores.
 #pragma once
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "igemm_sm90.cuh"  // bn::apply_act, bn::load_input
 
 namespace bn {
 
-enum Act { kActNone = 0, kActLeakyRelu = 1, kActSigmoid = 2 };
-
-__device__ __forceinline__ float apply_act(float v, int act) {
-  if (act == kActLeakyRelu) return v >= 0.f ? v : 0.05f * v;
-  if (act == kActSigmoid) return 1.f / (1.f + expf(-v));
-  return v;
-}
-
-// uint8 frames are normalized in the load, as x.float() / 255.
-__device__ __forceinline__ float load_input(const float* p) { return __ldg(p); }
-__device__ __forceinline__ float load_input(const uint8_t* p) {
-  return static_cast<float>(__ldg(p)) / 255.f;
-}
-
 constexpr int kBM = 64, kBN = 64, kBK = 16, kThreads = 256;
 
-template <typename TIn, bool kTransposed>
+template <typename TIn>
 __global__ void __launch_bounds__(kThreads) igemm_conv_kernel(
     const TIn* __restrict__ x, const float* __restrict__ w,
     const float* __restrict__ bias, float* __restrict__ out,
@@ -55,24 +34,8 @@ __global__ void __launch_bounds__(kThreads) igemm_conv_kernel(
   __shared__ __align__(16) float As[kBK][kBM + 4];
   __shared__ __align__(16) float Bs[kBK][kBN];
 
-  // Geometry of this block's phase (a strided conv has the one phase).
-  int ry = 0, rx = 0, t0y = 0, t0x = 0, cy = 0, cx = 0;
-  int QH = OH, QW = OW, nty = K, ntx = K;
-  if (kTransposed) {
-    ry = blockIdx.z / S;
-    rx = blockIdx.z % S;
-    if (ry >= OH || rx >= OW) return;
-    QH = (OH - ry + S - 1) / S;
-    QW = (OW - rx + S - 1) / S;
-    t0y = (ry + p0y) % S;
-    t0x = (rx + p0x) % S;
-    cy = (ry + p0y - t0y) / S;
-    cx = (rx + p0x - t0x) / S;
-    nty = t0y < K ? (K - t0y + S - 1) / S : 0;
-    ntx = t0x < K ? (K - t0x + S - 1) / S : 0;
-  }
-  const int M = N * QH * QW;
-  const int KK = nty * ntx * Ci;
+  const int M = N * OH * OW;
+  const int KK = K * K * Ci;
   const int m0 = blockIdx.x * kBM;
   const int n0 = blockIdx.y * kBN;
   if (m0 >= M) return;
@@ -88,12 +51,12 @@ __global__ void __launch_bounds__(kThreads) igemm_conv_kernel(
   for (int r = 0; r < 4; ++r) {
     const int m = m0 + a_m + 16 * r;
     if (m < M) {
-      const int n = m / (QH * QW);
-      const int rem = m - n * QH * QW;
-      const int qy = rem / QW, qx = rem - (rem / QW) * QW;
+      const int n = m / (OH * OW);
+      const int rem = m - n * OH * OW;
+      const int oy = rem / OW, ox = rem - (rem / OW) * OW;
       a_base[r] = (long long)n * H * W * Ci;
-      a_y[r] = kTransposed ? qy + cy : qy * S - p0y;
-      a_x[r] = kTransposed ? qx + cx : qx * S - p0x;
+      a_y[r] = oy * S - p0y;
+      a_x[r] = ox * S - p0x;
     } else {
       a_base[r] = 0;
       a_y[r] = -(1 << 30);  // never in range
@@ -121,13 +84,13 @@ __global__ void __launch_bounds__(kThreads) igemm_conv_kernel(
       if (kin) {
         ci = kk % Ci;
         const int tap = kk / Ci;
-        jy = tap / ntx;
-        jx = tap - jy * ntx;
+        jy = tap / K;
+        jx = tap - jy * K;
       }
 #pragma unroll
       for (int r = 0; r < 4; ++r) {
-        const int iy = kTransposed ? a_y[r] - jy : a_y[r] + jy;
-        const int ix = kTransposed ? a_x[r] - jx : a_x[r] + jx;
+        const int iy = a_y[r] + jy;
+        const int ix = a_x[r] + jx;
         float v = 0.f;
         if (kin && iy >= 0 && iy < H && ix >= 0 && ix < W)
           v = load_input(x + a_base[r] + ((long long)iy * W + ix) * Ci + ci);
@@ -142,10 +105,7 @@ __global__ void __launch_bounds__(kThreads) igemm_conv_kernel(
       if (kk < KK && co < Co) {
         const int ci = kk % Ci;
         const int tap = kk / Ci;
-        const int jy = tap / ntx, jx = tap - (tap / ntx) * ntx;
-        const int ty = kTransposed ? t0y + S * jy : jy;
-        const int tx = kTransposed ? t0x + S * jx : jx;
-        v = __ldg(w + ((long long)(ty * K + tx) * Ci + ci) * Co + co);
+        v = __ldg(w + ((long long)tap * Ci + ci) * Co + co);
       }
       Bs[b_k + 4 * r][b_n] = v;
     }
@@ -169,11 +129,9 @@ __global__ void __launch_bounds__(kThreads) igemm_conv_kernel(
   for (int i = 0; i < 4; ++i) {
     const int m = m0 + 4 * c_m + i;
     if (m >= M) continue;
-    const int n = m / (QH * QW);
-    const int rem = m - n * QH * QW;
-    const int qy = rem / QW, qx = rem - (rem / QW) * QW;
-    const int oy = kTransposed ? qy * S + ry : qy;
-    const int ox = kTransposed ? qx * S + rx : qx;
+    const int n = m / (OH * OW);
+    const int rem = m - n * OH * OW;
+    const int oy = rem / OW, ox = rem - (rem / OW) * OW;
     float* o = out + (((long long)n * OH + oy) * OW + ox) * Co;
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
@@ -183,10 +141,9 @@ __global__ void __launch_bounds__(kThreads) igemm_conv_kernel(
   }
 }
 
-// Grid of the implicit GEMM; phases = 1 for a strided conv, S*S transposed.
-inline dim3 igemm_grid(long long M, int Co, int phases) {
-  return dim3((unsigned)((M + kBM - 1) / kBM), (unsigned)((Co + kBN - 1) / kBN),
-              (unsigned)phases);
+// Grid of the implicit GEMM.
+inline dim3 igemm_grid(long long M, int Co) {
+  return dim3((unsigned)((M + kBM - 1) / kBM), (unsigned)((Co + kBN - 1) / kBN), 1);
 }
 
 }  // namespace bn

@@ -38,6 +38,10 @@ cotangent is split evenly among tied maxima (``jnp.max``'s), not sent to
 one index as ``torch.nn.functional.max_pool2d``'s is.
 """
 
+import math
+import os
+import re
+
 import torch
 import torch.nn.functional as F
 
@@ -47,7 +51,8 @@ __all__ = ['conv2d', 'conv2d_plain', 'conv2d_cuda', 'conv_transpose2d',
            'conv_transpose2d_plain', 'conv_transpose2d_cuda', 'conv2d_grad_x',
            'conv2d_grad_x_plain', 'conv_transpose2d_grad_x',
            'conv_transpose2d_grad_x_plain', 'conv2d_grad_w', 'conv2d_grad_w_plain',
-           'conv2d_grad_w_cuda', 'leaky_relu', 'linear', 'space_to_depth',
+           'conv2d_grad_w_cuda', 'tconv_plan', 'gradw_plan', 'leaky_relu', 'linear',
+           'space_to_depth',
            'depth_to_space', 'conv_out_hw', 'conv_transpose_out_hw', 'pool_out_hw',
            'pool_windows',
            'max_pool2d_with_indices', 'max_pool2d_plain', 'max_pool2d_cuda',
@@ -234,10 +239,194 @@ def conv2d_cuda(x, w, b, stride, pad_y, pad_x, activation=None):
     return out
 
 
+# K2's and K4's launch plans (kernels/igemm_sm90.cuh): the tile, the ring's
+# stages, 16-byte copies or not, the grid and, for K4, the contraction's
+# chunks. Pure functions of the shapes, so the CPU tests reach them.
+
+H100_SMS = 132          # the card's SMs; K4's wrapper passes the device's own count
+
+
+def conv_tiles():
+    """The kernels' instances as ``kernels/conv_tiles.h`` lists them (the
+    launchers dispatch to the same lists): a dict of each ``#define
+    NAME(X)`` list's tuples and each ``#define NAME value``'s int."""
+    path = os.path.join(os.path.dirname(os.path.dirname(__file__)), 'kernels', 'conv_tiles.h')
+    with open(path) as f:
+        text = f.read().replace('\\\n', ' ')
+    out = {}
+    for line in text.splitlines():
+        m = re.match(r'#define BN_(\w+)\(X\)(.*)', line)
+        if m:
+            out[m.group(1)] = tuple(tuple(int(v) for v in t.split(','))
+                                    for t in re.findall(r'X\(([\d, ]+)\)', m.group(2)))
+            continue
+        m = re.match(r'#define BN_(\w+) (\d+)$', line.strip())
+        if m:
+            out[m.group(1)] = int(m.group(2))
+    return out
+
+
+_TILES = conv_tiles()
+# K2: GEMM tiles (rows, columns, rows a thread, columns a thread, step,
+# stages); the narrow kernel (Cout <= 4): a block of 256 threads owns
+# NARROW_ROWS x NARROW_COLS outputs of a phase, 2 or 4 output registers a
+# pixel, unrolled for 2 to 5 landing taps per dim (a layer with one takes
+# the 2-tap instance)
+TCONV_TILES = _TILES['TCONV_GEMM_TILES']
+NARROW_ROWS, NARROW_COLS = _TILES['TCONV_NARROW_ROWS'], _TILES['TCONV_NARROW_COLS']
+NARROW_COUTS = tuple(sorted({t[0] for t in _TILES['TCONV_NARROW']}))
+NARROW_TAPS = tuple(sorted({t[1] for t in _TILES['TCONV_NARROW']}))
+# K4: the patch and gather kernels' tiles as K2's, the patch kernel's steps
+# of PATCH_STEP output pixels
+GRADW_PATCH_TILES, PATCH_STEP = _TILES['GRADW_PATCH_TILES'], _TILES['GRADW_PATCH_STEP']
+GRADW_GATHER_TILES = _TILES['GRADW_GATHER_TILES']
+# K4 splits its contraction into enough chunks for GRADW_BLOCKS_PER_SM
+# blocks an SM (the gather kernel's blocks: four resident, two waves; the
+# patch kernel's: four resident, four waves), each chunk at least 8 steps
+GRADW_BLOCKS_PER_SM = {'gather': 8, 'patch': 16}
+GRADW_PATCH_SMEM = 110 * 1024   # the patch kernel's shared memory for two blocks an SM
+_GRADW_MIN_STEPS = 8
+
+
+def _cdiv(a, b):
+    return -(-a // b)
+
+
+def _column_tile(cols, choices):
+    """The narrowest tile of ``choices`` that holds ``cols``, else the widest."""
+    fit = [c for c in sorted(choices) if c >= cols]
+    return fit[0] if fit else max(choices)
+
+
+def _gemm_smem(bm, bn, bk, stages, m_major):
+    a = bm * (bk + 4) if m_major else bk * (bm + 4)
+    return 4 * stages * (a + bk * (bn + 4))
+
+
+def tconv_plan(n, ci, co, k, s, out_hw, aligned=True):
+    """K2's launch for a transposed conv of ``n`` frames of ``ci`` channels
+    by a (k, k, ci, co) weight at stride ``s`` to ``out_hw``: a dict with
+    ``kind`` ('narrow' or 'gemm'), ``tile_m`` (outputs a block owns along
+    the pixels), ``tile_n`` (the column tile; the narrow kernel's output
+    registers a pixel), ``taps`` (the landing taps per dim the narrow
+    kernel unrolls), ``stages``, ``vec`` (16-byte copies: Cin and, for the
+    GEMM, Cout multiples of 4 and ``aligned`` pointers), ``threads``,
+    ``smem`` bytes and ``grid``.
+
+    Each block computes one output phase (oy % s, ox % s), so gridDim.z is
+    s * s. Cout <= 4 (with at most 5 landing taps a dim) takes the narrow
+    kernel, wider outputs the GEMM tile with the narrowest column tile that
+    holds Cout (64 columns at most)."""
+    oh, ow = out_hw
+    qh, qw = _cdiv(oh, s), _cdiv(ow, s)   # phase (0, 0), the largest
+    taps = max(_cdiv(k, s), min(NARROW_TAPS))
+    if co <= max(NARROW_COUTS) and taps <= max(NARROW_TAPS):
+        co_regs = _column_tile(co, NARROW_COUTS)
+        pw = (NARROW_COLS + taps - 1) | 1
+        patch = (NARROW_ROWS + taps - 1) * pw * 4
+        smem = 4 * 2 * (patch + taps * taps * 4 * co_regs)
+        grid = (n * _cdiv(qh, NARROW_ROWS) * _cdiv(qw, NARROW_COLS), 1, s * s)
+        return dict(kind='narrow', tile_m=NARROW_ROWS * NARROW_COLS, tile_n=co_regs, taps=taps,
+                    stages=2, vec=int(aligned and ci % 4 == 0), threads=256, smem=smem,
+                    grid=grid)
+    bn = _column_tile(co, [t[1] for t in TCONV_TILES])
+    bm, bn, tm, tn, bk, stages = [t for t in TCONV_TILES if t[1] == bn][0]
+    return dict(kind='gemm', tile_m=bm, tile_n=bn, taps=taps, stages=stages,
+                vec=int(aligned and ci % 4 == 0 and co % 4 == 0),
+                threads=(bm // tm) * (bn // tn),
+                smem=16 * bm + _gemm_smem(bm, bn, bk, stages, True),
+                grid=(_cdiv(n * qh * qw, bm), _cdiv(co, bn), s * s))
+
+
+def _gradw_chunks(steps, tiles, sms, kind):
+    """(splits, chunk): chunks of ``chunk`` steps for K4's ``kind`` of
+    kernel, GRADW_BLOCKS_PER_SM blocks an SM, at least 8 steps each."""
+    want = _cdiv(GRADW_BLOCKS_PER_SM[kind] * sms, tiles)
+    chunk = max(_GRADW_MIN_STEPS, steps // want)
+    return _cdiv(steps, chunk), chunk
+
+
+def gradw_plan(n, a, b, k, s, out_hw, x_uint8=False, aligned=True, sms=H100_SMS):
+    """K4's launch for the weight gradient of a k x k conv at stride ``s``
+    of ``n`` frames of ``a`` channels to ``out_hw`` with a cotangent of
+    ``b`` channels: a dict with ``kind`` ('patch' or 'gather'), ``tile_m``
+    x ``tile_n`` (rows (tap, channel) x columns), ``threads``, ``stages``,
+    ``smem`` bytes, ``splits`` chunks of ``chunk`` steps and the ``grid``
+    (row tiles, column tiles, splits).
+
+    The patch kernel takes float input with A and B multiples of 4 (16-byte
+    copies, ``aligned`` pointers) where a tile of GRADW_PATCH_TILES holds B
+    with at most 2x waste. Its rows run in the order (slab of 4 channels,
+    tap, channel), so a block's tile_m rows are every tap of one slab or
+    more (``patch_slabs`` at most); a step is ``step_rows`` stacked output
+    rows (n * OH + oy) by ``step_cols`` columns (8, or the plane's width
+    rounded up to a power of two), ``steps`` of them, and its input patch
+    at most ``patch_rows`` x ``patch_cols`` positions a slab (3 stages, 2
+    where that keeps two blocks an SM). Else the gather kernel's tile of
+    the narrowest column width that holds B (one tile a width); its steps
+    are ``bk`` consecutive pixels of P = n * OH * OW. The
+    contraction is split for GRADW_BLOCKS_PER_SM blocks an SM of ``sms``,
+    each chunk at least 8 steps. The gather kernel's row codes take A <
+    2^15 and k < 256: larger raise ValueError."""
+    if a >= 2 ** 15 or k > 255:
+        raise ValueError('conv2d_grad_w_nhwc: %d input channels and %d x %d kernels are beyond '
+                         'the kernel\'s row codes (A < 32768, k < 256)' % (a, k, k))
+    oh, ow = out_hw
+    m, p = k * k * a, n * oh * ow
+    if aligned and not x_uint8 and a % 4 == 0 and b % 4 == 0:
+        bn = _column_tile(b, [t[1] for t in GRADW_PATCH_TILES])
+        if bn <= 2 * b:
+            bm, bn, tm, tn, bk, stages = [t for t in GRADW_PATCH_TILES if t[1] == bn][0]
+            cols = min(8, 1 << max(0, ow - 1).bit_length())
+            rows = bk // cols
+            s1 = min(s, k)
+            # frame boundaries inside a step: each starts a fresh k rows
+            breaks = min(rows - 1, (oh - math.gcd(rows, oh) + rows - 1) // oh)
+            patch_rows = (rows - 1) * s1 + breaks * (k - s1) + k
+            patch_cols = (cols - 1) * s + k
+            # the slabs of 4 channels a block's bm / 4 (slab, tap) fours touch
+            slabs = (bm // 4 - 2 + k * k) // (k * k) + 1
+            steps = _cdiv(n * oh, rows) * _cdiv(ow, cols)
+            splits, chunk = _gradw_chunks(steps, _cdiv(m, bm) * _cdiv(b, bn), sms, 'patch')
+
+            def smem(st):
+                return 4 * st * (slabs * patch_rows * patch_cols * 4 + bk * (bn + 4)) \
+                    + 4 * (st + 1) * (2 * bk + patch_rows)
+            if smem(stages) > GRADW_PATCH_SMEM and stages > 2:
+                stages = 2   # keep two blocks an SM where the patch is large
+            return dict(kind='patch', tile_m=bm, tile_n=bn, threads=(bm // tm) * (bn // tn),
+                        stages=stages, step_rows=rows, step_cols=cols, patch_rows=patch_rows,
+                        patch_cols=patch_cols, patch_slabs=slabs, steps=steps,
+                        smem=smem(stages), splits=splits, chunk=chunk,
+                        grid=(_cdiv(m, bm), _cdiv(b, bn), splits))
+    bn = _column_tile(b, [t[1] for t in GRADW_GATHER_TILES])
+    bm, bn, tm, tn, bk, stages = [t for t in GRADW_GATHER_TILES if t[1] == bn][0]
+    splits, chunk = _gradw_chunks(_cdiv(p, bk), _cdiv(m, bm) * _cdiv(b, bn), sms, 'gather')
+    return dict(kind='gather', tile_m=bm, tile_n=bn, threads=(bm // tm) * (bn // tn),
+                stages=stages, step_rows=0, step_cols=0, patch_rows=0, patch_cols=0,
+                steps=_cdiv(p, bk), bk=bk,
+                smem=4 * (bm + 4 * bk * stages) + _gemm_smem(bm, bn, bk, stages, False),
+                splits=splits, chunk=chunk * bk, grid=(_cdiv(m, bm), _cdiv(b, bn), splits))
+
+
+_sm_count = {}
+
+
+def _sms(device):
+    if device not in _sm_count:
+        _sm_count[device] = torch.cuda.get_device_properties(device).multi_processor_count
+    return _sm_count[device]
+
+
+def _aligned(*tensors):
+    return all(t is None or t.data_ptr() % 16 == 0 for t in tensors)
+
+
 def conv_transpose2d_cuda(x, w, b, stride, pad_y, pad_x, out_pad=(0, 0),
                           activation=None, small_cout=False):
-    """K2 ``conv_transpose2d_nhwc`` or, with ``small_cout``, K3
-    ``conv_transpose2d_smallcout_sigmoid`` on the card."""
+    """K2 ``conv_transpose2d_nhwc`` (launched as :func:`tconv_plan` plans
+    it) or, with ``small_cout``, K3 ``conv_transpose2d_smallcout_sigmoid``
+    on the card."""
     name = 'conv_transpose2d_smallcout_sigmoid' if small_cout \
         else 'conv_transpose2d_nhwc'
     x, w = x.contiguous(), w.contiguous()
@@ -256,30 +445,23 @@ def conv_transpose2d_cuda(x, w, b, stride, pad_y, pad_x, out_pad=(0, 0),
     out = torch.empty((n, oh, ow, co), device=x.device, dtype=torch.float32)
     if out.numel() == 0:
         return out
-    launch(name, x.data_ptr(), w.data_ptr(), _ptr(b), out.data_ptr(),
-           n, h, wd, ci, co, k, s, pad_y[0], pad_x[0], oh, ow,
-           _ACT_CODE[activation])
+    if max(x.numel(), out.numel()) >= 2 ** 31:
+        raise ValueError('%s: tensors of 2^31 elements or more are beyond the kernel\'s '
+                         'int32 offsets' % name)
+    args = (x.data_ptr(), w.data_ptr(), _ptr(b), out.data_ptr(),
+            n, h, wd, ci, co, k, s, pad_y[0], pad_x[0], oh, ow, _ACT_CODE[activation])
+    if small_cout:
+        launch(name, *args)
+        return out
+    plan = tconv_plan(n, ci, co, k, s, (oh, ow), aligned=_aligned(x, w, b, out))
+    launch(name, *args, plan['tile_m'], plan['tile_n'], plan['taps'], plan['stages'],
+           plan['vec'], *plan['grid'])
     return out
 
 
-_sm_count = {}
-
-
-def _gradw_split(m, cols, p, device):
-    """(splits, chunk) of K4's contraction over ``p`` pixels: enough splits
-    that the (m x cols) output's 64 x 64 tiles fill one wave of four blocks
-    on every SM, with at least 256 pixels (16 tile steps) per split."""
-    if device not in _sm_count:
-        _sm_count[device] = torch.cuda.get_device_properties(device).multi_processor_count
-    tiles = -(-m // 64) * -(-cols // 64)
-    splits = max(1, min(-(-4 * _sm_count[device] // tiles), p // 256))
-    chunk = -(-p // splits)
-    chunk = -(-chunk // 16) * 16
-    return -(-p // chunk), chunk
-
-
 def conv2d_grad_w_cuda(x, g, k, stride, pad_y, pad_x, out_transposed=False):
-    """K4 ``conv2d_grad_w_nhwc`` on the card (see :func:`conv2d_grad_w_plain`)."""
+    """K4 ``conv2d_grad_w_nhwc`` on the card (see :func:`conv2d_grad_w_plain`),
+    launched as :func:`gradw_plan` plans it."""
     name = 'conv2d_grad_w_nhwc'
     x, g = x.contiguous(), g.contiguous()
     _check_cuda(name, x, g)
@@ -304,11 +486,15 @@ def conv2d_grad_w_cuda(x, g, k, stride, pad_y, pad_x, out_transposed=False):
                       device=x.device, dtype=torch.float32)
     if p == 0:
         return out.zero_()
-    splits, chunk = _gradw_split(m, cols, p, x.device)
-    partial = torch.empty(splits * m * cols, device=x.device, dtype=torch.float32)
+    plan = gradw_plan(n, a, cols, k, s, (oh, ow), x_uint8=x.dtype == torch.uint8,
+                      aligned=_aligned(x, g), sms=_sms(x.device))
+    partial = torch.empty(plan['splits'] * m * cols, device=x.device, dtype=torch.float32)
     launch(name, x.data_ptr(), int(x.dtype == torch.uint8), g.data_ptr(),
            partial.data_ptr(), out.data_ptr(), n, h, wd, a, cols, k, s, pad_y[0],
-           pad_x[0], oh, ow, splits, chunk, int(out_transposed))
+           pad_x[0], oh, ow, plan['splits'], plan['chunk'], int(out_transposed),
+           plan['tile_m'], plan['tile_n'], plan['stages'], int(plan['kind'] == 'patch'),
+           plan['step_rows'], plan['step_cols'], plan['patch_rows'], plan['patch_cols'],
+           *plan['grid'][:2])
     return out
 
 
@@ -700,10 +886,8 @@ def _bn_split(p, c, device):
     """(splits, chunk) of K29's and K30's reductions over ``p`` rows: about
     eight 256-thread blocks an SM over the ceil(c / 32) channel tiles, at
     least 64 rows a split."""
-    if device not in _sm_count:
-        _sm_count[device] = torch.cuda.get_device_properties(device).multi_processor_count
     tiles = -(-c // 32)
-    splits = max(1, min(-(-8 * _sm_count[device] // tiles), -(-p // 64)))
+    splits = max(1, min(-(-8 * _sms(device) // tiles), -(-p // 64)))
     chunk = -(-p // splits)
     return -(-p // chunk), chunk
 

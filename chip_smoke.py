@@ -235,6 +235,20 @@ On one CUDA GPU (an H100: the kernels are built for sm_90a) it
    path in eval mode, with no batch-statistics pass in a request's profile.
    Also K12's gradients (row 9) on 5 further draws at d = 9 and 16 against
    the plain version in float64, beside the plain float32 version's.
+14. K2 and K4 on ragged shapes (``check_ragged``): every width of
+   RAGGED_WIDTHS as Cin and as Cout on a 13 x 17 plane at strides 1-3,
+   asymmetric pads, an out_pad at stride > 1, uint8 frames for K4 at
+   stride 1 and its transposed output at stride 3, against their plain
+   versions (K4's in float64) under the layers' tolerances, each run twice
+   bit for bit (as at every layer of both archs); ``conv_summary`` sums
+   K1's, K2's and K4's times beside cuDNN's per arch and stride, and
+   ``conv_ptxas`` lists the registers and spills of K2's and K4's
+   instances (no spill allowed).
+
+    python3 chip_smoke.py --conv
+
+runs, after the build, only the conv checks: every conv layer of both
+archs (forward and backward), ``check_ragged`` and ``conv_summary``.
 
 Each phase prints one JSON line; the line before the last lists the kernels
 with their numbers, and the last line is ``{"ok": true, "device": ...}``.
@@ -311,6 +325,12 @@ LOSS_REL_TOL = 1e-5
 STEP_REL_TOL, STATE_REL_TOL = 1e-3, 1e-5
 # One train step's gradients, kernels vs the plain path on the card.
 GRAD_REL_TOL = 1e-3
+# msps_step: replayed leaky-ReLU signs that may differ from the float64 plain
+# path's own, each at a pre-activation within SIGN_FLIP_TOL * max(1, the
+# layer's largest) of 0 (float32 rounding; a kernel fault lands farther).
+# The step's nine layers hold ~2e8 pre-activations, so a few lie within
+# float32 rounding of 0 (7, each within 5e-8, on the H100).
+SIGN_FLIPS_MAX, SIGN_FLIP_TOL = 64, 1e-5
 # K7's gradients vs its plain version: float32 sums of 189 terms in another
 # order (and an online logsumexp), max |d| within 1e-4 of max |plain|.
 KL_GRAD_REL_TOL = 1e-4
@@ -374,6 +394,14 @@ POOL_ODD = (13, 17)
 # s a call): fewer timed calls
 POOL_TIMING = dict(samples=2, inner=3, warmup=1)
 BN_FIT_TRIALS = 10           # 8 train, 1 val, 1 test
+# K2 and K4 on ragged shapes beside the archs' layers (check_ragged): each
+# width as Cin and as Cout, RAGGED_FRAMES frames of a POOL_ODD plane, k 5,
+# pads (before, after) RAGGED_PADS, out_pad (1, 0) at stride > 1
+RAGGED_WIDTHS = (1, 2, 3, 5, 33, 65)
+RAGGED_PATCH_WIDTHS = ((4, 36), (12, 68), (36, 132))   # K4's patch kernel: (Cin, Cout)
+RAGGED_STRIDES = (1, 2, 3)
+RAGGED_FRAMES = 4
+RAGGED_PADS = ((2, 1), (1, 2))
 # K27 / K28 vs plain: equal (comparisons, copies and one division by the tie
 # count). K29: the output as the convs' (ABS_TOL, REL_TOL); the batch and
 # running statistics within BN_STAT_REL_TOL of max(1, max|plain|) (float32
@@ -1053,6 +1081,7 @@ def check_layer(L, ops, gen, timing=None):
         oh, ow = ops.conv_out_hw(L['h'], L['w'], L['k'], s, py, px)
 
     out_k, out_p = kernel(), plain()
+    rerun_bitwise = bool(torch.equal(out_k, kernel()))
     torch.cuda.synchronize()
     if out_k.shape != out_p.shape or out_k.shape != (L['n'], oh, ow, L['co']):
         raise AssertionError('%s: kernel shape %s, plain %s'
@@ -1070,16 +1099,31 @@ def check_layer(L, ops, gen, timing=None):
         input=list(x.shape), input_dtype=str(x.dtype).replace('torch.', ''),
         output=[L['n'], oh, ow, L['co']], k=L['k'], stride=s, pad_y=py, pad_x=px,
         max_abs_err=max_abs, abs_tol=abs_tol, max_rel_err=max_rel, rel_tol=REL_TOL,
-        gflop=2 * macs / 1e9, mbytes=nbytes / 1e6,
-        ms=median_ms(kernel, **(timing or {})), plain_ms=median_ms(plain, **(timing or {})),
-        library_ms=median_ms(library, **(timing or {})),
-        bound_ms=max(t_ops, t_bytes), t_ops_ms=t_ops, t_bytes_ms=t_bytes,
+        rerun_bitwise=rerun_bitwise, gflop=2 * macs / 1e9, mbytes=nbytes / 1e6,
+        **timed(kernel, plain, library, max(t_ops, t_bytes), timing),
+        t_ops_ms=t_ops, t_bytes_ms=t_bytes,
         bound_by='operations' if t_ops >= t_bytes else 'bytes')
     emit(rec)
-    if not finite or max_abs > abs_tol or max_rel > REL_TOL:
-        raise AssertionError('%s: kernel disagrees with its plain version '
-                             '(finite=%s, max abs %.3g > %.3g or max rel %.3g > %.3g)'
-                             % (L['layer'], finite, max_abs, abs_tol, max_rel, REL_TOL))
+    if not finite or max_abs > abs_tol or max_rel > REL_TOL or not rerun_bitwise:
+        raise AssertionError('%s: kernel disagrees with its plain version or itself '
+                             '(finite=%s, max abs %.3g > %.3g or max rel %.3g > %.3g, '
+                             'rerun bitwise %s)' % (L['layer'], finite, max_abs, abs_tol,
+                                                    max_rel, REL_TOL, rerun_bitwise))
+    return rec
+
+
+def timed(kernel, plain, library, bound_ms, timing=None):
+    """A check's times: the kernel, its plain version and the library call
+    (median_ms), the kernel over the library (``vs_library``) and the bound
+    over the kernel (``share_of_bound``); where the kernel is slower than
+    the library call, the device kernels that call ran (``library_kernels``,
+    from ``torch.profiler``: which algorithm cuDNN picked)."""
+    ms = median_ms(kernel, **(timing or {}))
+    library_ms = median_ms(library, **(timing or {}))
+    rec = dict(ms=ms, plain_ms=median_ms(plain, **(timing or {})), library_ms=library_ms,
+               bound_ms=bound_ms, vs_library=ms / library_ms, share_of_bound=bound_ms / ms)
+    if rec['vs_library'] > 1.0:
+        rec['library_kernels'] = sorted(device_kernels(library))
     return rec
 
 
@@ -1153,7 +1197,26 @@ def plain_layer(layer, ops, x, train, pool_idx, replay=None):
                 layer.running_var.copy_(new['running_var'])
                 layer.num_batches_tracked.copy_(new['num_batches'])
         y = ops.batch_norm_plain(x, layer.weight, layer.bias, activation=act)
+    if sign is not None and isinstance(replay, Replay):
+        replay.note(y, sign)
     return y if sign is None else torch.where(sign, y, 0.05 * y)
+
+
+class Replay(list):
+    """``recorded_decisions`` to replay (``plain_layer`` pops them in
+    order), noting at each replayed leaky-ReLU sign where the plain path's
+    own pre-activation would take the other branch: how many entries, the
+    largest |pre-activation| among them and the layer's largest."""
+
+    def __init__(self, decisions):
+        super().__init__(decisions)
+        self.flips = []
+
+    def note(self, y, sign):
+        flip = (y >= 0) != sign
+        n = int(flip.sum().item())
+        self.flips.append(dict(flips=n, max_abs=y.abs().max().item(),
+                               max_abs_at_flips=y.abs()[flip].max().item() if n else 0.0))
 
 
 def plain_features(model, ops, frames, train=False, pool_idx=None, replay=None):
@@ -1335,6 +1398,7 @@ def check_backward_layer(L, ops, gen, timing=None):
     rows = []
     for name, kernel_name, kernel, plain, wrt, exact in passes:
         out_k, out_p = kernel(), plain()
+        rerun_bitwise = bool(torch.equal(out_k, kernel()))
         torch.cuda.synchronize()
         if out_k.shape != out_p.shape:
             raise AssertionError('%s %s: kernel shape %s, plain %s' % (
@@ -1362,19 +1426,165 @@ def check_backward_layer(L, ops, gen, timing=None):
             return torch.autograd.grad(out_l, wrt, gl, retain_graph=True)
         rec = dict(
             phase='backward_check', layer=L['layer'], kernel=kernel_name, grad=name,
-            frames=L['n'], cotangent=list(g.shape), output=out_shape,
+            frames=L['n'], stride=s, cotangent=list(g.shape), output=out_shape,
             max_abs_err=max_abs, abs_tol=abs_tol, max_rel_err=max_rel, rel_tol=REL_TOL,
-            **extra, gflop=2 * macs / 1e9, mbytes=nbytes / 1e6,
-            ms=median_ms(kernel, **(timing or {})), plain_ms=median_ms(plain, **(timing or {})),
-            library_ms=median_ms(library, **(timing or {})),
-            bound_ms=max(t_ops, t_bytes), t_ops_ms=t_ops, t_bytes_ms=t_bytes,
+            rerun_bitwise=rerun_bitwise, **extra, gflop=2 * macs / 1e9, mbytes=nbytes / 1e6,
+            **timed(kernel, plain, library, max(t_ops, t_bytes), timing),
+            t_ops_ms=t_ops, t_bytes_ms=t_bytes,
             bound_by='operations' if t_ops >= t_bytes else 'bytes')
         emit(rec)
-        if not finite or max_abs > abs_tol or max_rel > REL_TOL:
+        if not finite or max_abs > abs_tol or max_rel > REL_TOL or not rerun_bitwise:
             raise AssertionError('%s %s: kernel disagrees with its plain version: %s'
                                  % (L['layer'], name, rec))
         rows.append(rec)
     return rows
+
+
+def arch_conv_checks(ops, hp, gen, prefix='', timing=None):
+    """check_layer at every conv layer of an arch (the 189-frame trial), then
+    check_backward_layer at each (the 192-frame bucket)."""
+    checks = [check_layer(L, ops, gen, timing) for L in layer_shapes(hp, TRIAL, prefix)]
+    for L in layer_shapes(hp, BUCKET, prefix):
+        checks += check_backward_layer(L, ops, gen, timing)
+    return checks
+
+
+def check_ragged(ops, gen):
+    """K2 and K4 on ragged shapes (RAGGED_*): each width as Cin and as Cout at
+    strides 1-3 on a 13 x 17 plane, against the plain versions under the
+    layers' tolerances (K2 as check_layer holds it; K4 against the plain
+    version in float64 as check_backward_layer holds it), K4 on uint8
+    frames at stride 1 and transposed at stride 3; then K4's patch kernel
+    (RAGGED_PATCH_WIDTHS: multiples of 4, half an 8-channel slab, steps
+    across frames and past the plane's edge) at strides 1-3; every case run
+    twice, equal bit for bit. One line a kernel, with its worst case."""
+    k, (h, w), (py, px) = 5, POOL_ODD, RAGGED_PADS
+    worst = {'conv_transpose2d_nhwc': None, 'conv2d_grad_w_nhwc': None}
+    failed = []
+    cases = 0
+
+    def run(name, kernel, plain, scaled, **case):
+        out_k, out_k2, out_p = kernel(), kernel(), plain()
+        torch.cuda.synchronize()
+        max_abs, abs_tol, max_rel, finite = errors(out_k, out_p, scaled_floor=scaled)
+        case = dict(case, max_abs_err=max_abs, abs_tol=abs_tol, max_rel_err=max_rel,
+                    rerun_bitwise=bool(torch.equal(out_k, out_k2)), finite=finite)
+        if (not finite or max_abs > abs_tol or max_rel > REL_TOL
+                or not case['rerun_bitwise'] or out_k.shape != out_p.shape):
+            failed.append(dict(case, kernel=name))
+        if worst[name] is None or max_rel > worst[name]['max_rel_err']:
+            worst[name] = case
+
+    for ci, co, s in ((a, b, c) for a in RAGGED_WIDTHS for b in RAGGED_WIDTHS
+                      for c in RAGGED_STRIDES):
+        op = (1, 0) if s > 1 else (0, 0)
+        act = (None, 'leaky_relu', 'sigmoid')[s - 1]
+        x = torch.randn((RAGGED_FRAMES, h, w, ci), device=DEVICE, generator=gen)
+        wt = torch.randn((k, k, ci, co), device=DEVICE, generator=gen) * 0.1
+        b = torch.randn((co,), device=DEVICE, generator=gen)
+        u8 = s == 1
+        xs = torch.randint(0, 256, x.shape, dtype=torch.uint8, device=DEVICE,
+                           generator=gen) if u8 else x
+        oh, ow = ops.conv_out_hw(h, w, k, s, py, px)
+        g = torch.randn((RAGGED_FRAMES, oh, ow, co), device=DEVICE, generator=gen)
+        x64 = xs.double() / 255.0 if u8 else xs.double()
+        tr = s == 3
+        run('conv_transpose2d_nhwc',
+            lambda: ops.conv_transpose2d_cuda(x, wt, b, s, py, px, op, act),
+            lambda: ops.conv_transpose2d_plain(x, wt, b, s, py, px, op, act), False,
+            ci=ci, co=co, stride=s, uint8=False, transposed_out=False)
+        run('conv2d_grad_w_nhwc', lambda: ops.conv2d_grad_w_cuda(xs, g, k, s, py, px, tr),
+            lambda: ops.conv2d_grad_w_plain(x64, g.double(), k, s, py, px, tr).float(), True,
+            ci=ci, co=co, stride=s, uint8=u8, transposed_out=tr)
+        cases += 1
+    for (ci, co), s in ((wd, c) for wd in RAGGED_PATCH_WIDTHS for c in RAGGED_STRIDES):
+        x = torch.randn((RAGGED_FRAMES, h, w, ci), device=DEVICE, generator=gen)
+        oh, ow = ops.conv_out_hw(h, w, k, s, py, px)
+        g = torch.randn((RAGGED_FRAMES, oh, ow, co), device=DEVICE, generator=gen)
+        tr = s == 3
+        if ops.gradw_plan(RAGGED_FRAMES, ci, co, k, s, (oh, ow))['kind'] != 'patch':
+            raise AssertionError('ragged case %s is not the patch kernel\'s' % ((ci, co, s),))
+        run('conv2d_grad_w_nhwc', lambda: ops.conv2d_grad_w_cuda(x, g, k, s, py, px, tr),
+            lambda: ops.conv2d_grad_w_plain(x.double(), g.double(), k, s, py, px, tr).float(),
+            True, ci=ci, co=co, stride=s, uint8=False, transposed_out=tr, patch=True)
+        cases += 1
+    for name, case in worst.items():
+        emit(dict(phase='ragged_check', kernel=name, cases=cases, widths=RAGGED_WIDTHS,
+                  patch_widths=RAGGED_PATCH_WIDTHS, strides=RAGGED_STRIDES, plane=POOL_ODD,
+                  frames=RAGGED_FRAMES, pads=RAGGED_PADS, rel_tol=REL_TOL, worst=case,
+                  failed=[f for f in failed if f['kernel'] == name]))
+    if failed:
+        raise AssertionError('K2 / K4 disagree on ragged shapes: %s' % failed[:5])
+
+
+def conv_summary(checks):
+    """K1's, K2's and K4's times beside cuDNN's, summed per arch and stride
+    over the conv checks (K2 forward and as grad-x, K4 as grad-w of convs
+    (row 2) and of transposed convs (row 4), K1 forward and as grad-x)."""
+    groups = {}
+    for r in checks:
+        if r.get('phase') not in ('kernel_check', 'backward_check') or \
+                r['kernel'] not in ('conv2d_nhwc', 'conv_transpose2d_nhwc', 'conv2d_grad_w_nhwc'):
+            continue
+        arch = 'pool' if r['layer'].startswith('pool.') else 'default'
+        short = {'conv2d_nhwc': 'K1', 'conv_transpose2d_nhwc': 'K2',
+                 'conv2d_grad_w_nhwc': 'K4'}[r['kernel']]
+        use = 'forward' if r['phase'] == 'kernel_check' else r['grad'] + (
+            '_row4' if '.convt_' in '.' + r['layer'] else '_row2') * (short == 'K4')
+        key = '%s %s %s stride %d' % (arch, short, use, r['stride'])
+        g = groups.setdefault(key, dict(layers=[], ms=0.0, library_ms=0.0, bound_ms=0.0,
+                                        worst_layer_vs_library=0.0))
+        g['layers'].append(r['layer'])
+        g['ms'] += r['ms']
+        g['library_ms'] += r['library_ms']
+        g['bound_ms'] += r['bound_ms']
+        g['worst_layer_vs_library'] = max(g['worst_layer_vs_library'], r['vs_library'])
+    for g in groups.values():
+        g['vs_library'] = g['ms'] / g['library_ms']
+        g['share_of_bound'] = g['bound_ms'] / g['ms']
+    emit(dict(phase='conv_summary', groups=groups))
+    return groups
+
+
+def conv_ptxas(build):
+    """Registers and spills of K2's and K4's instances from nvcc's -Xptxas -v
+    (raises on a spill; nothing to read when the libraries were built
+    before this process)."""
+    import re
+    kernels = []
+    built = [lib for lib in ('conv_transpose2d_nhwc', 'conv2d_grad_w_nhwc')
+             if lib in build.ptxas_info()]
+    for lib in built:
+        cur = None
+        for line in build.ptxas_info().get(lib, []):
+            m = re.search(r'Function properties for (\S+)', line)
+            if m:
+                name = m.group(1)
+                base = next((k for k in ('tconv_gemm_kernel', 'tconv_narrow_kernel',
+                                         'gradw_patch_kernel', 'gradw_gather_kernel',
+                                         'gradw_reduce_kernel')
+                             if k in name), None)
+                cur = None
+                if base:
+                    args = re.findall(r'L([ib])(\d+)E', name)
+                    cur = dict(kernel='%s<%s>' % (base, ','.join(v for _, v in args)))
+                    kernels.append(cur)
+                continue
+            if cur is None:
+                continue
+            m = re.search(r'(\d+) bytes spill stores, (\d+) bytes spill loads', line)
+            if m:
+                cur['spill_stores'], cur['spill_loads'] = int(m.group(1)), int(m.group(2))
+            m = re.search(r'Used (\d+) registers', line)
+            if m:
+                cur['registers'] = int(m.group(1))
+                sm = re.search(r'(\d+) bytes smem', line)
+                cur['static_smem'] = int(sm.group(1)) if sm else 0
+    emit(dict(phase='conv_ptxas', libraries=built, kernels=kernels))
+    spills = [k for k in kernels if k.get('spill_stores') or k.get('spill_loads')]
+    if (built and not kernels) or spills:
+        raise AssertionError('K2 / K4 instances spill or were not reported: %s'
+                             % (spills or kernels))
 
 
 def check_mse(losses, gen, decoder=False):
@@ -1672,11 +1882,13 @@ KERNEL_OF = tuple(
         ('forward_kernel', 'K9 hmm_forward_backward (forward alone, time-varying)'),
         ('viterbi_kernel', 'K10 hmm_viterbi (time-varying)'))
     for k in (8, 16, 32, 64)) + (
-             ('igemm_conv_kernel<unsigned char, false>', 'K1 conv2d_nhwc'),
-             ('igemm_conv_kernel<float, false>', 'K1 conv2d_nhwc'),
-             ('igemm_conv_kernel<float, true>', 'K2 conv_transpose2d_nhwc'),
+             ('igemm_conv_kernel<', 'K1 conv2d_nhwc'),
+             ('tconv_gemm_kernel', 'K2 conv_transpose2d_nhwc'),
+             ('tconv_narrow_kernel', 'K2 conv_transpose2d_nhwc'),
              ('tconv_smallcout_kernel', 'K3 conv_transpose2d_smallcout_sigmoid'),
-             ('gradw_', 'K4 conv2d_grad_w_nhwc'),
+             ('gradw_patch_kernel', 'K4 conv2d_grad_w_nhwc'),
+             ('gradw_gather_kernel', 'K4 conv2d_grad_w_nhwc'),
+             ('gradw_reduce_kernel', 'K4 conv2d_grad_w_nhwc'),
              ('mse_partial_kernel', 'K5 masked_mse'), ('mse_finish_kernel', 'K5 masked_mse'),
              ('mse_grad_kernel', 'K5 masked_mse'),
              ('amsgrad_kernel', 'K6 amsgrad_step'), ('dkl_', 'K7 decomposed_kl'),
@@ -2204,11 +2416,14 @@ def msps_batch(source):
     return {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
 
 
-def plain_msps_loss(model, ops, losses, batch, eps, perms, kw, seg_lens):
+def plain_msps_loss(model, ops, losses, batch, eps, perms, kw, seg_lens, replay=None):
     """The MSPS-VAE's loss (JAX: vaes.py:424) through the plain versions
-    only, from given eps and permutations."""
+    only, from given eps and permutations; ``replay`` as for
+    ``plain_layer``."""
     k, k_bg = model.n_labels, model.n_labels + model.n_background
-    flat = plain_features(model, ops, batch['images'])
+    if replay is not None and not isinstance(replay, Replay):
+        replay = list(replay)
+    flat = plain_features(model, ops, batch['images'], replay=replay)
     mu_ff, logvar = model.encoding.FF(flat), model.encoding.logvar(flat)
     z_s = model.encoding.A(mu_ff)
     mu = torch.cat([z_s, model.encoding.C(mu_ff), model.encoding.B(mu_ff)], dim=1)
@@ -2219,7 +2434,7 @@ def plain_msps_loss(model, ops, losses, batch, eps, perms, kw, seg_lens):
         n = pred[0].numel()
         return -0.5 * losses.LN2PI * n - 0.5 * n * losses.mse_plain(pred, target, None, fm)[0]
     mi, tc, dwkl = losses.decomposed_kl_plain(z[:, k_bg:], mu[:, k_bg:], logvar[:, k_bg:], fm)
-    return -ll(plain_decode(model, ops, z), batch['images']) \
+    return -ll(plain_decode(model, ops, z, replay=replay), batch['images']) \
         - kw['alpha'] * ll(model.encoding.D(z_s), batch['labels']) \
         + losses.kl_div_to_std_normal(mu[:, :k], logvar[:, :k], fm) \
         + kw['kl'] * mi + kw['beta'] * tc + kw['kl'] * dwkl \
@@ -2230,7 +2445,17 @@ def msps_step(port, hp, model, source):
     """An MSPS-VAE train step on the card (384 frames: two sessions' trials
     in their buckets) at the annealed loss weights: its gradients against the
     plain path's with the same eps and permutations (the generator draws the
-    eps, then one permutation a session), its time beside the plain step's
+    eps, then one permutation a session), run in float64 (the plain path in
+    float32 drifts from it as cuDNN's float32 algorithms do, its distance is
+    reported beside the kernel path's), and the kernel path's leaky-ReLU
+    signs replayed (``recorded_decisions``: a pre-activation within float32
+    rounding of 0 sends its gradient down another branch, ~2% of the
+    2 x 2 -> 8 x 8 layer's weight gradient; the distance from the float32
+    plain path without the replay is reported beside it). The replayed
+    signs are held to the float64 path's own: at most SIGN_FLIPS_MAX may
+    differ, each at a pre-activation within SIGN_FLIP_TOL of 0 (relative
+    to max(1, its layer's largest)), so a kernel fault that flips signs
+    away from the kink fails here. Then its time beside the plain step's
     (cuDNN autograd, torch's fused AMSGrad), and its profile."""
     ops, losses = port.ops, port.losses
     host_batch = msps_batch(source)
@@ -2247,24 +2472,64 @@ def msps_step(port, hp, model, source):
         eps = torch.randn((2 * BUCKET, N_MSPS_LATENTS), generator=gen, device=DEVICE)
         return eps, [torch.randperm(n, generator=gen, device=DEVICE) for n in seg_lens]
     model.zero_grad(set_to_none=True)
-    loss_k = model.loss_fn(batch, generator=generator(), seg_lens=seg_lens, **kw)[0]
-    loss_k.backward()
+    with recorded_decisions(model, ops) as decisions:
+        loss_k = model.loss_fn(batch, generator=generator(), seg_lens=seg_lens, **kw)[0]
+        loss_k.backward()
     grads_k = {k: p.grad.clone() for k, p in model.named_parameters()}
     model.zero_grad(set_to_none=True)
-    loss_p = plain_msps_loss(model, ops, losses, batch, *draws(generator()), kw, seg_lens)
-    loss_p.backward()
-    grad_errs = {k: (grads_k[k] - p.grad).abs().max().item()
-                 / max(p.grad.abs().max().item(), 1e-30)
-                 for k, p in model.named_parameters()}
+
+    def plain_grads(replay, dtype=torch.float32):
+        """The plain path's loss and gradients, on a copy of the model in
+        ``dtype`` (frames as x / 255 in it)."""
+        twin = port.vaes.MSPSVAE(hp).to(DEVICE, dtype)
+        twin.load_state_dict(model.state_dict())
+        data = batch if dtype == torch.float32 else dict(
+            images=batch['images'].to(dtype) / 255.0, labels=batch['labels'].to(dtype),
+            frame_mask=batch['frame_mask'].to(dtype))
+        eps, perms = draws(generator())
+        loss = plain_msps_loss(twin, ops, losses, data, eps.to(dtype), perms, kw, seg_lens,
+                               replay)
+        loss.backward()
+        return loss.item(), {k: p.grad for k, p in twin.named_parameters()}
+
+    def rel_errs(got, ref):
+        return {k: (got[k].double() - ref[k].double()).abs().max().item()
+                / max(ref[k].abs().max().item(), 1e-30) for k in ref}
+    unreplayed = rel_errs(grads_k, plain_grads(None)[1])
+    grads_32 = plain_grads(Replay(decisions))[1]
+    replay = Replay(decisions)
+    loss_p, grads_64 = plain_grads(replay, torch.float64)
+    del decisions
+    grad_errs, plain_errs = rel_errs(grads_k, grads_64), rel_errs(grads_32, grads_64)
+    vs_plain_f32 = rel_errs(grads_k, grads_32)
+    flips = replay.flips
+    n_flips = sum(f['flips'] for f in flips)
+    far = [i for i, f in enumerate(flips)
+           if f['max_abs_at_flips'] > SIGN_FLIP_TOL * max(1.0, f['max_abs'])]
     worst = max(grad_errs, key=grad_errs.get)
-    loss_err = abs(loss_k.item() - loss_p.item()) / abs(loss_p.item())
+    worst_plain = max(plain_errs, key=plain_errs.get)
+    worst_vs_f32 = max(vs_plain_f32, key=vs_plain_f32.get)
+    worst_unreplayed = max(unreplayed, key=unreplayed.get)
+    loss_err = abs(loss_k.item() - loss_p) / abs(loss_p)
     emit(dict(phase='msps_grads', frames=2 * BUCKET, seg_lens=list(seg_lens), loss_weights=kw,
-              loss=loss_k.item(), plain_loss=loss_p.item(), loss_rel_err=loss_err,
-              rel_tol=GRAD_REL_TOL, max_rel_err=grad_errs[worst], worst=worst,
-              rel_err=grad_errs))
+              reference='plain_float64', loss=loss_k.item(), plain_loss=loss_p,
+              loss_rel_err=loss_err, rel_tol=GRAD_REL_TOL, max_rel_err=grad_errs[worst],
+              worst=worst, plain_f32_max_rel_err=plain_errs[worst_plain],
+              plain_f32_worst=worst_plain,
+              kernel_vs_plain_f32_max_rel_err=vs_plain_f32[worst_vs_f32],
+              kernel_vs_plain_f32_worst=worst_vs_f32,
+              unreplayed_max_rel_err=unreplayed[worst_unreplayed],
+              unreplayed_worst=worst_unreplayed, sign_flips=n_flips,
+              sign_flips_max=SIGN_FLIPS_MAX, sign_flip_tol=SIGN_FLIP_TOL,
+              sign_flip_layers=[dict(f, layer=i) for i, f in enumerate(flips) if f['flips']],
+              rel_err=grad_errs, plain_f32_rel_err=plain_errs))
     if grad_errs[worst] > GRAD_REL_TOL or loss_err > GRAD_REL_TOL:
         raise AssertionError('MSPS-VAE gradients on the card disagree with the plain '
                              'path: %s=%.3g, loss %.3g' % (worst, grad_errs[worst], loss_err))
+    if n_flips > SIGN_FLIPS_MAX or far:
+        raise AssertionError('MSPS-VAE: %d replayed leaky-ReLU signs differ from the plain '
+                             'path\'s own (at most %d), at layers %s beyond %.0e of 0'
+                             % (n_flips, SIGN_FLIPS_MAX, far, SIGN_FLIP_TOL))
 
     opt = port.optim.AMSGrad(model.parameters(), lr=LEARNING_RATE, weight_decay=L2_REG)
     twin = port.vaes.MSPSVAE(hp).to(DEVICE)
@@ -6911,6 +7176,8 @@ def main():
     parser = argparse.ArgumentParser(description='Chip smoke test of behavenet_tpu_torch.')
     parser.add_argument('--cards', type=int, default=None,
                         help='run only the mesh paths across this many cards (mesh_cards)')
+    parser.add_argument('--conv', action='store_true',
+                        help='run only the conv checks of both archs and the ragged shapes')
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device is available', file=sys.stderr)
@@ -6930,6 +7197,7 @@ def main():
     seconds = port.build.build_all()
     emit(dict(phase='build', seconds=seconds, library_seconds=port.build.build_seconds(),
               ptxas=port.build.ptxas_info()))
+    conv_ptxas(port.build)
     if args.cards is not None:
         if not 2 <= args.cards <= torch.cuda.device_count():
             raise SystemExit('--cards takes 2..%d here' % torch.cuda.device_count())
@@ -6942,10 +7210,21 @@ def main():
     pool_hp = pool_hparams(port.arch)
     gen = torch.Generator(device=DEVICE)
     gen.manual_seed(SEED)
+    # row 6's and the ragged checks draw from generators of their own: the
+    # earlier checks keep their inputs
+    pool_gen = torch.Generator(device=DEVICE)
+    pool_gen.manual_seed(SEED + 12)
+    ragged_gen = torch.Generator(device=DEVICE)
+    ragged_gen.manual_seed(SEED + 17)
+    if args.conv:
+        with tf32_off():
+            checks = arch_conv_checks(ops, hp, gen)
+            checks += arch_conv_checks(ops, pool_hp, pool_gen, 'pool.', POOL_TIMING)
+            check_ragged(ops, ragged_gen)
+        conv_summary(checks)
+        return 0
     with tf32_off():
-        checks = [check_layer(L, ops, gen) for L in layer_shapes(hp, TRIAL)]
-        for L in layer_shapes(hp, BUCKET):
-            checks += check_backward_layer(L, ops, gen)
+        checks = arch_conv_checks(ops, hp, gen)
         checks.append(check_mse(port.losses, gen))
         checks.append(check_amsgrad(port.optim, port.aes.AE(hp).to(DEVICE), gen))
         checks += [check_decomposed_kl(port.losses, gen, d) for d in KL_DIMS]
@@ -6972,15 +7251,10 @@ def main():
         checks += check_imm(port)
         checks += check_kalman(port)
         checks += check_triplet(port)
-        # row 6's checks draw from a generator of their own: the earlier
-        # checks keep their inputs
-        pool_gen = torch.Generator(device=DEVICE)
-        pool_gen.manual_seed(SEED + 12)
-        checks += [check_layer(L, ops, pool_gen, POOL_TIMING)
-                   for L in layer_shapes(pool_hp, TRIAL, 'pool.')]
-        for L in layer_shapes(pool_hp, BUCKET, 'pool.'):
-            checks += check_backward_layer(L, ops, pool_gen, POOL_TIMING)
+        checks += arch_conv_checks(ops, pool_hp, pool_gen, 'pool.', POOL_TIMING)
         checks += check_row6(ops, pool_hp, pool_gen)
+        check_ragged(ops, ragged_gen)
+    conv_summary(checks)
     checks += [check_gaussian_nll(port.losses, gen, d) for d in NLL_DIMS]
     for d in NLL_DIMS:
         check_nll_draws(port.losses, d)
