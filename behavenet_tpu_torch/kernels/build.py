@@ -210,7 +210,7 @@ _SIGNATURES = {
         'bn_kalman_smoother': [_P] * 5 + [_I] * 2 + [_P] * 3},
     'lstm_forward': {
         'bn_lstm_forward': [_P] * 5 + [_I] * 5 + [_P] * 5,
-        'bn_lstm_backward': [_P] * 7 + [_I] * 5 + [_P] * 4},
+        'bn_lstm_backward': [_P] * 7 + [_I] * 8 + [_P] * 4},
     'triplet_loss': {
         'bn_triplet_loss': [_P, _I, _I, _P, _P, _P] + [_I] * 9 + [_F, _F] + [_P] * 4,
         'bn_triplet_loss_grad': [_P, _I, _I, _P, _P, _P] + [_I] * 9 + [_F, _F] + [_P] * 3
@@ -372,7 +372,10 @@ def launch(name, *args, symbol=None):
     stream with ``args``; raise if the launch fails, else count it under
     the kernel's name or its variant's."""
     import torch
-    err = library(name, symbol)(*args, torch.cuda.current_stream().cuda_stream)
+    # the raw handle of torch.cuda.current_stream(), without building its
+    # Python object (a few microseconds a launch)
+    stream = torch._C._cuda_getCurrentRawStream(torch.cuda.current_device())
+    err = library(name, symbol)(*args, stream)
     if err != 0:
         raise RuntimeError('%s: kernel launch failed (cudaError %d)' % (name, err))
     LAUNCHES[_COUNTED_AS.get(symbol, name)] += 1

@@ -31,7 +31,7 @@ from behavenet_tpu_torch.kernels.build import launch
 from behavenet_tpu_torch.ops.hmm import _check_tensors
 
 __all__ = ['lstm_scan', 'lstm_scan_plain', 'lstm_run_plain', 'lstm_forward_cuda',
-           'lstm_backward_cuda']
+           'lstm_backward_cuda', 'bptt_plan', 'dx_frames']
 
 
 def lstm_run_plain(x, w, b, reverse=False, dtype=None):
@@ -92,6 +92,54 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
+# K24's chain (kernels/lstm.cu): cluster sizes, threads a row of W_hh, a CTA
+BPTT_CLUSTERS = (1, 2, 4, 8)
+BPTT_MAX_THREADS = 1024
+
+
+def bptt_plan(h, smem_optin):
+    """K24's chain at width ``h`` on a device whose blocks may opt in to
+    ``smem_optin`` shared bytes: the fewest CTAs a cluster (``cluster``) whose
+    share of W_hh, ``rows`` = ceil(h / cluster) rows of 4h floats, fits
+    beside the two dG buffers of 4h floats (``smem`` bytes), with
+    ``threads_per_row`` 8, 16 or 32 (at most 16 column chunks of 4 floats a
+    thread where the CTA's 1024 threads allow) and ``threads`` a CTA. Above
+    the widest h that 8 CTAs hold, ``cluster`` 0: the one-block chain, with
+    the ``rows`` that fit on chip (padded to 4h + 1 floats beside 6h) and a
+    thread a row, the others read through L2."""
+    for c in BPTT_CLUSTERS:
+        rows = -(-h // c)
+        smem = 4 * (rows + 2) * 4 * h
+        tpr = 8 if h <= 128 else 16 if h <= 256 else 32
+        while rows * tpr > BPTT_MAX_THREADS and tpr > 8:
+            tpr //= 2
+        if smem <= smem_optin and rows * tpr <= BPTT_MAX_THREADS:
+            return dict(cluster=c, rows=rows, threads_per_row=tpr,
+                        threads=-(-rows * tpr // 32) * 32, smem=smem)
+    base = 4 * 6 * h
+    rows = max(0, min(h, (smem_optin - base) // (4 * (4 * h + 1))))
+    return dict(cluster=0, rows=rows, threads_per_row=1,
+                threads=min(BPTT_MAX_THREADS, -(-h // 32) * 32), smem=base + rows * 4 * (4 * h + 1))
+
+
+# frames of dG one block of K24's dx kernel stages (kernels/lstm.cu)
+DX_FRAMES = (8, 4, 2, 1)
+
+
+def dx_frames(h, dirs, smem_optin):
+    """The frames of dG (``dirs`` 4h floats each) one block of K24's dx
+    kernel stages in shared memory: the most of DX_FRAMES that fit in
+    ``smem_optin`` bytes, 0 when not even one frame does."""
+    return next((f for f in DX_FRAMES if f * dirs * 16 * h <= smem_optin), 0)
+
+
+def _smem_optin():
+    """The shared bytes a block may opt in to on the current CUDA device
+    (48 KiB, what every device allows, where torch does not say)."""
+    props = torch.cuda.get_device_properties(torch.cuda.current_device())
+    return getattr(props, 'shared_memory_per_block_optin', 48 * 1024)
+
+
 def _on_cpu(t):
     return t.device.type == 'cpu'
 
@@ -123,7 +171,8 @@ def lstm_backward_cuda(x, w_f, w_b, hs, cs, acts, grad_hs, with_dx=False):
     ``hs``, ``cs`` and ``acts`` at upstream gradient ``grad_hs`` (N, T,
     h * directions). Returns (dx (N, T, in) or None, dw_f, db_f, dw_b, db_b),
     the reversed direction's None without it; dw and db are fixed-order sums
-    over the trials and frames."""
+    over the trials and frames. The chain runs as :func:`bptt_plan` picks
+    for h and the device, dx in blocks of :func:`dx_frames` frames."""
     name = 'lstm_backward'
     N, T, d_in, h, nd = _sizes(name, x, [w_f] + ([] if w_b is None else [w_b]))
     _check_tensors(name, (hs, cs, acts, grad_hs), [torch.float32] * 4)
@@ -137,9 +186,16 @@ def lstm_backward_cuda(x, w_f, w_b, hs, cs, acts, grad_hs, with_dx=False):
     dg = torch.empty((N, nd, T, 4 * h), device=dev, dtype=torch.float32)
     dwb = torch.empty((nd, d_in + h + 1, 4 * h), device=dev, dtype=torch.float32)
     dx = torch.empty_like(x) if with_dx else None
+    optin = _smem_optin()
+    plan = bptt_plan(h, optin)
+    frames = dx_frames(h, nd, optin) if with_dx else 0
+    if with_dx and not frames:
+        raise ValueError('%s: dx needs %d shared bytes a block at h = %d, the device allows %d'
+                         % (name, nd * 16 * h, h, optin))
     launch('lstm_forward', x.data_ptr(), w_f.data_ptr(), _ptr(w_b), hs.data_ptr(),
            cs.data_ptr(), acts.data_ptr(), grad_hs.data_ptr(), N, T, d_in, h, nd,
-           dg.data_ptr(), dwb.data_ptr(), _ptr(dx), symbol='bn_lstm_backward')
+           plan['cluster'], plan['threads_per_row'], frames, dg.data_ptr(), dwb.data_ptr(),
+           _ptr(dx), symbol='bn_lstm_backward')
     grads = [dwb[0, :d_in + h], dwb[0, d_in + h]]
     grads += [dwb[1, :d_in + h], dwb[1, d_in + h]] if nd == 2 else [None, None]
     return (dx,) + tuple(grads)

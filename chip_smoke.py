@@ -18,7 +18,12 @@ On one CUDA GPU (an H100: the kernels are built for sm_90a) it
    - the backward of every layer at the train step's 192-frame bucket:
      grad-w in K4, grad-x in K2 (of a conv) or K1 (of a transposed conv);
    - the masked MSE's forward and backward (K5) and one AMSGrad step over
-     the whole model (K6);
+     the whole model (K6): ``amsgrad_cuda_`` once, then three
+     ``AMSGrad.step()`` calls against the plain recursion, one gradient
+     dropped at the second and a ``load_state_dict`` of a copied state
+     before the third (a stale table of pointers would fail); the step's
+     time beside fused ``Adam(amsgrad=True)``, its host time and K6's
+     device time (profiler);
 4. serving (main path 1): writes a fitted-version directory, serves
    ``encode`` and ``reconstruct`` requests of 1, 189 and 1024 uint8 frames
    through ``serving.load_version`` on the card, checks every answer against
@@ -182,19 +187,23 @@ On one CUDA GPU (an H100: the kernels are built for sm_90a) it
    100,000-frame trial and of a CLI trial from the fitted K = 4 model
    against ``decode(parallel=True)`` and a float64 decode, timed and
    profiled on each mesh (``bayesian_sp_serve``).
-11. the LSTM decoder (main paths 16-19; row 20, kernels/lstm.cu): K23 (the
+11. the LSTM decoder (main paths 16-19b; row 20, kernels/lstm.cu): K23 (the
    forward: the input projection, then one block a direction walks the
    192-step chain) against ``lstm_scan_plain`` and ``torch.nn.LSTM`` (the
    yardstick, TF32 off) at the decoding config's width (h = 32 hidden units
    over 256 neural channels, both directions, the 192-frame bucket) and at
-   h = 64 and 128 (W_hh partly through L2 there), and on one 1000-frame
-   trial against the plain version in float64; K24 (BPTT) against autograd
-   through the plain version (dW, db; dx at h = 32); ``fit`` of a
-   ``neural-ae`` and a ``neural-arhmm`` bidirectional LSTM (K23, K24 and the
-   loss's kernel must launch); the fitted ``neural-ae`` LSTM's gradients
-   against the plain path's, its step timed and profiled; and its
-   ``predict`` through ``serving.load_version`` on 189 and 1000 frames (K23
-   alone) against a float64 forward.
+   h = 64, 128, 150 and 256 (W_hh partly through L2 there), and on one
+   1000-frame trial against the plain version in float64; K24 (BPTT: the
+   chain in a cluster of 1, 2 or 8 CTAs that holds all of W_hh) against
+   autograd through the plain version (dW, db; dx at h = 32) and a second
+   call bit for bit, its plan and device time by launch (chain, dW, dx),
+   and on the 1000-frame trial (dx, dW, db) against autograd in float64;
+   ``fit`` of a ``neural-ae`` and a ``neural-arhmm`` bidirectional LSTM
+   (K23, K24 and the loss's kernel must launch); the fitted ``neural-ae``
+   LSTM's gradients against the plain path's, its step timed and profiled;
+   its ``predict`` through ``serving.load_version`` on 189 and 1000 frames
+   (K23 alone) against a float64 forward; and the ``neural-ae`` LSTM's step
+   at h = 128 from its seeded init beside its plain twin (19b).
 12. the MSPS-VAE (main paths 20-21; row 10, kernels/triplet.cu) at the user
    guide's config (docs/user_guide.mspsvae.md: 14 latents, 4 labels, 3
    background, alpha 1000, beta 5, delta 50, 100 anneal epochs, two sessions
@@ -245,10 +254,16 @@ On one CUDA GPU (an H100: the kernels are built for sm_90a) it
    ``conv_ptxas`` lists the registers and spills of K2's and K4's
    instances (no spill allowed).
 
-    python3 chip_smoke.py --conv
+    python3 chip_smoke.py --only PHASE[,PHASE]
 
-runs, after the build, only the conv checks: every conv layer of both
-archs (forward and backward), ``check_ragged`` and ``conv_summary``.
+runs, after the build, only the named phases of ONLY_PHASES, in the order
+given: ``conv`` (every conv layer of both archs, forward and backward,
+``check_ragged`` and ``conv_summary``), ``optimizer`` (K6's
+``optimizer_check``), ``lstm`` (``check_lstm``: K23, K24) and
+``lstm_step`` (the LSTM decoder step at LSTM_STEP_HIDDEN). They need of
+the package only the entry points they call, so a copy of this script in
+a checkout of an earlier commit times that commit's kernels the same way
+(K24's plan then reads None where ``ops.lstm`` has no ``bptt_plan``).
 
 Each phase prints one JSON line; the line before the last lists the kernels
 with their numbers, and the last line is ``{"ok": true, "device": ...}``.
@@ -272,6 +287,7 @@ the ARHMM CLI, which shards EM over the trials on every card.
 
 import argparse
 import contextlib
+import copy
 import csv
 import functools
 import json
@@ -323,6 +339,9 @@ LOSS_REL_TOL = 1e-5
 # K6 vs the plain recursion: the step p_new - p_old within 1e-3 of the
 # largest step, the moments within 1e-5 of their largest value.
 STEP_REL_TOL, STATE_REL_TOL = 1e-3, 1e-5
+# check_amsgrad: the parameter whose gradient is dropped at the optimizer's
+# second step; host calls timed back to back
+AMSGRAD_DROPPED, AMSGRAD_HOST_CALLS = 1, 100
 # One train step's gradients, kernels vs the plain path on the card.
 GRAD_REL_TOL = 1e-3
 # msps_step: replayed leaky-ReLU signs that may differ from the float64 plain
@@ -771,16 +790,27 @@ PREDICT_ABS_TOL = 1e-4
 # The LSTM decoder (DECODERS' 'lstm' entries: n_hid_units 32 of the
 # published config, bidirectional as JAX's default) and K23 / K24 at
 # LSTM_HIDDEN units: the config's, JAX's default when a config gives none
-# (models/decoders.py:141) and 128 (above the 119 units whose W_hh fits a
-# block's shared memory). Kernel vs plain version, float32 on the card:
-# hidden states (in (-1, 1)) within LSTM_ABS_TOL (192-step chains, sums in
-# another order); gradients within LSTM_GRAD_REL_TOL of max|plain| (sums
-# over 192 frames); on one LSTM_LONG-frame trial within max(LSTM_ABS_TOL,
-# twice the float32 plain version's distance) of the plain version in
-# float64.
-LSTM_HIDDEN = (DEC_HP['n_hid_units'], 64, 128)
+# (models/decoders.py:141), 128 (above the 119 units whose W_hh fits one
+# block's shared memory: K24 in a cluster of 2), 150 (a cluster of 2 with
+# rows not a multiple of 8), 200 (a cluster of 4), 256 (a cluster of 8) and
+# 400 (above the 330 units a cluster of 8 holds: K24's one-block chain,
+# part of W_hh read through L2), so every branch of K24's plan is held
+# against the plain version. Kernel vs plain
+# version, float32 on the card: hidden states (in (-1, 1)) within
+# LSTM_ABS_TOL (192-step chains, sums in another order); gradients within
+# LSTM_GRAD_REL_TOL of max|plain| (sums over 192 frames); on one
+# LSTM_LONG-frame trial, hidden states within max(LSTM_ABS_TOL, twice the
+# float32 plain version's distance) of the plain version in float64, and
+# K24's dx, dW and db within max(LSTM_GRAD_REL_TOL, twice the float32
+# autograd's distance) of autograd in float64, each over its max.
+LSTM_HIDDEN = (DEC_HP['n_hid_units'], 64, 128, 150, 200, 256, 400)
 LSTM_LONG = 1000
 LSTM_ABS_TOL, LSTM_GRAD_REL_TOL = 1e-4, 1e-4
+# K24's launches, by device kernel name (check_lstm's split)
+LSTM_SPLIT = {'bptt': ('lstm_bptt_',), 'dw': ('lstm_dw_kernel',), 'dx': ('lstm_dx_kernel',)}
+# the LSTM decoder step at a width whose W_hh a block cannot hold (K24 in a
+# cluster of 2)
+LSTM_STEP_HIDDEN = 128
 
 # The Bayesian decoder at the published config (configs/bayesian_jsons: the
 # ARHMM CLI's K = 4 version over the 9 latents, lags 1, Gaussian noise,
@@ -1546,24 +1576,21 @@ def conv_summary(checks):
     return groups
 
 
-def conv_ptxas(build):
-    """Registers and spills of K2's and K4's instances from nvcc's -Xptxas -v
-    (raises on a spill; nothing to read when the libraries were built
-    before this process)."""
+def kernel_ptxas(build, phase, libs, bases):
+    """Registers and spills of the instances of the device functions
+    ``bases`` in the libraries ``libs`` from nvcc's -Xptxas -v, as a
+    ``phase`` line (raises on a spill; nothing to read when the libraries
+    were built before this process)."""
     import re
     kernels = []
-    built = [lib for lib in ('conv_transpose2d_nhwc', 'conv2d_grad_w_nhwc')
-             if lib in build.ptxas_info()]
+    built = [lib for lib in libs if lib in build.ptxas_info()]
     for lib in built:
         cur = None
         for line in build.ptxas_info().get(lib, []):
             m = re.search(r'Function properties for (\S+)', line)
             if m:
                 name = m.group(1)
-                base = next((k for k in ('tconv_gemm_kernel', 'tconv_narrow_kernel',
-                                         'gradw_patch_kernel', 'gradw_gather_kernel',
-                                         'gradw_reduce_kernel')
-                             if k in name), None)
+                base = next((k for k in bases if k in name), None)
                 cur = None
                 if base:
                     args = re.findall(r'L([ib])(\d+)E', name)
@@ -1580,11 +1607,26 @@ def conv_ptxas(build):
                 cur['registers'] = int(m.group(1))
                 sm = re.search(r'(\d+) bytes smem', line)
                 cur['static_smem'] = int(sm.group(1)) if sm else 0
-    emit(dict(phase='conv_ptxas', libraries=built, kernels=kernels))
+    emit(dict(phase=phase, libraries=built, kernels=kernels))
     spills = [k for k in kernels if k.get('spill_stores') or k.get('spill_loads')]
     if (built and not kernels) or spills:
-        raise AssertionError('K2 / K4 instances spill or were not reported: %s'
-                             % (spills or kernels))
+        raise AssertionError('instances of %s spill or were not reported: %s'
+                             % (', '.join(bases), spills or kernels))
+
+
+def conv_ptxas(build):
+    """K2's and K4's instances (``kernel_ptxas``)."""
+    kernel_ptxas(build, 'conv_ptxas', ('conv_transpose2d_nhwc', 'conv2d_grad_w_nhwc'),
+                 ('tconv_gemm_kernel', 'tconv_narrow_kernel', 'gradw_patch_kernel',
+                  'gradw_gather_kernel', 'gradw_reduce_kernel'))
+
+
+def lstm_optim_ptxas(build):
+    """K6's kernel and K23's and K24's (``kernel_ptxas``)."""
+    kernel_ptxas(build, 'lstm_optim_ptxas', ('amsgrad_step', 'lstm_forward'),
+                 ('amsgrad_kernel', 'lstm_project_kernel', 'lstm_chain_kernel',
+                  'lstm_bptt_cluster_kernel', 'lstm_bptt_kernel', 'lstm_dw_kernel',
+                  'lstm_dx_kernel'))
 
 
 def check_mse(losses, gen, decoder=False):
@@ -1651,8 +1693,17 @@ def check_mse(losses, gen, decoder=False):
 
 def check_amsgrad(optim, model, gen):
     """K6: one AMSGrad step (L2 on, step 3, moments from earlier steps) over
-    every parameter of the full-width model against the plain recursion,
-    and torch's fused ``Adam(amsgrad=True)`` as the yardstick."""
+    every parameter of the full-width model against the plain recursion
+    (``amsgrad_cuda_``, which builds its table on every call); then three
+    ``AMSGrad.step()`` calls over copies of the same parameters against the
+    plain recursion, one parameter's gradient dropped at the second (it
+    keeps its step count: mixed counts at the third) and a
+    ``load_state_dict`` of a deep copy of the state before the third (every
+    state pointer changes, so a stale table would fail). Times
+    ``AMSGrad.step()`` (``ms``: the main path's call, its table kept),
+    ``amsgrad_cuda_``, the plain recursion and torch's fused
+    ``Adam(amsgrad=True)`` (the yardstick), and reads K6's device time from
+    the profiler and the step's host time from the host clock."""
     dev = DEVICE
     params = [p.detach() for p in model.parameters()]
     grads = [torch.randn(p.shape, device=dev, generator=gen) * 1e-3 for p in params]
@@ -1681,31 +1732,85 @@ def check_amsgrad(optim, model, gen):
     finite = all(bool(torch.isfinite(a).all().item()) for a in pk)
     del pp, mp, vp, xp
 
+    # the optimizer: its kept table across a dropped gradient and a new state,
+    # with gradients from a generator of its own (the later checks keep the
+    # inputs they drew before this part was added)
+    seq_gen = torch.Generator(device=dev)
+    seq_gen.manual_seed(SEED + 18)
+    live = [torch.nn.Parameter(p.clone()) for p in params]
+    opt = optim.AMSGrad(live, **args)
+    ref = [p.clone() for p in params]
+    ref_state = [[torch.zeros_like(p) for p in params] for _ in range(3)]
+    ref_steps = [0] * len(params)
+    seq_step_errs = []
+    for i in range(3):
+        g = [torch.randn(p.shape, device=dev, generator=seq_gen) * 1e-3 for p in params]
+        on = [j for j in range(len(params)) if not (i == 1 and j == AMSGRAD_DROPPED)]
+        for j, p in enumerate(live):
+            p.grad = g[j] if j in on else None
+        if i == 2:
+            opt.load_state_dict(copy.deepcopy(opt.state_dict()))
+        before = [r.clone() for r in ref]
+        opt.step()
+        for j in on:
+            ref_steps[j] += 1
+        optim.amsgrad_plain_([ref[j] for j in on], [g[j] for j in on],
+                             *([col[j] for j in on] for col in ref_state),
+                             [ref_steps[j] for j in on], **args)
+        torch.cuda.synchronize()
+        seq_step_errs.append(rel([p.detach() for p in live], ref,
+                                 [r - b for r, b in zip(ref, before)]))
+    got = [[opt.state[p][k] for p in live] for k in ('exp_avg', 'exp_avg_sq', 'max_exp_avg_sq')]
+    seq_state_err = max(rel(a, b, b) for a, b in zip(got, ref_state))
+    seq_steps = [opt.state[p]['step'] for p in live]
+    steps_ok = seq_steps == ref_steps
+    finite = finite and all(bool(torch.isfinite(p).all().item()) for p in live)
+
     pk, mk, vk, xk = state()
 
-    def kernel():
+    def function():
         optim.amsgrad_cuda_(pk, grads, mk, vk, xk, steps, **args)
 
     def plain():
         optim.amsgrad_plain_(pk, grads, mk, vk, xk, steps, **args)
+    for p, gr in zip(live, grads):
+        p.grad = gr
     lib_params = [torch.nn.Parameter(p.clone()) for p in params]
-    for p, g in zip(lib_params, grads):
-        p.grad = g
+    for p, gr in zip(lib_params, grads):
+        p.grad = gr
     adam = torch.optim.Adam(lib_params, lr=LEARNING_RATE, weight_decay=L2_REG,
                             amsgrad=True, fused=True)
     n = sum(p.numel() for p in params)
     nbytes = 4 * n * (5 + 4)   # p, g, m, v, vmax in; p, m, v, vmax out
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = 16 * n / PEAK_F32_FLOPS * 1e3
+    ms = median_ms(opt.step)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(AMSGRAD_HOST_CALLS):
+        opt.step()
+    host_ms = (time.perf_counter() - t0) * 1e3 / AMSGRAD_HOST_CALLS
+    torch.cuda.synchronize()
+    device = profile_steps(opt.step, groups={'amsgrad_step': ('amsgrad_kernel',)})
+    device_launches = device['launches_per_step_by_kernel']
     rec = dict(phase='optimizer_check', kernel='amsgrad_step', tensors=len(params),
                params=n, step_rel_err=step_err, step_rel_tol=STEP_REL_TOL,
                state_rel_err=state_err, state_rel_tol=STATE_REL_TOL, max_abs_err=max_abs,
-               mbytes=nbytes / 1e6, ms=median_ms(kernel), plain_ms=median_ms(plain),
+               optimizer_step_rel_errs=seq_step_errs, optimizer_state_rel_err=seq_state_err,
+               optimizer_steps=seq_steps, dropped_at_step_2=AMSGRAD_DROPPED,
+               mbytes=nbytes / 1e6, ms=ms, host_ms=host_ms,
+               device_ms=device['ms_per_step_by_kernel']['amsgrad_step']
+               if device_launches['amsgrad_step'] == 1 else None,
+               device_launches=device_launches,
+               function_ms=median_ms(function), plain_ms=median_ms(plain),
                library_ms=median_ms(adam.step), bound_ms=max(t_ops, t_bytes),
                t_ops_ms=t_ops, t_bytes_ms=t_bytes,
                bound_by='operations' if t_ops >= t_bytes else 'bytes')
+    rec.update(vs_library=ms / rec['library_ms'],
+               device_share_of_bound=rec['device_ms'] and rec['bound_ms'] / rec['device_ms'])
     emit(rec)
-    if not finite or step_err > STEP_REL_TOL or state_err > STATE_REL_TOL:
+    if not finite or not steps_ok or max([step_err] + seq_step_errs) > STEP_REL_TOL or \
+            max(state_err, seq_state_err) > STATE_REL_TOL:
         raise AssertionError('K6 disagrees with the plain recursion: %s' % rec)
     return rec
 
@@ -1915,7 +2020,9 @@ KERNEL_OF = tuple(
              ('smoother_sequential_kernel', 'K22 kalman_smoother'),
              ('lstm_project_kernel', 'K23 lstm_forward'),
              ('lstm_chain_kernel', 'K23 lstm_forward'),
-             ('lstm_bptt_kernel', 'K24 lstm_backward'), ('lstm_dw_kernel', 'K24 lstm_backward'),
+             ('lstm_bptt_kernel', 'K24 lstm_backward'),
+             ('lstm_bptt_cluster_kernel', 'K24 lstm_backward'),
+             ('lstm_dw_kernel', 'K24 lstm_backward'),
              ('lstm_dx_kernel', 'K24 lstm_backward'),
              ('triplet_fwd_kernel', 'K25 triplet_loss'),
              ('triplet_bwd_kernel', 'K26 triplet_loss_grad'),
@@ -1935,12 +2042,16 @@ KERNEL_OF = tuple(
              ('nu_pass_kernel', 'K41 arhmm_nu_mstep'), ('nu_finish_kernel', 'K41 arhmm_nu_mstep'))
 
 
-def profile_steps(fn, steps=5, warmup=2, phase='train_profile', **labels):
+def profile_steps(fn, steps=5, warmup=2, phase='train_profile', groups=None, **labels):
     """Where a train step's time goes: ``torch.profiler`` over ``steps``
-    steps after ``warmup``; device time per kernel function, grouped by port
-    kernel (everything else is PyTorch's: the FC matmuls, activation
-    derivatives, bias sums, copies), and the device's busy and idle share
-    of the host-clock window."""
+    steps after ``warmup``; device time and launches a step per kernel
+    function, grouped by port kernel (everything else is PyTorch's: the FC
+    matmuls, activation derivatives, bias sums, copies) or by ``groups``
+    (label -> substrings of device kernel names; ``other`` for the rest),
+    and the device's busy and idle share of the host-clock window. The
+    profiler has been seen to drop kernels late in a long run, so a caller
+    that knows a step's launches can tell a complete split from a partial
+    one."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     for _ in range(warmup):
@@ -1954,7 +2065,8 @@ def profile_steps(fn, steps=5, warmup=2, phase='train_profile', **labels):
         wall_us = (time.perf_counter() - t0) * 1e6
     spans, by_name, counts = [], {}, {}
     for e in prof.events():
-        if e.device_type != DeviceType.CUDA:
+        # user annotations (``Optimizer.step#...``) span kernels already counted
+        if e.device_type != DeviceType.CUDA or getattr(e, 'is_user_annotation', False):
             continue
         spans.append((e.time_range.start, e.time_range.end))
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
@@ -1967,17 +2079,29 @@ def profile_steps(fn, steps=5, warmup=2, phase='train_profile', **labels):
         elif b > end:
             busy_us += b - end
             end = b
-    groups = {}
+    if groups:
+        ms = dict.fromkeys(list(groups) + ['other'], 0.0)
+
+        def group_of(name):
+            return next((g for g, keys in groups.items() if any(k in name for k in keys)),
+                        'other')
+    else:
+        ms = {}
+
+        def group_of(name):
+            return next((g for key, g in KERNEL_OF if key in name), 'pytorch')
+    launches = dict.fromkeys(ms, 0.0)
     for name, us in by_name.items():
-        group = next((g for key, g in KERNEL_OF if key in name), 'pytorch')
-        groups[group] = groups.get(group, 0.0) + us / steps / 1e3
+        group = group_of(name)
+        ms[group] = ms.get(group, 0.0) + us / steps / 1e3
+        launches[group] = launches.get(group, 0.0) + counts[name] / steps
     top = sorted(by_name, key=by_name.get, reverse=True)[:12]
     return dict(
         phase=phase, steps=steps, **dict(dict(frames=TRIAL, bucket=BUCKET), **labels),
         device_events=len(spans), wall_ms_per_step=wall_us / steps / 1e3,
         device_busy_ms_per_step=busy_us / steps / 1e3,
         device_idle_share=1.0 - busy_us / wall_us if spans else None,
-        ms_per_step_by_kernel=groups,
+        ms_per_step_by_kernel=ms, launches_per_step_by_kernel=launches,
         top_functions=[dict(name=n[:90], ms_per_step=by_name[n] / steps / 1e3,
                             calls_per_step=counts[n] / steps) for n in top])
 
@@ -6296,21 +6420,33 @@ def lstm_bounds(T, d_in, h, with_dx, dirs=2):
     return (fwd_ops, fwd_bytes), (bwd_ops, bwd_bytes)
 
 
+def lstm_grad_err(got, want):
+    """The largest distance of K24's outputs (dx, dw_f, db_f, dw_b, db_b;
+    None skipped) from ``want``'s, each over its max|want|."""
+    return max(((g.double() - w).abs().max() / w.abs().max()).item()
+               for g, w in zip(got, want) if g is not None)
+
+
 def check_lstm(port):
     """K23 and K24 against the plain version on the card at each of
     LSTM_HIDDEN, both directions over a (1, 192, 256) trial: hidden states
     (the inference and the training launcher, which must agree bit for
     bit, and ``torch.nn.LSTM`` with TF32 off, one more check), dW and db
     (and dx at the config's width) against autograd through the plain
-    version; then one LSTM_LONG-frame trial against the plain version in
-    float64 on the card. Times K23, K24, the plain version (forward, and
+    version, K24 a second time bit for bit; then one LSTM_LONG-frame trial
+    against the plain version in float64 on the card, K23's hidden states
+    and K24's dx, dW and db. Times K23, K24, the plain version (forward, and
     autograd's backward through it) and ``nn.LSTM`` (forward, and its
-    backward from the same graph)."""
+    backward from the same graph), and splits K24's device time by launch
+    (the chain, dW and db, dx; ``torch.profiler``); records K24's plan
+    (``ops.lstm.bptt_plan``: cluster size, rows and threads a CTA; and
+    ``dx_frames``; None on a checkout without the planner)."""
     lstm = port.lstm
     gen = torch.Generator(device=DEVICE)
     gen.manual_seed(SEED + 30)
     cases = {'lstm_forward': {}, 'lstm_backward': {}}
     bad = []
+    planner = getattr(lstm, 'bptt_plan', None)
     for h in LSTM_HIDDEN:
         flat = [t for _ in range(2) for t in lstm_cell(h, gen)]
         x = torch.randn((1, BUCKET, N_NEURAL), device=DEVICE, generator=gen)
@@ -6320,6 +6456,8 @@ def check_lstm(port):
         hs_t, cs, acts = lstm.lstm_forward_cuda(x, *flat, train=True)
         grads_k = lstm.lstm_backward_cuda(x, flat[0], flat[2], hs_t, cs, acts, grad,
                                           with_dx=with_dx)
+        grads_again = lstm.lstm_backward_cuda(x, flat[0], flat[2], hs_t, cs, acts, grad,
+                                              with_dx=with_dx)
         leaves = [t.clone().requires_grad_(True) for t in [x] + flat]
         hs_p = lstm.lstm_scan_plain(*leaves)
         grads_p = torch.autograd.grad(hs_p, leaves, grad, retain_graph=True)
@@ -6330,12 +6468,18 @@ def check_lstm(port):
         grad_errs = {name: ((gk - gp).abs().max() / gp.abs().max()).item()
                      for name, gk, gp in zip(('dx', 'dw_f', 'db_f', 'dw_b', 'db_b'),
                                              grads_k, grads_p) if gk is not None}
+        rerun_equal = all(torch.equal(a, b) for a, b in zip(grads_k, grads_again)
+                          if a is not None)
         fwd_err = (hs_k - hs_p).abs().max().item()
         finite = all(bool(torch.isfinite(t).all().item())
                      for t in [hs_k, hs_t] + [g for g in grads_k if g is not None])
 
         def backward():
             return lstm.lstm_backward_cuda(x, flat[0], flat[2], hs_t, cs, acts, grad)
+
+        def backward_dx():
+            return lstm.lstm_backward_cuda(x, flat[0], flat[2], hs_t, cs, acts, grad,
+                                           with_dx=True)
 
         def plain_forward():
             with torch.no_grad():
@@ -6357,6 +6501,10 @@ def check_lstm(port):
         plain_slow = dict(samples=3, inner=1, warmup=1)
         (f_ops, f_bytes), (b_ops, b_bytes) = lstm_bounds(BUCKET, N_NEURAL, h, with_dx=False)
         fwd_ms = median_ms(lambda: lstm.lstm_forward_cuda(x, *flat))
+        bwd_ms = median_ms(backward)
+        split = profile_steps(backward_dx, groups=LSTM_SPLIT)
+        split_ms = split['ms_per_step_by_kernel']
+        split_complete = all(split['launches_per_step_by_kernel'][g] == 1 for g in LSTM_SPLIT)
         cases['lstm_forward'][h] = dict(
             max_abs_err=fwd_err, train_launcher_equal=torch.equal(hs_k, hs_t),
             library_max_abs_err=(hs_k - hs_lib).abs().max().item(), finite=finite,
@@ -6368,15 +6516,20 @@ def check_lstm(port):
             max_abs_err=max((gk - gp).abs().max().item()
                             for gk, gp in zip(grads_k, grads_p) if gk is not None),
             rel_err=grad_errs, max_rel_err=max(grad_errs.values()), with_dx=with_dx,
-            finite=finite, ms=median_ms(backward),
-            dx_ms=median_ms(lambda: lstm.lstm_backward_cuda(
-                x, flat[0], flat[2], hs_t, cs, acts, grad, with_dx=True)),
+            rerun_equal=rerun_equal, finite=finite,
+            plan=dict(planner(h, lstm._smem_optin()),
+                      dx_frames=lstm.dx_frames(h, 2, lstm._smem_optin())) if planner else None,
+            ms=bwd_ms, us_per_step=bwd_ms * 1e3 / BUCKET,
+            dx_ms=median_ms(backward_dx), device_ms_with_dx=split_ms,
+            split_complete=split_complete,
+            chain_us_per_step=split_ms['bptt'] * 1e3 / BUCKET if split_complete else None,
             plain_ms=median_ms(plain_backward, **plain_slow), library_ms=lib_bwd_ms,
+            vs_library=bwd_ms / lib_bwd_ms,
             mflop=b_ops / 1e6, mbytes=b_bytes / 1e6, **bound(b_ops, b_bytes))
         fwd, bwd = cases['lstm_forward'][h], cases['lstm_backward'][h]
         if not finite or fwd_err > LSTM_ABS_TOL or not fwd['train_launcher_equal'] or \
                 fwd['library_max_abs_err'] > LSTM_ABS_TOL or \
-                bwd['max_rel_err'] > LSTM_GRAD_REL_TOL:
+                bwd['max_rel_err'] > LSTM_GRAD_REL_TOL or not rerun_equal:
             bad.append(h)
         del lib, hs_p, hs_lib, leaves, grads_p
 
@@ -6384,29 +6537,43 @@ def check_lstm(port):
     for h in LSTM_HIDDEN:
         flat = [t for _ in range(2) for t in lstm_cell(h, gen)]
         x = torch.randn((1, LSTM_LONG, N_NEURAL), device=DEVICE, generator=gen)
+        grad = torch.randn((1, LSTM_LONG, 2 * h), device=DEVICE, generator=gen)
         hs_k = lstm.lstm_forward_cuda(x, *flat)[0].double()
+        hs_t, cs, acts = lstm.lstm_forward_cuda(x, *flat, train=True)
+        grads_k = lstm.lstm_backward_cuda(x, flat[0], flat[2], hs_t, cs, acts, grad,
+                                          with_dx=True)
         with torch.no_grad():
             p32 = lstm.lstm_scan_plain(x, *flat).double()
             p64 = lstm.lstm_scan_plain(x, *flat, dtype=torch.float64)
         k_err = (hs_k - p64).abs().max().item()
         p_err = (p32 - p64).abs().max().item()
+        grads = {}
+        for dtype in (torch.float32, torch.float64):
+            leaves = [t.to(dtype).requires_grad_(True) for t in [x] + flat]
+            grads[dtype] = [g.double() for g in torch.autograd.grad(
+                lstm.lstm_scan_plain(*leaves), leaves, grad.to(dtype))]
+            del leaves
+        gk_err = lstm_grad_err(grads_k, grads[torch.float64])
+        gp_err = lstm_grad_err(grads[torch.float32], grads[torch.float64])
         long[h] = dict(frames=LSTM_LONG, kernel_vs_float64=k_err, plain32_vs_float64=p_err,
                        tol=max(LSTM_ABS_TOL, 2 * p_err),
-                       finite=bool(torch.isfinite(hs_k).all().item()))
-        if not long[h]['finite'] or k_err > long[h]['tol']:
+                       grad_kernel_vs_float64=gk_err, grad_plain32_vs_float64=gp_err,
+                       grad_tol=max(LSTM_GRAD_REL_TOL, 2 * gp_err),
+                       finite=bool(torch.isfinite(hs_k).all().item()) and all(
+                           bool(torch.isfinite(g).all().item()) for g in grads_k))
+        if not long[h]['finite'] or k_err > long[h]['tol'] or gk_err > long[h]['grad_tol']:
             bad.append('long h=%d' % h)
+        del grads
     out = []
     for kernel, by_h in cases.items():
         first = by_h[LSTM_HIDDEN[0]]
         rec = dict(phase='lstm_check', kernel=kernel, layer='h=%d' % LSTM_HIDDEN[0],
                    frames=BUCKET, channels=N_NEURAL, directions=2, abs_tol=LSTM_ABS_TOL,
                    grad_rel_tol=LSTM_GRAD_REL_TOL, cases=by_h, tf32=tf32_flags(),
-                   bound_note='the T-step dependence chain, not these',
+                   long_trial=long, bound_note='the T-step dependence chain, not these',
                    **{k: first[k] for k in ('max_abs_err', 'ms', 'plain_ms', 'library_ms',
                                             'bound_ms', 't_ops_ms', 't_bytes_ms',
                                             'bound_by')})
-        if kernel == 'lstm_forward':
-            rec['long_trial'] = long
         emit(rec)
         out.append(rec)
     if bad:
@@ -6597,6 +6764,18 @@ def decoder_step(port, hp, model, source):
     emit(profile_steps(lambda: step_from_host(step, host_batch, batch),
                        phase='decoder_profile', model=hp['experiment_name']))
     return per_step, rec
+
+
+def lstm_wide_step(port, tmp):
+    """Main path 19b: the LSTM decoder's train step at LSTM_STEP_HIDDEN units
+    from its seeded init (K24 in a cluster): ``decoder_step``'s gradients
+    against the plain path's, its time beside the plain twin's, its
+    profile. Returns the step's launches."""
+    hp = dict(decoder_hparams('neural-ae-lstm', tmp), n_hid_units=LSTM_STEP_HIDDEN,
+              experiment_name='neural-ae-lstm-h%d' % LSTM_STEP_HIDDEN)
+    source = DecoderSource(TRAIN_TRIALS, SEED + 13, hp['output_signal'], hp['output_size'])
+    model = port.decoders.Decoder(hp).to(DEVICE)
+    return decoder_step(port, hp, model, source)[0]
 
 
 def reference_predict(port, model, x):
@@ -7172,13 +7351,44 @@ def kernel_row(name, rows, launches):
         library_ms=None if None in library else sum(library))
 
 
+def only_conv(port, ctx):
+    """Every conv layer of both archs (forward and backward), the ragged
+    shapes and ``conv_summary``."""
+    with tf32_off():
+        checks = arch_conv_checks(port.ops, ctx.hp, ctx.gen)
+        checks += arch_conv_checks(port.ops, ctx.pool_hp, ctx.pool_gen, 'pool.', POOL_TIMING)
+        check_ragged(port.ops, ctx.ragged_gen)
+    conv_summary(checks)
+
+
+def only_optimizer(port, ctx):
+    """K6's ``optimizer_check`` over the default AE's parameters."""
+    with tf32_off():
+        check_amsgrad(port.optim, port.aes.AE(ctx.hp).to(DEVICE), ctx.gen)
+
+
+def only_lstm_step(port, ctx):
+    """The LSTM decoder step at LSTM_STEP_HIDDEN beside its plain twin."""
+    with tempfile.TemporaryDirectory() as tmp:
+        lstm_wide_step(port, tmp)
+
+
+# the phases ``--only`` may name: each takes the port and main's context
+ONLY_PHASES = {'conv': only_conv, 'optimizer': only_optimizer,
+               'lstm': lambda port, ctx: check_lstm(port), 'lstm_step': only_lstm_step}
+
+
 def main():
     parser = argparse.ArgumentParser(description='Chip smoke test of behavenet_tpu_torch.')
     parser.add_argument('--cards', type=int, default=None,
                         help='run only the mesh paths across this many cards (mesh_cards)')
-    parser.add_argument('--conv', action='store_true',
-                        help='run only the conv checks of both archs and the ragged shapes')
+    parser.add_argument('--only', default=None, metavar='PHASE[,PHASE]',
+                        help='run only these phases, in this order: %s'
+                             % ', '.join(ONLY_PHASES))
     args = parser.parse_args()
+    only = args.only.split(',') if args.only else []
+    if any(name not in ONLY_PHASES for name in only):
+        parser.error('--only takes phases of %s' % ', '.join(ONLY_PHASES))
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device is available', file=sys.stderr)
         return 1
@@ -7198,6 +7408,7 @@ def main():
     emit(dict(phase='build', seconds=seconds, library_seconds=port.build.build_seconds(),
               ptxas=port.build.ptxas_info()))
     conv_ptxas(port.build)
+    lstm_optim_ptxas(port.build)
     if args.cards is not None:
         if not 2 <= args.cards <= torch.cuda.device_count():
             raise SystemExit('--cards takes 2..%d here' % torch.cuda.device_count())
@@ -7216,12 +7427,11 @@ def main():
     pool_gen.manual_seed(SEED + 12)
     ragged_gen = torch.Generator(device=DEVICE)
     ragged_gen.manual_seed(SEED + 17)
-    if args.conv:
-        with tf32_off():
-            checks = arch_conv_checks(ops, hp, gen)
-            checks += arch_conv_checks(ops, pool_hp, pool_gen, 'pool.', POOL_TIMING)
-            check_ragged(ops, ragged_gen)
-        conv_summary(checks)
+    if only:
+        ctx = types.SimpleNamespace(hp=hp, pool_hp=pool_hp, gen=gen, pool_gen=pool_gen,
+                                    ragged_gen=ragged_gen)
+        for name in only:
+            ONLY_PHASES[name](port, ctx)
         return 0
     with tf32_off():
         checks = arch_conv_checks(ops, hp, gen)
@@ -7376,6 +7586,7 @@ def main():
         launches['decoder_step_lstm'] = decoder_step(port, lstm_hp, lstm_model, lstm_source)[0]
         launches['decoder_serve_lstm'] = serve_decoder(port, lstm_hp, lstm_dir, lstm_best,
                                                        lstm_source)
+        launches['decoder_step_lstm%d' % LSTM_STEP_HIDDEN] = lstm_wide_step(port, tmp)
 
     rows = [kernel_row(name, [r for r in checks if r['kernel'] == name], launches)
             for name in KERNELS]

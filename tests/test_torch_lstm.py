@@ -11,6 +11,10 @@ over in + h terms in one sum); gradients within 1e-4 of max|JAX| (JAX
 transposes the scan, the port runs autograd through the plain version);
 the padded trial's loss and metrics rtol 1e-5; the weights exactly.
 
+K24's planner (``ops.lstm.bptt_plan``) is checked against an H100's
+232,448 opt-in shared bytes at widths around its limits: up to the widest
+width a cluster of 8 holds (330) every row of W_hh is on chip.
+
 The padded trial pins JAX's bucket padding: the reversed chain starts on
 the zero rows, so the outputs at real frames depend on the padding (by
 ~1e-2 here), and a port that stopped that chain at the last real frame
@@ -271,3 +275,53 @@ def test_cpu_function_runs_plain_and_launches_nothing(monkeypatch):
     with pytest.raises(ValueError, match='CUDA'):
         lstm.lstm_backward_cuda(plain[0], plain[1], plain[3], ref.detach()[None],
                                 torch.zeros(1, 2, T, 4), torch.zeros(1, 2, T, 16), G[None])
+
+
+H100_SMEM_OPTIN = 232448        # bytes of shared memory a block may opt in to
+PLAN_WIDTHS = (1, 32, 64, 117, 118, 128, 150, 165, 256, 330, 400)
+
+
+def _widest_on_chip(optin):
+    return max(h for h in range(1, 1025) if lstm.bptt_plan(h, optin)['cluster'])
+
+
+@pytest.mark.parametrize('h', PLAN_WIDTHS)
+def test_bptt_plan_holds_every_row_on_chip_up_to_its_widest(h):
+    """Up to the widest width a cluster of 8 holds: the fewest CTAs (1, 2,
+    4 or 8) whose rows of W_hh fit beside two dG buffers, every row on
+    chip, no empty CTA, within the opt-in limit, 8-32 threads a row and at
+    most 1024 a CTA. Above it: the one-block chain (cluster 0), the rows
+    that fit on chip, the others read through L2."""
+    plan = lstm.bptt_plan(h, H100_SMEM_OPTIN)
+    widest = _widest_on_chip(H100_SMEM_OPTIN)
+    assert widest == 330
+    c, rows, tpr = plan['cluster'], plan['rows'], plan['threads_per_row']
+    if h > widest:
+        assert c == 0 and 0 < rows < h and plan['smem'] <= H100_SMEM_OPTIN
+        assert plan['smem'] == 4 * 6 * h + rows * 4 * (4 * h + 1)
+        return
+    assert c in (1, 2, 4, 8)
+    assert c * rows >= h and (c - 1) * rows < h
+    assert plan['smem'] == 4 * (rows + 2) * 4 * h <= H100_SMEM_OPTIN
+    if c > 1:   # the fewest CTAs: half as many would not hold their rows
+        assert 4 * (-(-h // (c // 2)) + 2) * 4 * h > H100_SMEM_OPTIN
+    assert tpr in (8, 16, 32) and plan['threads'] % 32 == 0
+    assert rows * tpr <= plan['threads'] < rows * tpr + 32 and plan['threads'] <= 1024
+
+
+DX_WIDTHS = (1, 128, 908, 909, 1816, 1817, 3632, 3633, 7264, 7265)
+
+
+@pytest.mark.parametrize('h', DX_WIDTHS)
+def test_dx_frames_fit_the_opt_in_limit_at_every_width_the_chain_takes(h):
+    """K24's dx blocks stage the most frames of dG (8, 4, 2 or 1; two
+    directions of 4h floats each) that fit the opt-in limit, so that every
+    width whose one frame fits (h <= 7264 on an H100) still launches; one
+    direction fits twice as many."""
+    f = lstm.dx_frames(h, 2, H100_SMEM_OPTIN)
+    if h > H100_SMEM_OPTIN // 32:
+        assert f == 0
+        return
+    assert f in (1, 2, 4, 8) and f * 2 * 16 * h <= H100_SMEM_OPTIN
+    assert f == 8 or 2 * f * 2 * 16 * h > H100_SMEM_OPTIN
+    assert lstm.dx_frames(h, 1, H100_SMEM_OPTIN) == min(8, 2 * f)
