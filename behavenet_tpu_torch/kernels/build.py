@@ -58,7 +58,7 @@ SOURCES = {
     'arhmm_recurrent_mstep': 'arhmm_recurrent_mstep.cu',
     'arhmm_nu_mstep': 'arhmm_nu_mstep.cu',
 }
-_HEADERS = ('conv_tiles.h', 'igemm.cuh', 'igemm_sm90.cuh', 'hmm.cuh', 'hmm_backtrace.cuh', 'hmm_scan.cuh',
+_HEADERS = ('conv_tiles.h', 'igemm_sm90.cuh', 'hmm.cuh', 'hmm_backtrace.cuh', 'hmm_scan.cuh',
             'kalman_scan.cuh')
 
 # launchers counted under a name of their own: variant -> (kernel, symbols);
@@ -149,7 +149,7 @@ _P, _I, _L, _F, _D = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c
 # C signature of each launcher: kernel name -> {symbol: argtypes}; the first
 # symbol is the kernel's default launcher
 _SIGNATURES = {
-    'conv2d_nhwc': {'bn_conv2d_nhwc': [_P, _I, _P, _P, _P] + [_I] * 12 + [_P]},
+    'conv2d_nhwc': {'bn_conv2d_nhwc': [_P, _I, _P, _P, _P] + [_I] * 18 + [_P]},
     'conv_transpose2d_nhwc': {
         'bn_conv_transpose2d_nhwc': [_P, _P, _P, _P] + [_I] * 20 + [_P]},
     'conv_transpose2d_smallcout_sigmoid': {
@@ -221,7 +221,7 @@ _SIGNATURES = {
         'bn_max_unpool2d': [_P] * 3 + [_I] * 6 + [_P],
         'bn_max_unpool2d_grad': [_P] * 3 + [_I] * 6 + [_P]},
     'batch_norm': {
-        'bn_batch_norm': [_P] * 12 + [_L, _I, _I, _L, _F, _F, _F, _I, _P],
+        'bn_batch_norm': [_P, _P],   # a packed BnArgs (batch_norm.cu)
         'bn_batch_norm_backward': [_P] * 9 + [_L, _I, _I, _L, _F, _I, _P]},
     'arhmm_mstep_stats': {
         'bn_arhmm_mstep_stats': [_P] * 4 + [_I] * 6 + [_P] * 5,

@@ -1,8 +1,25 @@
-// The instances of K2's and K4's kernels (conv_transpose2d_nhwc.cu,
-// conv2d_grad_w_nhwc.cu), one list a kernel. Each launcher builds and
+// The instances of K1's, K2's and K4's kernels (conv2d_nhwc.cu,
+// conv_transpose2d_nhwc.cu, conv2d_grad_w_nhwc.cu), one list a kernel. Each launcher builds and
 // dispatches to the instances listed here, and ops/conv.py reads this file
 // for its launch planner (conv_tiles), so the two share one source.
 #pragma once
+
+// K1's GEMM tiles (float input, Cin >= 5), 16-byte or 4-byte copies at run
+// time: (rows, columns, rows a thread, columns a thread, contraction step,
+// ring stages); one a column width as K2's: 64 (Cout 33 and wider), 32, and
+// 16 / 8 for ragged widths (8 columns in 128 rows: K2's 256-row tile
+// spilled here on the H100).
+#define BN_CONV_GEMM_TILES(X) \
+  X(128, 64, 8, 4, 32, 3) X(256, 32, 8, 4, 32, 2) X(256, 16, 8, 2, 16, 3) X(128, 8, 4, 1, 16, 3)
+
+// K1's narrow kernel (Cin <= 4, or uint8 frames): a block owns NARROW_ROWS
+// x NARROW_COLS output pixels of one image by COB output channels (the
+// list), 8 x 8 outputs a thread, and stages NARROW_CHANNELS input channels
+// of its patch at a time
+#define BN_CONV_NARROW_ROWS 16
+#define BN_CONV_NARROW_COLS 32
+#define BN_CONV_NARROW_CHANNELS 2
+#define BN_CONV_NARROW(X) X(8) X(16) X(32)
 
 // K2's GEMM tiles, 16-byte or 4-byte copies at run time: (rows, columns,
 // rows a thread, columns a thread, contraction step, ring stages). One a

@@ -102,44 +102,11 @@ __global__ void __launch_bounds__((BM / TM) * (BN / TN)) tconv_gemm_kernel(
   int ld_c = 0, ld_jx = 0, ld_jy = 0;  // the next step to load
 
   auto load = [&](float* As) {
-    float* Bs = As + T::kAStage;
     const int ci0 = ld_c * BK;
     const int tap = (ph.t0y + g.S * ld_jy) * g.K + ph.t0x + g.S * ld_jx;
-    const float* wt = w + (size_t)tap * g.Ci * g.Co;
-    if (vec) {  // Cin % 4 == 0 and Cout % 4 == 0
-      for (int e = tid; e < BM * (BK / 4); e += T::kThreads) {
-        const int m = e / (BK / 4), c4 = e % (BK / 4), c = ci0 + 4 * c4;
-        const int4 r = rows[m];
-        const int iy = r.y - ld_jy, ix = r.z - ld_jx;
-        const bool ok = (unsigned)iy < (unsigned)g.H && (unsigned)ix < (unsigned)g.W &&
-                        c < g.Ci;
-        bn::sm90::cp_async16(As + m * T::kALd + 4 * c4,
-                             ok ? x + (size_t)(r.x + iy * g.W + ix) * g.Ci + c : x, ok);
-      }
-      for (int e = tid; e < BK * (BN / 4); e += T::kThreads) {
-        const int k = e / (BN / 4), c4 = e - k * (BN / 4);
-        const int ci = ci0 + k, co = n0 + 4 * c4;
-        const bool ok = ci < g.Ci && co < g.Co;
-        bn::sm90::cp_async16(Bs + k * T::kBLd + 4 * c4,
-                             ok ? wt + (size_t)ci * g.Co + co : w, ok);
-      }
-    } else {
-      for (int e = tid; e < BM * BK; e += T::kThreads) {
-        const int m = e / BK, k = e % BK, c = ci0 + k;
-        const int4 r = rows[m];
-        const int iy = r.y - ld_jy, ix = r.z - ld_jx;
-        const bool ok = (unsigned)iy < (unsigned)g.H && (unsigned)ix < (unsigned)g.W &&
-                        c < g.Ci;
-        bn::sm90::cp_async4(As + m * T::kALd + k,
-                            ok ? x + (size_t)(r.x + iy * g.W + ix) * g.Ci + c : x, ok);
-      }
-      for (int e = tid; e < BK * BN; e += T::kThreads) {
-        const int k = e / BN, j = e % BN;
-        const int ci = ci0 + k, co = n0 + j;
-        const bool ok = ci < g.Ci && co < g.Co;
-        bn::sm90::cp_async4(Bs + k * T::kBLd + j, ok ? wt + (size_t)ci * g.Co + co : w, ok);
-      }
-    }
+    bn::sm90::load_pixel_step<T>(As, x, rows, -ld_jy, -ld_jx, ci0, g.Ci, g.H, g.W, vec, tid);
+    bn::sm90::load_weight_step<T>(As + T::kAStage, w + (size_t)tap * g.Ci * g.Co, w, ci0, n0,
+                                  g.Ci, g.Co, vec, tid);
     if (++ld_c == chunks) {
       ld_c = 0;
       if (++ld_jx == ph.ntx) {
@@ -154,53 +121,8 @@ __global__ void __launch_bounds__((BM / TM) * (BN / TN)) tconv_gemm_kernel(
   for (int i = 0; i < TM; ++i)
 #pragma unroll
     for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
-
-  for (int s = 0; s < stages - 1; ++s) {
-    if (s < KT) load(ring + s * T::kStage);
-    bn::sm90::cp_async_commit();
-  }
-  for (int t = 0; t < KT; ++t) {
-    bn::sm90::cp_async_wait_ring(stages);
-    __syncthreads();  // step t landed; every thread is done with step t - 1
-    const float* buf = ring + (t % stages) * T::kStage;
-    bn::sm90::stage_fma<T>(buf, buf + T::kAStage, acc, tm, tn);
-    const int nt = t + stages - 1;  // into the buffer step t - 1 left
-    if (nt < KT) load(ring + (nt % stages) * T::kStage);
-    bn::sm90::cp_async_commit();
-  }
-
-  // epilogue: bias + activation, one write of each output value
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int4 r = rows[T::row(tm, i)];
-    if (r.w < 0) continue;
-    float* o = out + (size_t)r.w * g.Co;
-    if constexpr (TN >= 4) {
-      if (vec) {
-#pragma unroll
-        for (int q = 0; q < TN / 4; ++q) {
-          const int col = n0 + T::col(tn, 4 * q);
-          if (col >= g.Co) continue;
-          float4 v;
-          v.x = bn::apply_act(acc[i][4 * q] + (bias ? __ldg(bias + col) : 0.f), g.act);
-          v.y = bn::apply_act(acc[i][4 * q + 1] + (bias ? __ldg(bias + col + 1) : 0.f),
-                                    g.act);
-          v.z = bn::apply_act(acc[i][4 * q + 2] + (bias ? __ldg(bias + col + 2) : 0.f),
-                                    g.act);
-          v.w = bn::apply_act(acc[i][4 * q + 3] + (bias ? __ldg(bias + col + 3) : 0.f),
-                                    g.act);
-          *reinterpret_cast<float4*>(o + col) = v;
-        }
-        continue;
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int col = n0 + T::col(tn, j);
-      if (col < g.Co)
-        o[col] = bn::apply_act(acc[i][j] + (bias ? __ldg(bias + col) : 0.f), g.act);
-    }
-  }
+  bn::sm90::run_ring<T>(ring, KT, stages, load, acc, tm, tn);
+  bn::sm90::store_pixel_tile<T>(out, rows, acc, tm, tn, n0, g.Co, bias, g.act, vec);
 }
 
 // The narrow kernel's block: 32 x 64 outputs of one phase, 256 threads;

@@ -11,7 +11,7 @@
 // floats, 6.4 KB at the default arch) sit in shared memory, and each
 // thread reads the Cin-vector of every landing tap with 16-byte loads.
 // Bound: the output write and the input read (bytes) at the default arch.
-#include "igemm.cuh"
+#include "igemm_sm90.cuh"  // bn::apply_act
 
 namespace {
 

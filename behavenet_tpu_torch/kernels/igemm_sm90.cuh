@@ -1,12 +1,16 @@
 // Implicit-GEMM core for Hopper (sm_90a), float32 on the CUDA cores, shared
-// by K2 (conv_transpose2d_nhwc.cu: the transposed conv and the strided
-// convs' grad-x) and K4 (conv2d_grad_w_nhwc.cu: grad-w of both; its patch
-// kernel takes the copies and the ring from here and reads its A operand
-// from a staged input patch, its gather kernel the whole core).
+// by K1 (conv2d_nhwc.cu: the strided conv and the transposed convs'
+// grad-x), K2 (conv_transpose2d_nhwc.cu: the transposed conv and the
+// strided convs' grad-x) and K4 (conv2d_grad_w_nhwc.cu: grad-w of both;
+// its patch kernel takes the copies and the ring from here and reads its A
+// operand from a staged input patch, its gather kernel the whole core).
+// K1's and K2's GEMM kernels share the pixel-row loaders, the ring and the
+// epilogue below; they differ in their row tables and contraction steps.
 //
 // A block owns a BM x BN tile of C = A B and walks the contraction in
-// steps of BK (16 or 32). What bounded the first core (igemm.cuh, K1 still
-// uses it) and what this one does about it:
+// steps of BK (16 or 32). What bounded the first core (a 64 x 64 tile of
+// 4 x 4 thread tiles, which K1 ran on until its redesign) and what this
+// one does about it:
 //
 // - Fixed 64-wide column tiles: a 2-channel layer issued 32x its FMAs.
 //   Here the column tile BN (2 to 128) is picked at launch from the output
@@ -31,7 +35,7 @@
 //   in shared memory, and the loaders only add offsets.
 //
 // The A operand lies in shared memory either m-major (As[m][k], a row's
-// contraction values contiguous: K2's pixels, whose channels are contiguous
+// contraction values contiguous: K1's and K2's pixels, whose channels are contiguous
 // in NHWC) or k-major (As[k][m]: K4's gather kernel's (tap, channel) rows,
 // contiguous along channels for one pixel); B is k-major (Bs[k][n]) in both. Row strides are
 // padded by 4 floats so that the float4 reads of a warp hit distinct banks.
@@ -164,6 +168,119 @@ __device__ __forceinline__ void stage_fma(const float* __restrict__ As,
       for (int i = 0; i < T::TM; ++i)
 #pragma unroll
         for (int j = 0; j < T::TN; ++j) acc[i][j] = fmaf(a[kk][i], b[j], acc[i][j]);
+    }
+  }
+}
+
+// K1's and K2's pixel-row GEMMs (m-major A). A tile's rows are output
+// pixels, tabled once in shared memory as int4s (image base n*H*W, the
+// input row and column that the step's tap offset (dy, dx) is added to,
+// the output pixel or -1). A step copies the BM rows' input pixels at
+// (r.y + dy, r.z + dx), channels ci0..ci0+BK (zero outside the image and
+// past Ci), and the weight rows wt[ci0..ci0+BK, n0..n0+BN] (HWIO, one
+// tap). With `vec` (Cin and Cout multiples of 4, 16-byte aligned
+// pointers) 16-byte copies, else 4-byte ones.
+template <class T>
+__device__ __forceinline__ void load_pixel_step(float* __restrict__ As,
+                                                const float* __restrict__ x, const int4* rows,
+                                                int dy, int dx, int ci0, int Ci, int H, int W,
+                                                int vec, int tid) {
+  if (vec) {
+    for (int e = tid; e < T::BM * (T::BK / 4); e += T::kThreads) {
+      const int m = e / (T::BK / 4), c4 = e % (T::BK / 4), c = ci0 + 4 * c4;
+      const int4 r = rows[m];
+      const int iy = r.y + dy, ix = r.z + dx;
+      const bool ok = (unsigned)iy < (unsigned)H && (unsigned)ix < (unsigned)W && c < Ci;
+      cp_async16(As + m * T::kALd + 4 * c4, ok ? x + (size_t)(r.x + iy * W + ix) * Ci + c : x,
+                 ok);
+    }
+  } else {
+    for (int e = tid; e < T::BM * T::BK; e += T::kThreads) {
+      const int m = e / T::BK, k = e % T::BK, c = ci0 + k;
+      const int4 r = rows[m];
+      const int iy = r.y + dy, ix = r.z + dx;
+      const bool ok = (unsigned)iy < (unsigned)H && (unsigned)ix < (unsigned)W && c < Ci;
+      cp_async4(As + m * T::kALd + k, ok ? x + (size_t)(r.x + iy * W + ix) * Ci + c : x, ok);
+    }
+  }
+}
+
+template <class T>
+__device__ __forceinline__ void load_weight_step(float* __restrict__ Bs,
+                                                 const float* __restrict__ wt,
+                                                 const float* __restrict__ w, int ci0, int n0,
+                                                 int Ci, int Co, int vec, int tid) {
+  if (vec) {
+    for (int e = tid; e < T::BK * (T::BN / 4); e += T::kThreads) {
+      const int k = e / (T::BN / 4), c4 = e - k * (T::BN / 4);
+      const int ci = ci0 + k, co = n0 + 4 * c4;
+      const bool ok = ci < Ci && co < Co;
+      cp_async16(Bs + k * T::kBLd + 4 * c4, ok ? wt + (size_t)ci * Co + co : w, ok);
+    }
+  } else {
+    for (int e = tid; e < T::BK * T::BN; e += T::kThreads) {
+      const int k = e / T::BN, j = e % T::BN;
+      const int ci = ci0 + k, co = n0 + j;
+      const bool ok = ci < Ci && co < Co;
+      cp_async4(Bs + k * T::kBLd + j, ok ? wt + (size_t)ci * Co + co : w, ok);
+    }
+  }
+}
+
+// The ring: KT steps through `stages` buffers of T::kStage floats; load(buf)
+// fills the next step's buffer (steps in order), stage_fma the current one,
+// one barrier a step.
+template <class T, class Load>
+__device__ __forceinline__ void run_ring(float* ring, int KT, int stages, Load& load,
+                                         float (&acc)[T::TM][T::TN], int tm, int tn) {
+  for (int s = 0; s < stages - 1; ++s) {
+    if (s < KT) load(ring + s * T::kStage);
+    cp_async_commit();
+  }
+  for (int t = 0; t < KT; ++t) {
+    cp_async_wait_ring(stages);
+    __syncthreads();  // step t landed; every thread is done with step t - 1
+    const float* buf = ring + (t % stages) * T::kStage;
+    stage_fma<T>(buf, buf + T::kAStage, acc, tm, tn);
+    const int nt = t + stages - 1;  // into the buffer step t - 1 left
+    if (nt < KT) load(ring + (nt % stages) * T::kStage);
+    cp_async_commit();
+  }
+}
+
+// The epilogue: bias + activation, one write of each output value at its
+// row's output pixel (NHWC, Co channels), float4 stores with `vec`.
+template <class T>
+__device__ __forceinline__ void store_pixel_tile(float* __restrict__ out, const int4* rows,
+                                                 const float (&acc)[T::TM][T::TN], int tm,
+                                                 int tn, int n0, int Co,
+                                                 const float* __restrict__ bias, int act,
+                                                 int vec) {
+#pragma unroll
+  for (int i = 0; i < T::TM; ++i) {
+    const int4 r = rows[T::row(tm, i)];
+    if (r.w < 0) continue;
+    float* o = out + (size_t)r.w * Co;
+    if constexpr (T::TN >= 4) {
+      if (vec) {
+#pragma unroll
+        for (int q = 0; q < T::TN / 4; ++q) {
+          const int col = n0 + T::col(tn, 4 * q);
+          if (col >= Co) continue;
+          float4 v;
+          v.x = apply_act(acc[i][4 * q] + (bias ? __ldg(bias + col) : 0.f), act);
+          v.y = apply_act(acc[i][4 * q + 1] + (bias ? __ldg(bias + col + 1) : 0.f), act);
+          v.z = apply_act(acc[i][4 * q + 2] + (bias ? __ldg(bias + col + 2) : 0.f), act);
+          v.w = apply_act(acc[i][4 * q + 3] + (bias ? __ldg(bias + col + 3) : 0.f), act);
+          *reinterpret_cast<float4*>(o + col) = v;
+        }
+        continue;
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < T::TN; ++j) {
+      const int col = n0 + T::col(tn, j);
+      if (col < Co) o[col] = apply_act(acc[i][j] + (bias ? __ldg(bias + col) : 0.f), act);
     }
   }
 }

@@ -30,7 +30,7 @@ The pooling and batch-norm archs' layers (JAX ops/conv.py:367-462) follow
 the same pattern: :func:`max_pool2d_with_indices` (K27, its backward
 ``max_pool2d_grad``), :func:`max_unpool2d` (K28, ``max_unpool2d_grad``) and
 :func:`batch_norm` (K29, with the running update of
-:func:`batch_norm_update` in the same launch; its backward K30), each a
+:func:`batch_norm_update` in the same call; its backward K30), each a
 ``torch.autograd.Function`` over a plain version and a CUDA wrapper. The
 layout is JAX's: NHWC, and int32 flat indices ``row * W + col`` into each
 (n, c) input plane. The backwards are JAX's autodiff written out: the pool's
@@ -38,21 +38,24 @@ cotangent is split evenly among tied maxima (``jnp.max``'s), not sent to
 one index as ``torch.nn.functional.max_pool2d``'s is.
 """
 
+import functools
 import math
 import os
 import re
+import struct
 
 import torch
 import torch.nn.functional as F
 
 from behavenet_tpu_torch.kernels.build import LAUNCHES, launch
+from behavenet_tpu_torch.ops.lstm import _smem_optin
 
 __all__ = ['conv2d', 'conv2d_plain', 'conv2d_cuda', 'conv_transpose2d',
            'conv_transpose2d_plain', 'conv_transpose2d_cuda', 'conv2d_grad_x',
            'conv2d_grad_x_plain', 'conv_transpose2d_grad_x',
            'conv_transpose2d_grad_x_plain', 'conv2d_grad_w', 'conv2d_grad_w_plain',
-           'conv2d_grad_w_cuda', 'tconv_plan', 'gradw_plan', 'leaky_relu', 'linear',
-           'space_to_depth',
+           'conv2d_grad_w_cuda', 'conv_plan', 'tconv_plan', 'gradw_plan', 'bn_plan',
+           'leaky_relu', 'linear', 'space_to_depth',
            'depth_to_space', 'conv_out_hw', 'conv_transpose_out_hw', 'pool_out_hw',
            'pool_windows',
            'max_pool2d_with_indices', 'max_pool2d_plain', 'max_pool2d_cuda',
@@ -215,8 +218,9 @@ def _ptr(t):
 
 
 def conv2d_cuda(x, w, b, stride, pad_y, pad_x, activation=None):
-    """K1 ``conv2d_nhwc`` on the card (see :func:`conv2d`). The pads before
-    must be >= 0; a negative pad after crops the input's end."""
+    """K1 ``conv2d_nhwc`` on the card (see :func:`conv2d`), launched as
+    :func:`conv_plan` plans it. The pads before must be >= 0; a negative pad
+    after crops the input's end."""
     name = 'conv2d_nhwc'
     x, w = x.contiguous(), w.contiguous()
     b = None if b is None else b.contiguous()
@@ -233,17 +237,25 @@ def conv2d_cuda(x, w, b, stride, pad_y, pad_x, activation=None):
                       dtype=torch.float32)
     if out.numel() == 0:
         return out
-    launch(name, x.data_ptr(), int(x.dtype == torch.uint8), w.data_ptr(), _ptr(b),
-           out.data_ptr(), n, h, wd, ci, co, k, s, pad_y[0], pad_x[0], oh, ow,
-           _ACT_CODE[activation])
+    if max(x.numel(), out.numel()) >= 2 ** 31:
+        raise ValueError('%s: tensors of 2^31 elements or more are beyond the kernel\'s '
+                         'int32 offsets' % name)
+    uint8 = x.dtype == torch.uint8
+    plan = conv_plan(n, ci, co, k, s, (oh, ow), x_uint8=uint8, aligned=_aligned(x, w, b, out),
+                     smem_optin=_smem_optin())
+    launch(name, x.data_ptr(), int(uint8), w.data_ptr(), _ptr(b), out.data_ptr(), n, h, wd, ci,
+           co, k, s, pad_y[0], pad_x[0], oh, ow, _ACT_CODE[activation], plan['tile_m'],
+           plan['tile_n'], plan['stages'], plan['vec'], *plan['grid'][:2])
     return out
 
 
-# K2's and K4's launch plans (kernels/igemm_sm90.cuh): the tile, the ring's
-# stages, 16-byte copies or not, the grid and, for K4, the contraction's
-# chunks. Pure functions of the shapes, so the CPU tests reach them.
+# K1's, K2's and K4's launch plans (kernels/igemm_sm90.cuh): the tile, the
+# ring's stages, 16-byte copies or not, the grid and, for K4, the
+# contraction's chunks; K29's split (bn_plan). Pure functions of the
+# shapes, so the CPU tests reach them.
 
 H100_SMS = 132          # the card's SMs; K4's wrapper passes the device's own count
+H100_SMEM_OPTIN = 232448   # shared bytes a block may opt in to; K1's wrapper passes the device's
 
 
 def conv_tiles():
@@ -267,6 +279,16 @@ def conv_tiles():
 
 
 _TILES = conv_tiles()
+# K1: GEMM tiles (rows, columns, rows a thread, columns a thread, step,
+# stages) for float input with Cin > CONV_NARROW_MAX_CIN; the narrow kernel
+# (Cin <= CONV_NARROW_MAX_CIN, or uint8 frames): a block owns
+# CONV_NARROW_ROWS x CONV_NARROW_COLS output pixels by COB output channels
+# (CONV_NARROW_COBS), staging CONV_NARROW_CHANNELS input channels at a time
+CONV_TILES = _TILES['CONV_GEMM_TILES']
+CONV_NARROW_ROWS, CONV_NARROW_COLS = _TILES['CONV_NARROW_ROWS'], _TILES['CONV_NARROW_COLS']
+CONV_NARROW_CHANNELS = _TILES['CONV_NARROW_CHANNELS']
+CONV_NARROW_COBS = tuple(t[0] for t in _TILES['CONV_NARROW'])
+CONV_NARROW_MAX_CIN = 4
 # K2: GEMM tiles (rows, columns, rows a thread, columns a thread, step,
 # stages); the narrow kernel (Cout <= 4): a block of 256 threads owns
 # NARROW_ROWS x NARROW_COLS outputs of a phase, 2 or 4 output registers a
@@ -336,6 +358,49 @@ def tconv_plan(n, ci, co, k, s, out_hw, aligned=True):
                 threads=(bm // tm) * (bn // tn),
                 smem=16 * bm + _gemm_smem(bm, bn, bk, stages, True),
                 grid=(_cdiv(n * qh * qw, bm), _cdiv(co, bn), s * s))
+
+
+def conv_plan(n, ci, co, k, s, out_hw, x_uint8=False, aligned=True,
+              smem_optin=H100_SMEM_OPTIN):
+    """K1's launch for a k x k conv at stride ``s`` of ``n`` frames of
+    ``ci`` channels to ``out_hw`` x ``co``: a dict with ``kind`` ('narrow'
+    or 'gemm'), ``tile_m`` (output pixels a block owns), ``tile_n`` (its
+    output channels), ``stages``, ``vec`` (16-byte copies and stores: Cout
+    and, for the GEMM, Cin multiples of 4 and ``aligned`` pointers),
+    ``threads``, ``smem`` bytes and ``grid``.
+
+    uint8 frames and Cin <= CONV_NARROW_MAX_CIN take the narrow kernel: a
+    block stages its tile's input patch, (rows - 1) * s + k by (cols - 1) *
+    s + k positions of CONV_NARROW_CHANNELS channels (columns grouped by
+    phase, ``patch``: (rows, columns, pitch)), and the tile's weights, with
+    the narrowest COB that holds Cout (32 at most: wider outputs take more
+    blocks along y). Wider float inputs take the GEMM tile with the
+    narrowest column tile that holds Cout (64 columns at most). A narrow
+    patch beyond ``smem_optin`` bytes, the shared memory a block may opt in
+    to, raises ValueError."""
+    oh, ow = out_hw
+    if x_uint8 or ci <= CONV_NARROW_MAX_CIN:
+        cob = _column_tile(co, CONV_NARROW_COBS)
+        ph = (CONV_NARROW_ROWS - 1) * s + k
+        pw = (CONV_NARROW_COLS - 1) * s + k
+        pitch = s * _cdiv(pw, s)
+        patch = -(-CONV_NARROW_CHANNELS * ph * pitch // 4) * 4
+        smem = 4 * (patch + k * k * CONV_NARROW_CHANNELS * cob)
+        if smem > smem_optin:
+            raise ValueError('conv2d_nhwc: a %d x %d kernel at stride %d stages %d bytes, beyond '
+                             'the %d a block may use' % (k, k, s, smem, smem_optin))
+        grid = (n * _cdiv(oh, CONV_NARROW_ROWS) * _cdiv(ow, CONV_NARROW_COLS), _cdiv(co, cob), 1)
+        return dict(kind='narrow', tile_m=CONV_NARROW_ROWS * CONV_NARROW_COLS, tile_n=cob,
+                    stages=1, vec=int(aligned and co % 4 == 0),
+                    threads=CONV_NARROW_COLS * (CONV_NARROW_ROWS // 8) * (cob // 8), smem=smem,
+                    patch=(ph, pw, pitch), grid=grid)
+    bn = _column_tile(co, [t[1] for t in CONV_TILES])
+    bm, bn, tm, tn, bk, stages = [t for t in CONV_TILES if t[1] == bn][0]
+    return dict(kind='gemm', tile_m=bm, tile_n=bn, stages=stages,
+                vec=int(aligned and ci % 4 == 0 and co % 4 == 0),
+                threads=(bm // tm) * (bn // tn),
+                smem=16 * bm + _gemm_smem(bm, bn, bk, stages, True),
+                grid=(_cdiv(n * oh * ow, bm), _cdiv(co, bn), 1))
 
 
 def _gradw_chunks(steps, tiles, sms, kind):
@@ -882,10 +947,39 @@ def max_unpool2d_grad_cuda(g, indices):
     return gx
 
 
+# K29's blocks: 256 threads, at most BN_BLOCKS_PER_SM of them an SM (as many
+# as fit an SM at once: the train launch is cooperative, every block
+# resident), each thread at least BN_MIN_ROWS rows of its chunk
+BN_THREADS, BN_BLOCKS_PER_SM, BN_MIN_ROWS = 256, 4, 8
+
+
+@functools.lru_cache(maxsize=256)
+def bn_plan(p, c, aligned=True, sms=H100_SMS):
+    """K29's launch over ``p`` rows of ``c`` channels (cached: a small
+    layer's call is bound by the host, so the dict returned is shared and
+    must not be changed): a dict with ``vec``
+    (16-byte accesses: C % 4 == 0 and ``aligned`` pointers), ``lanes`` (CQ:
+    channel lanes of 4 channels with ``vec``, else 1), ``rows`` (RB =
+    256 // CQ row lanes), ``tiles`` (channel tiles), the chunks (``splits``
+    of ``chunk`` rows, chunk s = rows [s * chunk, (s + 1) * chunk)) and the
+    ``grid`` (splits, tiles): at most BN_BLOCKS_PER_SM blocks an SM of
+    ``sms``, so that the cooperative train launch fits the card."""
+    vec = int(aligned and c % 4 == 0)
+    width = c // 4 if vec else c
+    lanes = min(width, BN_THREADS)
+    rows = BN_THREADS // lanes
+    tiles = _cdiv(width, lanes)
+    splits = max(1, min(BN_BLOCKS_PER_SM * sms // tiles, _cdiv(p, BN_MIN_ROWS * rows)))
+    chunk = _cdiv(p, splits)
+    splits = _cdiv(p, chunk)
+    return dict(vec=vec, lanes=lanes, rows=rows, tiles=tiles, splits=splits, chunk=chunk,
+                grid=(splits, tiles))
+
+
 def _bn_split(p, c, device):
-    """(splits, chunk) of K29's and K30's reductions over ``p`` rows: about
-    eight 256-thread blocks an SM over the ceil(c / 32) channel tiles, at
-    least 64 rows a split."""
+    """(splits, chunk) of K30's reductions over ``p`` rows: about eight
+    256-thread blocks an SM over the ceil(c / 32) channel tiles, at least
+    64 rows a split."""
     tiles = -(-c // 32)
     splits = max(1, min(-(-8 * _sms(device) // tiles), -(-p // 64)))
     chunk = -(-p // splits)
@@ -893,54 +987,68 @@ def _bn_split(p, c, device):
 
 
 def _check_bn(name, x, *per_channel):
-    _check_cuda(name, x, *per_channel)
+    # (a small layer's call is bound by the host: _check_cuda, which says
+    # what is wrong, runs only when something is)
+    dev = x.device
+    if dev.type != 'cuda' or not x.is_contiguous():
+        _check_cuda(name, x)
     if x.dtype != torch.float32 or x.dim() < 2:
         raise ValueError('%s: x must be float32 (..., C), got %s %s'
                          % (name, x.dtype, tuple(x.shape)))
     c = x.shape[-1]
     for t in per_channel:
-        if t is not None and (t.dtype != torch.float32 or tuple(t.shape) != (c,)):
+        if t is None:
+            continue
+        if t.device != dev or not t.is_contiguous():
+            _check_cuda(name, x, t)
+        if t.dtype != torch.float32 or t.shape != (c,):
             raise ValueError('%s: per-channel tensors must be float32 (%d,), got %s %s'
                              % (name, c, t.dtype, tuple(t.shape)))
 
 
+# kernels/batch_norm.cu BnArgs: 12 pointers, P and chunk, C and splits, eps,
+# momentum and the unbiasing factor, act, vec and lanes, padded to the
+# struct's 8-byte alignment (0q: the launcher copies sizeof(BnArgs) bytes)
+_BN_ARGS = struct.Struct('@12P2q2i3f3i0q')
+
+
 def batch_norm_cuda(x, gamma, beta, mean=None, var=None, running=None, momentum=0.1,
                     eps=_BN_EPS, activation=None):
-    """K29 ``bn_batch_norm`` on the card: (y, mean, var), the statistics it
-    used. With ``mean`` None the batch's, and with ``running`` =
-    (running_mean, running_var, num_batches_tracked int64) those are updated
-    in place in the same launch (:func:`batch_norm_update`)."""
+    """K29 ``bn_batch_norm`` on the card, launched as :func:`bn_plan` plans
+    it: (y, mean, var), the statistics it used. With ``mean`` None the
+    batch's, and with ``running`` = (running_mean, running_var,
+    num_batches_tracked int64) those are updated in place in the same call
+    (:func:`batch_norm_update`)."""
     name = 'batch_norm'
     x = x.contiguous()
-    _check_bn(name, x, gamma, beta, mean, var)
+    rm = rv = count = None
+    if mean is None and running is not None:
+        rm, rv, count = running
+        if count.dtype != torch.int64 or count.numel() != 1 or count.device != x.device:
+            raise ValueError('%s: the batch count must be one int64 on %s' % (name, x.device))
+    _check_bn(name, x, gamma, beta, mean, var, rm, rv)
     act = _act_code(name, activation)
     c = x.shape[-1]
     p = x.numel() // c
     y = torch.empty_like(x)
     if p == 0:
         return y, mean, var
-    null = [None] * 6
+    xp, yp = x.data_ptr(), y.data_ptr()
+    plan = bn_plan(p, c, (xp | yp) % 16 == 0, _sms(x.device))
+    splits = plan['splits']
     if mean is None:
-        splits, chunk = _bn_split(p, c, x.device)
-        part = torch.empty(splits * c * 2, device=x.device, dtype=torch.float32)
-        mean = torch.empty(c, device=x.device, dtype=torch.float32)
-        var = torch.empty(c, device=x.device, dtype=torch.float32)
-        if running is not None:
-            rm, rv, count = running
-            _check_bn(name, x, rm, rv)
-            if count.dtype != torch.int64 or count.numel() != 1 or count.device != x.device:
-                raise ValueError('%s: the batch count must be one int64 on %s'
-                                 % (name, x.device))
-            run = [rm.data_ptr(), rv.data_ptr(), count.data_ptr()]
-        else:
-            run = [None] * 3
-        ptrs = [None, None, part.data_ptr(), mean.data_ptr(), var.data_ptr()] + run
+        # the chunks' partial statistics, then the mean and the variance
+        stats = torch.empty((splits + 1) * 2 * c, device=x.device, dtype=torch.float32)
+        mean, var = stats[:c], stats[c:2 * c]
+        sp = stats.data_ptr()
+        ptrs = (0, 0, sp + 8 * c, sp, sp + 4 * c) + (
+            (0, 0, 0) if rm is None else (rm.data_ptr(), rv.data_ptr(), count.data_ptr()))
     else:
-        splits, chunk = 1, p
-        ptrs = [mean.data_ptr(), var.data_ptr()] + null
-    launch(name, x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), *ptrs, y.data_ptr(), p, c,
-           splits, chunk, eps, -1.0 if momentum is None else momentum,
-           p / max(p - 1, 1), act)
+        ptrs = (mean.data_ptr(), var.data_ptr(), 0, 0, 0, 0, 0, 0)
+    launch(name, _BN_ARGS.pack(
+        xp, gamma.data_ptr(), beta.data_ptr(), *ptrs, yp, p, plan['chunk'], c, splits, eps,
+        -1.0 if momentum is None else momentum, p / max(p - 1, 1), act, plan['vec'],
+        plan['lanes']))
     return y, mean, var
 
 
@@ -1082,7 +1190,7 @@ def batch_norm(x, gamma, beta, eps=_BN_EPS, mean=None, var=None, running=None, m
     With ``mean`` / ``var`` None the batch's statistics are used (train
     mode, and eval mode without running statistics); ``running`` =
     (running_mean, running_var, num_batches_tracked int64) are then updated
-    in place as :func:`batch_norm_update` computes them, in the same launch
+    in place as :func:`batch_norm_update` computes them, in the same call
     on the card (``momentum`` None: the cumulative average). Given ``mean``
     and ``var`` (eval mode with running statistics) are used as they are.
     ``activation`` (None or 'leaky_relu') follows the affine map.

@@ -344,11 +344,11 @@ STEP_REL_TOL, STATE_REL_TOL = 1e-3, 1e-5
 AMSGRAD_DROPPED, AMSGRAD_HOST_CALLS = 1, 100
 # One train step's gradients, kernels vs the plain path on the card.
 GRAD_REL_TOL = 1e-3
-# msps_step: replayed leaky-ReLU signs that may differ from the float64 plain
-# path's own, each at a pre-activation within SIGN_FLIP_TOL * max(1, the
-# layer's largest) of 0 (float32 rounding; a kernel fault lands farther).
-# The step's nine layers hold ~2e8 pre-activations, so a few lie within
-# float32 rounding of 0 (7, each within 5e-8, on the H100).
+# train and msps_step: replayed leaky-ReLU signs that may differ from the
+# float64 plain path's own, each at a pre-activation within SIGN_FLIP_TOL *
+# max(1, the layer's largest) of 0 (float32 rounding; a kernel fault lands
+# farther). The MSPS step's nine layers hold ~2e8 pre-activations, so a few
+# lie within float32 rounding of 0 (7, each within 5e-8, on the H100).
 SIGN_FLIPS_MAX, SIGN_FLIP_TOL = 64, 1e-5
 # K7's gradients vs its plain version: float32 sums of 189 terms in another
 # order (and an online logsumexp), max |d| within 1e-4 of max |plain|.
@@ -413,14 +413,20 @@ POOL_ODD = (13, 17)
 # s a call): fewer timed calls
 POOL_TIMING = dict(samples=2, inner=3, warmup=1)
 BN_FIT_TRIALS = 10           # 8 train, 1 val, 1 test
-# K2 and K4 on ragged shapes beside the archs' layers (check_ragged): each
-# width as Cin and as Cout, RAGGED_FRAMES frames of a POOL_ODD plane, k 5,
-# pads (before, after) RAGGED_PADS, out_pad (1, 0) at stride > 1
+# K1, K2 and K4 on ragged shapes beside the archs' layers (check_ragged):
+# each width as Cin and as Cout, RAGGED_FRAMES frames of a POOL_ODD plane, k
+# 5, pads (before, after) RAGGED_PADS, out_pad (1, 0) at stride > 1; K1 also
+# with the pads after RAGGED_NEG_PADS_AFTER (a transposed conv's grad-x
+# where out_pad exceeds its pad after) and on uint8 frames of
+# RAGGED_UINT8_CIN channels; K29 at RAGGED_BN_WIDTHS channels
 RAGGED_WIDTHS = (1, 2, 3, 5, 33, 65)
 RAGGED_PATCH_WIDTHS = ((4, 36), (12, 68), (36, 132))   # K4's patch kernel: (Cin, Cout)
 RAGGED_STRIDES = (1, 2, 3)
 RAGGED_FRAMES = 4
 RAGGED_PADS = ((2, 1), (1, 2))
+RAGGED_NEG_PADS_AFTER = (-1, -2)
+RAGGED_UINT8_CIN = (1, 2, 3)
+RAGGED_BN_WIDTHS = (3, 33)
 # K27 / K28 vs plain: equal (comparisons, copies and one division by the tie
 # count). K29: the output as the convs' (ABS_TOL, REL_TOL); the batch and
 # running statistics within BN_STAT_REL_TOL of max(1, max|plain|) (float32
@@ -1275,7 +1281,8 @@ def plain_forward(model, ops, frames, decode=True, train=False, replay=None):
     (reconstruction or None, latents); batch norm in eval mode unless
     ``train``; ``replay`` as for ``plain_layer``."""
     pool_idx = []
-    replay = None if replay is None else list(replay)
+    if replay is not None and not isinstance(replay, Replay):
+        replay = list(replay)
     z = model.encoding.FF(plain_features(model, ops, frames, train, pool_idx, replay))
     return (plain_decode(model, ops, z, train, pool_idx, replay) if decode else None), z
 
@@ -1480,16 +1487,20 @@ def arch_conv_checks(ops, hp, gen, prefix='', timing=None):
 
 
 def check_ragged(ops, gen):
-    """K2 and K4 on ragged shapes (RAGGED_*): each width as Cin and as Cout at
-    strides 1-3 on a 13 x 17 plane, against the plain versions under the
-    layers' tolerances (K2 as check_layer holds it; K4 against the plain
-    version in float64 as check_backward_layer holds it), K4 on uint8
-    frames at stride 1 and transposed at stride 3; then K4's patch kernel
+    """K1, K2 and K4 on ragged shapes (RAGGED_*): each width as Cin and as
+    Cout at strides 1-3 on a 13 x 17 plane, against the plain versions under
+    the layers' tolerances (K1 and K2 as check_layer holds them; K4 against
+    the plain version in float64 as check_backward_layer holds it), K1 with
+    asymmetric pads and with negative pads after, and on uint8 frames of
+    RAGGED_UINT8_CIN channels (its narrow kernel for Cin <= 4 and frames,
+    its GEMM beyond; 4-byte copies and stores where a width is not a
+    multiple of 4), K4 on uint8 frames at stride 1 and transposed at stride
+    3; then K4's patch kernel
     (RAGGED_PATCH_WIDTHS: multiples of 4, half an 8-channel slab, steps
     across frames and past the plane's edge) at strides 1-3; every case run
     twice, equal bit for bit. One line a kernel, with its worst case."""
     k, (h, w), (py, px) = 5, POOL_ODD, RAGGED_PADS
-    worst = {'conv_transpose2d_nhwc': None, 'conv2d_grad_w_nhwc': None}
+    worst = {'conv2d_nhwc': None, 'conv_transpose2d_nhwc': None, 'conv2d_grad_w_nhwc': None}
     failed = []
     cases = 0
 
@@ -1519,6 +1530,17 @@ def check_ragged(ops, gen):
         g = torch.randn((RAGGED_FRAMES, oh, ow, co), device=DEVICE, generator=gen)
         x64 = xs.double() / 255.0 if u8 else xs.double()
         tr = s == 3
+        for pads in ((py, px), ((py[0], RAGGED_NEG_PADS_AFTER[0]),
+                                (px[0], RAGGED_NEG_PADS_AFTER[1]))):
+            run('conv2d_nhwc', lambda: ops.conv2d_cuda(x, wt, b, s, *pads, act),
+                lambda: ops.conv2d_plain(x, wt, b, s, *pads, act), False, ci=ci, co=co,
+                stride=s, pads=pads, uint8=False)
+            if ci in RAGGED_UINT8_CIN:
+                frames = torch.randint(0, 256, x.shape, dtype=torch.uint8, device=DEVICE,
+                                       generator=gen)
+                run('conv2d_nhwc', lambda: ops.conv2d_cuda(frames, wt, b, s, *pads, act),
+                    lambda: ops.conv2d_plain(frames, wt, b, s, *pads, act), False, ci=ci,
+                    co=co, stride=s, pads=pads, uint8=True)
         run('conv_transpose2d_nhwc',
             lambda: ops.conv_transpose2d_cuda(x, wt, b, s, py, px, op, act),
             lambda: ops.conv_transpose2d_plain(x, wt, b, s, py, px, op, act), False,
@@ -1544,7 +1566,7 @@ def check_ragged(ops, gen):
                   frames=RAGGED_FRAMES, pads=RAGGED_PADS, rel_tol=REL_TOL, worst=case,
                   failed=[f for f in failed if f['kernel'] == name]))
     if failed:
-        raise AssertionError('K2 / K4 disagree on ragged shapes: %s' % failed[:5])
+        raise AssertionError('K1 / K2 / K4 disagree on ragged shapes: %s' % failed[:5])
 
 
 def conv_summary(checks):
@@ -1615,10 +1637,13 @@ def kernel_ptxas(build, phase, libs, bases):
 
 
 def conv_ptxas(build):
-    """K2's and K4's instances (``kernel_ptxas``)."""
-    kernel_ptxas(build, 'conv_ptxas', ('conv_transpose2d_nhwc', 'conv2d_grad_w_nhwc'),
-                 ('tconv_gemm_kernel', 'tconv_narrow_kernel', 'gradw_patch_kernel',
-                  'gradw_gather_kernel', 'gradw_reduce_kernel'))
+    """K1's, K2's and K4's instances (``kernel_ptxas``; K2's names before
+    K1's, which they contain)."""
+    kernel_ptxas(build, 'conv_ptxas',
+                 ('conv2d_nhwc', 'conv_transpose2d_nhwc', 'conv2d_grad_w_nhwc'),
+                 ('tconv_gemm_kernel', 'tconv_narrow_kernel', 'conv_gemm_kernel',
+                  'conv_narrow_kernel', 'gradw_patch_kernel', 'gradw_gather_kernel',
+                  'gradw_reduce_kernel'))
 
 
 def lstm_optim_ptxas(build):
@@ -1916,7 +1941,10 @@ def train(port, hp, tmp):
     if not ok_served:
         raise AssertionError('best_val_model.pt does not serve the fitted weights')
 
-    # one step's gradients: kernels vs the plain path on the card
+    # one step's gradients: kernels vs the plain path on the card, in
+    # float32 as it runs (``unreplayed``) and, as msps_step, in float64 with
+    # the kernel path's leaky-ReLU signs replayed, the replayed signs held to
+    # the float64 path's own (SIGN_FLIPS_MAX, SIGN_FLIP_TOL)
     images = np.zeros((BUCKET,) + source.trials[0].shape[1:], np.uint8)
     images[:TRIAL] = source.trials[0]
     frame_mask = np.zeros(BUCKET, np.float32)
@@ -1924,19 +1952,48 @@ def train(port, hp, tmp):
     batch = {'images': torch.from_numpy(images).to(DEVICE),
              'frame_mask': torch.from_numpy(frame_mask).to(DEVICE)}
     model.zero_grad(set_to_none=True)
-    model.loss_fn(batch)[0].backward()
+    with recorded_decisions(model, ops) as decisions:
+        model.loss_fn(batch)[0].backward()
     grads_k = {k: p.grad.clone() for k, p in model.named_parameters()}
     model.zero_grad(set_to_none=True)
-    plain_loss(model, ops, losses, batch).backward()
-    grad_errs = {k: (grads_k[k] - p.grad).abs().max().item()
-                 / max(p.grad.abs().max().item(), 1e-30)
-                 for k, p in model.named_parameters()}
+
+    def plain_grads(replay, dtype=torch.float32):
+        twin = port.aes.AE(hp).to(DEVICE, dtype)
+        twin.load_state_dict(model.state_dict())
+        data = batch if dtype == torch.float32 else dict(
+            images=batch['images'].to(dtype) / 255.0, frame_mask=batch['frame_mask'].to(dtype))
+        plain_loss(twin, ops, losses, data, replay=replay).backward()
+        return {k: p.grad for k, p in twin.named_parameters()}
+
+    def rel_errs(got, ref):
+        return {k: (got[k].double() - ref[k].double()).abs().max().item()
+                / max(ref[k].abs().max().item(), 1e-30) for k in ref}
+    unreplayed = rel_errs(grads_k, plain_grads(None))
+    replay = Replay(decisions)
+    grad_errs = rel_errs(grads_k, plain_grads(replay, torch.float64))
+    del decisions
+    flips = replay.flips
+    n_flips = sum(f['flips'] for f in flips)
+    far = [i for i, f in enumerate(flips)
+           if f['max_abs_at_flips'] > SIGN_FLIP_TOL * max(1.0, f['max_abs'])]
     worst = max(grad_errs, key=grad_errs.get)
-    emit(dict(phase='train_grads', frames=BUCKET, rel_tol=GRAD_REL_TOL,
-              max_rel_err=grad_errs[worst], worst=worst, rel_err=grad_errs))
-    if grad_errs[worst] > GRAD_REL_TOL:
-        raise AssertionError('card gradients disagree with the plain path: %s=%.3g'
-                             % (worst, grad_errs[worst]))
+    worst_unreplayed = max(unreplayed, key=unreplayed.get)
+    emit(dict(phase='train_grads', frames=BUCKET, reference='plain_float64',
+              rel_tol=GRAD_REL_TOL, max_rel_err=grad_errs[worst], worst=worst,
+              unreplayed_max_rel_err=unreplayed[worst_unreplayed],
+              unreplayed_worst=worst_unreplayed, sign_flips=n_flips,
+              sign_flips_max=SIGN_FLIPS_MAX, sign_flip_tol=SIGN_FLIP_TOL,
+              sign_flip_layers=[dict(f, layer=i) for i, f in enumerate(flips) if f['flips']],
+              rel_err=grad_errs, unreplayed_rel_err=unreplayed))
+    if max(grad_errs[worst], unreplayed[worst_unreplayed]) > GRAD_REL_TOL:
+        raise AssertionError('card gradients disagree with the plain path: %s=%.3g, '
+                             'unreplayed float32 %s=%.3g'
+                             % (worst, grad_errs[worst], worst_unreplayed,
+                                unreplayed[worst_unreplayed]))
+    if n_flips > SIGN_FLIPS_MAX or far:
+        raise AssertionError('AE: %d replayed leaky-ReLU signs differ from the plain path\'s '
+                             'own (at most %d), at layers %s beyond %.0e of 0'
+                             % (n_flips, SIGN_FLIPS_MAX, far, SIGN_FLIP_TOL))
 
     # step time: the port's step (kernels, K6) and the plain one (cuDNN
     # autograd, torch's fused AMSGrad) on a copy of the same weights
@@ -1980,6 +2037,7 @@ def step_from_host(step, host_batch, batch):
 
 # kernel function name -> the port kernel it belongs to (the robust and
 # time-varying instances of K8-K10 first: their template flag is true)
+# (K2's function names contain K1's: K2's entries come first)
 KERNEL_OF = tuple(
     ('%s<%d, true,' % (fn, k), label) for fn, label in (
         ('arhmm_log_likes_kernel', 'K8 arhmm_log_likes (robust)'),
@@ -1987,9 +2045,9 @@ KERNEL_OF = tuple(
         ('forward_kernel', 'K9 hmm_forward_backward (forward alone, time-varying)'),
         ('viterbi_kernel', 'K10 hmm_viterbi (time-varying)'))
     for k in (8, 16, 32, 64)) + (
-             ('igemm_conv_kernel<', 'K1 conv2d_nhwc'),
              ('tconv_gemm_kernel', 'K2 conv_transpose2d_nhwc'),
              ('tconv_narrow_kernel', 'K2 conv_transpose2d_nhwc'),
+             ('conv_gemm_kernel', 'K1 conv2d_nhwc'), ('conv_narrow_kernel', 'K1 conv2d_nhwc'),
              ('tconv_smallcout_kernel', 'K3 conv_transpose2d_smallcout_sigmoid'),
              ('gradw_patch_kernel', 'K4 conv2d_grad_w_nhwc'),
              ('gradw_gather_kernel', 'K4 conv2d_grad_w_nhwc'),
@@ -2030,8 +2088,7 @@ KERNEL_OF = tuple(
              ('maxpool_grad_kernel', 'K27 max_pool2d_grad'),
              ('unpool_scatter_kernel', 'K28 max_unpool2d'),
              ('unpool_gather_kernel', 'K28 max_unpool2d_grad'),
-             ('bn_stats_', 'K29 batch_norm (statistics)'),
-             ('bn_count_kernel', 'K29 batch_norm (statistics)'),
+             ('bn_train_kernel', 'K29 batch_norm (train)'),
              ('bn_apply_kernel', 'K29 batch_norm (apply)'),
              ('bn_grad_', 'K30 batch_norm_backward'),
              ('mstep_stats_', 'K31 arhmm_mstep (statistics)'),
@@ -6959,9 +7016,11 @@ def check_bn(L, ops, gen):
     """K29 (train mode with the running update at the arch's cumulative
     momentum, and eval mode with running statistics) and K30 (with batch
     statistics) against their plain versions at one batch-norm layer's
-    shape, on per-channel offsets and scales like a conv's output. The
-    yardsticks, never called by the port: ``F.batch_norm`` in train mode
-    and its autograd backward."""
+    shape, on per-channel offsets and scales like a conv's output; a second
+    train-mode call bit for bit. The yardsticks, never called by the port:
+    ``F.batch_norm`` in train mode and its autograd backward. K29's and the
+    library call's device time alone are timed too (``device_ms``: a small
+    layer's call is bound by the host)."""
     dev, c = DEVICE, L['c']
     shape = (L['n'], L['h'], L['w'], c)
     x = torch.randn(shape, device=dev, generator=gen) \
@@ -6978,6 +7037,9 @@ def check_bn(L, ops, gen):
     run_k = (rm.clone(), rv.clone(), count.clone())
     yk, mk, vk = ops.batch_norm_cuda(x, gamma, beta, running=run_k, momentum=momentum,
                                      activation=act)
+    yk2, mk2, vk2 = ops.batch_norm_cuda(x, gamma, beta, activation=act)
+    rerun_bitwise = all(bool(torch.equal(a, b)) for a, b in ((yk, yk2), (mk, mk2), (vk, vk2)))
+    del yk2, mk2, vk2
     mp, vp = ops.batch_norm_stats_plain(x)
     yp = ops.batch_norm_plain(x, gamma, beta, mp, vp, activation=act)
     new = ops.batch_norm_update(x, {'running_mean': rm, 'running_var': rv,
@@ -7007,20 +7069,30 @@ def check_bn(L, ops, gen):
     out_l = F.batch_norm(xg, rm.clone(), rv.clone(), wg, bg, training=True, momentum=0.1)
     gl = g.permute(0, 3, 1, 2)
     n = x.numel()
+
+    def bn_train():
+        return ops.batch_norm_cuda(x, gamma, beta, running=run_t, momentum=momentum,
+                                   activation=act)
+
+    def bn_eval():
+        return ops.batch_norm_cuda(x, gamma, beta, mean=rm, var=rv, activation=act)
+
+    def library_train():
+        return F.batch_norm(xl, run_t[0], run_t[1], gamma, beta, training=True, momentum=0.1)
+    eval_ms = median_ms(bn_eval)
     rows = []
     for name, kernel, plain, library, n_bytes, n_ops, extra in (
-            ('batch_norm',
-             lambda: ops.batch_norm_cuda(x, gamma, beta, running=run_t, momentum=momentum,
-                                         activation=act),
+            ('batch_norm', bn_train,
              lambda: ops.batch_norm_plain(x, gamma, beta, activation=act),
-             lambda: F.batch_norm(xl, run_t[0], run_t[1], gamma, beta, training=True,
-                                  momentum=0.1),
-             8 * n, 10 * n,
+             library_train, 8 * n, 10 * n,
              dict(max_abs_err=max_abs, abs_tol=abs_tol, max_rel_err=max_rel, rel_tol=REL_TOL,
                   eval_max_abs_err=eval_abs, eval_max_rel_err=eval_rel,
                   stat_rel_err=stat, stat_rel_tol=BN_STAT_REL_TOL, count_ok=count_ok,
-                  eval_ms=median_ms(lambda: ops.batch_norm_cuda(
-                      x, gamma, beta, mean=rm, var=rv, activation=act)))),
+                  rerun_bitwise=rerun_bitwise, eval_ms=eval_ms,
+                  eval_share_of_bound=bound(10 * n, 8 * n)['bound_ms'] / eval_ms,
+                  device_ms=device_ms(bn_train), eval_device_ms=device_ms(bn_eval),
+                  library_device_ms=device_ms(library_train),
+                  plan=ops.bn_plan(n // c, c, aligned=x.data_ptr() % 16 == 0))),
             ('batch_norm_backward',
              lambda: ops.batch_norm_backward_cuda(g, x, gamma, mp, vp, True),
              lambda: ops.batch_norm_backward_plain(g, x, gamma, mp, vp, True),
@@ -7034,7 +7106,8 @@ def check_bn(L, ops, gen):
                    **extra, **bound(n_ops, n_bytes))
         emit(rec)
         rows.append(rec)
-    if not (finite and eval_finite and grad_finite and count_ok) or max_abs > abs_tol \
+    if not (finite and eval_finite and grad_finite and count_ok and rerun_bitwise) \
+            or max_abs > abs_tol \
             or max_rel > REL_TOL or eval_abs > abs_tol or eval_rel > REL_TOL \
             or stat > BN_STAT_REL_TOL or grad_err > BN_GRAD_REL_TOL:
         raise AssertionError('%s: K29 / K30 disagree with their plain versions: %s'
@@ -7045,10 +7118,13 @@ def check_bn(L, ops, gen):
 def check_row6(ops, hp, gen):
     """K27-K30 at every pool and batch-norm layer of the pooling arch at the
     192-frame bucket, then K27 / K28 at POOL_ODD in ceil and floor mode with
-    planted ties."""
+    planted ties, and K29 / K30 at RAGGED_BN_WIDTHS channels (K29's 4-byte
+    path)."""
     pools, bns = row6_shapes(hp, BUCKET)
     odd = [dict(layer='odd_%s' % ('ceil' if ceil else 'floor'), n=4, h=POOL_ODD[0],
                 w=POOL_ODD[1], c=8, ceil=ceil, ties=True) for ceil in (True, False)]
+    bns = bns + [dict(layer='bn_ragged_%d' % c, n=2 * RAGGED_FRAMES, h=POOL_ODD[0],
+                      w=POOL_ODD[1], c=c, act='leaky_relu') for c in RAGGED_BN_WIDTHS]
     rows = []
     for L in pools + odd:
         rows += check_pool(L, ops, gen)
@@ -7251,6 +7327,14 @@ def bn_step(port, hp, model, source):
     return per_step
 
 
+def device_ms(fn, calls=10):
+    """Device time of one call of ``fn``: its kernels' time over ``calls``
+    calls (``torch.profiler``, after two warm-up calls), divided by
+    ``calls``; None where the profiler saw no kernel."""
+    rec = profile_steps(fn, steps=calls, phase='device_ms', groups={'all': ('',)})
+    return rec['ms_per_step_by_kernel']['all'] if rec['device_events'] else None
+
+
 def device_kernels(fn):
     """The names of the device kernels that one call of ``fn`` ran
     (``torch.profiler``)."""
@@ -7289,7 +7373,7 @@ def serve_bn(port, hp, vdir, best, source):
                     port.weights.params_to_state_dict(bundle.model, best).items()
                     if 'running' in k or 'num_batches' in k)
     names = device_kernels(lambda: bundle.reconstruct(frames[:TRIAL]))
-    stats_pass = sorted(n for n in names if 'bn_stats_' in n)
+    stats_pass = sorted(n for n in names if 'bn_train_kernel' in n)
     apply_seen = any('bn_apply_kernel' in n for n in names)
     emit(dict(phase='serve_bn_launches', device=str(bundle.device), launches=launches,
               weights_equal=same, running_stats_untouched=untouched,
@@ -7373,9 +7457,32 @@ def only_lstm_step(port, ctx):
         lstm_wide_step(port, tmp)
 
 
+def only_bn(port, ctx):
+    """K27-K30 at every row-6 layer (``check_row6``)."""
+    with tf32_off():
+        check_row6(port.ops, ctx.pool_hp, ctx.pool_gen)
+
+
+def only_ae_steps(port, ctx):
+    """The default AE's train step (``train``: its ``fit``, gradients, step
+    and profile), the pooling + batch-norm AE's (``fit_bn``, ``bn_step``)
+    and the MSPS-VAE's (``fit_msps``, ``msps_step``), each beside its plain
+    twin."""
+    with tempfile.TemporaryDirectory() as tmp, tf32_off():
+        train(port, ctx.hp, tmp)
+        bn_source = TrialSource(BN_FIT_TRIALS, SEED + 5)
+        bn_hp, bn_model = fit_bn(port, ctx.pool_hp, tmp, bn_source)[:2]
+        bn_step(port, bn_hp, bn_model, bn_source)
+        del bn_model
+        msps_source = MultiSessionSource(TRAIN_TRIALS, SEED + 4, N_LABELS)
+        ms_hp, ms_model = fit_msps(port, ctx.hp, tmp, msps_source)[:2]
+        msps_step(port, ms_hp, ms_model, msps_source)
+
+
 # the phases ``--only`` may name: each takes the port and main's context
 ONLY_PHASES = {'conv': only_conv, 'optimizer': only_optimizer,
-               'lstm': lambda port, ctx: check_lstm(port), 'lstm_step': only_lstm_step}
+               'lstm': lambda port, ctx: check_lstm(port), 'lstm_step': only_lstm_step,
+               'bn': only_bn, 'ae_steps': only_ae_steps}
 
 
 def main():
